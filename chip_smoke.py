@@ -5,26 +5,37 @@ the port still starts on the GPU).
     python3 chip_smoke.py
 
 Run from the repository root on a machine with a CUDA card.  It builds the
-port's CUDA kernels from `fastdet_torch/csrc/`, holds each against its
-plain PyTorch version, checks the weights and the forward, serves real
-requests through `InferenceServer` over `DevicePipeline` and checks the
-answers.  One line per phase; any failed check ends the run with a
-non-zero exit.  Without a card, or outside the repository, it exits
-non-zero and prints no result.
+port's three CUDA kernels from `fastdet_torch/csrc/` (one nvcc each, in
+parallel), holds each against its plain PyTorch version, checks the
+weights and both forwards, serves real requests through `InferenceServer`
+over `DevicePipeline` and over `FusedPipeline` and checks the answers.
+One line per phase; any failed check ends the run with a non-zero exit.
+Without a card, or outside the repository, it exits non-zero and prints
+no result.
 
 Phases:
-  1. device: card name and power limit, kernel build time and ptxas info;
-  2. kernels against their plain versions at every shape class the port
-     dispatches (B ∈ {1, 128}, k ∈ {128, 256, 384}, N = 1815, nc = 80);
+  1. device: card name and power limit, kernel build times and ptxas info;
+  2. rank_decode_nms against its plain version at every shape class the
+     port dispatches (B ∈ {1, 128}, k ∈ {128, 256, 384}, N = 1815,
+     nc = 80);
+  2b. stem_s2d (B ∈ {1, 128} at 352², B = 2 at 160×96 with pad lanes) and
+     span (C = 48/96/192 at 44²/22²/11², B ∈ {1, 128}) against their
+     plain versions, ≤ 2e-4;
   3. weights through the carrier, forward on the card (TF32 off) against
      the same forward on the CPU, ≤ 2e-4;
+  3b. the fused forward on the card against Detector on the card, ≤ 2e-4;
   4. serving: ≥ 8 concurrent raw requests through the HTTP server, each
      answer equal to `DevicePipeline` on the same batch; a conf-0.01 batch
      that fills the 128-wide NMS window, against the CPU pipeline; the
-     b128 throughput;
+     b128 throughput and the split of its batch;
+  4b. the same requests over `FusedPipeline`: each answer equal to
+     `FusedPipeline` on the same batch, detections as `DevicePipeline`'s;
+     the three kernels' launch counts on this path; b128 throughput of both
+     pipelines, the fused forward's per-stage split (`upto=`), and each
+     fused kernel on the served batch's inputs with its bound;
   5. shutdown: server, batcher and threads;
-  6. the kernel summary (a JSON line), the card line, and the last line
-     {"ok": true, "device": {...}}.
+  6. the kernel summary (a JSON line, launches from the fused path), the
+     card line, and the last line {"ok": true, "device": {...}}.
 
 The last-but-one lines and the last line are read by tools; keep them.
 """
@@ -166,6 +177,14 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def bound(nbytes: float, ops: float):
+    """→ (ms, "bytes" or "operations"): the larger of the two least times
+    on the card's published peaks."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_OPS_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
 def rdn_bound(neg_k, combo_k):
     """Least time for rank_decode_nms on these inputs: bytes it must move
     (sort keys, gathered reg rows (16 B) and the distinct geometry rows it
@@ -179,10 +198,7 @@ def rdn_bound(neg_k, combo_k):
     pairs = int((np.cumsum(valid, axis=1) - valid).sum())
     n_geo = int(np.unique((combo_k // NC).cpu().numpy()).size)
     nbytes = b * k * (4 + 4 + 16 + 1 + 16) + n_geo * 20
-    ops = b * k * 40 + pairs * 14
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_OPS_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    return bound(nbytes, b * k * 40 + pairs * 14)
 
 
 def phase_device():
@@ -195,12 +211,15 @@ def phase_device():
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
     card = smi.stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    _build.build("pp_fused")
+    _build.build_all()                    # one nvcc per source, at once
     build_s = time.perf_counter() - t0
+    each = ", ".join(f"{n} {i['seconds']:.2f} s"
+                     for n, i in _build.build_log.items())
     log(f"phase 1 device: {torch.cuda.get_device_name(0)} | nvidia-smi: "
         f"{card} | python {sys.version.split()[0]} torch {torch.__version__}"
         f" cuda {torch.version.cuda} | nvcc {_build.nvcc_path()} | ninja "
-        f"{shutil.which('ninja')} | kernel build {build_s:.2f} s")
+        f"{shutil.which('ninja')} | kernel builds {build_s:.2f} s in "
+        f"parallel ({each})")
     for name, info in _build.build_log.items():
         for line in info["ptxas"].splitlines():
             if "registers" in line or "spill" in line:
@@ -309,22 +328,16 @@ def as_answer(rows, names):
              "class_name": names[int(r[5])]} for r in rows]
 
 
-def phase_serving(sd, photo, card):
-    import torch
-    from fastdet_torch.config import Config, load_names, resolve_path
-    from fastdet_torch.kernels import pp_fused
-    from fastdet_torch.models import Detector
-    from fastdet_torch.ops.postprocess import rank_scores
-    from fastdet_torch.serve import DevicePipeline
+def serve_concurrently(pipe, images, cfg, names, kernels):
+    """Serve each image as one concurrent /detect_raw request through the
+    HTTP server over `pipe`.  The launch counts of `kernels` are set to 0
+    just before the requests and read just after.  Each answer must equal
+    the pipeline's rows for that image in the batch the server ran, and a
+    direct call on each such batch must give the same rows.  → (answers,
+    the served rows per image, stats, {kernel name: launches})."""
     from fastdet_torch.server import InferenceServer
-
-    cfg = Config.from_file(DATA)
-    names = load_names(resolve_path(cfg.names, DATA))
-    pipe = DevicePipeline(Detector(80, 3), sd, cfg)
-    images = photo_variants(photo, 12, seed=0)
     for bsz in (1, 2, 4, 8, 16):                       # server buckets
-        pipe(images[:bsz] if bsz <= 12 else np.concatenate(
-            [images, images[:bsz - 12]]))
+        pipe(np.resize(images, (bsz,) + images.shape[1:]))
     rec = Recorder(pipe)
     server = InferenceServer(rec, cfg, names=names, max_batch=16,
                              max_wait_ms=200.0)
@@ -339,7 +352,8 @@ def phase_serving(sd, photo, card):
 
     try:
         # ---- the main path: counts to 0, serve, read the counts
-        pp_fused.rank_decode_nms.launches = 0
+        for k in kernels:
+            k.launches = 0
         port = server.start()
         threads = [threading.Thread(target=client, args=(i,), daemon=True)
                    for i in range(len(images))]
@@ -347,7 +361,7 @@ def phase_serving(sd, photo, card):
             t.start()
         for t in threads:
             t.join(timeout=180)
-        launches = pp_fused.rank_decode_nms.launches
+        launches = {k.__name__: k.launches for k in kernels}
         check(not errors and all(not t.is_alive() for t in threads),
               f"requests failed: {errors}")
         with urllib.request.urlopen(f"http://127.0.0.1:{port}/stats",
@@ -355,13 +369,10 @@ def phase_serving(sd, photo, card):
             stats = json.loads(r.read())
     finally:
         server.shutdown()
-    check(launches > 0, "the served requests launched no rank_decode_nms")
+    for name, n in launches.items():
+        check(n > 0, f"the served requests launched no {name}")
     check(stats["requests"] == len(images), f"stats {stats}")
 
-    # each answer: well formed, and equal to the pipeline's rows for that
-    # image in the batch the server ran; a direct call on each such batch
-    # gives the same rows
-    n_det = 0
     for batch, out in rec.calls:
         again = pipe(batch)
         check(all(np.array_equal(a, b) for a, b in zip(out, again)),
@@ -379,8 +390,30 @@ def phase_serving(sd, photo, card):
         for d in ans["detections"]:
             check(np.isfinite(d["box"]).all() and 0 <= d["class_id"] < 80
                   and 0.3 <= d["score"] <= 1, f"bad detection {d}")
-        n_det += ans["count"]
-    check(n_det > 0, "no detections in the served photos")
+    check(sum(a["count"] for a in answers) > 0,
+          "no detections in the served photos")
+    served = [next(out[j] for batch, out in rec.calls
+                   for j in range(len(out))
+                   if np.array_equal(batch[j], img)) for img in images]
+    return answers, served, stats, launches
+
+
+def phase_serving(sd, photo, card):
+    import torch
+    from fastdet_torch.config import Config, load_names, resolve_path
+    from fastdet_torch.kernels import pp_fused
+    from fastdet_torch.models import Detector
+    from fastdet_torch.ops.postprocess import rank_scores
+    from fastdet_torch.serve import DevicePipeline
+
+    cfg = Config.from_file(DATA)
+    names = load_names(resolve_path(cfg.names, DATA))
+    pipe = DevicePipeline(Detector(80, 3), sd, cfg)
+    images = photo_variants(photo, 12, seed=0)
+    answers, _, stats, launches = serve_concurrently(
+        pipe, images, cfg, names, [pp_fused.rank_decode_nms])
+    launches = launches["rank_decode_nms"]
+    n_det = sum(a["count"] for a in answers)
     log(f"phase 4 serving: {len(images)} concurrent /detect_raw requests in "
         f"{stats['batches']} batches {stats['batch_hist']}, {n_det} "
         f"detections, each equal to DevicePipeline on the same batch; "
@@ -424,7 +457,7 @@ def phase_serving(sd, photo, card):
     log(f"  throughput b128 352² ({card}): {128e3 / ips_ms:.1f} img/s on "
         f"the device (uint8 on the card → detections, {ips_ms:.3f} ms per "
         f"batch, CUDA events); {128e3 / host_ms:.1f} img/s host to host")
-    return launches, big
+    return launches, big, pipe, images
 
 
 def main_path_kernel_timing(sd, big):
@@ -477,6 +510,284 @@ def main_path_kernel_timing(sd, big):
     return ms, plain_ms, bound_ms, bound_by, err
 
 
+# ------------------------------------------------ the fused path (B1, B2)
+
+FUSED_ATOL = 2e-4   # stem and span against their plain versions, and the
+                    # fused forward against Detector: the f32 forward
+                    # contract (other summation orders, FMA contraction)
+
+
+def stem_bound(b, h4, w4):
+    """stem_s2d: the image's uint8 pixels read once, its 672 weights, the
+    pooled f32 map written once; 2 operations per conv MAC (27 per conv
+    output, 4 conv outputs per pooled cell and channel)."""
+    nbytes = b * 48 * h4 * w4 + 672 * 4 + b * 24 * h4 * w4 * 4
+    return bound(nbytes, b * 4 * h4 * w4 * 24 * 27 * 2)
+
+
+def span_bound(b, c, h, w, nblk):
+    """span: the activation read once and written once, the weights once;
+    2 operations per MAC, (C/2)²·2 + 9·C/2 MACs per pixel and block."""
+    mid = c // 2
+    nbytes = 2 * b * c * h * w * 4 + nblk * (2 * mid * mid + 12 * mid) * 4
+    return bound(nbytes, nblk * b * h * w * 2 * (2 * mid * mid + 9 * mid))
+
+
+def phase_fused_kernels(sd):
+    """B1 and B2 against their plain versions on the card at every shape
+    class the fused path dispatches, with the folded weights of the fused
+    forward.  → max |Δ| of each."""
+    import torch
+    from fastdet_torch.kernels import fused_infer as fi
+    from fastdet_torch.kernels.fold import STAGES
+    _, p = fi.build_fused_forward(sd)
+    w, bias = p["stem_w"], p["stem_b"]
+    err = {"stem_s2d": 0.0, "span": 0.0}
+    for bsz, (ih, iw) in ((1, (352, 352)), (128, (352, 352)),
+                          (2, (160, 96))):
+        h4, w4 = ih // 4, iw // 4
+        rng = np.random.default_rng(bsz + ih)
+        xs = fi.pack_images_s2d(rng.integers(0, 256, (bsz, ih, iw, 3),
+                                             dtype=np.uint8))
+        xs[:, :, h4 * w4:] = 255                     # junk in the pad lanes
+        x = torch.from_numpy(xs).cuda()
+        got = fi.stem_s2d(x, w, bias, h4, w4)
+        want = fi.stem_s2d_reference(x, w, bias, h4, w4)
+        e = float((got - want).abs().max())
+        check(e <= FUSED_ATOL, f"stem_s2d {e} off at b={bsz} {ih}x{iw}")
+        err["stem_s2d"] = max(err["stem_s2d"], e)
+        ms = cuda_ms(lambda: fi.stem_s2d(x, w, bias, h4, w4), 20)
+        plain_ms = cuda_ms(
+            lambda: fi.stem_s2d_reference(x, w, bias, h4, w4), 5, 1)
+        log(f"  stem_s2d b={bsz} {ih}x{iw} (h4={h4}, w4={w4}, npad="
+            f"{xs.shape[2]}): max |Δ| {e:.3g}, kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms")
+    for (stage, reps, c), hw in zip(STAGES, (44, 22, 11)):
+        weights = p[f"s{stage}_span"]
+        for bsz in (1, 128):
+            rng = np.random.default_rng(stage * 1000 + bsz)
+            x = torch.from_numpy(np.abs(rng.normal(
+                0.0, 1.0, (bsz, c, hw, hw))).astype(np.float32)).cuda()
+            got = fi.span(x, weights, reps - 1)
+            want = fi.span_reference(x, weights, reps - 1)
+            e = float((got - want).abs().max())
+            check(e <= FUSED_ATOL, f"span {e} off at b={bsz} C={c}")
+            err["span"] = max(err["span"], e)
+            ms = cuda_ms(lambda: fi.span(x, weights, reps - 1), 20)
+            plain_ms = cuda_ms(
+                lambda: fi.span_reference(x, weights, reps - 1), 5, 1)
+            log(f"  span b={bsz} C={c} {hw}x{hw} nblk={reps - 1}: max |Δ| "
+                f"{e:.3g}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    log(f"phase 2b fused kernels: stem_s2d (3 shape classes) and span "
+        f"(6) within {FUSED_ATOL:g} of their plain versions; max |Δ| "
+        f"stem_s2d {err['stem_s2d']:.3g}, span {err['span']:.3g}")
+    return err
+
+
+def phase_fused_forward(sd, photo):
+    """The fused forward on the card against the port's Detector on the
+    card (TF32 off), all six outputs."""
+    import torch
+    from fastdet_torch.kernels import fused_infer as fi
+    from fastdet_torch.models import Detector
+    imgs = np.stack([resize_u8(photo), np.random.default_rng(4).integers(
+        0, 256, (352, 352, 3), dtype=np.uint8)])
+    fwd, p = fi.build_fused_forward(sd)
+    det = Detector(80, 3)
+    det.load_state_dict(sd)
+    det = det.cuda().eval()
+    with torch.inference_mode():
+        got = fwd(torch.from_numpy(fi.pack_images_s2d(imgs)).cuda(), p)
+        want = det(torch.from_numpy(imgs).cuda().float() / 255.0)
+        torch.cuda.synchronize()
+    check(all(bool(torch.isfinite(g).all()) for g in got),
+          "non-finite fused forward")
+    check([g.shape for g in got] == [w.shape for w in want],
+          "fused forward shapes differ from Detector's")
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    check(err <= FUSED_ATOL, f"fused forward {err} off Detector's")
+    log(f"phase 3b fused forward: 6 NHWC outputs "
+        f"{[tuple(g.shape) for g in got]}, card vs Detector on the card "
+        f"max |Δ| {err:.3g} (≤ {FUSED_ATOL:g})")
+
+
+def phase_fused_serving(sd, dev_pipe, images):
+    """Concurrent requests through the server over FusedPipeline; each
+    answer equal to FusedPipeline on the same batch, its detections as
+    DevicePipeline's on the same images.  → (pipe, launches)."""
+    from fastdet_torch.config import Config, load_names, resolve_path
+    from fastdet_torch.kernels import fused_infer as fi
+    from fastdet_torch.kernels import pp_fused
+    from fastdet_torch.serve import FusedPipeline
+    cfg = Config.from_file(DATA)
+    names = load_names(resolve_path(cfg.names, DATA))
+    pipe = FusedPipeline(sd, cfg)
+    answers, served, stats, launches = serve_concurrently(
+        pipe, images, cfg, names,
+        [fi.stem_s2d, fi.span, pp_fused.rank_decode_nms])
+    device = dev_pipe(images)
+    for i, (a, b) in enumerate(zip(served, device)):
+        check(a.shape == b.shape and np.array_equal(a[:, 5], b[:, 5])
+              and np.abs(a[:, 4] - b[:, 4]).max(initial=0) <= 1e-4
+              and np.abs(a[:, :4] - b[:, :4]).max(initial=0) <= 1e-2,
+              f"fused detections of image {i} differ from DevicePipeline's")
+    log(f"phase 4b fused serving: {len(images)} concurrent /detect_raw "
+        f"requests in {stats['batches']} batches {stats['batch_hist']}, "
+        f"{sum(a['count'] for a in answers)} detections, each equal to "
+        f"FusedPipeline on the same batch and to DevicePipeline on the same "
+        f"images (classes; scores ≤ 1e-4, boxes ≤ 1e-2 px); launches on "
+        f"this path: {launches}")
+    return pipe, launches
+
+
+def profile_fused(pipe, images, calls: int = 5):
+    """torch.profiler over `calls` b128 batches of `pipe.detect`: device
+    time by kernel and the device's busy share of the window (the window
+    measured by CUDA events around the same calls)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    pipe.detect(images)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for _ in range(calls):
+            pipe.detect(images)
+        end.record()
+        torch.cuda.synchronize()
+    window_us = start.elapsed_time(end) * 1e3
+    # kernel rows only: an operator's row repeats its kernels' time
+    dev = sorted(((e.key, e.self_device_time_total)
+                  for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.self_device_time_total > 0), key=lambda kv: -kv[1])
+    busy_us = sum(t for _, t in dev)
+    if not dev:
+        log("  profile: the profiler saw no device time (not measured)")
+        return
+    log(f"  profile of {calls} fused b128 batches (torch.profiler): device "
+        f"busy {busy_us / calls / 1e3:.3f} ms of {window_us / calls / 1e3:.3f}"
+        f" ms per batch, idle share {1 - busy_us / window_us:.3f}; by "
+        f"kernel, ms per batch:")
+    for key, t in dev[:12]:
+        log(f"    {t / calls / 1e3:.4f}  {100 * t / busy_us:5.1f}%  "
+            f"{key[:90]}")
+
+
+def phase_fused_timing(sd, dev_pipe, fused_pipe, big, card):
+    """b128 throughput of both pipelines (in turns), the fused forward's
+    per-stage split, and each fused kernel on the inputs the b128 batch
+    gives it, with cuDNN yardsticks.  → {kernel: (ms, plain_ms,
+    bound_ms, bound_by, max |Δ|)}."""
+    import torch
+    import torch.nn.functional as F
+    from fastdet_torch.kernels import fused_infer as fi
+    from fastdet_torch.kernels.fold import STAGES
+    from fastdet_torch.models import Detector
+    host_big = big.cpu().numpy()
+    big_s2d = torch.from_numpy(fi.pack_images_s2d(host_big)).cuda()
+    runs = {"device": lambda: dev_pipe.detect(big),
+            "fused": lambda: fused_pipe.detect(big_s2d)}
+    dev_ms = {k: [] for k in runs}
+    for k in ("device", "fused", "fused", "device"):
+        dev_ms[k].append(cuda_ms(runs[k], 20))
+    host_ms = {}
+    for k, pipe in (("device", dev_pipe), ("fused", fused_pipe)):
+        pipe(host_big)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            pipe(host_big)
+        host_ms[k] = (time.perf_counter() - t0) / 5 * 1e3
+    t0 = time.perf_counter()
+    for _ in range(3):
+        fi.pack_images_s2d(host_big)
+    pack_ms = (time.perf_counter() - t0) / 3 * 1e3
+    log(f"  host s2d packing of a b128 batch (numpy, in FusedPipeline's "
+        f"host to host time): {pack_ms:.1f} ms")
+    for k in runs:
+        m = sum(dev_ms[k]) / 2
+        log(f"  throughput b128 352² {k} ({card}): {128e3 / m:.1f} img/s "
+            f"on the device ({m:.3f} ms per batch; calls "
+            f"{', '.join(f'{x:.3f}' for x in dev_ms[k])} ms), "
+            f"{128e3 / host_ms[k]:.1f} img/s host to host")
+
+    profile_fused(fused_pipe, big_s2d)
+    out = {}
+    with torch.inference_mode():
+        cum = {}
+        for upto in ("stem", "s2", "s3", "s4", None):
+            fwd, p = fi.build_fused_forward(sd, upto=upto)
+            cum[upto] = cuda_ms(lambda: fwd(big_s2d, p), 20)
+        split = ", ".join(
+            f"{u or 'fpn+heads'} {cum[u] - cum[prev] if prev else cum[u]:.3f}"
+            for prev, u in zip((None, "stem", "s2", "s3", "s4"),
+                               ("stem", "s2", "s3", "s4", None)))
+        log(f"  fused forward b128 per stage (CUDA events, upto=): {split} "
+            f"ms; whole forward {cum[None]:.3f} ms")
+
+        w, bias = p["stem_w"], p["stem_b"]
+        x = fi.stem_s2d(big_s2d, w, bias, 88, 88)
+        e = float((x - fi.stem_s2d_reference(big_s2d, w, bias, 88, 88))
+                  .abs().max())
+        check(e <= FUSED_ATOL, f"stem_s2d {e} off on the served batch")
+        ms = cuda_ms(lambda: fi.stem_s2d(big_s2d, w, bias, 88, 88), 50)
+        plain_ms = cuda_ms(
+            lambda: fi.stem_s2d_reference(big_s2d, w, bias, 88, 88), 10, 2)
+        out["stem_s2d"] = (ms, plain_ms, *stem_bound(128, 88, 88), e)
+        det = Detector(80, 3)
+        det.load_state_dict(sd)
+        det = det.cuda().eval()
+        xf = big.permute(0, 3, 1, 2).float() / 255.0
+        yard = cuda_ms(lambda: F.max_pool2d(det.backbone.first_conv(xf), 3,
+                                            2, 1), 20)
+        log(f"  stem_s2d on the served b128 batch: kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {out['stem_s2d'][2]:.4f} ms "
+            f"({out['stem_s2d'][3]}), max |Δ| {e:.3g}; yardstick: cuDNN "
+            f"conv+BN+ReLU + max_pool2d of Detector from f32 NCHW "
+            f"{yard:.4f} ms")
+
+        stages = []                  # (ms, plain_ms, bound_ms, by, max |Δ|)
+        for sid, reps, c in STAGES:
+            xin = fi._s2_block(x, p, f"s{sid}_0")
+            wts = p[f"s{sid}_span"]
+            x = fi.span(xin, wts, reps - 1)
+            e = float((x - fi.span_reference(xin, wts, reps - 1))
+                      .abs().max())
+            check(e <= FUSED_ATOL, f"span {e} off on the served batch")
+            ms = cuda_ms(lambda: fi.span(xin, wts, reps - 1), 50)
+            plain_ms = cuda_ms(
+                lambda: fi.span_reference(xin, wts, reps - 1), 10, 2)
+            b_ms, b_by = span_bound(128, c, xin.shape[2], xin.shape[3],
+                                    reps - 1)
+            blocks = [getattr(det.backbone, f"stage{sid}_{i}")
+                      for i in range(1, reps)]
+
+            def cudnn_span(a=xin, blocks=blocks):
+                for blk in blocks:
+                    a = blk(a)
+                return a
+
+            yard = cuda_ms(cudnn_span, 20)
+            log(f"  span stage {sid} on the served b128 batch (C={c}, "
+                f"{xin.shape[2]}², nblk={reps - 1}): kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+                f"max |Δ| {e:.3g}; yardstick: the Detector's cuDNN blocks "
+                f"{yard:.4f} ms")
+            stages.append((ms, plain_ms, b_ms, b_by, e))
+        # the span work of one batch: the three calls' sums; bound_by of
+        # the call with the largest bound
+        ms, plain_ms, b_ms = (sum(st[i] for st in stages) for i in range(3))
+        out["span"] = (ms, plain_ms, b_ms,
+                       max(stages, key=lambda st: st[2])[3],
+                       max(st[4] for st in stages))
+        log(f"  span, the three stage calls of one b128 batch: kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms")
+    return out
+
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import torch
@@ -494,9 +805,13 @@ def main() -> int:
     err_classes = phase_kernels()
     photo = read_png_bgr(PHOTO)
     sd = phase_weights_forward(photo)
-    launches, big = phase_serving(sd, photo, card)
+    fused_err = phase_fused_kernels(sd)
+    phase_fused_forward(sd, photo)
+    launches, big, dev_pipe, images = phase_serving(sd, photo, card)
     ms, plain_ms, bound_ms, bound_by, err_main = main_path_kernel_timing(
         sd, big)
+    fused_pipe, fused_launches = phase_fused_serving(sd, dev_pipe, images)
+    fused_main = phase_fused_timing(sd, dev_pipe, fused_pipe, big, card)
     for t in threading.enumerate():         # request handlers finishing
         if t is not threading.main_thread():
             t.join(timeout=10)
@@ -504,15 +819,29 @@ def main() -> int:
              if t is not threading.main_thread()]
     check(not alive, f"threads still running: {alive}")
     log("phase 5 shutdown: server stopped, batcher closed, no threads left")
-    log('phase 6 kernels: ["rank_decode_nms"]')
+    log('phase 6 kernels: ["stem_s2d", "span", "rank_decode_nms"] '
+        f'(rank_decode_nms launches on the device path: {launches})')
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    log(json.dumps({"kernels": [{
+    kernels = []
+    for name, replaces in (("stem_s2d", "fastdet/kernels/fused_infer.py:418"),
+                           ("span", "fastdet/kernels/fused_infer.py:219")):
+        k_ms, k_plain, k_bound, k_by, k_err = fused_main[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"fastdet_torch/csrc/{name}.cu", "replaces": replaces,
+            "launches": fused_launches[name],
+            "max_abs_err": max(fused_err[name], k_err), "ms": k_ms,
+            "plain_ms": k_plain, "bound_ms": k_bound, "bound_by": k_by,
+            "library_ms": None})
+    kernels.append({
         "name": "rank_decode_nms", "route": "cuda",
         "source": "fastdet_torch/csrc/pp_fused.cu",
         "replaces": "fastdet/kernels/pp_fused.py:156",
-        "launches": launches, "max_abs_err": max(err_classes, err_main),
+        "launches": fused_launches["rank_decode_nms"],
+        "max_abs_err": max(err_classes, err_main),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None}]}))
+        "bound_by": bound_by, "library_ms": None})
+    log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,3 +22,13 @@ def resolve_device(device=None) -> torch.device:
             "fastdet_torch: CUDA requested but torch.cuda.is_available() is "
             "False; pass device='cpu' to run on the CPU")
     return dev
+
+
+def disable_tf32(dev: torch.device) -> None:
+    """On CUDA, turn TF32 off for the whole process
+    (`torch.backends.cudnn.allow_tf32` and `cuda.matmul.allow_tf32`):
+    cuDNN convs default to TF32, and the port computes f32, as the JAX
+    package's default dtype does.  A no-op on the CPU."""
+    if dev.type == "cuda":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False

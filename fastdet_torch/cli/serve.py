@@ -8,9 +8,11 @@ Usage, from the repository root:
       --data-binary @img_352x352.bgr http://127.0.0.1:8000/detect_raw
   curl http://127.0.0.1:8000/stats
 
-Runs on CUDA unless `--device cpu` is given.  Only `--pipeline device`
-(DevicePipeline) and the yolo-fastestv2 family are ported; asking for
-the fused pipeline or another family exits with an error.
+Runs on CUDA unless `--device cpu` is given.  `--pipeline fused` (the
+default, as in the JAX CLI) serves through FusedPipeline: the host packs
+each batch into the s2d(4) layout and the card runs the stem and span
+kernels.  `--pipeline device` serves through DevicePipeline.  Only the
+yolo-fastestv2 family is ported; another family exits with an error.
 """
 
 from __future__ import annotations
@@ -37,21 +39,16 @@ def main(argv=None) -> int:
                              "before a partial batch dispatches")
     parser.add_argument("--conf", type=float, default=0.3)
     parser.add_argument("--nms", type=float, default=0.4)
-    parser.add_argument("--pipeline", type=str, default="device",
+    parser.add_argument("--pipeline", type=str, default="fused",
                         choices=["fused", "device"],
-                        help="device = DevicePipeline; fused is not ported "
-                             "yet")
+                        help="fused = FusedPipeline (s2d uint8 input, stem "
+                             "and span kernels); device = DevicePipeline")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu")
     parser.add_argument("--verbose", action="store_true",
                         help="log each HTTP request")
     opt = parser.parse_args(argv)
 
-    if opt.pipeline == "fused":
-        print("error: --pipeline fused (FusedPipeline with the stem and span "
-              "kernels) is not ported to fastdet_torch yet; use --pipeline "
-              "device", file=sys.stderr)
-        return 2
     if opt.model.lower() not in ("yolo-fastestv2", "yolofastestv2", "v2",
                                  "default"):
         print(f"error: model family {opt.model!r} is not ported to "
@@ -66,14 +63,18 @@ def main(argv=None) -> int:
     from fastdet_torch.config import Config, load_names, resolve_path
     from fastdet_torch.io import load_state_dict
     from fastdet_torch.models import Detector
-    from fastdet_torch.serve import DevicePipeline
+    from fastdet_torch.serve import DevicePipeline, FusedPipeline
     from fastdet_torch.server import InferenceServer
 
     cfg = Config.from_file(opt.data)
-    pipe = DevicePipeline(Detector(cfg.classes, cfg.anchor_num),
-                          load_state_dict(opt.weights), cfg,
-                          conf_thres=opt.conf, iou_thres=opt.nms,
-                          device=opt.device)
+    sd = load_state_dict(opt.weights)
+    if opt.pipeline == "fused":
+        pipe = FusedPipeline(sd, cfg, conf_thres=opt.conf,
+                             iou_thres=opt.nms, device=opt.device)
+    else:
+        pipe = DevicePipeline(Detector(cfg.classes, cfg.anchor_num), sd,
+                              cfg, conf_thres=opt.conf, iou_thres=opt.nms,
+                              device=opt.device)
 
     names_path = resolve_path(cfg.names, opt.data)
     names = load_names(names_path) \
@@ -81,7 +82,7 @@ def main(argv=None) -> int:
 
     # run every batch bucket once (InferenceServer pads coalesced
     # batches to power-of-two buckets), so the first requests do not
-    # pay cuDNN's per-shape set-up or the kernel build
+    # pay cuDNN's per-shape set-up or the kernels' build
     b = 1
     while True:
         print(f"warming the {opt.pipeline} pipeline (batch={b})...")

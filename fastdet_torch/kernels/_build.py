@@ -7,9 +7,11 @@ compiled with `nvcc` for `sm_90a` into
 flags and the compiler path, so an edited source rebuilds and an
 unchanged one is reused.  `build/` is listed in `.gitignore`.
 
-`--fmad=false` keeps every a*b+c as two rounded operations, as XLA and
-PyTorch's elementwise ops compute them; the kernels' bitwise parity with
-their plain versions depends on it.
+Flags are per source: `--fmad=false` keeps every a*b+c as two rounded
+operations, as XLA and PyTorch's elementwise ops compute them, and
+`pp_fused`'s bitwise parity with its plain version depends on it.  The
+stem and span kernels are held to 2e-4, not bitwise, and contract to FMA.
+`build_all` starts one `nvcc` per source, all at once.
 
 A failed build raises; nothing falls back to a plain version.
 """
@@ -23,14 +25,16 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_ext")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC")
+              "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+SOURCE_FLAGS = {"pp_fused": ("--fmad=false",)}
+SOURCES = ("pp_fused", "stem_s2d", "span")
 BUILD_TIMEOUT_S = 600
 
 _lock = threading.Lock()
@@ -49,11 +53,15 @@ def nvcc_path() -> str:
                        "CUDA kernels are built from source at first use")
 
 
+def flags(name: str) -> tuple:
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
+
+
 def _target(name: str, nvcc: str) -> str:
     h = hashlib.sha256()
     with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
         h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags(name)).encode())
     h.update(nvcc.encode())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 
@@ -70,7 +78,7 @@ def build(name: str) -> str:
     t0 = time.perf_counter()
     try:
         p = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, name + ".cu")],
+            [nvcc, *flags(name), "-o", tmp, os.path.join(CSRC, name + ".cu")],
             capture_output=True, text=True, timeout=BUILD_TIMEOUT_S,
             check=False)
         if p.returncode != 0:
@@ -83,6 +91,14 @@ def build(name: str) -> str:
     build_log[name] = {"seconds": time.perf_counter() - t0,
                        "ptxas": p.stderr.strip()}
     return target
+
+
+def build_all(names=SOURCES) -> None:
+    """Build several sources at once, one `nvcc` each; raises on the first
+    failure after all have ended."""
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        for _ in pool.map(build, names):
+            pass
 
 
 def load(name: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:

@@ -34,7 +34,7 @@ from typing import Callable, Sequence, Tuple
 import numpy as np
 import torch
 
-from fastdet_torch import resolve_device
+from fastdet_torch import disable_tf32, resolve_device
 from fastdet_torch.config import Config
 from fastdet_torch.kernels.nms_kernel import compact_ranked
 from fastdet_torch.kernels.pp_fused import MAX_K, rank_decode_nms
@@ -146,14 +146,9 @@ def build_detect_fn(model, cfg: Config, *, conf_thres=0.3, iou_thres=0.45,
     (BGR, as the reference's cv2 pipeline gives it); /255 happens on the
     device.  The model is moved to `device` and put in eval mode.
 
-    On CUDA this turns TF32 off for the whole process
-    (`torch.backends.cudnn.allow_tf32` and `cuda.matmul.allow_tf32`):
-    cuDNN convs default to TF32, and the pipeline computes f32, as the
-    JAX package's default dtype does."""
+    On CUDA this turns TF32 off for the whole process (`disable_tf32`)."""
     dev = resolve_device(device)
-    if dev.type == "cuda":
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+    disable_tf32(dev)
     model = model.to(dev).eval()
     anchors = np.asarray(cfg.anchors, np.float32).reshape(
         cfg.num_scales, cfg.anchor_num, 2)

@@ -6,20 +6,27 @@ kernel.  Defaults are the JAX package's serving operating point:
 conf_thres 0.3, iou_thres 0.45, max_det 300 and a pre-NMS window of
 `max_nms=128`, sized for conf ≥ 0.3 (fastdet/serve.py:20-26).
 
-`FusedPipeline`, `ShardedPipeline`, `StreamingPipeline` and
-`HybridPipeline` are not ported yet.
+`FusedPipeline` runs the same chain on the fused forward
+(fastdet_torch/kernels/fused_infer.py): the host packs uint8 NHWC into the
+s2d(4) layout, and the card runs the stem and span kernels, the PyTorch
+stride-2 blocks and FPN, then the same postprocess.
+
+`ShardedPipeline`, `StreamingPipeline` and `HybridPipeline` are not ported
+yet.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Sequence
 
 import numpy as np
 import torch
 
-from fastdet_torch import resolve_device
+from fastdet_torch import disable_tf32, resolve_device
 from fastdet_torch.config import Config
-from fastdet_torch.ops.postprocess import build_detect_fn
+from fastdet_torch.kernels.fused_infer import (build_fused_forward,
+                                               pack_images_s2d)
+from fastdet_torch.ops.postprocess import build_detect_fn, postprocess
 
 
 class DevicePipeline:
@@ -48,3 +55,73 @@ class DevicePipeline:
         dets, counts = self._detect(images.to(self.device))
         dets, counts = dets.cpu().numpy(), counts.cpu().numpy()
         return [dets[i, :counts[i]] for i in range(len(counts))]
+
+
+class FusedPipeline:
+    """`pipe(images_u8)` with an (N,H,W,3) uint8 numpy batch (packed on the
+    host by `pack_images_s2d`) or a pre-packed (N, 48, pad128(H/4·W/4))
+    uint8 batch → a list of (n_i, 6) float32 arrays [x1,y1,x2,y2,conf,cls]
+    in model input coordinates.
+
+    state_dict: the port's (e.g. from `fastdet_torch.io.load_state_dict`),
+    the same weights `DevicePipeline` takes.  The forward computes f32.
+
+    Not ported yet, each raising `NotImplementedError`: `dtype=bfloat16`
+    (ROADMAP A1), `family="anchorfree"` (A8), `mesh` (A12), and
+    `from_files`/`preprocess_files`, which need a host image decoder."""
+
+    def __init__(self, state_dict, cfg: Config, conf_thres=0.3,
+                 iou_thres=0.45, max_det=300, max_nms=128,
+                 dtype=torch.float32, device=None, mesh=None,
+                 family: str = "yolo-fastestv2"):
+        if dtype != torch.float32:
+            raise NotImplementedError(
+                f"fastdet_torch: FusedPipeline(dtype={dtype}) is not ported; "
+                "the fused path computes f32 (bf16 is ROADMAP A1)")
+        if family in ("anchorfree", "fastestdet"):
+            raise NotImplementedError(
+                "fastdet_torch: the anchor-free fused path is ROADMAP A8, "
+                "not ported yet")
+        if mesh is not None:
+            raise NotImplementedError(
+                "fastdet_torch: data-parallel serving (mesh) is ROADMAP A12, "
+                "not ported yet")
+        self.device = resolve_device(device)
+        disable_tf32(self.device)
+        hw = (cfg.height, cfg.width)
+        fwd, packed = build_fused_forward(state_dict, input_hw=hw,
+                                          device=self.device)
+        anchors = np.asarray(cfg.anchors, np.float32).reshape(
+            cfg.num_scales, cfg.anchor_num, 2)
+
+        @torch.inference_mode()
+        def detect(images):
+            return postprocess(fwd(images, packed), anchors, hw,
+                               conf_thres=conf_thres, iou_thres=iou_thres,
+                               max_det=max_det, max_nms=max_nms)
+
+        self._detect = detect
+
+    def detect(self, images: torch.Tensor):
+        """(B, 48, npad) uint8 s2d tensor on the device → (dets
+        (B,max_det,6), counts (B,)) on the device, without a host round
+        trip."""
+        return self._detect(images)
+
+    def __call__(self, images_u8: np.ndarray) -> List[np.ndarray]:
+        x = np.asarray(images_u8)
+        if x.ndim == 4:                      # NHWC → pack on the host
+            x = pack_images_s2d(x)
+        images = torch.from_numpy(np.ascontiguousarray(x))
+        dets, counts = self._detect(images.to(self.device))
+        dets, counts = dets.cpu().numpy(), counts.cpu().numpy()
+        return [dets[i, :counts[i]] for i in range(len(counts))]
+
+    def preprocess_files(self, paths: Sequence[str]) -> np.ndarray:
+        raise NotImplementedError(
+            "fastdet_torch: FusedPipeline.preprocess_files needs a host "
+            "image decoder (the JAX package uses native.py or cv2, neither "
+            "of which may sit on the card's path); not ported yet")
+
+    def from_files(self, paths: Sequence[str]) -> List[np.ndarray]:
+        return self(self.preprocess_files(paths))

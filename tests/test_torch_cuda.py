@@ -1,5 +1,6 @@
-"""Card tests of the port: the CUDA kernel against its plain version, and
-the CUDA dispatch rules.  They skip where there is no NVIDIA card.  The
+"""Card tests of the port: the CUDA kernels against their plain versions,
+the wrappers' checks, the CUDA dispatch rules, and the pipelines on the
+card.  They skip where there is no NVIDIA card.  The
 file imports no JAX, so that it runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -10,10 +11,11 @@ import pytest
 import torch
 
 from fastdet_torch.config import Config
-from fastdet_torch.kernels import pp_fused
+from fastdet_torch.io import load_state_dict
+from fastdet_torch.kernels import fold, fused_infer, pp_fused
 from fastdet_torch.models import Detector
 from fastdet_torch.ops.postprocess import postprocess
-from fastdet_torch.serve import DevicePipeline
+from fastdet_torch.serve import DevicePipeline, FusedPipeline
 from torch_cases import (ANCHORS, BOX_ULPS_CARD, IOU, NC, box_ulps,
                          make_inputs, port_geo)
 
@@ -71,3 +73,108 @@ def test_device_pipeline_card_matches_cpu(card):
     for a, b in zip(on_card, on_cpu):
         assert a.shape == b.shape
         np.testing.assert_allclose(a, b, rtol=0, atol=1e-3)
+
+
+# ------------------------------------------------ stem and span (B1, B2)
+#
+# Held to 2e-4 against their plain versions on the card, the fused
+# forward's f32 contract: the kernels sum in other orders than cuDNN, and
+# contract to FMA.
+
+ATOL = 2e-4
+REF_NPZ = "weights/coco2017-ref.npz"
+
+
+@pytest.fixture(scope="module")
+def packed():
+    """The fused forward's folded weights: the stem's on the host, each
+    stage's span as one tensor on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (the CUDA kernels have no CPU "
+                    "mode)")
+    return fused_infer.build_fused_forward(load_state_dict(REF_NPZ))[1]
+
+
+def _span_weights(packed, stage):
+    reps = {sid: r for sid, r, _ in fold.STAGES}[stage]
+    return packed[f"s{stage}_span"], reps - 1
+
+
+@pytest.mark.parametrize("b,hw", [(1, (352, 352)), (128, (352, 352)),
+                                  (2, (160, 96))])
+def test_stem_kernel_matches_plain(card, packed, b, hw):
+    """160×96: h4·w4 = 960 lanes padded to 1024, with junk in the pad."""
+    h4, w4 = hw[0] // 4, hw[1] // 4
+    rng = np.random.default_rng(b)
+    xs = fused_infer.pack_images_s2d(
+        rng.integers(0, 256, (b,) + hw + (3,), dtype=np.uint8))
+    xs[:, :, h4 * w4:] = rng.integers(0, 256, xs[:, :, h4 * w4:].shape)
+    x = torch.from_numpy(xs).to(card)
+    w, bias = packed["stem_w"], packed["stem_b"]
+    before = fused_infer.stem_s2d.launches
+    got = fused_infer.stem_s2d(x, w, bias, h4, w4)
+    assert fused_infer.stem_s2d.launches == before + 1
+    want = fused_infer.stem_s2d_reference(x, w, bias, h4, w4)
+    torch.cuda.synchronize()
+    assert tuple(got.shape) == (b, 24, h4, w4)
+    assert float((got - want).abs().max()) <= ATOL
+
+
+@pytest.mark.parametrize("b", [1, 128])
+@pytest.mark.parametrize("stage,hw", [(2, (44, 44)), (3, (22, 22)),
+                                      (4, (11, 11)), (2, (20, 12)),
+                                      (3, (10, 6)), (4, (5, 3))])
+def test_span_kernel_matches_plain(card, packed, b, stage, hw):
+    weights, nblk = _span_weights(packed, stage)
+    c = {sid: ch for sid, _, ch in fold.STAGES}[stage]
+    rng = np.random.default_rng(stage)
+    x = torch.from_numpy(np.abs(rng.normal(
+        0.0, 1.0, (b, c) + hw)).astype(np.float32)).to(card)
+    before = fused_infer.span.launches
+    got = fused_infer.span(x, weights, nblk)
+    assert fused_infer.span.launches == before + nblk
+    want = fused_infer.span_reference(x, weights, nblk)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= ATOL
+
+
+def test_stem_and_span_wrappers_check_their_inputs(card, packed):
+    w, bias = packed["stem_w"], packed["stem_b"]
+    x = torch.zeros(2, 48, 1024, dtype=torch.uint8, device=card)
+    fused_infer.stem_s2d(x, w, bias, 40, 24)
+    with pytest.raises(ValueError, match="uint8"):
+        fused_infer.stem_s2d(x.float(), w, bias, 40, 24)
+    with pytest.raises(ValueError, match="uint8"):
+        fused_infer.stem_s2d(x[:, :, :960], w, bias, 40, 24)
+    with pytest.raises(ValueError, match="CPU"):
+        fused_infer.stem_s2d(x, w.to(card), bias, 40, 24)
+    weights, nblk = _span_weights(packed, 2)
+    a = torch.zeros(2, 48, 20, 12, device=card)
+    fused_infer.span(a, weights, nblk)
+    with pytest.raises(ValueError, match="C in"):
+        fused_infer.span(a.double(), weights, nblk)
+    with pytest.raises(ValueError, match="C in"):
+        fused_infer.span(torch.zeros(2, 64, 20, 12, device=card), weights,
+                         nblk)
+    with pytest.raises(ValueError, match="weights"):
+        fused_infer.span(a, weights.cpu(), nblk)
+    with pytest.raises(ValueError, match="weights"):
+        fused_infer.span(a, weights, nblk + 1)
+
+
+def test_fused_pipeline_card_matches_device_pipeline(card):
+    """Both pipelines on the card, on seeded images, at the serving
+    operating point.  (At a low threshold two candidates of random images
+    can score within the forwards' 1e-5 difference and swap ranks;
+    chip_smoke.py holds the pipelines on real photos.)"""
+    cfg = Config.from_file("data/coco.data")
+    sd = load_state_dict(REF_NPZ)
+    imgs = np.random.default_rng(5).integers(0, 256, (4, 352, 352, 3),
+                                             dtype=np.uint8)
+    fused = FusedPipeline(sd, cfg, device=card)(imgs)
+    device = DevicePipeline(Detector(), sd, cfg, device=card)(imgs)
+    for a, b in zip(fused, device):
+        assert a.shape == b.shape
+        np.testing.assert_array_equal(a[:, 5], b[:, 5])
+        np.testing.assert_allclose(a[:, 4], b[:, 4], rtol=0, atol=1e-4)
+        np.testing.assert_allclose(a[:, :4], b[:, :4], rtol=0, atol=1e-2)
