@@ -5,10 +5,12 @@ the port still starts on the GPU).
     python3 chip_smoke.py
 
 Run from the repository root on a machine with a CUDA card.  It builds the
-port's three CUDA kernels from `fastdet_torch/csrc/` (one nvcc each, in
+port's four CUDA kernels from `fastdet_torch/csrc/` (one nvcc each, in
 parallel), holds each against its plain PyTorch version, checks the
 weights and both forwards, serves real requests through `InferenceServer`
-over `DevicePipeline` and over `FusedPipeline` and checks the answers.
+over `DevicePipeline` and over `FusedPipeline` and checks the answers,
+evaluates seeded labelled photos through the eval entry point in both of
+its modes, and serves 640² through `FusedPipeline`.
 One line per phase; any failed check ends the run with a non-zero exit.
 Without a card, or outside the repository, it exits non-zero and prints
 no result.
@@ -18,6 +20,9 @@ Phases:
   2. rank_decode_nms against its plain version at every shape class the
      port dispatches (B ∈ {1, 128}, k ∈ {128, 256, 384}, N = 1815,
      nc = 80);
+  2c. nms_keep (keep_mask_batch) bitwise against its plain version on
+     seeded crowded fields, k ∈ {385, 512, 1024, 1815, 2048} × B ∈ {1, 8,
+     32}, and suppress_ranked_batch against the plain chain;
   2b. stem_s2d (B ∈ {1, 128} at 352², B = 2 at 160×96 with pad lanes) and
      span (C = 48/96/192 at 44²/22²/11², B ∈ {1, 128}) against their
      plain versions, ≤ 2e-4;
@@ -34,8 +39,17 @@ Phases:
      pipelines, the fused forward's per-stage split (`upto=`), and each
      fused kernel on the served batch's inputs with its bound;
   5. shutdown: server, batcher and threads;
-  6. the kernel summary (a JSON line, launches from the fused path), the
-     card line, and the last line {"ok": true, "device": {...}}.
+  7. eval: `fastdet_torch.cli.evaluation.run_evaluation`, both passes
+     (windows 1815 and 1024, through nms_keep), default and --fused mode,
+     over 256 seeded photo variants in b128 batches with seeded labels;
+     P/R/AP/F1 exactly those of the plain staged chain on the same
+     forward outputs, images/s; nms_keep timed at b128, k = 512 and 1815;
+  7b. 640²: stem_s2d and span against their plain versions there, and
+     FusedPipeline against DevicePipeline on 8 photo variants;
+  6. the kernel summary (a JSON line: launches of stem_s2d, span and
+     rank_decode_nms from the fused serving path, of nms_keep from the
+     eval path, of stem_s2d at 640² from FusedPipeline there), the card
+     line, and the last line {"ok": true, "device": {...}}.
 
 The last-but-one lines and the last line are read by tools; keep them.
 """
@@ -143,9 +157,10 @@ def resize_u8(img: np.ndarray, hw=(352, 352)) -> np.ndarray:
         .contiguous().numpy()
 
 
-def photo_variants(photo: np.ndarray, count: int, seed: int) -> np.ndarray:
+def photo_variants(photo: np.ndarray, count: int, seed: int,
+                   hw=(352, 352)) -> np.ndarray:
     """Seeded crops (60-100% of each side) and mirror images of the photo,
-    at 352²: real scenes, so that the model detects things."""
+    at `hw`: real scenes, so that the model detects things."""
     rng = np.random.default_rng(seed)
     h, w = photo.shape[:2]
     out = []
@@ -157,7 +172,7 @@ def photo_variants(photo: np.ndarray, count: int, seed: int) -> np.ndarray:
         crop = photo[y0:y0 + ch, x0:x0 + cw]
         if rng.random() < 0.5:
             crop = crop[:, ::-1]
-        out.append(resize_u8(crop))
+        out.append(resize_u8(crop, hw))
     return np.stack(out)
 
 
@@ -787,6 +802,324 @@ def phase_fused_timing(sd, dev_pipe, fused_pipe, big, card):
     return out
 
 
+# ------------------------------------------------ the staged NMS (B4, B5)
+
+NMS_IOU = 0.4       # the eval passes' NMS threshold
+
+
+def nms_keep_bound(valid, k):
+    """keep_mask_batch: its inputs read once (boxes 16 B, class 8 B,
+    validity 1 B per candidate) and keep (1 B) written once; 14 f32
+    operations per IoU of a pair j < i of valid candidates (the pairs the
+    greedy scan may have to test).  The overlap bitmask is the kernel's
+    workspace and not part of the function."""
+    v = valid.sum(dim=1).double()
+    pairs = float((v * (v - 1) / 2).sum())
+    return bound(valid.shape[0] * k * (16 + 8 + 1 + 1), pairs * 14)
+
+
+def phase_nms_keep():
+    """nms_keep against its plain version, bitwise, on seeded crowded
+    fields at k ∈ {385, 512, 1024, 1815, 2048} × B ∈ {1, 8, 32}; then
+    suppress_ranked_batch's (dets, counts) against the plain chain
+    (`ops.nms.suppress_ranked`).  → max |Δ| (0 when bitwise)."""
+    import torch
+    from torch_cases import crowded
+    from fastdet_torch.kernels import nms_kernel as nk
+    from fastdet_torch.ops import nms
+    err = 0.0
+    for k in (385, 512, 1024, 1815, 2048):
+        for b in (1, 8, 32):
+            boxes, score, cls, valid = (torch.from_numpy(a).cuda()
+                                        for a in crowded(k + b, b, k))
+            keep = nk.keep_mask_batch(boxes, cls, valid, iou_thres=NMS_IOU)
+            want = nk.keep_mask_batch_reference(boxes, cls, valid,
+                                                iou_thres=NMS_IOU)
+            det, n = nk.suppress_ranked_batch(boxes, score, cls, valid,
+                                              iou_thres=NMS_IOU, max_det=300)
+            wdet, wn = nms.suppress_ranked(boxes, score, cls, valid,
+                                           iou_thres=NMS_IOU, max_det=300)
+            torch.cuda.synchronize()
+            n_keep, n_valid = int(keep.sum()), int(valid.sum())
+            check(torch.equal(keep, want), f"nms_keep differs at b={b} k={k}")
+            check(torch.equal(n, wn) and torch.equal(det, wdet),
+                  f"suppress_ranked_batch differs at b={b} k={k}")
+            check(0 < n_keep < n_valid,
+                  f"trivial case b={b} k={k}: {n_keep}/{n_valid}")
+            err = max(err, float((keep.float() - want.float()).abs().max()),
+                      float((det - wdet).abs().max()))
+            ms = cuda_ms(lambda: nk.keep_mask_batch(
+                boxes, cls, valid, iou_thres=NMS_IOU), 20)
+            log(f"  nms_keep b={b} k={k}: keep and (dets, counts) equal "
+                f"({n_keep}/{n_valid} kept), kernel {ms:.4f} ms")
+    log("phase 2c nms_keep: keep bitwise against its plain version and "
+        "suppress_ranked_batch equal to the plain chain at 15 shape "
+        "classes (k 385-2048, B 1-32)")
+    return err
+
+
+# ------------------------------------------------ the eval path (phase 7)
+
+def eval_labels(dets, seed):
+    """Seeded labels from detections: each box moved ±4 px, one in five
+    dropped, one spurious box per image, of a class the image's
+    detections have (a class no detection has would add a class of AP 0
+    to the mean).  → (labels (B,M,5) normalized [cls,cx,cy,w,h], mask
+    (B,M))."""
+    rng = np.random.default_rng(seed)
+    per = []
+    for d in dets:
+        rows = []
+        for x1, y1, x2, y2, _, c in d:
+            if rng.random() < 0.2:
+                continue
+            x1, y1, x2, y2 = np.asarray([x1, y1, x2, y2]) \
+                + rng.uniform(-4, 4, 4)
+            rows.append((c, (x1 + x2) / 704, (y1 + y2) / 704,
+                         (x2 - x1) / 352, (y2 - y1) / 352))
+        cx, cy = rng.uniform(0.2, 0.8, 2)
+        rows.append((rng.choice(d[:, 5]) if len(d) else 0, cx, cy, 0.1, 0.1))
+        per.append(np.asarray(rows, np.float32))
+    m = max(len(r) for r in per)
+    labels = np.zeros((len(per), m, 5), np.float32)
+    mask = np.zeros((len(per), m), bool)
+    for i, r in enumerate(per):
+        labels[i, :len(r)], mask[i, :len(r)] = r, True
+    return labels, mask
+
+
+def plain_eval(forward, images, labels, mask, bsz):
+    """Both eval passes through the plain staged chain on the card, on the
+    outputs of `forward` (chunks of 32 images bound the plain keep mask's
+    (B,k,k) temporaries).  → (mAP pass, P/R pass)."""
+    import torch
+    from torch_cases import ANCHORS, staged_reference
+    from fastdet_torch.cli.evaluation import MAP_PASS, PR_PASS
+    from fastdet_torch.eval.runner import evaluate
+    results = []
+    for kw in (MAP_PASS, PR_PASS):
+        table = []
+        for s in range(0, len(images), bsz):
+            with torch.inference_mode():
+                outs = forward(images[s:s + bsz])
+                parts = [staged_reference([o[c:c + 32] for o in outs],
+                                          ANCHORS, (352, 352), **kw)
+                         for c in range(0, outs[0].shape[0], 32)]
+            table.append((torch.cat([p[0] for p in parts]),
+                          torch.cat([p[1] for p in parts])))
+        batches = [(images[s:s + bsz], labels[s:s + bsz], mask[s:s + bsz])
+                   for s in range(0, len(images), bsz)]
+        it = iter(table)
+        results.append(evaluate(lambda _images: next(it), batches,
+                                (352, 352)))
+    return results
+
+
+def phase_eval(sd, photo, dev_pipe, card):
+    """The eval entry point on the card: `run_evaluation` (both passes, the
+    default and the --fused mode) over 256 seeded photo variants in b128
+    batches, with seeded labels from DevicePipeline's detections.  Each
+    mode's launch counts are set to 0 just before its run and read just
+    after; P/R/AP/F1 must equal the plain staged chain's on the same
+    forward outputs.  Then nms_keep timed at b128 on the eval batch's
+    windows, k = 512 (B4's shape) and 1815 (B5's).  → (launches,
+    {window: (ms, plain_ms, bound_ms, bound_by, max |Δ|)})."""
+    import torch
+    from torch_cases import ANCHORS, staged_window
+    from fastdet_torch.cli.evaluation import (MAP_PASS, PR_PASS,
+                                              run_evaluation)
+    from fastdet_torch.config import Config
+    from fastdet_torch.eval.runner import evaluate
+    from fastdet_torch.kernels import fused_infer as fi
+    from fastdet_torch.kernels import nms_kernel as nk
+    from fastdet_torch.kernels import pp_fused
+    from fastdet_torch.models import Detector
+    from fastdet_torch.ops.postprocess import postprocess
+    cfg = Config.from_file(DATA)
+    images = photo_variants(photo, 256, seed=7)
+    labels, mask = eval_labels(dev_pipe(images), seed=7)
+    bsz = 128
+
+    def batches(bs):
+        for s in range(0, len(images), bs):
+            yield images[s:s + bs], labels[s:s + bs], mask[s:s + bs]
+
+    det = Detector(80, 3)
+    det.load_state_dict(sd)
+    det = det.cuda().eval()
+    fwd, packed = fi.build_fused_forward(sd)
+    forwards = {
+        "default": lambda x: det(torch.from_numpy(x).cuda().to(
+            torch.float32) / 255.0),
+        "fused": lambda x: fwd(torch.from_numpy(
+            fi.pack_images_s2d(x)).cuda(), packed)}
+    kernels = [nk.keep_mask_batch, pp_fused.rank_decode_nms, fi.stem_s2d,
+               fi.span]
+    launches = 0
+    n_batches = -(-len(images) // bsz)
+    for mode in ("default", "fused"):
+        run_evaluation(cfg, sd, batches, fused=mode == "fused",
+                       device="cuda", batch=bsz)            # warm-up
+        torch.cuda.synchronize()
+        # ---- the main path: counts to 0, evaluate, read the counts
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        res_map, res_pr = run_evaluation(cfg, sd, batches,
+                                         fused=mode == "fused",
+                                         device="cuda", batch=bsz)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = {k.__name__: k.launches for k in kernels}
+        check(counts["keep_mask_batch"] == 2 * n_batches,
+              f"{mode}: nms_keep launches {counts} over two passes of "
+              f"{n_batches} batches")
+        check(counts["rank_decode_nms"] == 0,
+              f"{mode}: an eval window went through rank_decode_nms")
+        if mode == "fused":
+            check(counts["stem_s2d"] > 0 and counts["span"] > 0,
+                  f"fused eval launched no stem or span: {counts}")
+        launches += counts["keep_mask_batch"]
+        check(res_map is not None and res_pr is not None,
+              f"{mode}: no detections")
+        vals = (res_pr[0], res_pr[1], res_map[2], res_pr[3])
+        check(all(np.isfinite(v) and 0 < v < 1 for v in vals),
+              f"{mode}: P/R/AP/F1 {vals}")
+        plain_map, plain_pr = plain_eval(forwards[mode], images, labels,
+                                         mask, bsz)
+        check(plain_map == res_map and plain_pr == res_pr,
+              f"{mode}: metrics {res_map} {res_pr} differ from the plain "
+              f"staged chain's {plain_map} {plain_pr}")
+        log(f"phase 7 eval {mode}: Precision:{vals[0]:f} Recall:{vals[1]:f} "
+            f"AP:{vals[2]:f} F1:{vals[3]:f} over {len(images)} images "
+            f"(b{bsz}), equal to the plain staged chain on the card; "
+            f"{2 * len(images) / secs:.1f} img/s over both passes "
+            f"({secs:.3f} s, host clock, {card}); launches {counts}")
+
+    # where a b128 eval batch's time goes
+    with torch.inference_mode():
+        x = torch.from_numpy(images[:bsz]).cuda()
+        outs = det(x.to(torch.float32) / 255.0)
+        fwd_ms = cuda_ms(lambda: det(x.to(torch.float32) / 255.0), 20)
+        xs = torch.from_numpy(fi.pack_images_s2d(images[:bsz])).cuda()
+        fused_ms = cuda_ms(lambda: fwd(xs, packed), 20)
+        post_ms = [cuda_ms(lambda kw=kw: postprocess(
+            outs, ANCHORS, (352, 352), **kw), 20) for kw in (MAP_PASS,
+                                                               PR_PASS)]
+        dets = postprocess(outs, ANCHORS, (352, 352), **MAP_PASS)
+    t0 = time.perf_counter()
+    evaluate(lambda _images: dets, [(images[:bsz], labels[:bsz],
+                                     mask[:bsz])], (352, 352))
+    metrics_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    torch.from_numpy(images[:bsz]).cuda()
+    torch.cuda.synchronize()
+    upload_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    fi.pack_images_s2d(images[:bsz])
+    pack_ms = (time.perf_counter() - t0) * 1e3
+    log(f"  eval b128 split ({card}): on the device (CUDA events) forward "
+        f"{fwd_ms:.3f} ms (fused forward {fused_ms:.3f} ms), postprocess "
+        f"{post_ms[0]:.3f} ms in the mAP pass (k=1815), {post_ms[1]:.3f} ms "
+        f"in the P/R pass (k=1024); on the host (host clock) the metrics of "
+        f"the mAP pass {metrics_ms:.1f} ms, the upload {upload_ms:.1f} ms, "
+        f"the s2d packing (--fused) {pack_ms:.1f} ms")
+
+    out = {}
+    with torch.inference_mode():
+        for k in (512, 1815):
+            boxes, score, cls = staged_window(outs, ANCHORS, (352, 352),
+                                              conf_thres=0.01, max_nms=k)
+            valid = score > 0
+            keep = nk.keep_mask_batch(boxes, cls, valid, iou_thres=NMS_IOU)
+            want = nk.keep_mask_batch_reference(boxes, cls, valid,
+                                                iou_thres=NMS_IOU)
+            torch.cuda.synchronize()
+            check(torch.equal(keep, want), f"nms_keep differs at b128 k={k}")
+            e = float((keep.float() - want.float()).abs().max())
+            ms = cuda_ms(lambda: nk.keep_mask_batch(
+                boxes, cls, valid, iou_thres=NMS_IOU), 50, 5)
+            plain_ms = cuda_ms(lambda: nk.keep_mask_batch_reference(
+                boxes, cls, valid, iou_thres=NMS_IOU), 2, 1)
+            b_ms, b_by = nms_keep_bound(valid, k)
+            out[k] = (ms, plain_ms, b_ms, b_by, e)
+            log(f"  nms_keep on the eval batch (B=128, k={k}, conf 0.01, "
+                f"{int(valid.sum())} valid, {int(keep.sum())} kept): kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.6f} ms "
+                f"({b_by}), keep equal ({card})")
+    return launches, out
+
+
+def phase_640(sd, photo, card):
+    """640²: B1 (B ∈ {1, 32}) and B2 at 80²/40²/20² against their plain
+    versions, then FusedPipeline at 640² (counts to 0 just before, read
+    just after) against DevicePipeline at 640² on 8 photo variants.
+    → (launches of stem_s2d, (ms, plain_ms, bound_ms, bound_by, max |Δ|)
+    of B1 at b32 640²)."""
+    import dataclasses
+    import torch
+    from fastdet_torch.config import Config
+    from fastdet_torch.kernels import fused_infer as fi
+    from fastdet_torch.kernels import pp_fused
+    from fastdet_torch.kernels.fold import STAGES
+    from fastdet_torch.models import Detector
+    from fastdet_torch.serve import DevicePipeline, FusedPipeline
+    _, p = fi.build_fused_forward(sd, input_hw=(640, 640))
+    w, bias = p["stem_w"], p["stem_b"]
+    err = 0.0
+    for bsz in (1, 32):
+        rng = np.random.default_rng(640 + bsz)
+        xs = fi.pack_images_s2d(rng.integers(0, 256, (bsz, 640, 640, 3),
+                                             dtype=np.uint8))
+        x = torch.from_numpy(xs).cuda()
+        e = float((fi.stem_s2d(x, w, bias, 160, 160)
+                   - fi.stem_s2d_reference(x, w, bias, 160, 160)).abs().max())
+        check(e <= FUSED_ATOL, f"stem_s2d {e} off at b={bsz} 640²")
+        err = max(err, e)
+        ms = cuda_ms(lambda: fi.stem_s2d(x, w, bias, 160, 160), 20)
+        plain_ms = cuda_ms(
+            lambda: fi.stem_s2d_reference(x, w, bias, 160, 160), 5, 1)
+        log(f"  stem_s2d b={bsz} 640² (npad={xs.shape[2]}): max |Δ| {e:.3g},"
+            f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    b6 = (ms, plain_ms, *stem_bound(32, 160, 160), err)
+    for (stage, reps, c), hw in zip(STAGES, (80, 40, 20)):
+        weights = p[f"s{stage}_span"]
+        for bsz in (1, 32):
+            rng = np.random.default_rng(stage * 640 + bsz)
+            a = torch.from_numpy(np.abs(rng.normal(
+                0.0, 1.0, (bsz, c, hw, hw))).astype(np.float32)).cuda()
+            e = float((fi.span(a, weights, reps - 1)
+                       - fi.span_reference(a, weights, reps - 1))
+                      .abs().max())
+            check(e <= FUSED_ATOL, f"span {e} off at b={bsz} C={c} {hw}²")
+            log(f"  span b={bsz} C={c} {hw}x{hw}: max |Δ| {e:.3g}")
+
+    cfg = dataclasses.replace(Config.from_file(DATA), width=640, height=640)
+    images = photo_variants(photo, 8, seed=640, hw=(640, 640))
+    fused = FusedPipeline(sd, cfg)
+    fused(images[:1])                                  # warm-up
+    kernels = [fi.stem_s2d, fi.span, pp_fused.rank_decode_nms]
+    # ---- the main path: counts to 0, detect, read the counts
+    for k in kernels:
+        k.launches = 0
+    got = fused(images)
+    counts = {k.__name__: k.launches for k in kernels}
+    for name, n in counts.items():
+        check(n > 0, f"FusedPipeline at 640² launched no {name}")
+    want = DevicePipeline(Detector(80, 3), sd, cfg)(images)
+    for i, (a, b) in enumerate(zip(got, want)):
+        check(a.shape == b.shape and np.array_equal(a[:, 5], b[:, 5])
+              and np.abs(a[:, 4] - b[:, 4]).max(initial=0) <= 1e-4
+              and np.abs(a[:, :4] - b[:, :4]).max(initial=0) <= 1e-2,
+              f"640² detections of image {i} differ from DevicePipeline's")
+    n_det = sum(len(a) for a in got)
+    check(n_det > 0, "no detections at 640²")
+    log(f"phase 7b 640²: stem_s2d (B 1, 32) and span (80²/40²/20²) within "
+        f"{FUSED_ATOL:g} of their plain versions; FusedPipeline on 8 photo "
+        f"variants: {n_det} detections, equal to DevicePipeline's (classes; "
+        f"scores ≤ 1e-4, boxes ≤ 1e-2 px); launches {counts} ({card})")
+    return counts["stem_s2d"], b6
+
 
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
@@ -803,6 +1136,7 @@ def main() -> int:
     t_start = time.perf_counter()
     card = phase_device()
     err_classes = phase_kernels()
+    err_nms = phase_nms_keep()
     photo = read_png_bgr(PHOTO)
     sd = phase_weights_forward(photo)
     fused_err = phase_fused_kernels(sd)
@@ -819,8 +1153,11 @@ def main() -> int:
              if t is not threading.main_thread()]
     check(not alive, f"threads still running: {alive}")
     log("phase 5 shutdown: server stopped, batcher closed, no threads left")
-    log('phase 6 kernels: ["stem_s2d", "span", "rank_decode_nms"] '
-        f'(rank_decode_nms launches on the device path: {launches})')
+    eval_launches, eval_nms = phase_eval(sd, photo, dev_pipe, card)
+    b6_launches, b6 = phase_640(sd, photo, card)
+    log('phase 6 kernels: ["stem_s2d", "span", "rank_decode_nms", '
+        '"nms_keep"] (rank_decode_nms launches on the device path: '
+        f'{launches}; nms_keep on the eval path: {eval_launches})')
     log(f"total {time.perf_counter() - t_start:.1f} s")
     kernels = []
     for name, replaces in (("stem_s2d", "fastdet/kernels/fused_infer.py:418"),
@@ -841,6 +1178,26 @@ def main() -> int:
         "max_abs_err": max(err_classes, err_main),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None})
+    # nms_keep replaces B4 (k ≤ 512) and B5 (k > 512): one entry each,
+    # timed at k = 512 and k = 1815; its launches are the eval path's
+    for k, replaces in ((512, "fastdet/kernels/nms_kernel.py:256"),
+                        (1815, "fastdet/kernels/nms_kernel.py:201")):
+        k_ms, k_plain, k_bound, k_by, k_err = eval_nms[k]
+        kernels.append({
+            "name": "nms_keep", "route": "cuda",
+            "source": "fastdet_torch/csrc/nms_keep.cu", "replaces": replaces,
+            "launches": eval_launches, "max_abs_err": max(err_nms, k_err),
+            "ms": k_ms, "plain_ms": k_plain, "bound_ms": k_bound,
+            "bound_by": k_by, "library_ms": None})
+    # B6 (the row-chunked stem for > 8192 lanes) is B1's kernel at 640²
+    k_ms, k_plain, k_bound, k_by, k_err = b6
+    kernels.append({
+        "name": "stem_s2d", "route": "cuda",
+        "source": "fastdet_torch/csrc/stem_s2d.cu",
+        "replaces": "fastdet/kernels/fused_infer.py:466",
+        "launches": b6_launches, "max_abs_err": k_err, "ms": k_ms,
+        "plain_ms": k_plain, "bound_ms": k_bound, "bound_by": k_by,
+        "library_ms": None})
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

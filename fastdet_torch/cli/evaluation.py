@@ -1,0 +1,155 @@
+"""Dataset evaluation CLI (counterpart of cli/evaluation.py, argparse
+parity): runs the val set twice, mAP at conf 0.01 (NMS window 2048) and
+P/R/F1 at conf 0.3 (window 1024), and prints the same summary line.
+
+Usage, from the repository root:
+  python -m fastdet_torch.cli.evaluation --data data/coco.data \\
+      --weights weights/coco2017-ref.npz [--fused] [--batch 32] \\
+      [--device cpu]
+
+Runs on CUDA unless `--device cpu` is given.  The default mode runs the
+port's `Detector` through `build_detect_fn`; `--fused` runs the fused
+forward (`build_fused_forward`, the host packs s2d(4) in numpy).  Both
+windows exceed 384, so on the card every pass goes through the `nms_keep`
+kernel.  `--model anchorfree` (ROADMAP A8) and `--int8` (A11) are not
+ported and raise.
+
+The data loader reads images with cv2, which the card's machine lacks;
+`run_evaluation` takes the batches from its caller, so that
+`chip_smoke.py` drives the same chain with in-memory batches.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+from typing import Callable, Iterable
+
+import numpy as np
+import torch
+
+from fastdet_torch import disable_tf32, resolve_device
+from fastdet_torch.config import Config
+from fastdet_torch.eval.runner import evaluate
+from fastdet_torch.io import load_state_dict
+from fastdet_torch.kernels.fused_infer import (build_fused_forward,
+                                               pack_images_s2d)
+from fastdet_torch.models import Detector
+from fastdet_torch.ops.postprocess import build_detect_fn, postprocess
+
+MAP_PASS = dict(conf_thres=0.01, iou_thres=0.4, max_nms=2048)
+PR_PASS = dict(conf_thres=0.3, iou_thres=0.4, max_nms=1024)
+
+
+def run_evaluation(cfg: Config, state_dict, batches: Callable[[int],
+                                                              Iterable], *,
+                   fused: bool, device=None, batch: int):
+    """The eval CLI after data loading: both passes over `batches(batch)`,
+    which yields (images_u8 (B,H,W,3) with B ≤ batch, labels (B,M,5)
+    normalized [cls,cx,cy,w,h], label_mask (B,M)) and is called once per
+    pass.  → (mAP pass, P/R pass), each `evaluate`'s (P, R, mAP, F1) or
+    None."""
+    dev = resolve_device(device)
+    hw = (cfg.height, cfg.width)
+    if fused:
+        disable_tf32(dev)
+        fwd, packed = build_fused_forward(state_dict, input_hw=hw,
+                                          device=dev)
+        anchors = np.asarray(cfg.anchors, np.float32).reshape(
+            cfg.num_scales, cfg.anchor_num, 2)
+
+        def make_detect(conf_thres, iou_thres, max_nms):
+            @torch.inference_mode()
+            def detect(images):
+                xs = torch.from_numpy(pack_images_s2d(images.cpu().numpy()))
+                return postprocess(fwd(xs.to(dev), packed), anchors, hw,
+                                   conf_thres=conf_thres,
+                                   iou_thres=iou_thres, max_nms=max_nms)
+            return detect
+    else:
+        model = Detector(cfg.classes, cfg.anchor_num)
+        model.load_state_dict(state_dict)
+
+        def make_detect(conf_thres, iou_thres, max_nms):
+            return build_detect_fn(model, cfg, conf_thres=conf_thres,
+                                   iou_thres=iou_thres, max_nms=max_nms,
+                                   device=dev)
+
+    def on_device():
+        for images, labels, mask in batches(batch):
+            yield torch.as_tensor(images).to(dev), labels, mask
+
+    print("computer mAP...")
+    res_map = evaluate(make_detect(**MAP_PASS), on_device(), hw,
+                       progress=True)
+    print("computer PR...")
+    res_pr = evaluate(make_detect(**PR_PASS), on_device(), hw,
+                      progress=True)
+    return res_map, res_pr
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--data", type=str, default="",
+                        help="Specify training profile *.data")
+    parser.add_argument("--weights", type=str, default="",
+                        help="The path of the model weights (.npz)")
+    parser.add_argument("--model", type=str, default="yolo-fastestv2",
+                        help="model family: yolo-fastestv2 | anchorfree "
+                             "(only yolo-fastestv2 is ported)")
+    parser.add_argument("--batch", type=int, default=0,
+                        help="override eval batch size")
+    parser.add_argument("--fused", action="store_true",
+                        help="evaluate through the fused forward (s2d "
+                             "input layout, stem and span kernels)")
+    parser.add_argument("--int8", type=str, default="",
+                        help="int8 PTQ evaluation (not ported: ROADMAP A11)")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="cuda (default) or cpu")
+    opt = parser.parse_args(argv)
+
+    family = (opt.model or "yolo-fastestv2").lower()
+    if family in ("anchorfree", "fastestdet"):
+        raise NotImplementedError(
+            "fastdet_torch: the anchor-free family is ROADMAP A8, not "
+            "ported yet")
+    if family not in ("yolo-fastestv2", "yolofastestv2", "v2", "default"):
+        raise ValueError(f"unknown model family {opt.model!r}")
+    if opt.int8:
+        raise NotImplementedError(
+            "fastdet_torch: int8 PTQ evaluation is ROADMAP A11, not ported "
+            "yet")
+
+    cfg = Config.from_file(opt.data)
+    assert os.path.exists(opt.weights), "invalid weights path"
+    print("eval config:")
+    print("model_name:%s" % cfg.model_name)
+    print("width:%d height:%d" % (cfg.width, cfg.height))
+    print("val:%s" % cfg.val)
+    print("model_path:%s" % opt.weights)
+
+    from fastdet_torch.data import DarknetDataset, DataLoader
+    state_dict = load_state_dict(opt.weights)
+    batch_size = opt.batch or int(cfg.batch_size / (cfg.subdivisions or 1))
+    val_ds = DarknetDataset(cfg.val, cfg.width, cfg.height, augment=None)
+
+    def batches(bs):
+        loader = DataLoader(val_ds, bs, shuffle=False, drop_last=False)
+        try:
+            yield from loader
+        finally:
+            loader.close()
+
+    res_map, res_pr = run_evaluation(cfg, state_dict, batches,
+                                     fused=opt.fused, device=opt.device,
+                                     batch=batch_size)
+    ap = res_map[2] if res_map else 0.0
+    precision, recall, f1 = (res_pr[0], res_pr[1], res_pr[3]) if res_pr \
+        else (0.0, 0.0, 0.0)
+    print("Precision:%f Recall:%f AP:%f F1:%f" % (precision, recall, ap, f1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -8,9 +8,10 @@ flags and the compiler path, so an edited source rebuilds and an
 unchanged one is reused.  `build/` is listed in `.gitignore`.
 
 Flags are per source: `--fmad=false` keeps every a*b+c as two rounded
-operations, as XLA and PyTorch's elementwise ops compute them, and
-`pp_fused`'s bitwise parity with its plain version depends on it.  The
-stem and span kernels are held to 2e-4, not bitwise, and contract to FMA.
+operations, as XLA and PyTorch's elementwise ops compute them, and the
+bitwise parity of `pp_fused` and `nms_keep` with their plain versions
+depends on it.  The stem and span kernels are held to 2e-4, not bitwise,
+and contract to FMA.
 `build_all` starts one `nvcc` per source, all at once.
 
 A failed build raises; nothing falls back to a plain version.
@@ -33,8 +34,9 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_ext")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
-SOURCE_FLAGS = {"pp_fused": ("--fmad=false",)}
-SOURCES = ("pp_fused", "stem_s2d", "span")
+SOURCE_FLAGS = {"pp_fused": ("--fmad=false",),
+                "nms_keep": ("--fmad=false",)}
+SOURCES = ("pp_fused", "stem_s2d", "span", "nms_keep")
 BUILD_TIMEOUT_S = 600
 
 _lock = threading.Lock()

@@ -23,9 +23,14 @@ run their plain PyTorch version, `stem_s2d_reference` / `span_reference`,
 only on a CPU tensor.  Each counts its kernel launches in `.launches`.
 
 The TPU's lane grouping (`_pick_group`, `_LANE_BUDGET`) is a VMEM rule and
-is not ported.  Not ported yet: `input_format="nhwc"`, `"s2d8_u8"` (B10),
-`fuse_s2=True` (B9), the row-chunked stem for inputs above 8192 s2d lanes
-(B6), bf16 and the anchor-free head (ROADMAP A8, A14).
+is not ported.  Nor is the row-chunked stem (`_stem_call_chunked`, B6):
+the JAX package splits inputs above 8192 s2d lanes (640²: 25,600) into
+row chunks with a one-row halo because one image's stem must fit in
+VMEM.  `stem_s2d`'s CUDA grid already tiles 8×8 pooled cells at any
+h/4 × w/4, with a halo of its own, and its shared memory does not grow
+with the image, so one launch serves every size; `span` tiles any h × w
+likewise.  Not ported yet: `input_format="nhwc"`, `"s2d8_u8"` (B10),
+`fuse_s2=True` (B9), bf16 and the anchor-free head (ROADMAP A8, A14).
 """
 
 from __future__ import annotations
@@ -41,7 +46,6 @@ from fastdet_torch import resolve_device
 from fastdet_torch.kernels import _build
 from fastdet_torch.kernels.fold import STAGES, pack_fused_weights
 
-STEM_LANE_BUDGET = 8192   # the JAX package's unchunked-stem bound (B6 above)
 SPAN_CHANNELS = (48, 96, 192)
 
 
@@ -321,10 +325,6 @@ def build_fused_forward(state_dict, input_hw: Tuple[int, int] = (352, 352),
     if ih % 32 or iw % 32:
         raise ValueError(f"input {input_hw} must be a multiple of 32")
     npad = _pad128(h4 * w4)
-    if npad > STEM_LANE_BUDGET:
-        raise NotImplementedError(
-            f"fastdet_torch: {npad} s2d lanes > {STEM_LANE_BUDGET} need the "
-            "row-chunked stem (kernel B6, _stem_call_chunked), not ported")
     dev = resolve_device(device)
     packed = _device_weights(pack_fused_weights(state_dict), dev)
 

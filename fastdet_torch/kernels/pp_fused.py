@@ -27,6 +27,7 @@ import ctypes
 import torch
 
 from fastdet_torch.kernels import _build
+from fastdet_torch.ops.decode import decode_ranked
 from fastdet_torch.ops.nms import keep_mask
 
 MAX_K = 384   # the kernel's window bound (shared-memory overlap bitmask)
@@ -35,20 +36,9 @@ MAX_K = 384   # the kernel's window bound (shared-memory overlap bitmask)
 def rank_decode_nms_reference(neg_k, combo_k, regs, geo, *, nc: int,
                               iou_thres: float):
     """Plain PyTorch version of the kernel, any k, any device: gather,
-    decode in the JAX package's operation order (fastdet/ops/
-    postprocess.py staged decode), then `ops.nms.keep_mask`."""
-    combo = combo_k.long()
-    idx, cls = combo // nc, combo % nc
-    r = torch.gather(regs, 1, idx[..., None].expand(-1, -1, 4))
-    g = geo[idx]                                          # (B,k,8)
-    s = torch.sigmoid(r)
-    x = (s[..., 0] * 2.0 - 0.5 + g[..., 0]) * g[..., 2]
-    y = (s[..., 1] * 2.0 - 0.5 + g[..., 1]) * g[..., 2]
-    tw = s[..., 2] * 2.0
-    th = s[..., 3] * 2.0
-    w = tw * tw * g[..., 3]
-    h = th * th * g[..., 4]
-    boxes = torch.stack([x - w / 2, y - h / 2, x + w / 2, y + h / 2], dim=-1)
+    decode in the JAX package's operation order (`ops.decode.
+    decode_ranked`, the staged decode), then `ops.nms.keep_mask`."""
+    boxes, cls = decode_ranked(combo_k, regs, geo, nc=nc)
     return keep_mask(boxes, cls, neg_k < 0, iou_thres=iou_thres), boxes
 
 

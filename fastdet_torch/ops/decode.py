@@ -51,3 +51,28 @@ def decode_outputs(outputs: Sequence[torch.Tensor], anchors: torch.Tensor,
         stride = input_hw[0] / reg.shape[1]
         per_scale.append(decode_scale(reg, obj, cls, anchors[s], stride))
     return torch.cat(per_scale, dim=1)
+
+
+def decode_ranked(combo_k: torch.Tensor, regs: torch.Tensor,
+                  geo: torch.Tensor, *, nc: int):
+    """The staged decode of a ranked window (fastdet/ops/postprocess.py's
+    staged path, in its operation order): gather each candidate's raw reg
+    logits and geometry row, then decode.
+
+    combo_k (B,k) int = idx·nc + cls; regs (B,N,4) raw logits; geo (N,8)
+    rows [cell x, cell y, stride, anchor w, anchor h, 0, 0, 0] (see
+    ops/postprocess.py::_geo_table) → (boxes (B,k,4) f32 xyxy, cls (B,k)
+    int64)."""
+    combo = combo_k.long()
+    idx, cls = combo // nc, combo % nc
+    r = torch.gather(regs, 1, idx[..., None].expand(-1, -1, 4))
+    g = geo[idx]                                          # (B,k,8)
+    s = torch.sigmoid(r)
+    x = (s[..., 0] * 2.0 - 0.5 + g[..., 0]) * g[..., 2]
+    y = (s[..., 1] * 2.0 - 0.5 + g[..., 1]) * g[..., 2]
+    tw = s[..., 2] * 2.0
+    th = s[..., 3] * 2.0
+    w = tw * tw * g[..., 3]
+    h = th * th * g[..., 4]
+    boxes = torch.stack([x - w / 2, y - h / 2, x + w / 2, y + h / 2], dim=-1)
+    return boxes, cls

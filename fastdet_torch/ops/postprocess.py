@@ -1,8 +1,7 @@
 """Decode + NMS on the raw head outputs (counterpart of
 fastdet/ops/postprocess.py).
 
-`postprocess` is the JAX package's top-k-first chain as it runs on the
-serving path:
+`postprocess` is the JAX package's top-k-first chain:
 
   1. per scale, score = sigmoid(obj) · max_c softmax(cls) and its argmax
      class, flattened in (h, w, anchor) order, stride-16 scale first;
@@ -10,17 +9,20 @@ serving path:
   2. the ranking sort.  The JAX package sorts the two keys
      (−ranked, combo = idx·nc + cls); `combo` ascends with the index, so
      a stable sort of −ranked is the same order;
-  3. the top `max_nms` candidates go through `rank_decode_nms` (gather,
-     decode, class-aware greedy NMS; the hand-written CUDA kernel on the
-     card, its plain version on the CPU);
+  3. the top k = min(`max_nms`, N) candidates.  For k ≤ `MAX_K` (384,
+     the serving windows) they go through `rank_decode_nms` (gather,
+     decode, class-aware greedy NMS in one kernel).  Wider windows (the
+     eval windows, 1,024 and 1,815 at 352²) take the staged path: the
+     gather and decode in PyTorch (`ops.decode.decode_ranked`), validity
+     score > 0, then `keep_mask_batch` (the `nms_keep` kernel);
   4. `compact_ranked` moves kept rows to the front.
 
-On CUDA a window wider than the kernel's `MAX_K` (384) raises
-`NotImplementedError`: the JAX package runs such windows through the TPU
-kernels `keep_mask_batch` and `_suppress_call_tiled`
-(fastdet/kernels/nms_kernel.py), which are not ported yet.  The TPU
-path's `n·nc < 2²³` guard protects only its f32 index carry; the CUDA
-kernel divides integers and needs no such bound.
+The hand-written CUDA kernels run on the card; on the CPU their plain
+versions.  The JAX package also sends k % 128 ≠ 0 and 640² windows to its
+staged path, because of TPU VMEM caps (fastdet/ops/postprocess.py:175-178);
+both paths give the same output, so the port splits at `MAX_K` alone.
+The TPU path's `n·nc < 2²³` guard protects only its f32 index carry; the
+CUDA kernel divides integers and needs no such bound.
 
 `postprocess_dense` (decode everything, then `batched_nms`) is the
 semantics oracle.
@@ -36,9 +38,10 @@ import torch
 
 from fastdet_torch import disable_tf32, resolve_device
 from fastdet_torch.config import Config
-from fastdet_torch.kernels.nms_kernel import compact_ranked
+from fastdet_torch.kernels.nms_kernel import (compact_ranked,
+                                              suppress_ranked_batch)
 from fastdet_torch.kernels.pp_fused import MAX_K, rank_decode_nms
-from fastdet_torch.ops.decode import decode_outputs
+from fastdet_torch.ops.decode import decode_outputs, decode_ranked
 from fastdet_torch.ops.nms import batched_nms
 
 
@@ -124,18 +127,18 @@ def postprocess(outputs, anchors, input_hw, *, conf_thres=0.3,
     n = ranked.shape[1]
     k = min(max_nms, n)
     nc = outputs[2].shape[-1]
-    if ranked.is_cuda and k > MAX_K:
-        raise NotImplementedError(
-            f"fastdet_torch: an NMS window of {k} > {MAX_K} on CUDA needs the "
-            "TPU kernels keep_mask_batch / _suppress_call_tiled "
-            "(fastdet/kernels/nms_kernel.py), which are not ported yet")
     neg_k, combo_k = rank_topk(ranked, cls_f, nc=nc, k=k)
     geo = _geo_table(meta, tuple(_anchors_array(anchors).ravel().tolist()),
                      str(ranked.device))
-    keep, boxes_k = rank_decode_nms(neg_k, combo_k, reg_f, geo, nc=nc,
-                                    iou_thres=iou_thres)
-    return compact_ranked(keep, boxes_k, -neg_k, combo_k % nc,
-                          max_det=max_det)
+    if k <= MAX_K:
+        keep, boxes_k = rank_decode_nms(neg_k, combo_k, reg_f, geo, nc=nc,
+                                        iou_thres=iou_thres)
+        return compact_ranked(keep, boxes_k, -neg_k, combo_k % nc,
+                              max_det=max_det)
+    score_k = -neg_k
+    boxes_k, cls_k = decode_ranked(combo_k, reg_f, geo, nc=nc)
+    return suppress_ranked_batch(boxes_k, score_k, cls_k, score_k > 0,
+                                 iou_thres=iou_thres, max_det=max_det)
 
 
 def build_detect_fn(model, cfg: Config, *, conf_thres=0.3, iou_thres=0.45,

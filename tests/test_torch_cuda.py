@@ -1,6 +1,7 @@
 """Card tests of the port: the CUDA kernels against their plain versions,
-the wrappers' checks, the CUDA dispatch rules, and the pipelines on the
-card.  They skip where there is no NVIDIA card.  The
+the wrappers' checks, the CUDA dispatch rules (k ≤ 384 through
+rank_decode_nms, wider windows through nms_keep), and the pipelines on
+the card.  They skip where there is no NVIDIA card.  The
 file imports no JAX, so that it runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -12,12 +13,14 @@ import torch
 
 from fastdet_torch.config import Config
 from fastdet_torch.io import load_state_dict
-from fastdet_torch.kernels import fold, fused_infer, pp_fused
+from fastdet_torch.kernels import fold, fused_infer, nms_kernel, pp_fused
 from fastdet_torch.models import Detector
+from fastdet_torch.ops import nms
 from fastdet_torch.ops.postprocess import postprocess
 from fastdet_torch.serve import DevicePipeline, FusedPipeline
-from torch_cases import (ANCHORS, BOX_ULPS_CARD, IOU, NC, box_ulps,
-                         make_inputs, port_geo)
+from torch_cases import (ANCHORS, BOX_ULPS_CARD, IOU, NC, box_ulps, crowded,
+                         head_outputs, make_inputs, port_geo,
+                         staged_reference)
 
 pytestmark = pytest.mark.cuda
 
@@ -48,13 +51,59 @@ def test_kernel_matches_plain(card, b, k, case):
     assert 0 < int(keep.sum()) < int((args[0] < 0).sum())
 
 
-def test_window_over_kernel_bound_raises(card):
-    outs = [torch.zeros(1, 22, 22, 12), torch.zeros(1, 22, 22, 3),
-            torch.zeros(1, 22, 22, NC), torch.zeros(1, 11, 11, 12),
-            torch.zeros(1, 11, 11, 3), torch.zeros(1, 11, 11, NC)]
-    outs = [o.to(card) for o in outs]
-    with pytest.raises(NotImplementedError, match="keep_mask_batch"):
-        postprocess(outs, ANCHORS, (352, 352), max_nms=512)
+def test_wide_window_goes_through_nms_keep(card):
+    """k > MAX_K on the card takes the staged path: one nms_keep launch, no
+    rank_decode_nms, and the plain staged chain's output bit for bit."""
+    outs = [torch.from_numpy(o).to(card) for o in head_outputs(11, b=4)]
+    for max_nms in (385, 1024, 2048):
+        kw = dict(conf_thres=0.01, iou_thres=0.4, max_nms=max_nms)
+        before = (nms_kernel.keep_mask_batch.launches,
+                  pp_fused.rank_decode_nms.launches)
+        dets, counts = postprocess(outs, ANCHORS, (352, 352), **kw)
+        assert (nms_kernel.keep_mask_batch.launches,
+                pp_fused.rank_decode_nms.launches) == (before[0] + 1,
+                                                       before[1])
+        want, n = staged_reference(outs, ANCHORS, (352, 352), **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(counts, n) and int(counts.min()) > 0
+        assert torch.equal(dets, want)
+
+
+# ------------------------------------------------ the staged NMS (B4, B5)
+
+@pytest.mark.parametrize("b", [1, 8, 32])
+@pytest.mark.parametrize("k", [385, 512, 1024, 1815, 2048])
+def test_nms_keep_matches_plain(card, b, k):
+    """Bitwise: the kernel's IoU is the plain version's op for op."""
+    boxes, score, cls, valid = (torch.from_numpy(a).to(card)
+                                for a in crowded(k + b, b, k))
+    before = nms_kernel.keep_mask_batch.launches
+    keep = nms_kernel.keep_mask_batch(boxes, cls, valid, iou_thres=0.4)
+    assert nms_kernel.keep_mask_batch.launches == before + 1
+    want = nms_kernel.keep_mask_batch_reference(boxes, cls, valid,
+                                                iou_thres=0.4)
+    torch.cuda.synchronize()
+    assert torch.equal(keep, want)
+    assert 0 < int(keep.sum()) < int(valid.sum())
+    det, n = nms_kernel.suppress_ranked_batch(boxes, score, cls, valid,
+                                              iou_thres=0.4, max_det=300)
+    wdet, wn = nms.suppress_ranked(boxes, score, cls, valid, iou_thres=0.4,
+                                   max_det=300)
+    assert torch.equal(n, wn) and torch.equal(det, wdet)
+
+
+def test_nms_keep_wrapper_checks_its_inputs(card):
+    boxes, _, cls, valid = (torch.from_numpy(a).to(card)
+                            for a in crowded(0, 2, 100))
+    nms_kernel.keep_mask_batch(boxes, cls.int(), valid, iou_thres=0.4)
+    for bad in ((boxes.double(), cls, valid), (boxes[..., :3], cls, valid),
+                (boxes, cls.float(), valid), (boxes, cls, valid.byte()),
+                (boxes, cls, valid.cpu()), (boxes[:, :50], cls, valid)):
+        with pytest.raises(ValueError, match="keep_mask_batch"):
+            nms_kernel.keep_mask_batch(*bad, iou_thres=0.4)
+    empty = nms_kernel.keep_mask_batch(boxes[:, :0], cls[:, :0],
+                                       valid[:, :0], iou_thres=0.4)
+    assert tuple(empty.shape) == (2, 0)
 
 
 def test_device_pipeline_card_matches_cpu(card):

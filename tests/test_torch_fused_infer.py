@@ -155,6 +155,51 @@ def test_stem_reference_matches_jax_stem_call(size):
                                rtol=0, atol=STEM_ATOL)
 
 
+def test_stem_reference_matches_jax_chunked_stem(monkeypatch):
+    """B6: the JAX package's row-chunked stem (`_stem_call_chunked`, for
+    inputs above its 8192-lane budget) against the port's one stem, which
+    serves every size.  The lane budget is shrunk to force 8 chunks at
+    128×96 (h/4 = 32, w/4 = 24), as tests/test_fused_kernels.py does."""
+    monkeypatch.setattr(jfi, "_STEM_LANE_BUDGET", 200)
+    jp = _jax_packed()
+    ih, iw, b = 128, 96, 2
+    h4, w4 = ih // 4, iw // 4
+    assert jfi._stem_chunk_rows(h4, w4) == 4
+    imgs = np.random.default_rng(128).integers(0, 256, (b, ih, iw, 3),
+                                               dtype=np.uint8)
+    xs = fused_infer.pack_images_s2d(imgs)
+    w96, b96 = jfi.pack_stem_s2d(jp["stem_w"], jp["stem_b"])
+    want = np.asarray(jfi._stem_call_chunked(
+        jnp.asarray(xs), jnp.asarray(w96), jnp.asarray(b96), h4, w4,
+        jnp.float32, interpret=True))
+    w, bias = fused_infer.pack_stem_s2d(jp["stem_w"], jp["stem_b"])
+    got = fused_infer.stem_s2d_reference(
+        torch.from_numpy(xs), torch.from_numpy(w), torch.from_numpy(bias),
+        h4, w4)
+    np.testing.assert_allclose(got.reshape(b, 24, -1).numpy(), want,
+                               rtol=0, atol=STEM_ATOL)
+
+
+def test_fused_forward_640_matches_detector():
+    """B6 on the port's side: 640² (25,600 s2d lanes, over the JAX
+    package's 8192 budget) through the fused forward, B = 1."""
+    img = np.random.default_rng(640).integers(0, 256, (1, 640, 640, 3),
+                                              dtype=np.uint8)
+    fwd, packed = fused_infer.build_fused_forward(
+        _state_dict(), input_hw=(640, 640), device="cpu")
+    det = Detector()
+    det.load_state_dict(_state_dict())
+    det.eval()
+    with torch.inference_mode():
+        got = fwd(torch.from_numpy(fused_infer.pack_images_s2d(img)), packed)
+        want = det(torch.from_numpy(img).float() / 255.0)
+    assert [tuple(g.shape) for g in got] == [
+        (1, 40, 40, 12), (1, 40, 40, 3), (1, 40, 40, 80),
+        (1, 20, 20, 12), (1, 20, 20, 3), (1, 20, 20, 80)]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0, atol=ATOL)
+
+
 @pytest.mark.parametrize("stage", [2, 3, 4])
 @pytest.mark.parametrize("hw", [(8, 16), (5, 7)], ids=["no_pad", "pad"])
 def test_span_reference_matches_jax_span_call(stage, hw):
@@ -240,7 +285,6 @@ def test_fused_forward_matches_detector():
     ({"fuse_s2": True}, "B9"),
     ({"head": "anchorfree"}, "A8"),
     ({"dtype": torch.bfloat16}, "A1"),
-    ({"input_hw": (640, 640)}, "B6"),
 ])
 def test_unported_options_raise(kwargs, match):
     with pytest.raises(NotImplementedError, match=match):

@@ -26,7 +26,7 @@ from fastdet.ops.nms import suppress_ranked as jax_suppress_ranked
 from fastdet_torch.kernels.nms_kernel import compact_ranked
 from fastdet_torch.ops import nms
 from fastdet_torch.ops import postprocess as pp
-from torch_cases import BOX_ULPS_XLA, box_ulps
+from torch_cases import BOX_ULPS_XLA, box_ulps, head_outputs
 
 jpp = importlib.import_module("fastdet.ops.postprocess")
 
@@ -36,22 +36,6 @@ ANCHORS = np.asarray([12.64, 19.39, 37.88, 51.48, 55.71, 138.31, 126.91,
                       78.23, 131.57, 214.55, 279.92, 258.87],
                      np.float32).reshape(2, 3, 2)
 SCORE_ATOL = 1e-6
-
-
-def head_outputs(seed, b=2):
-    """Raw NHWC logits shaped like the Detector's.  obj is biased so that
-    a few hundred candidates per image pass conf 0.3, and classes 0-2
-    dominate so that same-class boxes overlap and suppress."""
-    rng = np.random.default_rng(seed)
-    cls_bias = np.zeros(NC, np.float32)
-    cls_bias[:3] = 6.0
-    outs = []
-    for h in (22, 11):
-        outs += [rng.normal(0, 1.5, (b, h, h, 12)).astype(np.float32),
-                 rng.normal(-1.0, 2.0, (b, h, h, 3)).astype(np.float32),
-                 rng.normal(0, 3.0, (b, h, h, NC)).astype(np.float32)
-                 + cls_bias]
-    return outs
 
 
 def jax_pp(outs, **kw):

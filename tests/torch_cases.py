@@ -1,5 +1,6 @@
-"""Shared seeded inputs of the port's rank→decode→NMS tests (imports no
-JAX, so that the card tests can use it on a machine without JAX).
+"""Shared seeded inputs of the port's postprocess and NMS tests, and the
+plain staged chain (imports no JAX, so that the card tests and
+chip_smoke.py can use it on a machine without JAX).
 
 Box tolerances are |Δ| in units in the last place (ULPs) of the box's
 largest |coordinate|:
@@ -25,6 +26,22 @@ ANCHORS = np.asarray([12.64, 19.39, 37.88, 51.48, 55.71, 138.31, 126.91,
 IOU = 0.45
 BOX_ULPS_XLA = 8
 BOX_ULPS_CARD = 2
+
+
+def head_outputs(seed, b=2):
+    """Raw NHWC logits shaped like the Detector's.  obj is biased so that
+    a few hundred candidates per image pass conf 0.3, and classes 0-2
+    dominate so that same-class boxes overlap and suppress."""
+    rng = np.random.default_rng(seed)
+    cls_bias = np.zeros(NC, np.float32)
+    cls_bias[:3] = 6.0
+    outs = []
+    for h in (22, 11):
+        outs += [rng.normal(0, 1.5, (b, h, h, 12)).astype(np.float32),
+                 rng.normal(-1.0, 2.0, (b, h, h, 3)).astype(np.float32),
+                 rng.normal(0, 3.0, (b, h, h, NC)).astype(np.float32)
+                 + cls_bias]
+    return outs
 
 
 def make_inputs(seed, b, k, case):
@@ -63,6 +80,56 @@ def box_ulps(a, b):
     return np.abs(a.astype(np.float64) - b) / np.spacing(scale)
 
 
-
 def port_geo(device="cpu"):
     return _geo_table(META, tuple(ANCHORS.ravel().tolist()), device)
+
+
+def crowded(seed, b, k):
+    """Seeded crowded field for the staged NMS (the field of
+    tests/test_postprocess.py's tiled-kernel test): (boxes (B,k,4) f32
+    xyxy within 145 px, score (B,k) f32 descending with −1 where invalid,
+    cls (B,k) int64 in 0-2, valid (B,k) bool, ~10% False).  Each image's
+    lowest-ranked valid candidate scores 0: validity, not the score,
+    makes a candidate eligible."""
+    rng = np.random.RandomState(seed)
+    cxy = rng.rand(b, k, 2).astype(np.float32) * 120
+    wh = rng.rand(b, k, 2).astype(np.float32) * 50 + 10
+    boxes = np.concatenate([cxy - wh / 2, cxy + wh / 2], -1)
+    score = np.sort(rng.rand(b, k).astype(np.float32))[:, ::-1].copy()
+    cls = rng.randint(0, 3, (b, k)).astype(np.int64)
+    valid = rng.rand(b, k) > 0.1
+    score = np.where(valid, score, -1.0).astype(np.float32)
+    last = k - 1 - np.argmax(valid[:, ::-1], axis=1)
+    score[np.arange(b), last] = 0.0
+    return boxes, score, cls, valid
+
+
+def staged_window(outputs, anchors, input_hw, *, conf_thres, max_nms):
+    """The staged postprocess up to its NMS, from its plain pieces
+    (ranking, window, `decode_ranked`), on the outputs' device.
+    → (boxes_k (B,k,4) xyxy, score_k (B,k), cls_k (B,k) int64)."""
+    from fastdet_torch.ops.decode import decode_ranked
+    from fastdet_torch.ops.postprocess import rank_scores, rank_topk
+    ranked, reg_f, cls_f, meta = rank_scores(outputs, input_hw, conf_thres)
+    nc = outputs[2].shape[-1]
+    neg_k, combo_k = rank_topk(ranked, cls_f, nc=nc,
+                               k=min(max_nms, ranked.shape[1]))
+    geo = _geo_table(meta, tuple(np.asarray(anchors, np.float32).ravel()
+                                 .tolist()), str(ranked.device))
+    boxes_k, cls_k = decode_ranked(combo_k, reg_f, geo, nc=nc)
+    return boxes_k, -neg_k, cls_k
+
+
+def staged_reference(outputs, anchors, input_hw, *, conf_thres, iou_thres,
+                     max_nms, max_det=300):
+    """The staged postprocess composed from its plain pieces
+    (`staged_window`, validity score > 0, `keep_mask_batch_reference`,
+    `compact_ranked`), on the outputs' device: what `postprocess` computes
+    for a window wider than `MAX_K`, with no kernel."""
+    from fastdet_torch.kernels.nms_kernel import (compact_ranked,
+                                                  keep_mask_batch_reference)
+    boxes_k, score_k, cls_k = staged_window(
+        outputs, anchors, input_hw, conf_thres=conf_thres, max_nms=max_nms)
+    keep = keep_mask_batch_reference(boxes_k, cls_k, score_k > 0,
+                                     iou_thres=iou_thres)
+    return compact_ranked(keep, boxes_k, score_k, cls_k, max_det=max_det)
