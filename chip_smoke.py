@@ -5,12 +5,13 @@ the port still starts on the GPU).
     python3 chip_smoke.py
 
 Run from the repository root on a machine with a CUDA card.  It builds the
-port's four CUDA kernels from `fastdet_torch/csrc/` (one nvcc each, in
-parallel), holds each against its plain PyTorch version, checks the
+port's five CUDA sources from `fastdet_torch/csrc/` (one nvcc each, in
+parallel), holds each kernel against its plain PyTorch version, checks the
 weights and both forwards, serves real requests through `InferenceServer`
 over `DevicePipeline` and over `FusedPipeline` and checks the answers,
 evaluates seeded labelled photos through the eval entry point in both of
-its modes, and serves 640² through `FusedPipeline`.
+its modes, serves 640² through `FusedPipeline`, and trains at full width
+through the training entry point on both of its paths.
 One line per phase; any failed check ends the run with a non-zero exit.
 Without a card, or outside the repository, it exits non-zero and prints
 no result.
@@ -46,10 +47,20 @@ Phases:
      forward outputs, images/s; nms_keep timed at b128, k = 512 and 1815;
   7b. 640²: stem_s2d and span against their plain versions there, and
      FusedPipeline against DevicePipeline on 8 photo variants;
+  8a. span_train (B8) forward and backward against their plain versions
+     at the three stages at b128 352², at b1, and at small geometries
+     with ghost group < batch; times, bounds and the cuDNN blocks'
+     training-mode times at b128;
+  8b. training: `fastdet_torch.cli.train.run_training`, 4 steps at b128
+     352² from the reference weights, default path and --fused-backbone
+     (B8's launches counted over the fused run); the fused step with the
+     kernels against the fused step with the plain spans, and against the
+     default step at b2; ms/step, img/s and a profile of both modes;
   6. the kernel summary (a JSON line: launches of stem_s2d, span and
      rank_decode_nms from the fused serving path, of nms_keep from the
-     eval path, of stem_s2d at 640² from FusedPipeline there), the card
-     line, and the last line {"ok": true, "device": {...}}.
+     eval path, of stem_s2d at 640² from FusedPipeline there, of
+     span_train_fwd/bwd from the fused training run), the card line, and
+     the last line {"ok": true, "device": {...}}.
 
 The last-but-one lines and the last line are read by tools; keep them.
 """
@@ -655,13 +666,13 @@ def phase_fused_serving(sd, dev_pipe, images):
     return pipe, launches
 
 
-def profile_fused(pipe, images, calls: int = 5):
-    """torch.profiler over `calls` b128 batches of `pipe.detect`: device
-    time by kernel and the device's busy share of the window (the window
-    measured by CUDA events around the same calls)."""
+def profile_device(fn, what: str, calls: int = 5, top: int = 12):
+    """torch.profiler over `calls` calls of fn(): device time by kernel
+    and the device's busy share of the window (the window measured by
+    CUDA events around the same calls)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    pipe.detect(images)
+    fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -669,7 +680,7 @@ def profile_fused(pipe, images, calls: int = 5):
                              ProfilerActivity.CUDA]) as prof:
         start.record()
         for _ in range(calls):
-            pipe.detect(images)
+            fn()
         end.record()
         torch.cuda.synchronize()
     window_us = start.elapsed_time(end) * 1e3
@@ -682,11 +693,11 @@ def profile_fused(pipe, images, calls: int = 5):
     if not dev:
         log("  profile: the profiler saw no device time (not measured)")
         return
-    log(f"  profile of {calls} fused b128 batches (torch.profiler): device "
-        f"busy {busy_us / calls / 1e3:.3f} ms of {window_us / calls / 1e3:.3f}"
-        f" ms per batch, idle share {1 - busy_us / window_us:.3f}; by "
-        f"kernel, ms per batch:")
-    for key, t in dev[:12]:
+    log(f"  profile of {calls} {what} (torch.profiler): device busy "
+        f"{busy_us / calls / 1e3:.3f} ms of {window_us / calls / 1e3:.3f} ms "
+        f"per call, idle share {1 - busy_us / window_us:.3f}; by kernel, ms "
+        f"per call:")
+    for key, t in dev[:top]:
         log(f"    {t / calls / 1e3:.4f}  {100 * t / busy_us:5.1f}%  "
             f"{key[:90]}")
 
@@ -728,7 +739,7 @@ def phase_fused_timing(sd, dev_pipe, fused_pipe, big, card):
             f"{', '.join(f'{x:.3f}' for x in dev_ms[k])} ms), "
             f"{128e3 / host_ms[k]:.1f} img/s host to host")
 
-    profile_fused(fused_pipe, big_s2d)
+    profile_device(lambda: fused_pipe.detect(big_s2d), "fused b128 batches")
     out = {}
     with torch.inference_mode():
         cum = {}
@@ -1121,6 +1132,309 @@ def phase_640(sd, photo, card):
     return counts["stem_s2d"], b6
 
 
+# ------------------------------------------------ training (phase 8)
+
+def span_train_bound(b, c, h, w, nblk, g):
+    """B8 at one stage: forward and backward bounds → ((ms, by), (ms, by)).
+    Forward: x read once, out and the nblk saved block inputs and the
+    stats written once, the weights read once; 2 operations per MAC of
+    the three convs, (C/2)²·2 + 9·C/2 MACs per pixel and block.
+    Backward: dy, the saved inputs, the stats and the weights read once,
+    dx and the weight gradients written once; 3× the forward's operations
+    (the recomputed forward, the input gradients and the weight
+    gradients, each the same MAC count)."""
+    mid = c // 2
+    act = b * c * h * w
+    nstats = nblk * 3 * (b // g) * 3 * mid
+    nw = nblk * (2 * mid * mid + 15 * mid)
+    ops = nblk * b * h * w * 2 * (2 * mid * mid + 9 * mid)
+    fwd = bound(4 * (2 * act + nblk * act + nstats + nw), ops)
+    bwd = bound(4 * (2 * act + nblk * act + nstats + 2 * nw), 3 * ops)
+    return fwd, bwd
+
+
+def phase_span_train(sd, card):
+    """8a: B8's forward and backward kernels against their plain versions
+    on the card: the three stages at b128 352² (the real weights of the
+    span blocks), at b1, and small geometries with group < batch.  The
+    backward kernel and the plain backward get the same dy, xsave and
+    stats, so their recomputed ReLU masks are the same bit for bit (both
+    compute without FMA, in the same order); the gradients are held per
+    leaf to 1e-4·max|ref| + 1e-4 (`span_train_grad_errs`).  Times at b128
+    (CUDA events): kernels, plain versions, the bounds, and as yardstick
+    the Detector's cuDNN stride-1 blocks in training mode, forward and
+    forward + backward.  → {"fwd"/"bwd": (ms, plain_ms, bound_ms,
+    bound_by, max |Δ|, library_ms)} summed over the three stages."""
+    import torch
+    from torch_cases import (SPAN_TRAIN_B1, SPAN_TRAIN_FULL,
+                             SPAN_TRAIN_SMALL, span_train_case,
+                             span_train_grad_errs)
+    from fastdet_torch.kernels import fused_train as ft
+    from fastdet_torch.kernels.fold import STAGES
+    from fastdet_torch.models import Detector
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    det = Detector(80, 3)
+    det.load_state_dict(sd)
+    det = det.cuda().train()
+    reps = {c: (stage, r) for stage, r, c in STAGES}
+    tot = {k: [0.0, 0.0, 0.0, 0.0, 0.0, 0.0] for k in ("fwd", "bwd")}
+    by_bytes = {"fwd": [0.0, 0.0], "bwd": [0.0, 0.0]}
+    for case in SPAN_TRAIN_FULL + SPAN_TRAIN_B1 + SPAN_TRAIN_SMALL:
+        b, c, h, w, nblk, g = case
+        x, rows, dy = span_train_case(sum(case), b, c, h, w, nblk, "cuda")
+        full = (h, w) in ((44, 44), (22, 22), (11, 11))
+        if full:
+            stage, r = reps[c]
+            blocks = [getattr(det.backbone, f"stage{stage}_{i}")
+                      for i in range(1, r)]
+            rows = ft.pack_span_train_weights(blocks).detach().contiguous()
+            check(ft.pick_train_group(b, (h * w + 127) // 128 * 128, c) == g,
+                  f"ghost group of {case}")
+        out, xsave, stats = ft.span_train_forward(x, rows, g)
+        ref = ft.span_train_forward_reference(x, rows, g)
+        torch.cuda.synchronize()
+        f_err = 0.0
+        # the stats one kind at a time (μ, σinv, var have other scales)
+        pairs = list(zip(("out", "xsave"), (out, xsave), ref[:2])) + [
+            (kind, stats[:, :, :, j], ref[2][:, :, :, j])
+            for j, kind in enumerate(("mean", "sinv", "var"))]
+        for name, got, want in pairs:
+            e = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            check(e <= 2e-4 * scale, f"B8 forward {name} {e} off "
+                  f"(scale {scale}) at {case}")
+            f_err = max(f_err, e)
+        dx, drows = ft.span_train_backward(dy, xsave, stats, rows, g)
+        rdx, rdrows = ft.span_train_backward_reference(dy, xsave, stats,
+                                                       rows, g)
+        torch.cuda.synchronize()
+        errs = span_train_grad_errs(dx, drows, rdx, rdrows)
+        bad = [e for e in errs if e[1] > e[2]]
+        check(not bad, f"B8 backward off at {case}: {bad[:4]}")
+        b_err = max(e[1] for e in errs)
+        dx2, drows2 = ft.span_train_backward(dy, xsave, stats, rows, g)
+        check(torch.equal(dx, dx2) and torch.equal(drows, drows2),
+              f"B8 backward not deterministic at {case}")
+        msg = (f"  span_train b={b} C={c} {h}x{w} nblk={nblk} g={g}: "
+               f"forward max |Δ| {f_err:.3g}, backward max |Δ| {b_err:.3g} "
+               f"(worst leaf {max(errs, key=lambda e: e[1] / e[2])[0]})")
+        if not (full and b == 128):
+            log(msg)
+            tot["fwd"][4] = max(tot["fwd"][4], f_err)
+            tot["bwd"][4] = max(tot["bwd"][4], b_err)
+            continue
+        ms_f = cuda_ms(lambda: ft.span_train_forward(x, rows, g), 10)
+        ms_b = cuda_ms(lambda: ft.span_train_backward(dy, xsave, stats,
+                                                      rows, g), 10)
+        pl_f = cuda_ms(lambda: ft.span_train_forward_reference(x, rows, g),
+                       2, 1)
+        pl_b = cuda_ms(lambda: ft.span_train_backward_reference(
+            dy, xsave, stats, rows, g), 2, 1)
+        seq = torch.nn.Sequential(*blocks)
+        xg = x.clone().requires_grad_()
+        lib_f = cuda_ms(lambda: seq(xg), 10)
+        lib_fb = cuda_ms(lambda: seq(xg).backward(dy), 10)
+        (bf, byf), (bb, byb) = span_train_bound(b, c, h, w, nblk, g)
+        for k, vals in (("fwd", (ms_f, pl_f, bf, f_err, lib_f)),
+                        ("bwd", (ms_b, pl_b, bb, b_err, lib_fb - lib_f))):
+            t = tot[k]
+            t[0] += vals[0]
+            t[1] += vals[1]
+            t[2] += vals[2]
+            t[4] = max(t[4], vals[3])
+            t[5] += vals[4]
+        by_bytes["fwd"][0 if byf == "bytes" else 1] += bf
+        by_bytes["bwd"][0 if byb == "bytes" else 1] += bb
+        log(msg + f"; kernels fwd {ms_f:.4f} ms, bwd {ms_b:.4f} ms; plain "
+            f"fwd {pl_f:.3f} ms, bwd {pl_b:.3f} ms; bound fwd {bf:.4f} ms "
+            f"({byf}), bwd {bb:.4f} ms ({byb}); cuDNN blocks (training "
+            f"mode) fwd {lib_f:.4f} ms, fwd+bwd {lib_fb:.4f} ms")
+    out = {}
+    for k in ("fwd", "bwd"):
+        t = tot[k]
+        out[k] = (t[0], t[1], t[2], "bytes" if by_bytes[k][0] >=
+                  by_bytes[k][1] else "operations", t[4], t[5])
+    log(f"phase 8a span_train: B8 forward and backward within bounds of "
+        f"their plain versions at {len(SPAN_TRAIN_FULL + SPAN_TRAIN_B1 + SPAN_TRAIN_SMALL)} "
+        f"shapes; b128 352² over the 3 stages ({card}): forward "
+        f"{out['fwd'][0]:.4f} ms (bound {out['fwd'][2]:.4f}, plain "
+        f"{out['fwd'][1]:.3f}, cuDNN {out['fwd'][5]:.4f}), backward "
+        f"{out['bwd'][0]:.4f} ms (bound {out['bwd'][2]:.4f}, plain "
+        f"{out['bwd'][1]:.3f}, cuDNN {out['bwd'][5]:.4f})")
+    return out
+
+
+def state_diff(a, b):
+    """Largest per-tensor max|Δ| / max|ref| between two state dicts."""
+    return max(float((x - b[k]).abs().max())
+               / max(float(b[k].abs().max()), 1e-30) for k, x in a.items())
+
+
+def running_stats_diff(a, b):
+    """Per BN: max|Δ running_mean| over the largest running std, and
+    max|Δ running_var| over the largest running var; the worst.  (The
+    running means of a BN that follows a BN sit near 0, ~1e-8 here,
+    and have no scale of their own.)"""
+    worst = 0.0
+    for k in b:
+        if k.endswith("running_mean"):
+            kv = k[:-len("mean")] + "var"
+            std = float(b[kv].clamp(min=0).sqrt().max())
+            worst = max(worst, float((a[k] - b[k]).abs().max()) / std,
+                        float((a[kv] - b[kv]).abs().max())
+                        / float(b[kv].abs().max()))
+    return worst
+
+
+def phase_training(sd, photo, dev_pipe, card, b8):
+    """8b: training at full width through `cli.train.run_training`:
+    Yolo-FastestV2, 80 classes, 352², b128 (the `.data` file's batch),
+    from the reference weights, on seeded photo variants with seeded
+    labels.  Per mode the counts go to 0 just before 4 steps and are read
+    just after; the losses are finite, the params move, the momentum
+    buffers fill.  The fused path with the kernels against the fused
+    path with the plain spans on the card, and the fused path against the
+    default path at b2 (ghost groups = batch at every stage), over 2
+    steps each.  Then ms per step and img/s of both modes (CUDA events,
+    median of 5 steps after 2 of warm-up) and B8's share of a fused
+    step.  → B8's launches per kernel over the fused run."""
+    import torch
+    from fastdet_torch.cli.train import run_training
+    from fastdet_torch.config import Config
+    from fastdet_torch.kernels import fused_train as ft
+    cfg = Config.from_file(DATA)
+    bsz, steps = cfg.batch_size, 4
+    images = photo_variants(photo, bsz, seed=21)
+    labels, mask = eval_labels(dev_pipe(images), seed=21)
+
+    def batches(epoch):
+        return [(images, labels, mask)] * steps
+
+    kernels = (ft.span_train_forward, ft.span_train_backward)
+    trainers, launches = {}, None
+    for mode in ("default", "fused"):
+        # ---- the main path: counts to 0, train, read the counts
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        tr = run_training(cfg, sd, batches, fused_backbone=mode == "fused",
+                          device="cuda", steps=steps, steps_per_epoch=1)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = [k.launches for k in kernels]
+        want = [3 * steps] * 2 if mode == "fused" else [0, 0]
+        check(counts == want, f"{mode}: B8 launches {counts}, want {want}")
+        if mode == "fused":
+            launches = counts
+        moved = state_diff({k: v for k, v in tr.model.state_dict().items()
+                            if "running" not in k},
+                           {k: v.cuda() for k, v in sd.items()
+                            if "running" not in k})
+        bufs = [s["momentum_buffer"] for s in tr.optimizer.state.values()]
+        check(moved > 0, f"{mode}: params did not move")
+        check(len(bufs) == len(list(tr.model.parameters()))
+              and all(bool(torch.isfinite(b).all()) for b in bufs)
+              and max(float(b.abs().max()) for b in bufs) > 0,
+              f"{mode}: momentum buffers empty or non-finite")
+        m = tr.step(images, labels, mask)
+        vals = {k: float(v) for k, v in m.items()}
+        check(all(np.isfinite(v) for v in vals.values()),
+              f"{mode}: non-finite loss {vals}")
+        trainers[mode] = tr
+        log(f"phase 8b train {mode}: {steps} steps at b{bsz} 352² through "
+            f"run_training in {secs:.2f} s (host clock, first build "
+            f"included); params moved (max rel {moved:.3g}); step "
+            f"{steps}: LR:{vals['lr']:f} CIou:{vals['box']:f} "
+            f"Obj:{vals['obj']:f} Cls:{vals['cls']:f} "
+            f"Total:{vals['total']:f}; B8 launches {counts}")
+
+    def run(mode, imgs, lbl, msk, plain=False, n=2):
+        from fastdet_torch.models import Detector
+        from fastdet_torch.train.trainer import Trainer
+        model = Detector(80, 3)
+        model.load_state_dict(sd)
+        tr = Trainer(model, cfg, 1, fused_backbone=mode == "fused",
+                     device="cuda")
+        saved = ft.span_train_forward, ft.span_train_backward
+        if plain:
+            ft.span_train_forward = ft.span_train_forward_reference
+            ft.span_train_backward = ft.span_train_backward_reference
+        try:
+            losses = [float(tr.step(imgs, lbl, msk)["total"])
+                      for _ in range(n)]
+        finally:
+            ft.span_train_forward, ft.span_train_backward = saved
+        bufs = [tr.optimizer.state[p]["momentum_buffer"]
+                for p in tr.model.parameters()]
+        return losses, {k: v.clone() for k, v in
+                        tr.model.state_dict().items()}, bufs
+
+    for name, (a, b), args in (
+            ("fused kernels vs fused plain spans, b128",
+             (dict(mode="fused"), dict(mode="fused", plain=True)),
+             (images, labels, mask)),
+            ("fused vs default, b2", (dict(mode="fused"),
+                                      dict(mode="default")),
+             (images[:2], labels[:2], mask[:2]))):
+        la, sa, ba = run(a.pop("mode"), *args, **a)
+        lb, sb, bb = run(b.pop("mode"), *args, **b)
+        # the momentum buffers hold the two steps' gradients: the relative
+        # L2 distance over all of them, and the worst tensor's
+        num = sum(float(((x - y) ** 2).sum()) for x, y in zip(ba, bb))
+        den = sum(float((y ** 2).sum()) for y in bb)
+        g_worst = max(float((x - y).norm() / y.norm().clamp(min=1e-30))
+                      for x, y in zip(ba, bb))
+        loss_rel = max(abs(x - y) / abs(y) for x, y in zip(la, lb))
+        # params against the model's weight scale (many are near 0)
+        p_rel = (max(float((v - sb[k]).abs().max()) for k, v in sa.items()
+                     if "running" not in k)
+                 / max(float(v.abs().max()) for k, v in sb.items()
+                       if "running" not in k))
+        s_rel = running_stats_diff(sa, sb)
+        g_rel = float(np.sqrt(num / den))
+        log(f"  {name}: per-step loss rel {loss_rel:.3g} (≤ 1e-4); after 2 "
+            f"steps params max |Δ| {p_rel:.3g} of the largest weight (≤ "
+            f"1e-6), running stats {s_rel:.3g} (≤ 2e-4, see "
+            f"running_stats_diff); momentum buffers (the summed "
+            f"gradients) relative L2 {g_rel:.3g} over all (≤ 2e-3), worst "
+            f"tensor {g_worst:.3g}")
+        # each run recomputes its backward's ReLU masks from its own
+        # forward, whose stats differ in the last bits: masks flip where
+        # |BN(u)| is that small, hence the 2e-3 on the gradients
+        check(loss_rel <= 1e-4 and p_rel <= 1e-6 and s_rel <= 2e-4
+              and g_rel <= 2e-3,
+              f"{name}: losses {la} vs {lb} (rel {loss_rel:.3g}), params "
+              f"{p_rel:.3g}, running stats {s_rel:.3g}, gradients "
+              f"{g_rel:.3g}")
+
+    times = {}
+    for mode, tr in trainers.items():
+        for _ in range(2):
+            tr.step(images, labels, mask)
+        evs = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        evs[0].record()
+        for i in range(5):
+            tr.step(images, labels, mask)
+            evs[i + 1].record()
+        torch.cuda.synchronize()
+        per = sorted(evs[i].elapsed_time(evs[i + 1]) for i in range(5))
+        times[mode] = per[2]
+        log(f"  train step {mode} b{bsz} 352² ({card}): median "
+            f"{per[2]:.3f} ms of 5 (CUDA events, spread {per[0]:.3f}-"
+            f"{per[4]:.3f}), {bsz * 1e3 / per[2]:.1f} img/s")
+        profile_device(lambda: tr.step(images, labels, mask),
+                       f"{mode} b{bsz} train steps", calls=3, top=16)
+    b8_ms = b8["fwd"][0] + b8["bwd"][0]
+    log(f"phase 8b training: default {times['default']:.3f} ms/step "
+        f"({bsz * 1e3 / times['default']:.1f} img/s), fused "
+        f"{times['fused']:.3f} ms/step ({bsz * 1e3 / times['fused']:.1f} "
+        f"img/s); B8 (forward + backward, 3 stages, timed apart in 8a) "
+        f"{b8_ms:.3f} ms = {100 * b8_ms / times['fused']:.1f}% of a fused "
+        f"step ({card})")
+    return launches
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import torch
@@ -1155,6 +1469,8 @@ def main() -> int:
     log("phase 5 shutdown: server stopped, batcher closed, no threads left")
     eval_launches, eval_nms = phase_eval(sd, photo, dev_pipe, card)
     b6_launches, b6 = phase_640(sd, photo, card)
+    b8 = phase_span_train(sd, card)
+    b8_launches = phase_training(sd, photo, dev_pipe, card, b8)
     log('phase 6 kernels: ["stem_s2d", "span", "rank_decode_nms", '
         '"nms_keep"] (rank_decode_nms launches on the device path: '
         f'{launches}; nms_keep on the eval path: {eval_launches})')
@@ -1198,6 +1514,19 @@ def main() -> int:
         "launches": b6_launches, "max_abs_err": k_err, "ms": k_ms,
         "plain_ms": k_plain, "bound_ms": k_bound, "bound_by": k_by,
         "library_ms": None})
+    # B8: forward and backward, launches from the fused training run,
+    # times summed over the three stages of one b128 352² step
+    for (name, replaces), key, n in zip(
+            (("span_train_fwd", "fastdet/kernels/fused_train.py:329"),
+             ("span_train_bwd", "fastdet/kernels/fused_train.py:362")),
+            ("fwd", "bwd"), b8_launches):
+        k_ms, k_plain, k_bound, k_by, k_err, k_lib = b8[key]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "fastdet_torch/csrc/span_train.cu",
+            "replaces": replaces, "launches": n, "max_abs_err": k_err,
+            "ms": k_ms, "plain_ms": k_plain, "bound_ms": k_bound,
+            "bound_by": k_by, "library_ms": k_lib})
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -7,9 +7,9 @@ saturate host cores without multiprocess serialization overhead; a
 bounded prefetch queue keeps batches ready while the card computes.
 
 Batches are fixed-shape: (B,H,W,3) uint8 images plus (B, max_labels, 5)
-padded labels + (B, max_labels) mask (`pack_labels`, a copy of
-fastdet/train/targets.py::pack_labels; the dense loss of ROADMAP A9
-reads the same layout).
+padded labels + (B, max_labels) mask (`pack_labels`, whose one copy in
+the port lives in fastdet_torch/train/targets.py, which needs no cv2;
+the dense loss reads the same layout).
 """
 
 from __future__ import annotations
@@ -18,26 +18,12 @@ import queue
 import random
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterator, Optional, Sequence, Tuple
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
 from fastdet_torch.data.dataset import DarknetDataset
-
-
-def pack_labels(label_list: Sequence[np.ndarray], max_labels: int
-                ) -> Tuple[np.ndarray, np.ndarray]:
-    """Pack per-image label arrays (n_i, 5) [cls,cx,cy,w,h] into a
-    fixed-shape (B, max_labels, 5) tensor + (B, max_labels) mask."""
-    b = len(label_list)
-    out = np.zeros((b, max_labels, 5), np.float32)
-    mask = np.zeros((b, max_labels), bool)
-    for i, lab in enumerate(label_list):
-        lab = np.asarray(lab, np.float32).reshape(-1, 5)
-        n = min(len(lab), max_labels)
-        out[i, :n] = lab[:n]
-        mask[i, :n] = True
-    return out, mask
+from fastdet_torch.train.targets import pack_labels
 
 
 class DataLoader:

@@ -14,7 +14,10 @@ with dots, with the leaf renamed and conv kernels transposed:
   * ``batch_stats/…/bn/{mean,var}`` → ``…bn.{running_mean,running_var}``;
   * the head convs ``params/output_*/{kernel,bias}`` keep their bias.
 
-`to_jax_variables` is its inverse.
+`to_jax_variables` is its inverse, and `save_npz_variables` writes it
+back in the JAX layout, so that `fastdet` loads what the port trains.
+`merge_variables` grafts a pretrained state dict onto a fresh one
+(finetuning).
 """
 
 from __future__ import annotations
@@ -103,3 +106,30 @@ def to_jax_variables(state_dict: Dict[str, torch.Tensor]) -> dict:
 def load_state_dict(npz_path: str) -> Dict[str, torch.Tensor]:
     """`.npz` variable file → the port's ``state_dict``."""
     return from_jax_variables(load_npz_variables(npz_path))
+
+
+def merge_variables(init: Dict[str, torch.Tensor],
+                    pretrained: Dict[str, torch.Tensor]):
+    """Take every tensor of `pretrained` whose key and shape match
+    `init`, keep the rest of `init` (the reference's strict=False
+    finetune; the port's copy of fastdet/io/weights.py::merge_variables
+    over state dicts).  → (merged, n_loaded, n_kept)."""
+    merged, n_load = {}, 0
+    for key, t in init.items():
+        p = pretrained.get(key)
+        if p is not None and tuple(p.shape) == tuple(t.shape):
+            merged[key] = p
+            n_load += 1
+        else:
+            merged[key] = t
+    return merged, n_load, len(init) - n_load
+
+
+def save_npz_variables(state_dict: Dict[str, torch.Tensor],
+                       path: str) -> None:
+    """The port's ``state_dict`` → a flat ``a/b/c``-keyed `.npz` in the JAX
+    variable layout, which `fastdet.io.load_variables` reads."""
+    flat = {"/".join((coll,) + k): v
+            for coll, tree in to_jax_variables(state_dict).items()
+            for k, v in _leaves(tree)}
+    np.savez(path, **flat)

@@ -11,7 +11,9 @@ Flags are per source: `--fmad=false` keeps every a*b+c as two rounded
 operations, as XLA and PyTorch's elementwise ops compute them, and the
 bitwise parity of `pp_fused` and `nms_keep` with their plain versions
 depends on it.  The stem and span kernels are held to 2e-4, not bitwise,
-and contract to FMA.
+and contract to FMA.  The training span `span_train` is built without
+FMA so that its plain version recomputes its forward bit for bit (its
+backward's ReLU masks then agree).
 `build_all` starts one `nvcc` per source, all at once.
 
 A failed build raises; nothing falls back to a plain version.
@@ -35,8 +37,9 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_ext")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 SOURCE_FLAGS = {"pp_fused": ("--fmad=false",),
-                "nms_keep": ("--fmad=false",)}
-SOURCES = ("pp_fused", "stem_s2d", "span", "nms_keep")
+                "nms_keep": ("--fmad=false",),
+                "span_train": ("--fmad=false",)}
+SOURCES = ("pp_fused", "stem_s2d", "span", "nms_keep", "span_train")
 BUILD_TIMEOUT_S = 600
 
 _lock = threading.Lock()

@@ -2,7 +2,8 @@
 
 Takes an NHWC float batch and returns the raw-logit 6-tuple
 (reg2, obj2, cls2, reg3, obj3, cls3), each NHWC, exactly as the JAX
-`Detector.apply(train=False)` does: the postprocess flattens in
+`Detector.apply` does, in eval mode (running BN statistics) and in
+training mode (batch statistics, running update): the postprocess flattens in
 (h, w, anchor) order and reads `reg` channels anchor-major (a·4 + j), so
 the layout at this boundary is part of the contract.  Inside, the
 modules compute in NCHW with plain `torch.nn.functional` convs (cuDNN on
@@ -36,7 +37,11 @@ class Detector(nn.Module):
 
     def forward(self, x):
         """x: (B, H, W, 3) float NHWC → 6 raw NHWC head outputs."""
-        C2, C3 = self.backbone(x.permute(0, 3, 1, 2))
+        return self.head(*self.backbone(x.permute(0, 3, 1, 2)))
+
+    def head(self, C2, C3):
+        """FPN and the shared head convs on the NCHW backbone features →
+        the 6 raw NHWC outputs."""
         cls_2, obj_2, reg_2, cls_3, obj_3, reg_3 = self.fpn(C2, C3)
         outs = (self.output_reg(reg_2), self.output_obj(obj_2),
                 self.output_cls(cls_2), self.output_reg(reg_3),

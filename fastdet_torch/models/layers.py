@@ -3,9 +3,13 @@
 Modules compute in NCHW, PyTorch's habit; the Detector converts at its
 edges so that its public layout stays the JAX package's NHWC.
 
-Inference only in this slice: BatchNorm applies its running statistics.
-The JAX package's training BN (flax momentum 0.9, two-pass biased
-variance) is not yet ported, so a module in training mode raises.
+BatchNorm follows linen's (fastdet/models/layers.py): in eval mode it
+applies its running statistics; in training mode it normalises with the
+batch statistics (the mean, then the biased two-pass variance
+mean((x-μ)²), eps 1e-5) and updates the running statistics as flax does
+with momentum 0.9: running = 0.9·running + (1 - 0.9)·batch, from the
+biased variance.  `F.batch_norm(training=True)` is not used for that
+update: it would store the unbiased variance.
 """
 
 from __future__ import annotations
@@ -15,10 +19,11 @@ import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.9
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over dim 1 with eps 1e-5.  State dict keys are
+    """BatchNorm over dim 1 with eps 1e-5.  State dict keys are
     ``weight``, ``bias``, ``running_mean`` and ``running_var`` (no
     ``num_batches_tracked``: the JAX variables have none)."""
 
@@ -30,11 +35,24 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x):
-        if self.training:
-            raise NotImplementedError(
-                "fastdet_torch: training-mode BatchNorm is not ported yet")
-        return F.batch_norm(x, self.running_mean, self.running_var,
-                            self.weight, self.bias, False, 0.0, BN_EPS)
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, BN_EPS)
+        dims = [d for d in range(x.dim()) if d != 1]
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        mean = x.mean(dims)
+        d = x - mean.view(shape)
+        var = (d * d).mean(dims)
+        update_running_stats(self, mean, var)
+        mul = torch.rsqrt(var + BN_EPS) * self.weight
+        return d * mul.view(shape) + self.bias.view(shape)
+
+
+@torch.no_grad()
+def update_running_stats(bn: BatchNorm, mean, var) -> None:
+    """flax's running update with momentum 0.9 from batch statistics."""
+    for buf, batch in ((bn.running_mean, mean), (bn.running_var, var)):
+        buf.copy_(BN_MOMENTUM * buf + (1 - BN_MOMENTUM) * batch.detach())
 
 
 class ConvBN(nn.Module):

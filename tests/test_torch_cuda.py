@@ -13,13 +13,16 @@ import torch
 
 from fastdet_torch.config import Config
 from fastdet_torch.io import load_state_dict
-from fastdet_torch.kernels import fold, fused_infer, nms_kernel, pp_fused
+from fastdet_torch.kernels import (fold, fused_infer, fused_train,
+                                   nms_kernel, pp_fused)
 from fastdet_torch.models import Detector
 from fastdet_torch.ops import nms
 from fastdet_torch.ops.postprocess import postprocess
 from fastdet_torch.serve import DevicePipeline, FusedPipeline
-from torch_cases import (ANCHORS, BOX_ULPS_CARD, IOU, NC, box_ulps, crowded,
-                         head_outputs, make_inputs, port_geo,
+from torch_cases import (ANCHORS, BOX_ULPS_CARD, IOU, NC, SPAN_TRAIN_B1,
+                         SPAN_TRAIN_FULL, SPAN_TRAIN_SMALL, box_ulps,
+                         crowded, head_outputs, make_inputs,
+                         port_geo, span_train_case, span_train_grad_errs,
                          staged_reference)
 
 pytestmark = pytest.mark.cuda
@@ -227,3 +230,54 @@ def test_fused_pipeline_card_matches_device_pipeline(card):
         np.testing.assert_array_equal(a[:, 5], b[:, 5])
         np.testing.assert_allclose(a[:, 4], b[:, 4], rtol=0, atol=1e-4)
         np.testing.assert_allclose(a[:, :4], b[:, :4], rtol=0, atol=1e-2)
+
+
+@pytest.mark.parametrize("case", SPAN_TRAIN_FULL + SPAN_TRAIN_B1
+                         + SPAN_TRAIN_SMALL)
+def test_span_train_kernels_match_plain(card, case):
+    """B8 forward against its plain version (out, saved inputs, stats
+    within 2e-4 of each one's scale), then the backward kernel and the
+    plain backward on the same dy, xsave and stats: every gradient leaf
+    within 1e-4·max|ref| + 1e-4 (β2, zero in exact arithmetic: see
+    `span_train_grad_errs`)."""
+    b, c, h, w, nblk, g = case
+    x, rows, dy = span_train_case(sum(case), b, c, h, w, nblk, card)
+    before = (fused_train.span_train_forward.launches,
+              fused_train.span_train_backward.launches)
+    out, xsave, stats = fused_train.span_train_forward(x, rows, g)
+    ref = fused_train.span_train_forward_reference(x, rows, g)
+    torch.cuda.synchronize()
+    pairs = [(out, ref[0]), (xsave, ref[1])] + [
+        (stats[:, :, :, j], ref[2][:, :, :, j]) for j in range(3)]
+    for got, want in pairs:              # μ, σinv and var one at a time
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) <= 2e-4 * scale
+    dx, drows = fused_train.span_train_backward(dy, xsave, stats, rows, g)
+    rdx, rdrows = fused_train.span_train_backward_reference(dy, xsave,
+                                                            stats, rows, g)
+    torch.cuda.synchronize()
+    assert (fused_train.span_train_forward.launches,
+            fused_train.span_train_backward.launches) == (before[0] + 1,
+                                                          before[1] + 1)
+    for leaf, err, bound in span_train_grad_errs(dx, drows, rdx, rdrows):
+        assert err <= bound, (leaf, err, bound)
+    # fixed-order sums: a second run gives the same bits
+    dx2, drows2 = fused_train.span_train_backward(dy, xsave, stats, rows, g)
+    assert torch.equal(dx, dx2) and torch.equal(drows, drows2)
+
+
+def test_span_train_wrappers_check_their_inputs(card):
+    x, rows, dy = span_train_case(0, 4, 48, 6, 7, 2, card)
+    out, xsave, stats = fused_train.span_train_forward(x, rows, 2)
+    with pytest.raises(ValueError, match="C in"):
+        fused_train.span_train_forward(x.double(), rows, 2)
+    with pytest.raises(ValueError, match="C in"):
+        fused_train.span_train_forward(x[:, :, :, ::2], rows, 2)
+    with pytest.raises(ValueError, match="weights"):
+        fused_train.span_train_forward(x, rows.cpu(), 2)
+    with pytest.raises(ValueError, match="group"):
+        fused_train.span_train_forward(x, rows, 3)
+    with pytest.raises(ValueError, match="xsave|tensor"):
+        fused_train.span_train_backward(dy, xsave[:1], stats, rows, 2)
+    with pytest.raises(ValueError, match="tensor"):
+        fused_train.span_train_backward(dy, xsave, stats.cpu(), rows, 2)

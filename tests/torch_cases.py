@@ -133,3 +133,64 @@ def staged_reference(outputs, anchors, input_hw, *, conf_thres, iou_thres,
     keep = keep_mask_batch_reference(boxes_k, cls_k, score_k > 0,
                                      iou_thres=iou_thres)
     return compact_ranked(keep, boxes_k, score_k, cls_k, max_det=max_det)
+
+
+# ---------------------------------------------- the training span B8
+
+# (b, c, h, w, nblk, group): the three stages at b128 352² with the
+# JAX package's ghost groups, the same at b1, and small geometries with
+# group < batch
+SPAN_TRAIN_FULL = ((128, 48, 44, 44, 3, 2), (128, 96, 22, 22, 7, 4),
+                   (128, 192, 11, 11, 3, 16))
+SPAN_TRAIN_B1 = ((1, 48, 44, 44, 3, 1), (1, 96, 22, 22, 7, 1),
+                 (1, 192, 11, 11, 3, 1))
+SPAN_TRAIN_SMALL = ((4, 48, 6, 7, 2, 2), (4, 192, 3, 3, 3, 2),
+                    (6, 96, 5, 4, 2, 3))
+
+
+def span_train_case(seed, b, c, h, w, nblk, device="cpu"):
+    """Seeded span input (≥ 0, as a stride-2 block's ReLU outputs are),
+    packed weights of the JAX package's test scale (w ~ 0.3·N, γ ~ 1 +
+    0.1·N, β ~ 0.1·N) and an output gradient, f32 on `device`."""
+    import torch
+    mid = c // 2
+    rng = np.random.default_rng(seed)
+    x = np.abs(rng.normal(0.0, 1.0, (b, c, h, w)))
+    ws = rng.normal(0.0, 0.3, (nblk, 2 * mid * mid + 9 * mid))
+    gb = np.tile(np.array([1.0, 0.0] * 3), mid).reshape(mid, 6).T
+    gb = gb[None] + 0.1 * rng.normal(size=(nblk, 6, mid))
+    rows = np.concatenate([ws, gb.reshape(nblk, 6 * mid)], 1)
+    dy = rng.normal(0.0, 1.0, (b, c, h, w))
+    return tuple(torch.from_numpy(a.astype(np.float32)).to(device)
+                 for a in (x, rows, dy))
+
+
+def grad_err(got, want, scale=None):
+    """max |Δ| against the gradient bound 1e-4·scale + 1e-4, scale =
+    max|ref| unless given → (err, bound)."""
+    want = want.double()
+    err = float((got.double() - want).abs().max())
+    if scale is None:
+        scale = float(want.abs().max())
+    return err, 1e-4 * scale + 1e-4
+
+
+def span_train_grad_errs(dx, drows, rdx, rdrows):
+    """[(leaf, err, bound)] of a B8 backward against its plain version.
+    β2's gradient is 0 in exact arithmetic (BN3's backward removes each
+    group's mean of du3, and u3 is linear in v = BN2(u2)), so both sides
+    hold only the rounding noise of a sum over every pixel (248k at b128
+    stage 2); it is held to 1e-4 × the largest gradient of the block's
+    BN parameters instead of its own."""
+    from fastdet_torch.kernels.fused_train import row_sections
+    mid = dx.shape[1] // 2
+    out = [("dx",) + grad_err(dx, rdx)]
+    secs = row_sections(mid)
+    gb_lo = secs[3][1]
+    for i in range(drows.shape[0]):
+        bn_scale = float(rdrows[i, gb_lo:].abs().max())
+        for name, lo, hi in secs:
+            scale = bn_scale if name == "b2" else None
+            out.append((f"blk{i}.{name}",)
+                       + grad_err(drows[i, lo:hi], rdrows[i, lo:hi], scale))
+    return out
