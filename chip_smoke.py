@@ -5,13 +5,13 @@ the port still starts on the GPU).
     python3 chip_smoke.py
 
 Run from the repository root on a machine with a CUDA card.  It builds the
-port's five CUDA sources from `fastdet_torch/csrc/` (one nvcc each, in
+port's six CUDA sources from `fastdet_torch/csrc/` (one nvcc each, in
 parallel), holds each kernel against its plain PyTorch version, checks the
 weights and both forwards, serves real requests through `InferenceServer`
 over `DevicePipeline` and over `FusedPipeline` and checks the answers,
 evaluates seeded labelled photos through the eval entry point in both of
 its modes, serves 640² through `FusedPipeline`, and trains at full width
-through the training entry point on both of its paths.
+on the default, fused and fused s2d paths.
 One line per phase; any failed check ends the run with a non-zero exit.
 Without a card, or outside the repository, it exits non-zero and prints
 no result.
@@ -51,16 +51,33 @@ Phases:
      at the three stages at b128 352², at b1, and at small geometries
      with ghost group < batch; times, bounds and the cuDNN blocks'
      training-mode times at b128;
-  8b. training: `fastdet_torch.cli.train.run_training`, 4 steps at b128
-     352² from the reference weights, default path and --fused-backbone
-     (B8's launches counted over the fused run); the fused step with the
-     kernels against the fused step with the plain spans, and against the
-     default step at b2; ms/step, img/s and a profile of both modes;
+  8c. stem_train (B7) forward and backward against their plain versions
+     at b128 352² (photo variants, reference weights) at ghost group 1
+     and 16, b8 at group 4, b2 160×96 with pad lanes, on images with
+     flat blocks (positive pool ties), and at 32×48 and 36×52 (tiles cut
+     off at the image's edge); the backward bitwise repeatable;
+     times, bounds and the nhwc stem's (cuDNN conv, training BN, ReLU,
+     max_pool2d) at b128;
+  8b. training: 4 steps at b128 352² from the reference weights on each
+     path: default and --fused-backbone through
+     `fastdet_torch.cli.train.run_training` (B8's launches counted over
+     the fused run), and the fused s2d path through the Trainer
+     (`fused_input_format="s2d_u8"`: B7 and B8 counted; then 2 steps at
+     stem group 16 through `build_fused_train_apply(stem_group=16)`) on
+     the batch packed once by `pack_images_s2d` (its
+     host time printed apart); the fused step with the kernels against
+     the plain spans and the s2d step against the plain stem (b128), the
+     fused step against the default step at b2, the s2d step at stem
+     group 2 (b2) and 1 (b1) against the default step on noise images
+     (in the s2d ones, the stem's three gradients also one by one);
+     ms/step, img/s and a profile of the three modes;
   6. the kernel summary (a JSON line: launches of stem_s2d, span and
      rank_decode_nms from the fused serving path, of nms_keep from the
      eval path, of stem_s2d at 640² from FusedPipeline there, of
-     span_train_fwd/bwd from the fused training run), the card line, and
-     the last line {"ok": true, "device": {...}}.
+     span_train_fwd/bwd from the fused training run, of stem_train_fwd/bwd
+     from the s2d training runs at group 1 and 16), the card line, and
+     the host time of each phase, and the last line {"ok": true,
+     "device": {...}}.
 
 The last-but-one lines and the last line are read by tools; keep them.
 """
@@ -669,15 +686,16 @@ def phase_fused_serving(sd, dev_pipe, images):
 def profile_device(fn, what: str, calls: int = 5, top: int = 12):
     """torch.profiler over `calls` calls of fn(): device time by kernel
     and the device's busy share of the window (the window measured by
-    CUDA events around the same calls)."""
+    CUDA events around the same calls).  Device activity only: the rows
+    read are kernels and copies, and recording every host operator of a
+    training step cost seconds per profile."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         start.record()
         for _ in range(calls):
             fn()
@@ -1265,6 +1283,151 @@ def phase_span_train(sd, card):
     return out
 
 
+STEM_GROUPED = 16   # the grouped stem's ghost group in 8b and 8c
+STEM_LEAVES = tuple(f"backbone.first_conv.{k}"
+                    for k in ("conv.weight", "bn.weight", "bn.bias"))
+
+
+def stem_train_bound(b, h4, w4, g):
+    """B7 on b images of (4·h4)×(4·w4) → ((ms, by), (ms, by)) for forward
+    and backward.  Forward: x read once (uint8), y written once, the
+    weights, γ, β read and the stats written once; operations: one conv
+    sweep, 2·27 per conv output and channel (24 × (2·h4)·(2·w4) per
+    image).  Backward: dy, x, the stats and the weights read once, dW, dγ,
+    dβ written once; operations: the recomputed conv and the dW product,
+    2× the forward's."""
+    npad = (h4 * w4 + 127) // 128 * 128
+    ops = b * 24 * 4 * h4 * w4 * 27 * 2
+    small = 4 * (648 + 48 + (b // g) * 24 * 3)
+    x_bytes = b * 48 * npad
+    y_bytes = 4 * b * 24 * h4 * w4
+    return (bound(x_bytes + y_bytes + small, ops),
+            bound(x_bytes + y_bytes + small, 2 * ops))
+
+
+def phase_stem_train(sd, photo, card):
+    """8c: B7's forward and backward kernels against their plain versions
+    on the card: at b128 352² on photo variants with the reference
+    weights, at ghost group 1 (the main path) and STEM_GROUPED; then the
+    cases of tests/torch_cases.py (b8 at group 4, b2 160×96 with pad
+    lanes, images with flat blocks whose pool windows hold positive ties,
+    32×48 and 36×52 whose 8×8-cell tiles are cut off at the edge).
+    y within 2e-4 of its scale, the stats per kind within 2e-4 of each
+    one's; the backward kernels and the plain backward get the same dy, x
+    and stats (so the same recomputed masks and pool routing) and dW, dγ,
+    dβ are held to 1e-4·max|ref| + 1e-4 each; a second backward gives the
+    same bits.  Times at b128 (CUDA events): kernels, plain versions, the
+    bounds, and as yardstick the nhwc path's stem (cuDNN conv, the port's
+    training BatchNorm, ReLU, max_pool2d) forward and forward + backward.
+    → {"g1"/"grouped": {"fwd"/"bwd": (ms, plain_ms, bound_ms, bound_by,
+    max |Δ|, library_ms)}}."""
+    import torch
+    import torch.nn.functional as F
+    from torch_cases import (STEM_TRAIN_CASES, grad_err, pool_ties,
+                             stem_train_case)
+    from fastdet_torch.kernels import stem_train as stt
+    from fastdet_torch.kernels.fused_infer import pack_images_s2d
+    from fastdet_torch.models import Detector
+    torch.backends.cudnn.allow_tf32 = False
+    det = Detector(80, 3)
+    det.load_state_dict(sd)
+    fc = det.cuda().train().backbone.first_conv
+    w_real = (fc.conv.weight * (1.0 / 255.0)).detach().contiguous()
+    g_real, b_real = fc.bn.weight.detach(), fc.bn.bias.detach()
+    photos = photo_variants(photo, 128, seed=31)
+    bsz = len(photos)
+    x_main = torch.from_numpy(pack_images_s2d(photos)).cuda()
+    dy_main = torch.from_numpy(np.random.default_rng(31).normal(
+        0.0, 1.0, (bsz, 24, 88, 88)).astype(np.float32)).cuda()
+    cases = [(f"b{bsz} 352² photos g={g}", x_main, w_real, g_real, b_real,
+              dy_main, 88, 88, g, False) for g in (1, STEM_GROUPED)]
+    for case in STEM_TRAIN_CASES[1:]:
+        b, hgt, wid, g, tie = case
+        x, w_raw, gamma, beta, dy = stem_train_case(sum(case), b, hgt, wid,
+                                                    tie, "cuda")
+        cases.append((f"b{b} {hgt}x{wid} g={g}{' ties' if tie else ''}", x,
+                      (w_raw * (1.0 / 255.0)).contiguous(), gamma, beta, dy,
+                      hgt // 4, wid // 4, g, tie))
+    img = torch.from_numpy(photos).cuda().permute(0, 3, 1, 2).float() / 255.0
+
+    def lib_stem():
+        return F.max_pool2d(fc(img), 3, 2, 1)
+
+    lib_f = cuda_ms(lib_stem, 10)
+    lib_fb = cuda_ms(lambda: lib_stem().backward(dy_main), 10)
+    fc.zero_grad(set_to_none=True)
+    timed = {}
+    errs = [0.0, 0.0]
+    for name, x, w, gamma, beta, dy, h4, w4, g, tie in cases:
+        y, stats = stt.stem_train_forward(x, w, gamma, beta, h4, w4, g)
+        ry, rstats = stt.stem_train_forward_reference(x, w, gamma, beta, h4,
+                                                      w4, g)
+        torch.cuda.synchronize()
+        f_err = 0.0
+        for what, got, want in [("y", y, ry)] + [
+                (kind, stats[..., k], rstats[..., k])
+                for k, kind in enumerate(("mean", "sinv", "var"))]:
+            e = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            check(e <= 2e-4 * scale, f"B7 forward {what} {e} off (scale "
+                  f"{scale}) at {name}")
+            f_err = max(f_err, e)
+        grads = stt.stem_train_backward(dy, x, stats, w, gamma, beta, h4, w4,
+                                        g)
+        refs = stt.stem_train_backward_reference(dy, x, stats, w, gamma,
+                                                 beta, h4, w4, g)
+        torch.cuda.synchronize()
+        b_err, worst = 0.0, ("", 0.0)
+        for leaf, got, want in zip(("dW", "dgamma", "dbeta"), grads, refs):
+            e, lim = grad_err(got, want)
+            check(e <= lim, f"B7 backward {leaf} {e} off (bound {lim}) at "
+                  f"{name}")
+            b_err = max(b_err, e)
+            worst = max(worst, (leaf, e / lim), key=lambda t: t[1])
+        again = stt.stem_train_backward(dy, x, stats, w, gamma, beta, h4, w4,
+                                        g)
+        check(all(torch.equal(a, c) for a, c in zip(grads, again)),
+              f"B7 backward not deterministic at {name}")
+        msg = (f"  stem_train {name}: forward max |Δ| {f_err:.3g}, backward "
+               f"max |Δ| {b_err:.3g} (worst leaf {worst[0]} at "
+               f"{worst[1]:.3g} of its bound 1e-4·max|ref| + 1e-4)")
+        if tie:
+            n_ties = pool_ties(x, w, stats, gamma, beta, h4, w4, g)
+            check(n_ties > 0, f"no positive pool ties at {name}")
+            msg += f"; {n_ties} pool windows with a positive tie"
+        errs = [max(errs[0], f_err), max(errs[1], b_err)]
+        if x is not x_main:
+            log(msg)
+            continue
+        ms_f = cuda_ms(lambda: stt.stem_train_forward(x, w, gamma, beta, h4,
+                                                      w4, g), 10)
+        ms_b = cuda_ms(lambda: stt.stem_train_backward(
+            dy, x, stats, w, gamma, beta, h4, w4, g), 10)
+        pl_f = cuda_ms(lambda: stt.stem_train_forward_reference(
+            x, w, gamma, beta, h4, w4, g), 2, 1)
+        pl_b = cuda_ms(lambda: stt.stem_train_backward_reference(
+            dy, x, stats, w, gamma, beta, h4, w4, g), 2, 1)
+        (bf, byf), (bb, byb) = stem_train_bound(bsz, h4, w4, g)
+        timed["g1" if g == 1 else "grouped"] = ((ms_f, pl_f, bf, byf),
+                                                (ms_b, pl_b, bb, byb))
+        log(msg + f"; kernels fwd {ms_f:.4f} ms, bwd {ms_b:.4f} ms; plain "
+            f"fwd {pl_f:.3f} ms, bwd {pl_b:.3f} ms; bound fwd {bf:.4f} ms "
+            f"({byf}), bwd {bb:.4f} ms ({byb})")
+    # max |Δ|: the worst over every shape
+    out = {key: {"fwd": f + (errs[0], lib_f), "bwd": b + (errs[1],
+                                                          lib_fb - lib_f)}
+           for key, (f, b) in timed.items()}
+    g1 = out["g1"]
+    log(f"phase 8c stem_train: B7 forward and backward within bounds of "
+        f"their plain versions at {len(cases)} shapes; b{bsz} 352² g=1 "
+        f"({card}): forward {g1['fwd'][0]:.4f} ms (bound {g1['fwd'][2]:.4f},"
+        f" plain {g1['fwd'][1]:.3f}), backward {g1['bwd'][0]:.4f} ms (bound "
+        f"{g1['bwd'][2]:.4f}, plain {g1['bwd'][1]:.3f}); the nhwc stem (cuDNN"
+        f" conv, training BN, ReLU, max_pool2d) forward {lib_f:.4f} ms, "
+        f"forward + backward {lib_fb:.4f} ms")
+    return out
+
+
 def state_diff(a, b):
     """Largest per-tensor max|Δ| / max|ref| between two state dicts."""
     return max(float((x - b[k]).abs().max())
@@ -1287,46 +1450,102 @@ def running_stats_diff(a, b):
     return worst
 
 
-def phase_training(sd, photo, dev_pipe, card, b8):
-    """8b: training at full width through `cli.train.run_training`:
-    Yolo-FastestV2, 80 classes, 352², b128 (the `.data` file's batch),
-    from the reference weights, on seeded photo variants with seeded
-    labels.  Per mode the counts go to 0 just before 4 steps and are read
-    just after; the losses are finite, the params move, the momentum
-    buffers fill.  The fused path with the kernels against the fused
-    path with the plain spans on the card, and the fused path against the
-    default path at b2 (ghost groups = batch at every stage), over 2
-    steps each.  Then ms per step and img/s of both modes (CUDA events,
-    median of 5 steps after 2 of warm-up) and B8's share of a fused
-    step.  → B8's launches per kernel over the fused run."""
+def make_trainer(sd, cfg, mode, group=None):
+    """A Trainer from the reference weights, built as the JAX package's
+    bench builds it, for mode "default", "fused" (--fused-backbone) or
+    "fused_s2d" (`fused_input_format="s2d_u8"`, the stem's ghost group 1).
+    With `group`, the s2d Trainer's apply is replaced by
+    `build_fused_train_apply(..., input_format="s2d_u8",
+    stem_group=group)`: the Trainer, as the JAX one, has no stem group of
+    its own."""
+    from fastdet_torch.models import Detector
+    from fastdet_torch.train.fused_forward import build_fused_train_apply
+    from fastdet_torch.train.trainer import Trainer
+    model = Detector(80, 3)
+    model.load_state_dict(sd)
+    tr = Trainer(model, cfg, 1, fused_backbone=mode != "default",
+                 fused_input_format="s2d_u8" if mode == "fused_s2d"
+                 else "nhwc", device="cuda")
+    if group is not None:
+        tr._fused = build_fused_train_apply(
+            tr.input_hw, input_format="s2d_u8", stem_group=group,
+            device="cuda")
+    return tr
+
+
+def phase_training(sd, photo, dev_pipe, card, b8, b7):
+    """8b: training at full width: Yolo-FastestV2, 80 classes, 352², b128
+    (the `.data` file's batch), from the reference weights, on seeded
+    photo variants with seeded labels.  Three modes: the default path and
+    --fused-backbone through `cli.train.run_training`, and the fused s2d
+    path through the Trainer as the JAX package's bench builds it
+    (`fused_backbone=True, fused_input_format="s2d_u8"`) on the variants
+    packed once by `pack_images_s2d` (the pack is timed apart, outside
+    every step).  Per mode the counts go to 0 just before 4 steps and are
+    read just after; the losses are finite, the params move, the momentum
+    buffers fill; in the s2d mode the stem BN's running stats move, B7
+    runs once forward and once backward per step and B8 three times each.
+    The s2d path with the grouped stem (ghost group STEM_GROUPED, the
+    Trainer's apply rebuilt by `build_fused_train_apply`) runs 2 steps
+    the same way.  Equalities over 2 steps each: the fused path
+    with the kernels against the plain spans (b128), the s2d path with
+    the kernels against the plain stem (B8 kernels on both sides, b128),
+    the fused path against the default path (b2), and the s2d path at
+    stem group 2 (b2) and 1 (b1) against the default path on seeded noise
+    images (no positive pool ties, whose order max_pool2d breaks
+    otherwise).  Then ms per step and img/s of the three modes (CUDA
+    events, median of 5 steps after 2 of warm-up), a profile of each, and
+    B8's and B7's shares of their steps.  → ({kernel: launches} over the
+    fused run (B8) and the s2d runs (B7 at group 1 and grouped))."""
     import torch
     from fastdet_torch.cli.train import run_training
     from fastdet_torch.config import Config
     from fastdet_torch.kernels import fused_train as ft
+    from fastdet_torch.kernels import stem_train as stt
+    from fastdet_torch.kernels.fused_infer import pack_images_s2d
     cfg = Config.from_file(DATA)
     bsz, steps = cfg.batch_size, 4
     images = photo_variants(photo, bsz, seed=21)
     labels, mask = eval_labels(dev_pipe(images), seed=21)
+    t0 = time.perf_counter()
+    images_s2d = pack_images_s2d(images)
+    pack_ms = (time.perf_counter() - t0) * 1e3
+    log(f"  s2d packing of the b{bsz} 352² training batch on the host "
+        f"(pack_images_s2d, numpy, once, outside the timed steps): "
+        f"{pack_ms:.1f} ms")
+    inputs = {"default": images, "fused": images, "fused_s2d": images_s2d}
 
     def batches(epoch):
         return [(images, labels, mask)] * steps
 
-    kernels = (ft.span_train_forward, ft.span_train_backward)
-    trainers, launches = {}, None
-    for mode in ("default", "fused"):
+    b8k = (ft.span_train_forward, ft.span_train_backward)
+    b7k = (stt.stem_train_forward, stt.stem_train_backward)
+    trainers, launches = {}, {}
+    for mode in ("default", "fused", "fused_s2d", "fused_s2d_grouped"):
+        n = 2 if mode == "fused_s2d_grouped" else steps
         # ---- the main path: counts to 0, train, read the counts
-        for k in kernels:
+        for k in b8k + b7k:
             k.launches = 0
         t0 = time.perf_counter()
-        tr = run_training(cfg, sd, batches, fused_backbone=mode == "fused",
-                          device="cuda", steps=steps, steps_per_epoch=1)
+        if mode.startswith("fused_s2d"):
+            tr = make_trainer(sd, cfg, "fused_s2d",
+                              STEM_GROUPED if mode.endswith("grouped")
+                              else None)
+            for _ in range(n):
+                tr.step(images_s2d, labels, mask)
+        else:
+            tr = run_training(cfg, sd, batches,
+                              fused_backbone=mode == "fused", device="cuda",
+                              steps=n, steps_per_epoch=1)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        counts = [k.launches for k in kernels]
-        want = [3 * steps] * 2 if mode == "fused" else [0, 0]
-        check(counts == want, f"{mode}: B8 launches {counts}, want {want}")
-        if mode == "fused":
-            launches = counts
+        c8 = [k.launches for k in b8k]
+        c7 = [k.launches for k in b7k]
+        want8 = [0, 0] if mode == "default" else [3 * n] * 2
+        want7 = [n, n] if mode.startswith("fused_s2d") else [0, 0]
+        check(c8 == want8 and c7 == want7, f"{mode}: B8 launches {c8}, "
+              f"want {want8}; B7 launches {c7}, want {want7}")
+        launches[mode] = {"b8": c8, "b7": c7}
         moved = state_diff({k: v for k, v in tr.model.state_dict().items()
                             if "running" not in k},
                            {k: v.cuda() for k, v in sd.items()
@@ -1337,54 +1556,82 @@ def phase_training(sd, photo, dev_pipe, card, b8):
               and all(bool(torch.isfinite(b).all()) for b in bufs)
               and max(float(b.abs().max()) for b in bufs) > 0,
               f"{mode}: momentum buffers empty or non-finite")
-        m = tr.step(images, labels, mask)
+        stem_moved = max(
+            float((tr.model.state_dict()[f"backbone.first_conv.bn.{k}"]
+                   - sd[f"backbone.first_conv.bn.{k}"].cuda()).abs().max())
+            for k in ("running_mean", "running_var"))
+        check(stem_moved > 0, f"{mode}: the stem BN's running stats stayed")
+        m = tr.step(inputs.get(mode, images_s2d), labels, mask)
         vals = {k: float(v) for k, v in m.items()}
         check(all(np.isfinite(v) for v in vals.values()),
               f"{mode}: non-finite loss {vals}")
-        trainers[mode] = tr
-        log(f"phase 8b train {mode}: {steps} steps at b{bsz} 352² through "
-            f"run_training in {secs:.2f} s (host clock, first build "
-            f"included); params moved (max rel {moved:.3g}); step "
-            f"{steps}: LR:{vals['lr']:f} CIou:{vals['box']:f} "
-            f"Obj:{vals['obj']:f} Cls:{vals['cls']:f} "
-            f"Total:{vals['total']:f}; B8 launches {counts}")
+        if mode != "fused_s2d_grouped":
+            trainers[mode] = tr
+        via = ("the Trainer" if mode.startswith("fused_s2d")
+               else "run_training")
+        log(f"phase 8b train {mode}: {n} steps at b{bsz} 352² through {via} "
+            f"in {secs:.2f} s (host clock, first build included); params "
+            f"moved (max rel {moved:.3g}), stem BN running stats moved (max "
+            f"{stem_moved:.3g}); step {n}: LR:{vals['lr']:f} "
+            f"CIou:{vals['box']:f} Obj:{vals['obj']:f} Cls:{vals['cls']:f} "
+            f"Total:{vals['total']:f}; B8 launches {c8}, B7 launches {c7}")
 
-    def run(mode, imgs, lbl, msk, plain=False, n=2):
-        from fastdet_torch.models import Detector
-        from fastdet_torch.train.trainer import Trainer
-        model = Detector(80, 3)
-        model.load_state_dict(sd)
-        tr = Trainer(model, cfg, 1, fused_backbone=mode == "fused",
-                     device="cuda")
-        saved = ft.span_train_forward, ft.span_train_backward
+    def run(mode, imgs, lbl, msk, plain=False, plain_stem=False, group=None,
+            n=2):
+        tr = make_trainer(sd, cfg, mode, group)
+        saved = b8k + b7k
         if plain:
             ft.span_train_forward = ft.span_train_forward_reference
             ft.span_train_backward = ft.span_train_backward_reference
+        if plain_stem:
+            stt.stem_train_forward = stt.stem_train_forward_reference
+            stt.stem_train_backward = stt.stem_train_backward_reference
         try:
             losses = [float(tr.step(imgs, lbl, msk)["total"])
                       for _ in range(n)]
         finally:
-            ft.span_train_forward, ft.span_train_backward = saved
-        bufs = [tr.optimizer.state[p]["momentum_buffer"]
-                for p in tr.model.parameters()]
+            (ft.span_train_forward, ft.span_train_backward,
+             stt.stem_train_forward, stt.stem_train_backward) = saved
+        bufs = {k: tr.optimizer.state[p]["momentum_buffer"]
+                for k, p in tr.model.named_parameters()}
         return losses, {k: v.clone() for k, v in
                         tr.model.state_dict().items()}, bufs
 
+    noise = np.random.default_rng(41).integers(0, 256, (2, 352, 352, 3),
+                                               dtype=np.uint8)
+    noise_s2d = pack_images_s2d(noise)
     for name, (a, b), args in (
             ("fused kernels vs fused plain spans, b128",
              (dict(mode="fused"), dict(mode="fused", plain=True)),
              (images, labels, mask)),
+            ("s2d kernels vs s2d plain stem, b128",
+             (dict(mode="fused_s2d"), dict(mode="fused_s2d",
+                                           plain_stem=True)),
+             (images_s2d, labels, mask)),
             ("fused vs default, b2", (dict(mode="fused"),
                                       dict(mode="default")),
-             (images[:2], labels[:2], mask[:2]))):
-        la, sa, ba = run(a.pop("mode"), *args, **a)
-        lb, sb, bb = run(b.pop("mode"), *args, **b)
+             (images[:2], labels[:2], mask[:2])),
+            ("s2d stem group 2 vs default, b2 noise",
+             (dict(mode="fused_s2d", group=2, imgs=noise_s2d),
+              dict(mode="default", imgs=noise)), (labels[:2], mask[:2])),
+            ("s2d stem group 1 vs default, b1 noise",
+             (dict(mode="fused_s2d", imgs=noise_s2d[:1]),
+              dict(mode="default", imgs=noise[:1])),
+             (labels[:1], mask[:1]))):
+        t0 = time.perf_counter()
+        if len(args) == 2:
+            la, sa, ba = run(a.pop("mode"), a.pop("imgs"), *args, **a)
+            lb, sb, bb = run(b.pop("mode"), b.pop("imgs"), *args, **b)
+        else:
+            la, sa, ba = run(a.pop("mode"), *args, **a)
+            lb, sb, bb = run(b.pop("mode"), *args, **b)
         # the momentum buffers hold the two steps' gradients: the relative
-        # L2 distance over all of them, and the worst tensor's
-        num = sum(float(((x - y) ** 2).sum()) for x, y in zip(ba, bb))
-        den = sum(float((y ** 2).sum()) for y in bb)
-        g_worst = max(float((x - y).norm() / y.norm().clamp(min=1e-30))
-                      for x, y in zip(ba, bb))
+        # L2 distance over all of them, and per tensor
+        num = sum(float(((ba[k] - y) ** 2).sum()) for k, y in bb.items())
+        den = sum(float((y ** 2).sum()) for y in bb.values())
+        per = {k: float((ba[k] - y).norm() / y.norm().clamp(min=1e-30))
+               for k, y in bb.items()}
+        worst = max(per, key=per.get)
         loss_rel = max(abs(x - y) / abs(y) for x, y in zip(la, lb))
         # params against the model's weight scale (many are near 0)
         p_rel = (max(float((v - sb[k]).abs().max()) for k, v in sa.items()
@@ -1393,29 +1640,36 @@ def phase_training(sd, photo, dev_pipe, card, b8):
                        if "running" not in k))
         s_rel = running_stats_diff(sa, sb)
         g_rel = float(np.sqrt(num / den))
+        # where the stem differs (B7 or its plain version on one side),
+        # its three leaves are held one by one to the same 2e-3
+        stem = ({k: per[k] for k in STEM_LEAVES} if "s2d" in name else {})
         log(f"  {name}: per-step loss rel {loss_rel:.3g} (≤ 1e-4); after 2 "
             f"steps params max |Δ| {p_rel:.3g} of the largest weight (≤ "
             f"1e-6), running stats {s_rel:.3g} (≤ 2e-4, see "
             f"running_stats_diff); momentum buffers (the summed "
-            f"gradients) relative L2 {g_rel:.3g} over all (≤ 2e-3), worst "
-            f"tensor {g_worst:.3g}")
+            f"gradients) relative L2 {g_rel:.3g} over all (≤ 2e-3)"
+            + "".join(f", {k} {v:.3g} (≤ 2e-3)" for k, v in stem.items())
+            + f"; worst tensor {worst} {per[worst]:.3g}; "
+            f"{time.perf_counter() - t0:.1f} s")
         # each run recomputes its backward's ReLU masks from its own
         # forward, whose stats differ in the last bits: masks flip where
         # |BN(u)| is that small, hence the 2e-3 on the gradients
         check(loss_rel <= 1e-4 and p_rel <= 1e-6 and s_rel <= 2e-4
-              and g_rel <= 2e-3,
+              and g_rel <= 2e-3 and all(v <= 2e-3 for v in stem.values()),
               f"{name}: losses {la} vs {lb} (rel {loss_rel:.3g}), params "
               f"{p_rel:.3g}, running stats {s_rel:.3g}, gradients "
-              f"{g_rel:.3g}")
+              f"{g_rel:.3g}, stem leaves {stem}")
 
     times = {}
     for mode, tr in trainers.items():
+        t0 = time.perf_counter()
+        batch = inputs[mode]
         for _ in range(2):
-            tr.step(images, labels, mask)
+            tr.step(batch, labels, mask)
         evs = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
         evs[0].record()
         for i in range(5):
-            tr.step(images, labels, mask)
+            tr.step(batch, labels, mask)
             evs[i + 1].record()
         torch.cuda.synchronize()
         per = sorted(evs[i].elapsed_time(evs[i + 1]) for i in range(5))
@@ -1423,15 +1677,23 @@ def phase_training(sd, photo, dev_pipe, card, b8):
         log(f"  train step {mode} b{bsz} 352² ({card}): median "
             f"{per[2]:.3f} ms of 5 (CUDA events, spread {per[0]:.3f}-"
             f"{per[4]:.3f}), {bsz * 1e3 / per[2]:.1f} img/s")
-        profile_device(lambda: tr.step(images, labels, mask),
+        profile_device(lambda: tr.step(batch, labels, mask),
                        f"{mode} b{bsz} train steps", calls=3, top=16)
+        log(f"  timing and profile of {mode}: "
+            f"{time.perf_counter() - t0:.1f} s")
     b8_ms = b8["fwd"][0] + b8["bwd"][0]
+    b7_ms = b7["g1"]["fwd"][0] + b7["g1"]["bwd"][0]
     log(f"phase 8b training: default {times['default']:.3f} ms/step "
         f"({bsz * 1e3 / times['default']:.1f} img/s), fused "
         f"{times['fused']:.3f} ms/step ({bsz * 1e3 / times['fused']:.1f} "
-        f"img/s); B8 (forward + backward, 3 stages, timed apart in 8a) "
-        f"{b8_ms:.3f} ms = {100 * b8_ms / times['fused']:.1f}% of a fused "
-        f"step ({card})")
+        f"img/s), fused s2d {times['fused_s2d']:.3f} ms/step "
+        f"({bsz * 1e3 / times['fused_s2d']:.1f} img/s; the host s2d pack, "
+        f"not in it, {pack_ms:.1f} ms per batch); B8 (forward + backward, 3 "
+        f"stages, timed apart in 8a) {b8_ms:.3f} ms = "
+        f"{100 * b8_ms / times['fused']:.1f}% of a fused step; B7 (forward + "
+        f"backward, timed apart in 8c) {b7_ms:.3f} ms = "
+        f"{100 * b7_ms / times['fused_s2d']:.1f}% of a fused s2d step "
+        f"({card})")
     return launches
 
 
@@ -1448,18 +1710,31 @@ def main() -> int:
     import fastdet_torch  # noqa: F401 — fails outside the repository
 
     t_start = time.perf_counter()
+    laps = [("start", t_start)]
+
+    def lap(name):
+        laps.append((name, time.perf_counter()))
+
     card = phase_device()
+    lap("1")
     err_classes = phase_kernels()
+    lap("2")
     err_nms = phase_nms_keep()
+    lap("2c")
     photo = read_png_bgr(PHOTO)
     sd = phase_weights_forward(photo)
+    lap("3")
     fused_err = phase_fused_kernels(sd)
+    lap("2b")
     phase_fused_forward(sd, photo)
+    lap("3b")
     launches, big, dev_pipe, images = phase_serving(sd, photo, card)
     ms, plain_ms, bound_ms, bound_by, err_main = main_path_kernel_timing(
         sd, big)
+    lap("4")
     fused_pipe, fused_launches = phase_fused_serving(sd, dev_pipe, images)
     fused_main = phase_fused_timing(sd, dev_pipe, fused_pipe, big, card)
+    lap("4b")
     for t in threading.enumerate():         # request handlers finishing
         if t is not threading.main_thread():
             t.join(timeout=10)
@@ -1468,12 +1743,21 @@ def main() -> int:
     check(not alive, f"threads still running: {alive}")
     log("phase 5 shutdown: server stopped, batcher closed, no threads left")
     eval_launches, eval_nms = phase_eval(sd, photo, dev_pipe, card)
+    lap("7")
     b6_launches, b6 = phase_640(sd, photo, card)
+    lap("7b")
     b8 = phase_span_train(sd, card)
-    b8_launches = phase_training(sd, photo, dev_pipe, card, b8)
+    lap("8a")
+    b7 = phase_stem_train(sd, photo, card)
+    lap("8c")
+    train_launches = phase_training(sd, photo, dev_pipe, card, b8, b7)
+    lap("8b")
     log('phase 6 kernels: ["stem_s2d", "span", "rank_decode_nms", '
         '"nms_keep"] (rank_decode_nms launches on the device path: '
         f'{launches}; nms_keep on the eval path: {eval_launches})')
+    log("phase times (host clock, s): " + ", ".join(
+        f"{name} {t - laps[i][1]:.1f}"
+        for i, (name, t) in enumerate(laps[1:])))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     kernels = []
     for name, replaces in (("stem_s2d", "fastdet/kernels/fused_infer.py:418"),
@@ -1519,7 +1803,7 @@ def main() -> int:
     for (name, replaces), key, n in zip(
             (("span_train_fwd", "fastdet/kernels/fused_train.py:329"),
              ("span_train_bwd", "fastdet/kernels/fused_train.py:362")),
-            ("fwd", "bwd"), b8_launches):
+            ("fwd", "bwd"), train_launches["fused"]["b8"]):
         k_ms, k_plain, k_bound, k_by, k_err, k_lib = b8[key]
         kernels.append({
             "name": name, "route": "cuda",
@@ -1527,6 +1811,27 @@ def main() -> int:
             "replaces": replaces, "launches": n, "max_abs_err": k_err,
             "ms": k_ms, "plain_ms": k_plain, "bound_ms": k_bound,
             "bound_by": k_by, "library_ms": k_lib})
+    # B7: one CUDA design for the JAX package's four sites, the group-1
+    # pair (launches from the s2d run at the default group 1) and the
+    # grouped pair (from the s2d run at STEM_GROUPED); b128 352² times
+    for (name, replaces), key, mode, idx in (
+            (("stem_train_fwd", "fastdet/kernels/stem_train.py:462"), "g1",
+             "fused_s2d", 0),
+            (("stem_train_bwd", "fastdet/kernels/stem_train.py:490"), "g1",
+             "fused_s2d", 1),
+            (("stem_train_fwd", "fastdet/kernels/stem_train.py:519"),
+             "grouped", "fused_s2d_grouped", 0),
+            (("stem_train_bwd", "fastdet/kernels/stem_train.py:549"),
+             "grouped", "fused_s2d_grouped", 1)):
+        k_ms, k_plain, k_bound, k_by, k_err, k_lib = b7[key][
+            ("fwd", "bwd")[idx]]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "fastdet_torch/csrc/stem_train.cu",
+            "replaces": replaces,
+            "launches": train_launches[mode]["b7"][idx],
+            "max_abs_err": k_err, "ms": k_ms, "plain_ms": k_plain,
+            "bound_ms": k_bound, "bound_by": k_by, "library_ms": k_lib})
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -11,9 +11,10 @@ Flags are per source: `--fmad=false` keeps every a*b+c as two rounded
 operations, as XLA and PyTorch's elementwise ops compute them, and the
 bitwise parity of `pp_fused` and `nms_keep` with their plain versions
 depends on it.  The stem and span kernels are held to 2e-4, not bitwise,
-and contract to FMA.  The training span `span_train` is built without
-FMA so that its plain version recomputes its forward bit for bit (its
-backward's ReLU masks then agree).
+and contract to FMA.  The training kernels `span_train` and `stem_train`
+are built without FMA so that their plain versions recompute their
+forwards bit for bit (their backward's ReLU masks and pool routing then
+agree).
 `build_all` starts one `nvcc` per source, all at once.
 
 A failed build raises; nothing falls back to a plain version.
@@ -38,8 +39,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 SOURCE_FLAGS = {"pp_fused": ("--fmad=false",),
                 "nms_keep": ("--fmad=false",),
-                "span_train": ("--fmad=false",)}
-SOURCES = ("pp_fused", "stem_s2d", "span", "nms_keep", "span_train")
+                "span_train": ("--fmad=false",),
+                "stem_train": ("--fmad=false",)}
+SOURCES = ("pp_fused", "stem_s2d", "span", "nms_keep", "span_train",
+           "stem_train")
 BUILD_TIMEOUT_S = 600
 
 _lock = threading.Lock()

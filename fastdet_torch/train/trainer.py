@@ -13,10 +13,12 @@ backward calls) and applies every `subdivisions` micro-steps.
 
 The forward is the model in training mode on images/255 (the default
 path), or with `fused_backbone=True` the fused-backbone forward
-(`train/fused_forward.py`, kernel B8 for the stride-1 spans).  The
-Trainer computes in its model's dtype: f32 (the port's kernels), or f64
-on the CPU for the parity tests.  Not ported: bf16 compute (ROADMAP A1),
-the s2d_u8 fused input (B7), data-parallel meshes (A12).
+(`train/fused_forward.py`: kernel B8 for the stride-1 spans; with
+`fused_input_format="s2d_u8"` also kernel B7 for the stem, on (B, 48,
+pad128(H/4·W/4)) uint8 batches from `pack_images_s2d`, ghost BN over
+each image, as in the JAX package).  The Trainer computes in its model's
+dtype: f32 (the port's kernels), or f64 on the CPU for the parity tests.
+Not ported: bf16 compute (ROADMAP A1), data-parallel meshes (A12).
 """
 
 from __future__ import annotations
@@ -78,6 +80,9 @@ class Trainer:
                 device=self.device)
 
     def _forward(self, images_u8: torch.Tensor):
+        """The training forward's 6 NHWC outputs: images (B, H, W, 3)
+        uint8, or (B, 48, pad128(H/4·W/4)) uint8 s2d batches in the fused
+        s2d mode."""
         images = torch.as_tensor(images_u8).to(self.device)
         if self._fused is not None:
             return self._fused(self.model, images)
@@ -85,9 +90,10 @@ class Trainer:
         return self.model(images.to(dtype) / 255.0)
 
     def step(self, images_u8, labels, label_mask) -> Dict[str, object]:
-        """One micro-step on a (B, H, W, 3) uint8 batch with (B, M, 5)
-        labels and their (B, M) mask → the loss components (0-d tensors
-        on the device) and the step's `lr` (a float)."""
+        """One micro-step on a uint8 batch (B, H, W, 3), or (B, 48, npad)
+        in the fused s2d mode, with (B, M, 5) labels and their (B, M) mask
+        → the loss components (0-d tensors on the device) and the step's
+        `lr` (a float)."""
         self.model.train()
         outputs = self._forward(images_u8)
         total, comps = compute_loss(

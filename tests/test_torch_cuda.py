@@ -14,16 +14,17 @@ import torch
 from fastdet_torch.config import Config
 from fastdet_torch.io import load_state_dict
 from fastdet_torch.kernels import (fold, fused_infer, fused_train,
-                                   nms_kernel, pp_fused)
+                                   nms_kernel, pp_fused, stem_train)
 from fastdet_torch.models import Detector
 from fastdet_torch.ops import nms
 from fastdet_torch.ops.postprocess import postprocess
 from fastdet_torch.serve import DevicePipeline, FusedPipeline
 from torch_cases import (ANCHORS, BOX_ULPS_CARD, IOU, NC, SPAN_TRAIN_B1,
-                         SPAN_TRAIN_FULL, SPAN_TRAIN_SMALL, box_ulps,
-                         crowded, head_outputs, make_inputs,
-                         port_geo, span_train_case, span_train_grad_errs,
-                         staged_reference)
+                         SPAN_TRAIN_FULL, SPAN_TRAIN_SMALL, STEM_TRAIN_CASES,
+                         box_ulps, crowded, grad_err, head_outputs,
+                         make_inputs, pool_ties, port_geo, span_train_case,
+                         span_train_grad_errs, staged_reference,
+                         stem_train_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -281,3 +282,71 @@ def test_span_train_wrappers_check_their_inputs(card):
         fused_train.span_train_backward(dy, xsave[:1], stats, rows, 2)
     with pytest.raises(ValueError, match="tensor"):
         fused_train.span_train_backward(dy, xsave, stats.cpu(), rows, 2)
+
+
+# ------------------------------------------------ the training stem (B7)
+
+@pytest.mark.parametrize("case", STEM_TRAIN_CASES,
+                         ids=["b128_352_g1", "b8_352_g4", "b2_160x96_g1",
+                              "b4_96_ties", "b2_32x48_g1_edge",
+                              "b4_36x52_g2_edge_ties"])
+def test_stem_train_kernels_match_plain(card, case):
+    """B7 forward against its plain version (y within 2e-4 of its scale,
+    the stats μ, σinv, var each within 2e-4 of its own), then the
+    backward kernels and the plain backward on the same dy, x and stats:
+    dW, dγ, dβ within 1e-4·max|ref| + 1e-4 each (the same recomputed
+    conv outputs, masks and pool routing on both sides, the sums in
+    another order); a second backward gives the same bits."""
+    b, hgt, wid, g, tie = case
+    h4, w4 = hgt // 4, wid // 4
+    x, w_raw, gamma, beta, dy = stem_train_case(sum(case), b, hgt, wid, tie,
+                                                card)
+    w = (w_raw * (1.0 / 255.0)).contiguous()
+    before = (stem_train.stem_train_forward.launches,
+              stem_train.stem_train_backward.launches)
+    y, stats = stem_train.stem_train_forward(x, w, gamma, beta, h4, w4, g)
+    ry, rstats = stem_train.stem_train_forward_reference(x, w, gamma, beta,
+                                                         h4, w4, g)
+    torch.cuda.synchronize()
+    assert y.shape == (b, 24, h4, w4) and stats.shape == (b // g, 24, 3)
+    for got, want in [(y, ry)] + [(stats[..., k], rstats[..., k])
+                                  for k in range(3)]:
+        assert float((got - want).abs().max()) <= 2e-4 * float(
+            want.abs().max())
+    grads = stem_train.stem_train_backward(dy, x, stats, w, gamma, beta,
+                                           h4, w4, g)
+    refs = stem_train.stem_train_backward_reference(dy, x, stats, w, gamma,
+                                                    beta, h4, w4, g)
+    torch.cuda.synchronize()
+    assert (stem_train.stem_train_forward.launches,
+            stem_train.stem_train_backward.launches) == (before[0] + 1,
+                                                         before[1] + 1)
+    for name, got, want in zip(("dW", "dgamma", "dbeta"), grads, refs):
+        err, bound = grad_err(got, want)
+        assert err <= bound, (name, err, bound)
+    again = stem_train.stem_train_backward(dy, x, stats, w, gamma, beta, h4,
+                                           w4, g)
+    assert all(torch.equal(a, b_) for a, b_ in zip(grads, again))
+    if tie:
+        assert pool_ties(x, w, stats, gamma, beta, h4, w4, g) > 0
+
+
+def test_stem_train_wrappers_check_their_inputs(card):
+    x, w_raw, gamma, beta, dy = stem_train_case(0, 4, 32, 48, device=card)
+    w = (w_raw * (1.0 / 255.0)).contiguous()
+    y, stats = stem_train.stem_train_forward(x, w, gamma, beta, 8, 12, 2)
+    with pytest.raises(ValueError, match="w as"):
+        stem_train.stem_train_forward(x, w.cpu(), gamma, beta, 8, 12, 2)
+    with pytest.raises(ValueError, match="uint8"):
+        stem_train.stem_train_forward(x.float(), w, gamma, beta, 8, 12, 2)
+    with pytest.raises(ValueError, match="group"):
+        stem_train.stem_train_forward(x, w, gamma, beta, 8, 12, 3)
+    with pytest.raises(ValueError, match="uint8"):
+        stem_train.stem_train_forward(x[:, :, :96].contiguous(), w, gamma,
+                                      beta, 8, 12, 2)
+    with pytest.raises(ValueError, match="stats"):
+        stem_train.stem_train_backward(dy, x, stats.cpu(), w, gamma, beta, 8,
+                                       12, 2)
+    with pytest.raises(ValueError, match="dy"):
+        stem_train.stem_train_backward(dy[:2], x, stats, w, gamma, beta, 8,
+                                       12, 2)

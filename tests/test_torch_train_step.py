@@ -5,10 +5,11 @@ on the CPU.
 The parity with the JAX package runs in float64 in a subprocess
 (tests/torch_train_x64.py, whose header gives the bounds): the default
 path's Trainer against JAX's over 3 steps with subdivisions 1 and 2, and
-the fused forward against JAX's fused apply and the port's default path.
+the fused forward, with NHWC and with s2d uint8 input, against JAX's
+fused apply and the port's default path.
 Here, in f32: a checkpoint roundtrip is bitwise, the fused Trainer's
-first step has LR 0 and still fills the momentum buffers, and the
-unported options raise naming their ROADMAP items.
+first step has LR 0 and still fills the momentum buffers (in both input
+formats), and the unported options raise naming their ROADMAP items.
 """
 
 import os
@@ -22,6 +23,7 @@ import torch
 from fastdet_torch.config import Config
 from fastdet_torch.io import (latest_step, load_checkpoint, load_state_dict,
                               save_checkpoint)
+from fastdet_torch.kernels.fused_infer import pack_images_s2d
 from fastdet_torch.models import Detector
 from fastdet_torch.train.fused_forward import build_fused_train_apply
 from fastdet_torch.train.trainer import Trainer
@@ -35,7 +37,7 @@ CFG = {"classes": 80, "width": 64, "height": 64, "anchor_num": 3,
        "batch_size": 4, "epochs": 1}
 
 
-@pytest.mark.parametrize("mode", ["default", "fused"])
+@pytest.mark.parametrize("mode", ["default", "fused", "fused_s2d"])
 def test_train_step_matches_jax_x64(mode):
     proc = subprocess.run(
         [sys.executable, os.path.join(REPO, "tests", "torch_train_x64.py"),
@@ -103,13 +105,34 @@ def test_fused_trainer_first_step():
     assert t.current_lr(1) > 0
 
 
+def test_s2d_trainer_first_step():
+    """The fused s2d mode (`fused_input_format="s2d_u8"`, the stem through
+    B7's plain versions on the CPU): step 0's LR is 0 and its loss finite,
+    the momentum buffers fill, the stem BN's running statistics move, and
+    the apply refuses NHWC images."""
+    t = _trainer(fused_backbone=True, fused_input_format="s2d_u8",
+                 subdivisions=1)
+    p0 = {k: v.clone() for k, v in t.model.state_dict().items()}
+    images, labels, mask = _batch(9, b=4)
+    m = t.step(pack_images_s2d(images), labels, mask)
+    assert m["lr"] == 0.0 and np.isfinite(float(m["total"]))
+    for k, v in t.model.named_parameters():
+        assert torch.equal(v, p0[k]), k
+    bufs = [s["momentum_buffer"] for s in t.optimizer.state.values()]
+    assert len(bufs) == len(list(t.model.parameters()))
+    assert max(float(b.abs().max()) for b in bufs) > 0
+    assert float(t.optimizer.state[
+        t.model.backbone.first_conv.conv.weight]["momentum_buffer"]
+        .abs().max()) > 0
+    for k in ("running_mean", "running_var"):
+        k = f"backbone.first_conv.bn.{k}"
+        assert float((t.model.state_dict()[k] - p0[k]).abs().max()) > 0
+    with pytest.raises(ValueError, match="s2d"):
+        t.step(images, labels, mask)
+
+
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="A1"):
         _trainer(compute_dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="B7"):
-        _trainer(fused_backbone=True, fused_input_format="s2d_u8")
-    with pytest.raises(NotImplementedError, match="B7"):
-        build_fused_train_apply((64, 64), input_format="s2d_u8",
-                                device="cpu")
     with pytest.raises(ValueError, match="input_format"):
         build_fused_train_apply((64, 64), input_format="nchw", device="cpu")

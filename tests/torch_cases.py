@@ -194,3 +194,58 @@ def span_train_grad_errs(dx, drows, rdx, rdrows):
             out.append((f"blk{i}.{name}",)
                        + grad_err(drows[i, lo:hi], rdrows[i, lo:hi], scale))
     return out
+
+
+# (b, H, W, group, tie): the training stem B7 at the main path's b128
+# 352² with ghost group 1, grouped at b8, with pad lanes (160×96: 960 of
+# 1024 lanes), on images with flat blocks (positive ties in the pool), and
+# at sizes whose 8×8-cell tiles are cut off at the image's edge: 32×48
+# (w4 = 12) and 36×52 (h4 = 9, w4 = 13, grouped, with ties)
+STEM_TRAIN_CASES = ((128, 352, 352, 1, False), (8, 352, 352, 4, False),
+                    (2, 160, 96, 1, False), (4, 96, 96, 1, True),
+                    (2, 32, 48, 1, False), (4, 36, 52, 2, True))
+
+
+def tie_blocks(images):
+    """Paint flat blocks into (B, H, W, 3) uint8 images in place: inside
+    one, the stem's conv outputs of a phase are bitwise equal, so the
+    pool windows hold positive ties (where BN leaves them > 0)."""
+    h, w = images.shape[1:3]
+    images[:, h // 8:h // 2, w // 4:3 * w // 4] = (200, 120, 40)
+    images[:, h // 2:, :w // 3] = 255
+    return images
+
+
+def stem_train_case(seed, b, hgt, wid, tie=False, device="cpu"):
+    """Seeded training-stem inputs: s2d uint8 images (B, 48, npad)
+    (noise, with `tie_blocks` if tie), a raw OIHW conv weight (w ~ 0.3·N,
+    before the 1/255 scale), γ ~ 1 + 0.1·N, β ~ 0.1·N and a pooled output
+    gradient (B, 24, H/4, W/4), on `device`."""
+    import torch
+    from fastdet_torch.kernels.fused_infer import pack_images_s2d
+    rng = np.random.default_rng(seed)
+    images = rng.integers(0, 256, (b, hgt, wid, 3), dtype=np.uint8)
+    if tie:
+        tie_blocks(images)
+    x = torch.from_numpy(pack_images_s2d(images)).to(device)
+    w = rng.normal(0.0, 0.3, (24, 3, 3, 3))
+    gamma = 1.0 + 0.1 * rng.normal(size=24)
+    beta = 0.1 * rng.normal(size=24)
+    dy = rng.normal(0.0, 1.0, (b, 24, hgt // 4, wid // 4))
+    return (x,) + tuple(torch.from_numpy(a.astype(np.float32)).to(device)
+                        for a in (w, gamma, beta, dy))
+
+
+def pool_ties(x, w, stats, gamma, beta, h4, w4, g):
+    """Windows of the training stem's 3×3 s2 pool whose positive maximum
+    occurs more than once, for s2d images x, the scaled weight w and the
+    saved stats: the conv outputs recomputed as the plain version does."""
+    import torch
+    import torch.nn.functional as F
+    from fastdet_torch.kernels import stem_train as st
+    u = st._conv(st._image(x, h4, w4, w.dtype), w)
+    yb = torch.relu(st._bn_parts(u, stats, gamma, beta, g)[0])
+    p = F.pad(yb, (1, 1, 1, 1), value=float("-inf"))
+    win = F.unfold(p.flatten(0, 1)[:, None], 3, stride=2)   # (B·24, 9, n)
+    top = win.max(1, keepdim=True).values
+    return int(((win == top).sum(1) > 1)[top[:, 0] > 0].sum())

@@ -3,7 +3,7 @@ float64 (run by tests/test_torch_train_step.py; x64 is process-global in
 JAX, so it runs in a process of its own, as tests/fused_train_x64.py
 does).
 
-    python tests/torch_train_x64.py default|fused
+    python tests/torch_train_x64.py default|fused|fused_s2d
 
 f32 comparisons of two equivalent but differently ordered forwards are
 dominated by ReLU mask flips on near-zero activations
@@ -25,6 +25,14 @@ bounds are that file's: outputs ≤ 1e-10, batch stats ≤ 1e-8, gradients ≤
     every stage, so ghost BN ≡ full-batch BN) against the JAX package's
     fused apply (Pallas interpret) and against the port's default path:
     outputs, new batch stats and the gradients of Σ outputs·r.
+  * fused_s2d: the same with `input_format="s2d_u8"` (the stem through
+    B7's plain versions) at b4 with stem_group 4: against JAX's s2d
+    apply with span_stages=() (the stride-1 blocks as the model's own),
+    and with the spans against the default path; and at b1 with the
+    default stem_group 1 (per-image BN is then the batch's) against the
+    default path.  The
+    images are seeded noise, so no positive tie in a pool window meets
+    `max_pool2d`'s other tie order.
 """
 
 import os
@@ -155,37 +163,49 @@ def check_default():
               f"after 3 steps {w[1]:.3e} ({w[0]})")
 
 
-def check_fused():
-    from fastdet.models import Detector as JDetector
+def fused_case(input_format, b, stem_group=None, span_stages=(2, 3, 4),
+               with_jax=True):
+    """The port's fused apply at 96² (f64) against JAX's fused apply (if
+    with_jax) and against the port's default path: outputs, new batch
+    stats and the gradients of Σ outputs·r."""
+    from fastdet.kernels.fused_infer import pack_images_s2d
     from fastdet.train.fused_forward import \
         build_fused_train_apply as jbuild
     from fastdet_torch.train.fused_forward import build_fused_train_apply
 
     variables = jax_variables()
-    jmodel = JDetector(classes=80, anchor_num=3, dtype=jnp.float64)
-    images = batch(4, 96, seed=1)[0]
-    japply = jbuild((96, 96), dtype=jnp.float64, interpret=True,
-                    input_format="nhwc")
-    params, stats = variables["params"], variables["batch_stats"]
-    shapes = [(4, 6, 6, 12), (4, 6, 6, 3), (4, 6, 6, 80),
-              (4, 3, 3, 12), (4, 3, 3, 3), (4, 3, 3, 80)]
+    images = batch(b, 96, seed=1)[0]
+    fused_in = (pack_images_s2d(images) if input_format == "s2d_u8"
+                else images)
+    shapes = [(b, 6, 6, 12), (b, 6, 6, 3), (b, 6, 6, 80),
+              (b, 3, 3, 12), (b, 3, 3, 3), (b, 3, 3, 80)]
     rng = np.random.RandomState(2)
     r = [rng.randn(*s) for s in shapes]
+    refs = []
+    if with_jax:
+        japply = jbuild((96, 96), dtype=jnp.float64, interpret=True,
+                        input_format=input_format, stem_group=stem_group,
+                        span_stages=span_stages)
+        params, stats = variables["params"], variables["batch_stats"]
 
-    def jloss(params):
-        outs, new = japply(params, stats, jnp.asarray(images))
-        return sum(jnp.sum(o * w) for o, w in zip(outs, r)), (outs, new)
+        def jloss(params):
+            outs, new = japply(params, stats, jnp.asarray(fused_in))
+            return sum(jnp.sum(o * w) for o, w in zip(outs, r)), (outs, new)
 
-    (_, (jouts, jnew)), jg = jax.value_and_grad(jloss, has_aux=True)(params)
-    jgrads = port_keys(jg, "params")
-    jstats = port_keys(jnew, "batch_stats")
+        (_, (jouts, jnew)), jg = jax.value_and_grad(jloss,
+                                                    has_aux=True)(params)
+        refs.append(("jax", ([np.asarray(o) for o in jouts],
+                             port_keys(jnew, "batch_stats"),
+                             port_keys(jg, "params"))))
 
-    apply_fn = build_fused_train_apply((96, 96), device="cpu")
+    apply_fn = build_fused_train_apply((96, 96), input_format=input_format,
+                                       stem_group=stem_group,
+                                       span_stages=span_stages, device="cpu")
     results = {}
     for mode in ("fused", "default"):
         model = port_model(variables).train()
         if mode == "fused":
-            outs = apply_fn(model, torch.from_numpy(images))
+            outs = apply_fn(model, torch.from_numpy(fused_in))
         else:
             outs = model(torch.from_numpy(images).double() / 255.0)
         sum((o * torch.from_numpy(w)).sum()
@@ -195,20 +215,37 @@ def check_fused():
             {k: v.numpy() for k, v in model.state_dict().items()
              if "running" in k},
             {k: p.grad.numpy() for k, p in model.named_parameters()})
-    for ref_name, (ref_outs, ref_stats, ref_grads) in (
-            ("jax", ([np.asarray(o) for o in jouts], jstats, jgrads)),
-            ("port default", results["default"])):
+    refs.append(("port default", results["default"]))
+    tag = (f"{input_format} b{b} stem_group={stem_group} "
+           f"span_stages={span_stages}")
+    for ref_name, (ref_outs, ref_stats, ref_grads) in refs:
         outs, new, grads = results["fused"]
         w_out = max(rel(a, b) for a, b in zip(outs, ref_outs))
-        assert w_out < 1e-10, f"fused vs {ref_name}: outputs {w_out}"
+        assert w_out < 1e-10, f"{tag} vs {ref_name}: outputs {w_out}"
         w_st = worst(new, ref_stats)
-        assert w_st[1] < 1e-8, f"fused vs {ref_name}: stats {w_st}"
+        assert w_st[1] < 1e-8, f"{tag} vs {ref_name}: stats {w_st}"
         w_g = worst(grads, ref_grads)
-        assert w_g[1] < 1e-4, f"fused vs {ref_name}: grads {w_g}"
-        print(f"MAXDIFF fused vs {ref_name}: outputs {w_out:.3e}, "
+        assert w_g[1] < 1e-4, f"{tag} vs {ref_name}: grads {w_g}"
+        print(f"MAXDIFF fused {tag} vs {ref_name}: outputs {w_out:.3e}, "
               f"batch_stats {w_st[1]:.3e}, grads {w_g[1]:.3e} ({w_g[0]})")
 
 
+def check_fused():
+    fused_case("nhwc", 4)
+
+
+def check_fused_s2d():
+    """The stem through B7's plain versions at b4 with stem_group 4 (ghost
+    BN ≡ full-batch BN): against JAX with span_stages=() on both sides
+    (JAX's span kernels in interpret mode would take ~60 s more; the
+    fused mode holds them), and with the spans against the default path;
+    at b1 with the default group 1 against the default path."""
+    fused_case("s2d_u8", 4, stem_group=4, span_stages=())
+    fused_case("s2d_u8", 4, stem_group=4, with_jax=False)
+    fused_case("s2d_u8", 1, with_jax=False)
+
+
 if __name__ == "__main__":
-    {"default": check_default, "fused": check_fused}[sys.argv[1]]()
+    {"default": check_default, "fused": check_fused,
+     "fused_s2d": check_fused_s2d}[sys.argv[1]]()
     print("PASS")
