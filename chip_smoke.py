@@ -5,13 +5,15 @@ the port still starts on the GPU).
     python3 chip_smoke.py
 
 Run from the repository root on a machine with a CUDA card.  It builds the
-port's six CUDA sources from `fastdet_torch/csrc/` (one nvcc each, in
+port's eight CUDA sources from `fastdet_torch/csrc/` (one nvcc each, in
 parallel), holds each kernel against its plain PyTorch version, checks the
 weights and both forwards, serves real requests through `InferenceServer`
 over `DevicePipeline` and over `FusedPipeline` and checks the answers,
-evaluates seeded labelled photos through the eval entry point in both of
-its modes, serves 640² through `FusedPipeline`, and trains at full width
-on the default, fused and fused s2d paths.
+drives the fused forward's five other combinations of `input_format` and
+`fuse_s2` into detections, evaluates seeded labelled photos through the
+eval entry point in both of its modes, serves 640² through
+`FusedPipeline`, and trains at full width on the default, fused and fused
+s2d paths.
 One line per phase; any failed check ends the run with a non-zero exit.
 Without a card, or outside the repository, it exits non-zero and prints
 no result.
@@ -27,6 +29,10 @@ Phases:
   2b. stem_s2d (B ∈ {1, 128} at 352², B = 2 at 160×96 with pad lanes) and
      span (C = 48/96/192 at 44²/22²/11², B ∈ {1, 128}) against their
      plain versions, ≤ 2e-4;
+  2d. stem_s2d8 (B10: B ∈ {1, 128} at 352², B = 2 at 160×96 with pad
+     lanes, 72×104 and 40×24 with tiles cut off at the edge) and s2span
+     (B9: the three stages of 352² at B ∈ {1, 128}, stage 2 of 160×96,
+     partial tiles and odd sizes) against their plain versions, ≤ 2e-4;
   3. weights through the carrier, forward on the card (TF32 off) against
      the same forward on the CPU, ≤ 2e-4;
   3b. the fused forward on the card against Detector on the card, ≤ 2e-4;
@@ -39,13 +45,23 @@ Phases:
      the three kernels' launch counts on this path; b128 throughput of both
      pipelines, the fused forward's per-stage split (`upto=`), and each
      fused kernel on the served batch's inputs with its bound;
+  4c. the flag paths: the five other combinations of `input_format`
+     (nhwc, s2d_u8, s2d8_u8) and `fuse_s2` at b128 352² on photo
+     variants, each forward against Detector on the card (TF32 off) and
+     its detections (postprocess, conf 0.3, window 128) against
+     FusedPipeline's on the same batch, the launches of stem_s2d8 and
+     s2span over the five (counts to 0 just before, read just after); the
+     per-stage split of all six combinations (`upto=`); s2span per stage
+     against the cuDNN stride-2 block + span it replaces, stem_s2d8
+     against stem_s2d on the same images, each with its bound;
   5. shutdown: server, batcher and threads;
   7. eval: `fastdet_torch.cli.evaluation.run_evaluation`, both passes
      (windows 1815 and 1024, through nms_keep), default and --fused mode,
      over 256 seeded photo variants in b128 batches with seeded labels;
      P/R/AP/F1 exactly those of the plain staged chain on the same
      forward outputs, images/s; nms_keep timed at b128, k = 512 and 1815;
-  7b. 640²: stem_s2d and span against their plain versions there, and
+  7b. 640²: stem_s2d and span against their plain versions there (and
+     the cuDNN stem at b32 beside stem_s2d), and
      FusedPipeline against DevicePipeline on 8 photo variants;
   8a. span_train (B8) forward and backward against their plain versions
      at the three stages at b128 352², at b1, and at small geometries
@@ -75,7 +91,8 @@ Phases:
      rank_decode_nms from the fused serving path, of nms_keep from the
      eval path, of stem_s2d at 640² from FusedPipeline there, of
      span_train_fwd/bwd from the fused training run, of stem_train_fwd/bwd
-     from the s2d training runs at group 1 and 16), the card line, and
+     from the s2d training runs at group 1 and 16, of stem_s2d8 and
+     s2span from the flag paths of 4c), the card line, and
      the host time of each phase, and the last line {"ok": true,
      "device": {...}}.
 
@@ -831,6 +848,259 @@ def phase_fused_timing(sd, dev_pipe, fused_pipe, big, card):
     return out
 
 
+# ------------------------------- the flag paths (B10, B9; phases 2d, 4c)
+
+# the five combinations of the fused forward beside the default
+# ("s2d_u8", fuse_s2=False), each (input_format, fuse_s2)
+FLAG_COMBOS = (("nhwc", False), ("nhwc", True), ("s2d_u8", True),
+               ("s2d8_u8", False), ("s2d8_u8", True))
+
+
+def stem8_bound(b, h8, w8):
+    """stem_s2d8: the image's uint8 pixels read once, its 672 weights, the
+    pooled f32 map written once; 2 operations per conv MAC (27 per conv
+    output, 16 conv outputs per coarse cell and channel): the s2d(4)
+    stem's work at h4 = 2·h8, w4 = 2·w8."""
+    nbytes = b * 192 * h8 * w8 + 672 * 4 + b * 24 * 4 * h8 * w8 * 4
+    return bound(nbytes, b * 16 * h8 * w8 * 24 * 27 * 2)
+
+
+def s2span_bound(b, cin, hin, win, nblk):
+    """s2span: the stage input read once, the stage output written once,
+    the weights once; 2 operations per MAC: pw1 (cin·mid) on every input
+    pixel, per output pixel the two depthwise convs (9·mid, 9·cin), pw2
+    (mid²) and the projection's pointwise (cin·mid), then nblk span blocks
+    ((C/2)²·2 + 9·C/2 each); mid = cin at every stage."""
+    from fastdet_torch.kernels.fused_infer import s2span_floats
+    m = cin
+    h, w = (hin + 1) // 2, (win + 1) // 2
+    nbytes = 4 * (b * cin * hin * win + b * 2 * m * h * w
+                  + s2span_floats(cin, nblk))
+    macs = (b * hin * win * cin * m
+            + b * h * w * (9 * m + m * m + 9 * cin + cin * m)
+            + nblk * b * h * w * (2 * m * m + 9 * m))
+    return bound(nbytes, 2 * macs)
+
+
+def phase_flag_kernels(sd):
+    """B10 and B9 against their plain versions on the card at the shapes of
+    tests/torch_cases.py (STEM8_CASES, S2SPAN_CASES: b1 and b128 352², pad
+    lanes, tiles cut off at the edge), with the folded weights of the
+    fused forward.  → max |Δ| of each."""
+    import torch
+    from fastdet_torch.kernels import fused_infer as fi
+    from fastdet_torch.kernels.fold import STAGES
+    from torch_cases import (S2SPAN_CASES, STEM8_CASES, s2span_case,
+                             stem8_case)
+    _, p = fi.build_fused_forward(sd)
+    w, bias = p["stem_w"], p["stem_b"]
+    err = {"stem_s2d8": 0.0, "s2span": 0.0}
+    for bsz, ih, iw in STEM8_CASES:
+        h8, w8 = ih // 8, iw // 8
+        x = stem8_case(bsz + ih, bsz, ih, iw, "cuda")
+        e = float((fi.stem_s2d8(x, w, bias, h8, w8)
+                   - fi.stem_s2d8_reference(x, w, bias, h8, w8)).abs().max())
+        check(e <= FUSED_ATOL, f"stem_s2d8 {e} off at b={bsz} {ih}x{iw}")
+        err["stem_s2d8"] = max(err["stem_s2d8"], e)
+        log(f"  stem_s2d8 b={bsz} {ih}x{iw} (h8={h8}, w8={w8}, npad="
+            f"{x.shape[2]}): max |Δ| {e:.3g}")
+    reps = {sid: r for sid, r, _ in STAGES}
+    for bsz, stage, hin, win in S2SPAN_CASES:
+        cin, nblk = {2: 24, 3: 48, 4: 96}[stage], reps[stage] - 1
+        x = s2span_case(stage * 1000 + hin, bsz, cin, hin, win, "cuda")
+        wts = p[f"s{stage}_s2span"]
+        e = float((fi.s2span(x, wts, nblk)
+                   - fi.s2span_reference(x, wts, nblk)).abs().max())
+        check(e <= FUSED_ATOL, f"s2span {e} off at b={bsz} stage {stage} "
+              f"{hin}x{win}")
+        err["s2span"] = max(err["s2span"], e)
+        log(f"  s2span b={bsz} stage {stage} {hin}x{win} → "
+            f"{(hin + 1) // 2}x{(win + 1) // 2} nblk={nblk}: max |Δ| {e:.3g}")
+    torch.cuda.synchronize()
+    log(f"phase 2d flag kernels: stem_s2d8 ({len(STEM8_CASES)} shapes) and "
+        f"s2span ({len(S2SPAN_CASES)}) within {FUSED_ATOL:g} of their plain "
+        f"versions; max |Δ| stem_s2d8 {err['stem_s2d8']:.3g}, s2span "
+        f"{err['s2span']:.3g}")
+    return err
+
+
+def cuda_median_ms(fn, calls: int = 15, warmup: int = 3) -> float:
+    """Median device time of one fn() call over `calls` calls, each timed
+    by its own pair of CUDA events."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(calls)]
+    for a, b in pairs:
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in pairs]))
+
+
+def phase_flag_paths(sd, photo, fused_pipe, card):
+    """The five new combinations of `build_fused_forward` at b128 352² f32
+    on photo variants: each forward against Detector on the card (TF32
+    off), each through `postprocess` (conf 0.3, window 128) against
+    FusedPipeline's detections on the same batch (counts to 0 just before
+    the five, read just after); the per-stage split of all six
+    combinations (`upto=`, medians of CUDA-event calls); B9 per stage
+    against the stride-2 block + B2 it replaces, B10 against B1 on the
+    same images.  → (launches, {kernel: (ms, plain_ms, bound_ms, by,
+    max |Δ|)})."""
+    import torch
+    import torch.nn.functional as F
+    from fastdet_torch import disable_tf32
+    from fastdet_torch.config import Config
+    from fastdet_torch.kernels import fused_infer as fi
+    from fastdet_torch.kernels import pp_fused
+    from fastdet_torch.kernels.fold import STAGES
+    from fastdet_torch.models import Detector
+    from fastdet_torch.ops.postprocess import postprocess
+    disable_tf32(torch.device("cuda"))
+    cfg = Config.from_file(DATA)
+    anchors = np.asarray(cfg.anchors, np.float32).reshape(2, 3, 2)
+    host = photo_variants(photo, 128, seed=44)
+    inputs = {"nhwc": torch.from_numpy(host).cuda(),
+              "s2d_u8": torch.from_numpy(fi.pack_images_s2d(host)).cuda(),
+              "s2d8_u8": torch.from_numpy(fi.pack_images_s2d8(host)).cuda()}
+    det = Detector(80, 3)
+    det.load_state_dict(sd)
+    det = det.cuda().eval()
+    fwds = {c: fi.build_fused_forward(sd, input_format=c[0], fuse_s2=c[1])
+            for c in FLAG_COMBOS}
+    kernels = [fi.stem_s2d, fi.stem_s2d8, fi.span, fi.s2span,
+               pp_fused.rank_decode_nms]
+
+    def rows(dets):
+        d, n = (t.cpu().numpy() for t in dets)
+        return [d[i, :n[i]] for i in range(len(n))]
+
+    with torch.inference_mode():
+        want = det(inputs["nhwc"].float() / 255.0)
+        ref = rows(fused_pipe.detect(inputs["s2d_u8"]))
+        torch.cuda.synchronize()
+        # ---- the main path: counts to 0, the five combinations, read
+        for k in kernels:
+            k.launches = 0
+        outs, dets = {}, {}
+        for c, (fwd, p) in fwds.items():
+            outs[c] = fwd(inputs[c[0]], p)
+            dets[c] = postprocess(outs[c], anchors, (352, 352),
+                                  conf_thres=0.3, iou_thres=0.45,
+                                  max_det=300, max_nms=128)
+        torch.cuda.synchronize()
+        launches = {k.__name__: k.launches for k in kernels}
+    for name in ("stem_s2d8", "s2span"):
+        check(launches[name] > 0, f"the flag paths launched no {name}")
+    n_det = sum(len(a) for a in ref)
+    check(n_det > 0, "no detections on the flag paths' batch")
+    for c in FLAG_COMBOS:
+        got = outs[c]
+        check(all(bool(torch.isfinite(g).all()) for g in got),
+              f"non-finite forward {c}")
+        check([g.shape for g in got] == [w.shape for w in want],
+              f"forward {c} shapes differ from Detector's")
+        e = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        check(e <= FUSED_ATOL, f"forward {c} {e} off Detector's")
+        for i, (a, b) in enumerate(zip(rows(dets[c]), ref)):
+            check(a.shape == b.shape and np.array_equal(a[:, 5], b[:, 5])
+                  and np.abs(a[:, 4] - b[:, 4]).max(initial=0) <= 1e-4
+                  and np.abs(a[:, :4] - b[:, :4]).max(initial=0) <= 1e-2,
+                  f"{c} detections of image {i} differ from FusedPipeline's")
+        log(f"  {c[0]} fuse_s2={c[1]}: forward vs Detector max |Δ| {e:.3g}; "
+            f"detections equal to FusedPipeline's")
+    log(f"phase 4c flag paths: 5 combinations at b128 352² on photo "
+        f"variants, each within {FUSED_ATOL:g} of Detector, {n_det} "
+        f"detections each, equal to FusedPipeline's (classes; scores ≤ "
+        f"1e-4, boxes ≤ 1e-2 px); launches {launches}")
+
+    out = {}
+    with torch.inference_mode():
+        for c in (("s2d_u8", False),) + FLAG_COMBOS:
+            cum = {}
+            for upto in ("stem", "s2", "s3", "s4", None):
+                fwd, p = fi.build_fused_forward(sd, input_format=c[0],
+                                                fuse_s2=c[1], upto=upto)
+                cum[upto] = cuda_median_ms(lambda: fwd(inputs[c[0]], p))
+            split = ", ".join(
+                f"{u or 'fpn+heads'} "
+                f"{cum[u] - cum[prev] if prev else cum[u]:.3f}"
+                for prev, u in zip((None, "stem", "s2", "s3", "s4"),
+                                   ("stem", "s2", "s3", "s4", None)))
+            log(f"  per stage b128 {c[0]} fuse_s2={c[1]} (median of 15 "
+                f"calls, CUDA events, upto=): {split} ms; whole forward "
+                f"{cum[None]:.3f} ms ({card})")
+
+        _, p = fwds[("s2d8_u8", True)]
+        w, bias = p["stem_w"], p["stem_b"]
+        x4, x8 = inputs["s2d_u8"], inputs["s2d8_u8"]
+        a = fi.stem_s2d8(x8, w, bias, 44, 44)
+        e = float((a - fi.stem_s2d8_reference(x8, w, bias, 44, 44))
+                  .abs().max())
+        check(e <= FUSED_ATOL, f"stem_s2d8 {e} off on the b128 batch")
+        e1 = float((a - fi.stem_s2d(x4, w, bias, 88, 88)).abs().max())
+        check(e1 <= FUSED_ATOL, f"stem_s2d8 {e1} off stem_s2d")
+        t = {"b10": lambda: fi.stem_s2d8(x8, w, bias, 44, 44),
+             "b1": lambda: fi.stem_s2d(x4, w, bias, 88, 88)}
+        ms = {k: [] for k in t}
+        for k in ("b10", "b1", "b1", "b10"):
+            ms[k].append(cuda_ms(t[k], 50))
+        plain_ms = cuda_ms(
+            lambda: fi.stem_s2d8_reference(x8, w, bias, 44, 44), 10, 2)
+        xf = inputs["nhwc"].permute(0, 3, 1, 2).float() / 255.0
+        yard = cuda_ms(lambda: F.max_pool2d(det.backbone.first_conv(xf), 3,
+                                            2, 1), 20)
+        b10_ms = sum(ms["b10"]) / 2
+        out["stem_s2d8"] = (b10_ms, plain_ms, *stem8_bound(128, 44, 44), e)
+        log(f"  stem_s2d8 on the b128 batch: kernel {b10_ms:.4f} ms (calls "
+            f"{', '.join(f'{v:.4f}' for v in ms['b10'])}), B1 on the same "
+            f"images {sum(ms['b1']) / 2:.4f} ms (calls "
+            f"{', '.join(f'{v:.4f}' for v in ms['b1'])}), plain "
+            f"{plain_ms:.4f} ms, bound {out['stem_s2d8'][2]:.4f} ms "
+            f"({out['stem_s2d8'][3]}), max |Δ| {e:.3g} (to B1's output "
+            f"{e1:.3g}); cuDNN conv+BN+ReLU + max_pool2d from f32 NCHW "
+            f"{yard:.4f} ms")
+
+        stages = []            # (ms, plain_ms, bound_ms, by, max |Δ|)
+        x = fi.stem_s2d(x4, w, bias, 88, 88)
+        for sid, reps, c in STAGES:
+            xin, wts = x, p[f"s{sid}_s2span"]
+            x = fi.s2span(xin, wts, reps - 1)
+            e = float((x - fi.s2span_reference(xin, wts, reps - 1))
+                      .abs().max())
+            check(e <= FUSED_ATOL, f"s2span {e} off on the b128 batch")
+            t = {"b9": lambda: fi.s2span(xin, wts, reps - 1),
+                 "old": lambda: fi.span(fi._s2_block(xin, p, f"s{sid}_0"),
+                                        p[f"s{sid}_span"], reps - 1)}
+            ms = {k: [] for k in t}
+            for k in ("b9", "old", "old", "b9"):
+                ms[k].append(cuda_ms(t[k], 30))
+            plain_ms = cuda_ms(
+                lambda: fi.s2span_reference(xin, wts, reps - 1), 10, 2)
+            b_ms, b_by = s2span_bound(128, c // 2, xin.shape[2],
+                                      xin.shape[3], reps - 1)
+            b9_ms = sum(ms["b9"]) / 2
+            log(f"  s2span stage {sid} on the b128 batch ({c // 2}→{c}, "
+                f"{xin.shape[2]}²→{x.shape[2]}², nblk={reps - 1}): kernel "
+                f"{b9_ms:.4f} ms (calls "
+                f"{', '.join(f'{v:.4f}' for v in ms['b9'])}), cuDNN "
+                f"stride-2 block + B2 {sum(ms['old']) / 2:.4f} ms (calls "
+                f"{', '.join(f'{v:.4f}' for v in ms['old'])}), plain "
+                f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), max |Δ| "
+                f"{e:.3g}")
+            stages.append((b9_ms, plain_ms, b_ms, b_by, e))
+        ms, plain_ms, b_ms = (sum(st[i] for st in stages) for i in range(3))
+        out["s2span"] = (ms, plain_ms, b_ms,
+                         max(stages, key=lambda st: st[2])[3],
+                         max(st[4] for st in stages))
+        log(f"  s2span, the three stage calls of one b128 batch: kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms")
+    return launches, out
+
+
 # ------------------------------------------------ the staged NMS (B4, B5)
 
 NMS_IOU = 0.4       # the eval passes' NMS threshold
@@ -1098,8 +1368,8 @@ def phase_640(sd, photo, card):
     err = 0.0
     for bsz in (1, 32):
         rng = np.random.default_rng(640 + bsz)
-        xs = fi.pack_images_s2d(rng.integers(0, 256, (bsz, 640, 640, 3),
-                                             dtype=np.uint8))
+        imgs = rng.integers(0, 256, (bsz, 640, 640, 3), dtype=np.uint8)
+        xs = fi.pack_images_s2d(imgs)
         x = torch.from_numpy(xs).cuda()
         e = float((fi.stem_s2d(x, w, bias, 160, 160)
                    - fi.stem_s2d_reference(x, w, bias, 160, 160)).abs().max())
@@ -1111,6 +1381,15 @@ def phase_640(sd, photo, card):
         log(f"  stem_s2d b={bsz} 640² (npad={xs.shape[2]}): max |Δ| {e:.3g},"
             f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
     b6 = (ms, plain_ms, *stem_bound(32, 160, 160), err)
+    det = Detector(80, 3)
+    det.load_state_dict(sd)
+    det = det.cuda().eval()
+    with torch.inference_mode():
+        xf = torch.from_numpy(imgs).cuda().permute(0, 3, 1, 2).float() / 255
+        yard = cuda_ms(lambda: torch.nn.functional.max_pool2d(
+            det.backbone.first_conv(xf), 3, 2, 1), 20)
+    log(f"  stem yardstick b32 640²: cuDNN conv+BN+ReLU + max_pool2d of "
+        f"Detector from f32 NCHW {yard:.4f} ms (stem_s2d {ms:.4f} ms)")
     for (stage, reps, c), hw in zip(STAGES, (80, 40, 20)):
         weights = p[f"s{stage}_span"]
         for bsz in (1, 32):
@@ -1726,6 +2005,8 @@ def main() -> int:
     lap("3")
     fused_err = phase_fused_kernels(sd)
     lap("2b")
+    flag_err = phase_flag_kernels(sd)
+    lap("2d")
     phase_fused_forward(sd, photo)
     lap("3b")
     launches, big, dev_pipe, images = phase_serving(sd, photo, card)
@@ -1735,6 +2016,8 @@ def main() -> int:
     fused_pipe, fused_launches = phase_fused_serving(sd, dev_pipe, images)
     fused_main = phase_fused_timing(sd, dev_pipe, fused_pipe, big, card)
     lap("4b")
+    flag_launches, flag_main = phase_flag_paths(sd, photo, fused_pipe, card)
+    lap("4c")
     for t in threading.enumerate():         # request handlers finishing
         if t is not threading.main_thread():
             t.join(timeout=10)
@@ -1753,8 +2036,11 @@ def main() -> int:
     train_launches = phase_training(sd, photo, dev_pipe, card, b8, b7)
     lap("8b")
     log('phase 6 kernels: ["stem_s2d", "span", "rank_decode_nms", '
-        '"nms_keep"] (rank_decode_nms launches on the device path: '
-        f'{launches}; nms_keep on the eval path: {eval_launches})')
+        '"nms_keep", "span_train", "stem_train", "stem_s2d8", "s2span"] '
+        f'(rank_decode_nms launches on the device path: {launches}; '
+        f'nms_keep on the eval path: {eval_launches}; stem_s2d8 and s2span '
+        f'on the flag paths: {flag_launches["stem_s2d8"]}, '
+        f'{flag_launches["s2span"]})')
     log("phase times (host clock, s): " + ", ".join(
         f"{name} {t - laps[i][1]:.1f}"
         for i, (name, t) in enumerate(laps[1:])))
@@ -1832,6 +2118,19 @@ def main() -> int:
             "launches": train_launches[mode]["b7"][idx],
             "max_abs_err": k_err, "ms": k_ms, "plain_ms": k_plain,
             "bound_ms": k_bound, "bound_by": k_by, "library_ms": k_lib})
+    # B10 and B9 on the flag paths: launches over the five combinations
+    # of phase 4c, times at b128 352² (B9's summed over the three stages)
+    for name, replaces in (
+            ("stem_s2d8", "fastdet/kernels/fused_infer.py:622"),
+            ("s2span", "fastdet/kernels/fused_infer.py:241")):
+        k_ms, k_plain, k_bound, k_by, k_err = flag_main[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"fastdet_torch/csrc/{name}.cu", "replaces": replaces,
+            "launches": flag_launches[name],
+            "max_abs_err": max(flag_err[name], k_err), "ms": k_ms,
+            "plain_ms": k_plain, "bound_ms": k_bound, "bound_by": k_by,
+            "library_ms": None})
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

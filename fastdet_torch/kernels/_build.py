@@ -1,17 +1,19 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
 Each `fastdet_torch/csrc/<name>.cu` is one translation unit with a plain C
-interface (no PyTorch or CUTLASS headers, so `nvcc` takes seconds).  It is
-compiled with `nvcc` for `sm_90a` into
-`build/torch_ext/<name>-<hash>.so`, where the hash covers the source, the
-flags and the compiler path, so an edited source rebuilds and an
-unchanged one is reused.  `build/` is listed in `.gitignore`.
+interface (no PyTorch or CUTLASS headers, so `nvcc` takes seconds); it may
+include the package's own `csrc/*.cuh` headers.  It is compiled with
+`nvcc` for `sm_90a` into `build/torch_ext/<name>-<hash>.so`, where the
+hash covers the source, every `.cuh` header, the flags and the compiler
+path, so an edited source or header rebuilds and an unchanged one is
+reused.  `build/` is listed in `.gitignore`.
 
 Flags are per source: `--fmad=false` keeps every a*b+c as two rounded
 operations, as XLA and PyTorch's elementwise ops compute them, and the
 bitwise parity of `pp_fused` and `nms_keep` with their plain versions
-depends on it.  The stem and span kernels are held to 2e-4, not bitwise,
-and contract to FMA.  The training kernels `span_train` and `stem_train`
+depends on it.  The stem and span kernels (both stems, the span and the
+stage kernel `s2span`) are held to 2e-4, not bitwise, and contract to
+FMA.  The training kernels `span_train` and `stem_train`
 are built without FMA so that their plain versions recompute their
 forwards bit for bit (their backward's ReLU masks and pool routing then
 agree).
@@ -42,7 +44,7 @@ SOURCE_FLAGS = {"pp_fused": ("--fmad=false",),
                 "span_train": ("--fmad=false",),
                 "stem_train": ("--fmad=false",)}
 SOURCES = ("pp_fused", "stem_s2d", "span", "nms_keep", "span_train",
-           "stem_train")
+           "stem_train", "stem_s2d8", "s2span")
 BUILD_TIMEOUT_S = 600
 
 _lock = threading.Lock()
@@ -67,8 +69,10 @@ def flags(name: str) -> tuple:
 
 def _target(name: str, nvcc: str) -> str:
     h = hashlib.sha256()
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        h.update(f.read())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [name + ".cu"] + headers:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            h.update(f.read())
     h.update(" ".join(flags(name)).encode())
     h.update(nvcc.encode())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")

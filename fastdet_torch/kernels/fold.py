@@ -7,14 +7,19 @@ package's operation order, so that each folded array equals the JAX one
 bit for bit.  Layouts are the JAX package's: pointwise convs as
 (Cin, Cout), depthwise as (kh, kw, C), the stem as HWIO (3, 3, 3, 24).
 
-The one difference is the stride-1 block.  The TPU kernel takes a merged
-(C, C) first matrix (odd-channel select ∘ pw1, with the even passthrough
-below) and dw3×3 composed with pw2 into one (C/2, 9·C/2) matrix, shapes
-that feed its matrix unit.  The CUDA span kernel runs the three convs
-apart, so `pack_s1_block` keeps them apart: w1, b1, wd, bd, w2, b2.
+The differences are the blocks' kernel forms.  The TPU span kernel takes
+a merged (C, C) first matrix (odd-channel select ∘ pw1, with the even
+passthrough below) and dw3×3 composed with pw2 into one (C/2, 9·C/2)
+matrix, shapes that feed its matrix unit; its stride-2 prologue
+(`pack_s2_block_fused` of the JAX package) takes pw1 as a block-diagonal
+(4·mid, 4·cin) matrix over four phases and both dw3×3 s2 ∘ pw pairs
+composed.  The CUDA kernels run every conv apart, so the folded convs
+stay apart: `pack_span_weights` packs `pack_s1_block`'s w1, b1, wd, bd,
+w2, b2 into the span kernel's rows, and `pack_s2span_weights` packs
+`pack_s2_block`'s ten arrays, followed by those rows, into the stage
+kernel's one flat row.
 
-`pack_s2_block_fused` and `pack_fused_weights_af` (the phase-packed
-stride-2 prologue and the anchor-free heads) are not ported yet.
+`pack_fused_weights_af` (the anchor-free heads) is not ported yet.
 """
 
 from __future__ import annotations
@@ -75,6 +80,34 @@ def pack_s2_block(sd, prefix: str) -> Dict[str, np.ndarray]:
     wpp, bpp = _fold_pw(sd, f"{prefix}.proj_pw")
     return {"w1": w1, "b1": b1, "wd": wd, "bd": bd, "w2": w2, "b2": b2,
             "wpd": wpd, "bpd": bpd, "wpp": wpp, "bpp": bpp}
+
+
+def pack_span_weights(blocks) -> np.ndarray:
+    """Per-block dicts of `pack_s1_block` → the span kernel's
+    (nblk, 2·mid² + 12·mid) f32 rows [w1 | b1 | wd (tap-major 9×mid) | bd |
+    w2 | b2]."""
+    rows = []
+    for p in blocks:
+        mid = p["b1"].shape[0]
+        rows.append(np.concatenate([
+            p["w1"].ravel(), p["b1"], p["wd"].reshape(9, mid).ravel(),
+            p["bd"], p["w2"].ravel(), p["b2"]]).astype(np.float32))
+    return np.stack(rows)
+
+
+S2_ROW_KEYS = ("w1", "b1", "wd", "bd", "w2", "b2", "wpd", "bpd", "wpp", "bpp")
+
+
+def pack_s2span_weights(s2_block, s1_blocks) -> np.ndarray:
+    """One stage in the stage kernel's form: `pack_s2_block`'s dict and the
+    stage's `pack_s1_block` dicts → one flat f32 row, the stride-2 block's
+    3·M² + 23·M floats [w1 (cin×mid) | b1 | wd (tap-major 9×mid) | bd |
+    w2 (mid×mid) | b2 | wpd (tap-major 9×cin) | bpd | wpp (cin×mid) | bpp]
+    (cin = mid = M at every stage), then the span rows of
+    `pack_span_weights`."""
+    head = np.concatenate([np.asarray(s2_block[k], np.float32).ravel()
+                           for k in S2_ROW_KEYS])
+    return np.concatenate([head, pack_span_weights(s1_blocks).ravel()])
 
 
 def pack_dwconvblock(sd, prefix: str) -> Dict[str, np.ndarray]:

@@ -1,36 +1,47 @@
 """The fused inference forward (counterpart of
-fastdet/kernels/fused_infer.py, `input_format="s2d_u8"`, `head="yolo"`).
+fastdet/kernels/fused_infer.py, `head="yolo"`).
 
-Input contract: the host's uint8 space-to-depth(4) batch
-(B, 48, pad128(H/4·W/4)), channel yoff·12 + xoff·3 + c, lane i·(W/4) + j
-for pixel (4i+yoff, 4j+xoff, c), written by `pack_images_s2d`.  Inside,
-activations are NCHW f32.  The forward:
+Input contracts (`input_format`), all uint8:
+  * "s2d_u8", the port's default: the host's space-to-depth(4) batch
+    (B, 48, pad128(H/4·W/4)), channel yoff·12 + xoff·3 + c, lane
+    i·(W/4) + j for pixel (4i+yoff, 4j+xoff, c), written by
+    `pack_images_s2d`;
+  * "s2d8_u8": space-to-depth(8), (B, 192, pad128(H/8·W/8)), channel
+    yoff·24 + xoff·3 + c, written by `pack_images_s2d8`;
+  * "nhwc": (B, H, W, 3).
+Inside, activations are NCHW f32.  The forward:
 
-  1. `stem_s2d`: conv3×3 s2 (3→24, /255 and BN folded) + ReLU + maxpool
-     3×3 s2 → (B, 24, H/4, W/4), the hand-written CUDA kernel
-     `csrc/stem_s2d.cu` on the card;
-  2. per stage (48/96/192 channels): the stride-2 ShuffleV2 block in
-     PyTorch (cuDNN on the card), then `span`, the stage's 3/7/3 stride-1
-     blocks, the hand-written CUDA kernel `csrc/span.cu` on the card;
+  1. the stem, conv3×3 s2 (3→24, /255 and BN folded) + ReLU + maxpool
+     3×3 s2 → (B, 24, H/4, W/4): `stem_s2d` (kernel B1,
+     `csrc/stem_s2d.cu`), `stem_s2d8` (B10, `csrc/stem_s2d8.cu`) or, from
+     NHWC, PyTorch (the JAX package leaves that stem to XLA);
+  2. per stage (48/96/192 channels) either the stride-2 ShuffleV2 block
+     in PyTorch (cuDNN on the card) and then `span`, the stage's 3/7/3
+     stride-1 blocks (B2, `csrc/span.cu`), or, with `fuse_s2=True` (and at
+     stage 2 of "s2d8_u8" always, as in the JAX package), `s2span`, the
+     stride-2 block and the span in one call (B9, `csrc/s2span.cu`);
   3. LightFPN and the shared heads in PyTorch;
 
 and returns the raw NHWC 6-tuple (reg2, obj2, cls2, reg3, obj3, cls3) of
-the port's `Detector`.  The JAX package leaves the stride-2 blocks, the
-FPN and the heads to XLA, so they stay library calls here.
+the port's `Detector`.  The JAX package leaves the stride-2 blocks (off
+the fused stage), the FPN and the heads to XLA, so they stay library
+calls here.
 
-`stem_s2d` and `span` launch their kernel on a CUDA tensor (or raise) and
-run their plain PyTorch version, `stem_s2d_reference` / `span_reference`,
-only on a CPU tensor.  Each counts its kernel launches in `.launches`.
+Each kernel wrapper launches its kernel on a CUDA tensor (or raises) and
+runs its plain PyTorch version (`*_reference`) only on a CPU tensor.
+Each counts its kernel launches in `.launches`.
 
-The TPU's lane grouping (`_pick_group`, `_LANE_BUDGET`) is a VMEM rule and
-is not ported.  Nor is the row-chunked stem (`_stem_call_chunked`, B6):
-the JAX package splits inputs above 8192 s2d lanes (640²: 25,600) into
-row chunks with a one-row halo because one image's stem must fit in
-VMEM.  `stem_s2d`'s CUDA grid already tiles 8×8 pooled cells at any
-h/4 × w/4, with a halo of its own, and its shared memory does not grow
-with the image, so one launch serves every size; `span` tiles any h × w
-likewise.  Not ported yet: `input_format="nhwc"`, `"s2d8_u8"` (B10),
-`fuse_s2=True` (B9), bf16 and the anchor-free head (ROADMAP A8, A14).
+The TPU's phase-packed layouts are not ported: its s2d(8) stem emits the
+pooled map as four phase planes and its stage kernel reads the stage
+input phase-split, because Mosaic has no strided lane addressing.  Here
+B10 writes the NCHW map that B1 writes, and B9 reads any stage input
+NCHW with stride-2 addressing.  Nor are the TPU's lane grouping
+(`_pick_group`, `_LANE_BUDGET`, `_LANE_BUDGET_S2`) and its row-chunked
+stem (`_stem_call_chunked`, B6) ported: they fit VMEM, and the CUDA
+grids here tile any size with shared memory that does not grow with the
+image, so one launch serves every size.  The s2d(8) guard (at most 2048
+lanes) is the JAX package's and is kept.  Not ported yet: bf16 and the
+anchor-free head (ROADMAP A1, A8).
 """
 
 from __future__ import annotations
@@ -44,9 +55,15 @@ import torch.nn.functional as F
 
 from fastdet_torch import resolve_device
 from fastdet_torch.kernels import _build
-from fastdet_torch.kernels.fold import STAGES, pack_fused_weights
+from fastdet_torch.kernels.fold import (S2_ROW_KEYS, STAGES,
+                                        pack_fused_weights,
+                                        pack_s2span_weights,
+                                        pack_span_weights)
 
 SPAN_CHANNELS = (48, 96, 192)
+S2SPAN_CHANNELS = (24, 48, 96)           # stage inputs, = each stage's MID
+INPUT_FORMATS = ("nhwc", "s2d_u8", "s2d8_u8")
+STEM8_LANE_BUDGET = 2048    # the JAX package's s2d(8) guard, kept as is
 
 
 def _pad128(n: int) -> int:
@@ -65,28 +82,38 @@ def pack_stem_s2d(stem_w: np.ndarray, stem_b: np.ndarray,
             np.asarray(stem_b, np.float32).copy())
 
 
-def pack_images_s2d(images: np.ndarray) -> np.ndarray:
-    """(B, H, W, 3) uint8 → (B, 48, pad128(H/4·W/4)) uint8 s2d(4) layout,
-    zero pad lanes."""
+def _space_to_depth(images: np.ndarray, k: int) -> np.ndarray:
+    """(B, H, W, 3) → (B, 3·k², pad128(H/k·W/k)), channel yoff·3k + xoff·3
+    + c, lane i·(W/k) + j for pixel (k·i+yoff, k·j+xoff, c), zero pad
+    lanes."""
     b, ih, iw, _ = images.shape
-    h, w = ih // 4, iw // 4
+    h, w = ih // k, iw // k
     hw = h * w
-    x = np.asarray(images).reshape(b, h, 4, w, 4, 3)
-    x = x.transpose(0, 2, 4, 5, 1, 3).reshape(b, 48, hw)
+    x = np.asarray(images).reshape(b, h, k, w, k, 3)
+    x = x.transpose(0, 2, 4, 5, 1, 3).reshape(b, 3 * k * k, hw)
     return np.pad(x, ((0, 0), (0, 0), (0, _pad128(hw) - hw)))
 
 
-def pack_span_weights(blocks) -> np.ndarray:
-    """Per-block dicts of `fold.pack_s1_block` → the span kernel's
-    (nblk, 2·mid² + 12·mid) f32 rows [w1 | b1 | wd (tap-major 9×mid) | bd |
-    w2 | b2]."""
-    rows = []
-    for p in blocks:
-        mid = p["b1"].shape[0]
-        rows.append(np.concatenate([
-            p["w1"].ravel(), p["b1"], p["wd"].reshape(9, mid).ravel(),
-            p["bd"], p["w2"].ravel(), p["b2"]]).astype(np.float32))
-    return np.stack(rows)
+def _unpack_space_to_depth(x, k: int, h: int, w: int):
+    """(B, 3·k², npad) s2d(k) tensor → (B, 3, k·h, k·w) image."""
+    bsz = x.shape[0]
+    img = x[:, :, :h * w].reshape(bsz, k, k, 3, h, w)
+    return img.permute(0, 3, 4, 1, 5, 2).reshape(bsz, 3, k * h, k * w)
+
+
+def _stem_conv_pool(img, w, b):
+    """conv3×3 s2 (HWIO `w`, bias `b`) + ReLU + maxpool 3×3 s2 of an
+    (B, 3, H, W) image, in f32."""
+    wt = torch.as_tensor(w, device=img.device).permute(3, 2, 0, 1)
+    y = F.conv2d(img.float(), wt, torch.as_tensor(b, device=img.device),
+                 stride=2, padding=1)
+    return F.max_pool2d(F.relu(y), 3, 2, 1)
+
+
+def pack_images_s2d(images: np.ndarray) -> np.ndarray:
+    """(B, H, W, 3) uint8 → (B, 48, pad128(H/4·W/4)) uint8 s2d(4) layout,
+    zero pad lanes."""
+    return _space_to_depth(images, 4)
 
 
 # ------------------------------------------------------------ kernel B1
@@ -95,13 +122,7 @@ def stem_s2d_reference(x, w, b, h4: int, w4: int):
     """Plain PyTorch version of the stem kernel, any device.  x (B,48,npad)
     uint8, w (3,3,3,24) HWIO f32 with /255 folded in, b (24,) →
     (B, 24, h4, w4) f32."""
-    bsz = x.shape[0]
-    img = x[:, :, :h4 * w4].reshape(bsz, 4, 4, 3, h4, w4)
-    img = img.permute(0, 3, 4, 1, 5, 2).reshape(bsz, 3, 4 * h4, 4 * w4)
-    wt = torch.as_tensor(w, device=x.device).permute(3, 2, 0, 1)
-    y = F.conv2d(img.float(), wt, torch.as_tensor(b, device=x.device),
-                 stride=2, padding=1)
-    return F.max_pool2d(F.relu(y), 3, 2, 1)
+    return _stem_conv_pool(_unpack_space_to_depth(x, 4, h4, w4), w, b)
 
 
 _STEM_SIGNATURES = {
@@ -215,6 +236,160 @@ def span(x, weights, nblk: int):
 span.launches = 0
 
 
+# ----------------------------------------------------------- kernel B10
+
+def pack_images_s2d8(images: np.ndarray) -> np.ndarray:
+    """(B, H, W, 3) uint8 → (B, 192, pad128(H/8·W/8)) uint8 s2d(8) layout,
+    channel yoff·24 + xoff·3 + c, lane i·(W/8) + j for pixel (8i+yoff,
+    8j+xoff, c), zero pad lanes."""
+    return _space_to_depth(images, 8)
+
+
+def check_stem8_size(ih: int, iw: int) -> None:
+    """The JAX package's s2d(8) guard: H and W divisible by 8 and at most
+    STEM8_LANE_BUDGET lanes after padding; larger inputs take s2d_u8."""
+    if ih % 8 or iw % 8 or _pad128((ih // 8) * (iw // 8)) > STEM8_LANE_BUDGET:
+        raise ValueError(
+            "s2d8_u8 needs H,W divisible by 8 and "
+            f"pad128(H/8·W/8) ≤ {STEM8_LANE_BUDGET} lanes "
+            f"(got {(ih, iw)}); use s2d_u8 for larger inputs")
+
+
+def stem_s2d8_reference(x, w, b, h8: int, w8: int):
+    """Plain PyTorch version of the s2d(8) stem kernel, any device.
+    x (B,192,npad) uint8, w (3,3,3,24) HWIO f32 with /255 folded in, b (24,)
+    → (B, 24, 2·h8, 2·w8) f32."""
+    return _stem_conv_pool(_unpack_space_to_depth(x, 8, h8, w8), w, b)
+
+
+_STEM8_SIGNATURES = {
+    "fastdet_stem_s2d8": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                          + [ctypes.c_void_p], ctypes.c_int),
+}
+
+
+def stem_s2d8(x, w, b, h8: int, w8: int):
+    """→ (B, 24, 2·h8, 2·w8) f32, NCHW (the layout the stage kernel B9
+    reads).  CUDA: the kernel of `csrc/stem_s2d8.cu`, with `w` and `b` f32
+    on the host (its parameter block); CPU: the plain version."""
+    dev = x.device
+    if dev.type == "cpu":
+        return stem_s2d8_reference(x, w, b, h8, w8)
+    if dev.type != "cuda":
+        raise ValueError(f"stem_s2d8: unsupported device {dev}")
+    bsz = x.shape[0]
+    npad = _pad128(h8 * w8)
+    if (x.dtype != torch.uint8 or tuple(x.shape) != (bsz, 192, npad)
+            or not x.is_contiguous()):
+        raise ValueError(
+            f"stem_s2d8: expected a contiguous uint8 (B, 192, {npad}) tensor "
+            f"for h8={h8}, w8={w8}, got {x.dtype} {tuple(x.shape)}")
+    for t, shape in ((w, (3, 3, 3, 24)), (b, (24,))):
+        if (not isinstance(t, torch.Tensor) or t.device.type != "cpu"
+                or t.dtype != torch.float32 or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError(
+                f"stem_s2d8: the weights are kernel parameters: expected a "
+                f"contiguous f32 {shape} tensor on the CPU")
+    out = torch.empty((bsz, 24, 2 * h8, 2 * w8), dtype=torch.float32,
+                      device=dev)
+    lib = _build.load("stem_s2d8", _STEM8_SIGNATURES)
+    with torch.cuda.device(dev):
+        rc = lib.fastdet_stem_s2d8(
+            x.data_ptr(), out.data_ptr(), w.data_ptr(), b.data_ptr(), bsz,
+            h8, w8, npad, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, "stem_s2d8")
+    stem_s2d8.launches += 1
+    return out
+
+
+stem_s2d8.launches = 0
+
+
+# ------------------------------------------------------------ kernel B9
+
+def s2span_floats(cin: int, nblk: int) -> int:
+    """Length of a stage's flat row (`fold.pack_s2span_weights`)."""
+    return 3 * cin * cin + 23 * cin + nblk * (2 * cin * cin + 12 * cin)
+
+
+def _unpack_s2(row: torch.Tensor, m: int):
+    sizes = (m * m, m, 9 * m, m, m * m, m, 9 * m, m, m * m, m)
+    return dict(zip(S2_ROW_KEYS, torch.split(row[:sum(sizes)], sizes)))
+
+
+def s2span_reference(x, weights, nblk: int):
+    """Plain PyTorch version of the stage kernel, any device.  x
+    (B, cin, H, W) f32, weights the flat row of `fold.pack_s2span_weights`
+    → (B, 2·cin, ⌈H/2⌉, ⌈W/2⌉) f32: the stride-2 block, concat[proj,
+    main], then `nblk` span blocks."""
+    m = x.shape[1]
+    q = _unpack_s2(weights, m)
+
+    def pw(a, wt, bias):
+        return F.relu(F.conv2d(a, wt.reshape(m, m).t()[:, :, None, None],
+                               bias))
+
+    def dw(a, wt, bias):
+        return F.conv2d(a, wt.reshape(9, m).t().reshape(m, 1, 3, 3), bias,
+                        stride=2, padding=1, groups=m)
+
+    y = dw(pw(x, q["w1"], q["b1"]), q["wd"], q["bd"])
+    y = pw(y, q["w2"], q["b2"])
+    pr = pw(dw(x, q["wpd"], q["bpd"]), q["wpp"], q["bpp"])
+    out = torch.cat([pr, y], dim=1)
+    if nblk == 0:
+        return out
+    head = 3 * m * m + 23 * m
+    return span_reference(out, weights[head:].reshape(nblk, -1), nblk)
+
+
+_S2SPAN_SIGNATURES = {
+    "fastdet_s2span": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p], ctypes.c_int),
+}
+
+
+def s2span(x, weights, nblk: int):
+    """→ (B, 2·cin, ⌈H/2⌉, ⌈W/2⌉) f32 after the stride-2 block and `nblk`
+    stride-1 blocks.  CUDA: the kernels of `csrc/s2span.cu`, 1 + nblk
+    launches (each counted); CPU: the plain version."""
+    dev = x.device
+    if dev.type == "cpu":
+        return s2span_reference(x, weights, nblk)
+    if dev.type != "cuda":
+        raise ValueError(f"s2span: unsupported device {dev}")
+    if (x.dim() != 4 or x.shape[1] not in S2SPAN_CHANNELS
+            or x.dtype != torch.float32 or not x.is_contiguous()):
+        raise ValueError(
+            f"s2span: expected a contiguous f32 (B, cin, H, W) tensor with "
+            f"cin in {S2SPAN_CHANNELS}, got {x.dtype} {tuple(x.shape)}")
+    bsz, cin, hin, win = x.shape
+    n = s2span_floats(cin, nblk)
+    if (weights.device != dev or weights.dtype != torch.float32
+            or tuple(weights.shape) != (n,) or not weights.is_contiguous()
+            or weights.data_ptr() % 16):
+        raise ValueError(
+            f"s2span: expected contiguous 16-byte-aligned f32 weights ({n},) "
+            f"on {dev}, got {weights.dtype} {tuple(weights.shape)} on "
+            f"{weights.device}")
+    shape = (bsz, 2 * cin, (hin + 1) // 2, (win + 1) // 2)
+    out = torch.empty(shape, dtype=torch.float32, device=dev)
+    tmp = torch.empty_like(out) if nblk > 0 else out
+    lib = _build.load("s2span", _S2SPAN_SIGNATURES)
+    with torch.cuda.device(dev):
+        rc = lib.fastdet_s2span(
+            x.data_ptr(), out.data_ptr(), tmp.data_ptr(), weights.data_ptr(),
+            bsz, cin, hin, win, nblk,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, "s2span")
+    s2span.launches += 1 + nblk
+    return out
+
+
+s2span.launches = 0
+
+
 # ------------------------------------------------------ the PyTorch pieces
 
 def _s2_block(x, p, prefix: str):
@@ -261,29 +436,38 @@ def _fpn(c2, c3, p):
 def _device_weights(pk: Dict[str, np.ndarray],
                     device) -> Dict[str, torch.Tensor]:
     """Folded numpy weights (JAX layouts) → the forward's tensors: conv
-    weights as OIHW on `device`, each stage's span as one packed tensor on
-    `device`, the stem's scaled weight and bias on the host."""
+    weights as OIHW on `device` (the nhwc stem's as `stem_conv_w`/`_b`),
+    each stage's span and its whole stage as one packed tensor each on
+    `device`, the stem's scaled weight and bias on the host (B1's and
+    B10's kernel parameters)."""
     p: Dict[str, torch.Tensor] = {}
-    s1 = {}
+    blocks = {}                  # stage → block index → folded arrays
     for k, v in pk.items():
         parts = k.split("_")
         if k.startswith("stem_"):
             continue
-        if parts[0][0] == "s" and parts[0][1:].isdigit() and parts[1] != "0":
-            s1.setdefault(int(parts[0][1:]), {}).setdefault(
+        if parts[0][0] == "s" and parts[0][1:].isdigit():
+            blocks.setdefault(int(parts[0][1:]), {}).setdefault(
                 int(parts[1]), {})[parts[2]] = v
-            continue
+            if parts[1] != "0":
+                continue
         if v.ndim == 3:                                 # depthwise (kh,kw,C)
             v = v.transpose(2, 0, 1)[:, None]
         elif v.ndim == 2:                               # pointwise (Cin,Cout)
             v = v.T[:, :, None, None]
         p[k] = torch.from_numpy(np.ascontiguousarray(v)).to(device)
-    for stage, blocks in s1.items():
-        p[f"s{stage}_span"] = torch.from_numpy(pack_span_weights(
-            [blocks[i] for i in sorted(blocks)])).to(device)
+    for stage, blk in blocks.items():
+        s1 = [blk[i] for i in sorted(blk) if i > 0]
+        p[f"s{stage}_span"] = torch.from_numpy(
+            pack_span_weights(s1)).to(device)
+        p[f"s{stage}_s2span"] = torch.from_numpy(
+            pack_s2span_weights(blk[0], s1)).to(device)
     w, b = pack_stem_s2d(pk["stem_w"], pk["stem_b"])
     p["stem_w"] = torch.from_numpy(np.ascontiguousarray(w))
     p["stem_b"] = torch.from_numpy(b)
+    p["stem_conv_w"] = torch.from_numpy(np.ascontiguousarray(
+        pk["stem_w"].transpose(3, 2, 0, 1))).to(device)
+    p["stem_conv_b"] = torch.from_numpy(pk["stem_b"]).to(device)
     return p
 
 
@@ -293,24 +477,30 @@ def build_fused_forward(state_dict, input_hw: Tuple[int, int] = (352, 352),
                         head: str = "yolo", device=None
                         ) -> Tuple[Callable, Dict[str, torch.Tensor]]:
     """Returns (forward_fn, packed): forward_fn(images, packed) with images
-    a (B, 48, pad128(H/4·W/4)) uint8 tensor on `device` → the raw NHWC
-    6-tuple of `Detector`.  `state_dict` is the port's (e.g.
+    a uint8 tensor on `device` in `input_format` → the raw NHWC 6-tuple of
+    `Detector`.  `state_dict` is the port's (e.g.
     `fastdet_torch.io.load_state_dict`); the head's classes and anchors
     follow from it.  `packed` holds the folded weights: conv weights OIHW
-    on `device`, each stage's span as one tensor `s{stage}_span`, and the
-    stem's `stem_w`/`stem_b` on the host.
+    on `device`, each stage's span as one tensor `s{stage}_span` and its
+    whole stage as one flat row `s{stage}_s2span`, and the stem's scaled
+    `stem_w`/`stem_b` on the host.
+
+    input_format:
+      * "s2d_u8" (the port's default; the JAX package's is "nhwc"):
+        (B, 48, pad128(H/4·W/4)) from `pack_images_s2d`, stem B1;
+      * "s2d8_u8": (B, 192, pad128(H/8·W/8)) from `pack_images_s2d8`, stem
+        B10, and stage 2 always through the stage kernel B9, as in the JAX
+        package; H and W divisible by 8 and pad128(H/8·W/8) ≤ 2048;
+      * "nhwc": (B, H, W, 3), the stem in PyTorch (/255, conv, ReLU,
+        max_pool2d), as the JAX package leaves it to XLA.
+
+    fuse_s2: every stage through B9 (stride-2 block and span in one call);
+    else a stage is the stride-2 block in PyTorch, then B2.
 
     upto: None for the whole forward; "stem"/"s2"/"s3"/"s4" stop after that
     stage and return its NHWC map (the per-stage timing hook)."""
-    if input_format != "s2d_u8":
-        raise NotImplementedError(
-            f"fastdet_torch: input_format={input_format!r} is not ported; "
-            "only 's2d_u8' ('nhwc' and 's2d8_u8' with kernel B10 are ROADMAP "
-            "A14)")
-    if fuse_s2:
-        raise NotImplementedError(
-            "fastdet_torch: fuse_s2=True needs kernel B9 (_s2span_call), "
-            "not ported (ROADMAP A14)")
+    if input_format not in INPUT_FORMATS:
+        raise ValueError(f"unknown input_format {input_format!r}")
     if head != "yolo":
         raise NotImplementedError(
             f"fastdet_torch: head={head!r} is not ported (ROADMAP A8)")
@@ -324,25 +514,46 @@ def build_fused_forward(state_dict, input_hw: Tuple[int, int] = (352, 352),
     h4, w4 = ih // 4, iw // 4
     if ih % 32 or iw % 32:
         raise ValueError(f"input {input_hw} must be a multiple of 32")
-    npad = _pad128(h4 * w4)
+    if input_format == "s2d8_u8":
+        check_stem8_size(ih, iw)
+    shape = {"s2d_u8": (48, _pad128(h4 * w4)),
+             "s2d8_u8": (192, _pad128(h4 * w4 // 4)),
+             "nhwc": (ih, iw, 3)}[input_format]
     dev = resolve_device(device)
     packed = _device_weights(pack_fused_weights(state_dict), dev)
 
     def nhwc(x):
         return x.permute(0, 2, 3, 1)
 
+    def stem(images, p):
+        if input_format == "s2d_u8":
+            return stem_s2d(images, p["stem_w"], p["stem_b"], h4, w4)
+        if input_format == "s2d8_u8":
+            return stem_s2d8(images, p["stem_w"], p["stem_b"], h4 // 2,
+                             w4 // 2)
+        # NCHW-contiguous: a permuted view would make every conv after it
+        # channels-last, which the kernels do not take
+        x = images.permute(0, 3, 1, 2).contiguous().float() / 255.0
+        x = F.relu(F.conv2d(x, p["stem_conv_w"], p["stem_conv_b"], stride=2,
+                            padding=1))
+        return F.max_pool2d(x, 3, 2, 1)
+
     def forward(images, p):
-        if (images.dim() != 3 or tuple(images.shape[1:]) != (48, npad)
+        if (tuple(images.shape[1:]) != shape
                 or images.dtype != torch.uint8):
-            raise ValueError(f"expected (B, 48, {npad}) uint8 s2d input, "
-                             f"got {images.dtype} {tuple(images.shape)}")
-        x = stem_s2d(images, p["stem_w"], p["stem_b"], h4, w4)
+            raise ValueError(f"expected (B, {', '.join(map(str, shape))}) "
+                             f"uint8 {input_format} input, got "
+                             f"{images.dtype} {tuple(images.shape)}")
+        x = stem(images, p)
         if upto == "stem":
             return nhwc(x)
         feats = {}
         for sid, reps, _ in STAGES:
-            x = _s2_block(x, p, f"s{sid}_0")
-            x = span(x, p[f"s{sid}_span"], reps - 1)
+            if fuse_s2 or (sid == 2 and input_format == "s2d8_u8"):
+                x = s2span(x, p[f"s{sid}_s2span"], reps - 1)
+            else:
+                x = _s2_block(x, p, f"s{sid}_0")
+                x = span(x, p[f"s{sid}_span"], reps - 1)
             feats[sid] = x
             if upto == f"s{sid}":
                 return nhwc(x)

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from fastdet_torch import disable_tf32
 from fastdet_torch.config import Config
 from fastdet_torch.io import load_state_dict
 from fastdet_torch.kernels import (fold, fused_infer, fused_train,
@@ -19,11 +20,12 @@ from fastdet_torch.models import Detector
 from fastdet_torch.ops import nms
 from fastdet_torch.ops.postprocess import postprocess
 from fastdet_torch.serve import DevicePipeline, FusedPipeline
-from torch_cases import (ANCHORS, BOX_ULPS_CARD, IOU, NC, SPAN_TRAIN_B1,
-                         SPAN_TRAIN_FULL, SPAN_TRAIN_SMALL, STEM_TRAIN_CASES,
-                         box_ulps, crowded, grad_err, head_outputs,
-                         make_inputs, pool_ties, port_geo, span_train_case,
-                         span_train_grad_errs, staged_reference,
+from torch_cases import (ANCHORS, BOX_ULPS_CARD, IOU, NC, S2SPAN_CASES,
+                         SPAN_TRAIN_B1, SPAN_TRAIN_FULL, SPAN_TRAIN_SMALL,
+                         STEM8_CASES, STEM_TRAIN_CASES, box_ulps, crowded,
+                         grad_err, head_outputs, make_inputs, pool_ties,
+                         port_geo, s2span_case, span_train_case,
+                         span_train_grad_errs, staged_reference, stem8_case,
                          stem_train_case)
 
 pytestmark = pytest.mark.cuda
@@ -31,9 +33,14 @@ pytestmark = pytest.mark.cuda
 
 @pytest.fixture
 def card():
+    """The card, with TF32 off: the plain versions' cuDNN convs and
+    matmuls must compute f32 for any subset of these tests, not only after
+    a pipeline has turned TF32 off for the process."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (the CUDA kernel has no CPU mode)")
-    return torch.device("cuda:0")
+    dev = torch.device("cuda:0")
+    disable_tf32(dev)
+    return dev
 
 
 @pytest.mark.parametrize("b", [1, 128])
@@ -213,6 +220,68 @@ def test_stem_and_span_wrappers_check_their_inputs(card, packed):
         fused_infer.span(a, weights.cpu(), nblk)
     with pytest.raises(ValueError, match="weights"):
         fused_infer.span(a, weights, nblk + 1)
+
+
+# ------------------------------------ the flag paths' kernels (B10, B9)
+
+@pytest.mark.parametrize("case", STEM8_CASES,
+                         ids=[f"b{b}-{h}x{w}" for b, h, w in STEM8_CASES])
+def test_stem_s2d8_kernel_matches_plain(card, packed, case):
+    b, hgt, wid = case
+    h8, w8 = hgt // 8, wid // 8
+    x = stem8_case(b + hgt, b, hgt, wid, card)
+    w, bias = packed["stem_w"], packed["stem_b"]
+    before = fused_infer.stem_s2d8.launches
+    got = fused_infer.stem_s2d8(x, w, bias, h8, w8)
+    assert fused_infer.stem_s2d8.launches == before + 1
+    want = fused_infer.stem_s2d8_reference(x, w, bias, h8, w8)
+    torch.cuda.synchronize()
+    assert tuple(got.shape) == (b, 24, 2 * h8, 2 * w8)
+    assert float((got - want).abs().max()) <= ATOL
+
+
+@pytest.mark.parametrize("case", S2SPAN_CASES,
+                         ids=[f"b{b}-s{s}-{h}x{w}"
+                              for b, s, h, w in S2SPAN_CASES])
+def test_s2span_kernel_matches_plain(card, packed, case):
+    b, stage, hin, win = case
+    _, nblk = _span_weights(packed, stage)
+    cin = {sid: ch for sid, _, ch in fold.STAGES}[stage] // 2
+    x = s2span_case(stage * 1000 + hin, b, cin, hin, win, card)
+    weights = packed[f"s{stage}_s2span"]
+    before = fused_infer.s2span.launches
+    got = fused_infer.s2span(x, weights, nblk)
+    assert fused_infer.s2span.launches == before + 1 + nblk
+    want = fused_infer.s2span_reference(x, weights, nblk)
+    torch.cuda.synchronize()
+    assert tuple(got.shape) == (b, 2 * cin, (hin + 1) // 2, (win + 1) // 2)
+    assert float((got - want).abs().max()) <= ATOL
+
+
+def test_stem_s2d8_and_s2span_wrappers_check_their_inputs(card, packed):
+    w, bias = packed["stem_w"], packed["stem_b"]
+    x = torch.zeros(2, 192, 256, dtype=torch.uint8, device=card)
+    fused_infer.stem_s2d8(x, w, bias, 20, 12)
+    with pytest.raises(ValueError, match="uint8"):
+        fused_infer.stem_s2d8(x.float(), w, bias, 20, 12)
+    with pytest.raises(ValueError, match="uint8"):
+        fused_infer.stem_s2d8(x[:, :96], w, bias, 20, 12)
+    with pytest.raises(ValueError, match="CPU"):
+        fused_infer.stem_s2d8(x, w.to(card), bias, 20, 12)
+    weights, nblk = packed["s2_s2span"], 3
+    a = torch.zeros(2, 24, 40, 24, device=card)
+    fused_infer.s2span(a, weights, nblk)
+    with pytest.raises(ValueError, match="cin in"):
+        fused_infer.s2span(a.double(), weights, nblk)
+    with pytest.raises(ValueError, match="cin in"):
+        fused_infer.s2span(torch.zeros(2, 32, 40, 24, device=card), weights,
+                           nblk)
+    with pytest.raises(ValueError, match="weights"):
+        fused_infer.s2span(a, weights.cpu(), nblk)
+    with pytest.raises(ValueError, match="weights"):
+        fused_infer.s2span(a, weights, nblk + 1)
+    with pytest.raises(ValueError, match="weights"):
+        fused_infer.s2span(a, packed["s3_s2span"], nblk)
 
 
 def test_fused_pipeline_card_matches_device_pipeline(card):

@@ -280,9 +280,6 @@ def test_fused_forward_matches_detector():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    ({"input_format": "nhwc"}, "A14"),
-    ({"input_format": "s2d8_u8"}, "A14"),
-    ({"fuse_s2": True}, "B9"),
     ({"head": "anchorfree"}, "A8"),
     ({"dtype": torch.bfloat16}, "A1"),
 ])

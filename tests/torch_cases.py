@@ -249,3 +249,44 @@ def pool_ties(x, w, stats, gamma, beta, h4, w4, g):
     win = F.unfold(p.flatten(0, 1)[:, None], 3, stride=2)   # (B·24, 9, n)
     top = win.max(1, keepdim=True).values
     return int(((win == top).sum(1) > 1)[top[:, 0] > 0].sum())
+
+
+# ---------------------------------------- the flag paths' kernels B10, B9
+
+# (b, H, W): the s2d(8) stem B10 at b1 and b128 352² (44² coarse cells,
+# 1,936 of 2,048 lanes), b2 160×96 (20×12 coarse, 240 of 256 lanes, junk
+# in the pad), and sizes whose 4×4-coarse-cell tiles are cut off at the
+# image's edge: 72×104 (9×13 coarse) and 40×24 (5×3)
+STEM8_CASES = ((1, 352, 352), (128, 352, 352), (2, 160, 96), (3, 72, 104),
+               (2, 40, 24))
+
+# (b, stage, Hin, Win): the stage kernel B9 at the three stages of 352²
+# (88² → 44², 44² → 22², 22² → 11²) at b1 and b128; stage 2 of 160×96
+# (40×24 → 20×12, where the TPU kernel's lanes hold pad); and partial
+# tiles, odd sizes among them: 18×50 → 9×25, 30×26 → 15×13, 9×13 → 5×7
+S2SPAN_CASES = ((1, 2, 88, 88), (128, 2, 88, 88), (1, 3, 44, 44),
+                (128, 3, 44, 44), (1, 4, 22, 22), (128, 4, 22, 22),
+                (2, 2, 40, 24), (2, 2, 18, 50), (2, 3, 30, 26),
+                (3, 4, 9, 13))
+
+
+def stem8_case(seed, b, hgt, wid, device="cpu"):
+    """Seeded s2d(8) uint8 images (B, 192, npad) with junk in the pad
+    lanes, on `device`."""
+    import torch
+    from fastdet_torch.kernels.fused_infer import pack_images_s2d8
+    rng = np.random.default_rng(seed)
+    xs = pack_images_s2d8(rng.integers(0, 256, (b, hgt, wid, 3),
+                                       dtype=np.uint8))
+    n = (hgt // 8) * (wid // 8)
+    xs[:, :, n:] = rng.integers(0, 256, xs[:, :, n:].shape)
+    return torch.from_numpy(xs).to(device)
+
+
+def s2span_case(seed, b, cin, hgt, wid, device="cpu"):
+    """Seeded stage input (≥ 0, as a stem's or a stage's ReLU outputs
+    are), f32 (B, cin, H, W) on `device`."""
+    import torch
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(np.abs(rng.normal(
+        0.0, 1.0, (b, cin, hgt, wid))).astype(np.float32)).to(device)
