@@ -64,9 +64,12 @@ Phases:
      the cuDNN stem at b32 beside stem_s2d), and
      FusedPipeline against DevicePipeline on 8 photo variants;
   8a. span_train (B8) forward and backward against their plain versions
-     at the three stages at b128 352², at b1, and at small geometries
-     with ghost group < batch; times, bounds and the cuDNN blocks'
-     training-mode times at b128;
+     at the three stages at b128 352², at b1, at small geometries with
+     ghost group < batch and at the edges of its launch plan (tiles cut
+     off at the image's edge, groups of unequal tiles); times, bounds and
+     the cuDNN blocks' training-mode times at b128, and by torch.profiler
+     each stage call's time by kernel name and its device launches (held
+     to the plan's);
   8c. stem_train (B7) forward and backward against their plain versions
      at b128 352² (photo variants, reference weights) at ghost group 1
      and 16, b8 at group 4, b2 160×96 with pad lanes, on images with
@@ -735,6 +738,46 @@ def profile_device(fn, what: str, calls: int = 5, top: int = 12):
     for key, t in dev[:top]:
         log(f"    {t / calls / 1e3:.4f}  {100 * t / busy_us:5.1f}%  "
             f"{key[:90]}")
+
+
+def kernel_base_name(key: str) -> str:
+    """A profiler row's kernel name without its return type, namespaces,
+    template arguments and parameters ("pw_kernel"); copies and sets keep
+    their first word ("Memcpy", "Memset")."""
+    if key.startswith(("Memcpy", "Memset")):
+        return key.split()[0]
+    name = key.replace("(anonymous namespace)::", "").split("(")[0]
+    name = name.split("<")[0].split()
+    return name[-1].split("::")[-1] if name else key
+
+
+def kernel_split(fn, calls: int = 3):
+    """torch.profiler over `calls` calls of fn(), device activity only,
+    after one warm-up step of the profiler (the first records of a session
+    have been seen to go missing) → {kernel base name: (ms per call,
+    device launches per call)}; copies and sets count as launches.  None
+    where the profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=calls,
+                                   repeat=1)) as prof:
+        for _ in range(calls + 1):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    split = {}
+    for e in prof.key_averages():
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or e.self_device_time_total <= 0):
+            continue
+        name = kernel_base_name(e.key)
+        ms, n = split.get(name, (0.0, 0.0))
+        split[name] = (ms + e.self_device_time_total / calls / 1e3,
+                       n + e.count / calls)
+    return split or None
 
 
 def phase_fused_timing(sd, dev_pipe, fused_pipe, big, card):
@@ -1453,19 +1496,24 @@ def span_train_bound(b, c, h, w, nblk, g):
 def phase_span_train(sd, card):
     """8a: B8's forward and backward kernels against their plain versions
     on the card: the three stages at b128 352² (the real weights of the
-    span blocks), at b1, and small geometries with group < batch.  The
-    backward kernel and the plain backward get the same dy, xsave and
-    stats, so their recomputed ReLU masks are the same bit for bit (both
-    compute without FMA, in the same order); the gradients are held per
-    leaf to 1e-4·max|ref| + 1e-4 (`span_train_grad_errs`).  Times at b128
-    (CUDA events): kernels, plain versions, the bounds, and as yardstick
-    the Detector's cuDNN stride-1 blocks in training mode, forward and
-    forward + backward.  → {"fwd"/"bwd": (ms, plain_ms, bound_ms,
-    bound_by, max |Δ|, library_ms)} summed over the three stages."""
+    span blocks), at b1, small geometries with group < batch, and the
+    edges of the launch plan (`SPAN_TRAIN_EDGE`).  The backward kernel
+    and the plain backward get the same dy, xsave and stats, so their
+    recomputed ReLU masks are the same bit for bit (both compute without
+    FMA, in the same order); the gradients are held per leaf to
+    1e-4·max|ref| + 1e-4 (`span_train_grad_errs`).  The plan's shared
+    memory is the kernels' own.  Times at b128 (CUDA events): kernels,
+    plain versions, the bounds, and as yardstick the Detector's cuDNN
+    stride-1 blocks in training mode, forward and forward + backward;
+    then, by torch.profiler, each call's time by kernel name and its
+    device launches, which must be the plan's.  → {"fwd"/"bwd": (ms,
+    plain_ms, bound_ms, bound_by, max |Δ|, library_ms)} summed over the
+    three stages."""
     import torch
-    from torch_cases import (SPAN_TRAIN_B1, SPAN_TRAIN_FULL,
+    from torch_cases import (SPAN_TRAIN_B1, SPAN_TRAIN_EDGE, SPAN_TRAIN_FULL,
                              SPAN_TRAIN_SMALL, span_train_case,
                              span_train_grad_errs)
+    from fastdet_torch.kernels import _build
     from fastdet_torch.kernels import fused_train as ft
     from fastdet_torch.kernels.fold import STAGES
     from fastdet_torch.models import Detector
@@ -1477,8 +1525,17 @@ def phase_span_train(sd, card):
     reps = {c: (stage, r) for stage, r, c in STAGES}
     tot = {k: [0.0, 0.0, 0.0, 0.0, 0.0, 0.0] for k in ("fwd", "bwd")}
     by_bytes = {"fwd": [0.0, 0.0], "bwd": [0.0, 0.0]}
-    for case in SPAN_TRAIN_FULL + SPAN_TRAIN_B1 + SPAN_TRAIN_SMALL:
+    cases = SPAN_TRAIN_FULL + SPAN_TRAIN_B1 + SPAN_TRAIN_SMALL + \
+        SPAN_TRAIN_EDGE
+    lib = _build.load("span_train", ft._SIGNATURES)
+    launches = {"fwd": [], "bwd": []}
+    for case in cases:
         b, c, h, w, nblk, g = case
+        plan = ft.span_train_plan(b, c, h, w, nblk, g)
+        check(all(lib.fastdet_span_train_smem(c, h, w, *tile, bwd)
+                  == plan.smem_of(bwd) for bwd, tile in
+                  ((0, plan.tile_fwd), (1, plan.tile_bwd))),
+              f"B8 plan's shared memory at {case}")
         x, rows, dy = span_train_case(sum(case), b, c, h, w, nblk, "cuda")
         full = (h, w) in ((44, 44), (22, 22), (11, 11))
         if full:
@@ -1547,14 +1604,46 @@ def phase_span_train(sd, card):
             f"fwd {pl_f:.3f} ms, bwd {pl_b:.3f} ms; bound fwd {bf:.4f} ms "
             f"({byf}), bwd {bb:.4f} ms ({byb}); cuDNN blocks (training "
             f"mode) fwd {lib_f:.4f} ms, fwd+bwd {lib_fb:.4f} ms")
+        # the split by kernel name and the device launches per call
+        for k, fn, want, tile, ctas in (
+                ("fwd", lambda: ft.span_train_forward(x, rows, g),
+                 plan.launches_fwd, plan.tile_fwd, plan.ctas_fwd),
+                ("bwd", lambda: ft.span_train_backward(dy, xsave, stats,
+                                                       rows, g),
+                 plan.launches_bwd, plan.tile_bwd, plan.ctas_bwd)):
+            # the profiler has been seen to drop kernel records now and
+            # then: a count off the plan is taken again, up to 3 times
+            for _ in range(3):
+                split = kernel_split(fn)
+                if split is None:
+                    break
+                n = sum(v[1] for v in split.values())
+                if n == want:
+                    break
+            if split is None:
+                log(f"  B8 {k} split at C={c}: the profiler saw no device "
+                    f"time (not measured)")
+                launches[k].append("not measured")
+                continue
+            check(n == want, f"B8 {k} at {case}: {n:g} device launches per "
+                  f"call, the plan says {want}")
+            launches[k].append(f"{n:g}")
+            log(f"  B8 {k} split at C={c} (torch.profiler, ms per call): "
+                + ", ".join(f"{name} {ms:.4f} ({cnt:g}×)" for name, (ms, cnt)
+                            in sorted(split.items(), key=lambda kv: -kv[1][0]))
+                + f"; {n:g} device launches per call (plan: tiles "
+                f"{'×'.join(map(str, tile))}, {ctas} CTAs, "
+                f"{plan.smem_of(k == 'bwd')} B of shared memory at most)")
     out = {}
     for k in ("fwd", "bwd"):
         t = tot[k]
         out[k] = (t[0], t[1], t[2], "bytes" if by_bytes[k][0] >=
                   by_bytes[k][1] else "operations", t[4], t[5])
     log(f"phase 8a span_train: B8 forward and backward within bounds of "
-        f"their plain versions at {len(SPAN_TRAIN_FULL + SPAN_TRAIN_B1 + SPAN_TRAIN_SMALL)} "
-        f"shapes; b128 352² over the 3 stages ({card}): forward "
+        f"their plain versions at {len(cases)} shapes; device launches per "
+        f"stage call forward {' / '.join(launches['fwd'])}, backward "
+        f"{' / '.join(launches['bwd'])}; b128 352² over the 3 stages "
+        f"({card}): forward "
         f"{out['fwd'][0]:.4f} ms (bound {out['fwd'][2]:.4f}, plain "
         f"{out['fwd'][1]:.3f}, cuDNN {out['fwd'][5]:.4f}), backward "
         f"{out['bwd'][0]:.4f} ms (bound {out['bwd'][2]:.4f}, plain "

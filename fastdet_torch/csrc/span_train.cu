@@ -11,30 +11,61 @@
 //   u3 = pw2(v)            z = ReLU(BN3(u3))       out = cat[x[:, 0::2], z]
 // Each BN normalises with the statistics of its ghost group (the g
 // consecutive images of the group, m = g*h*w samples per channel): the
-// mean, then the biased variance mean((u-mu)^2), eps 1e-5.  The weights
-// of a block are one f32 row (fastdet_torch/kernels/fused_train.py):
+// mean, then the biased variance, eps 1e-5.  The weights of a block are
+// one f32 row (fastdet_torch/kernels/fused_train.py):
 //   [w1 (MID_in x MID_out) | wd (9 x MID) | w2 (MID_in x MID_out) |
 //    g1 b1 g2 b2 g3 b3 (6 x MID)].
 // Stats: (nblk, 3 BNs, G, [mu, sinv, var], MID).
 //
-// Design.  A ghost group's BN input is MID x m floats: 372 KB at stages 2
-// and 3 and 743 KB at stage 4 at b128 352^2, more than the 227 KB of
-// shared memory of an SM, so every BN is a global sync point and a block
-// is several launches, split there:
-//   forward:  pw1 -> stats -> dw (BN1+ReLU on load) -> stats -> pw2 (BN2 on
-//             load) -> stats -> out (passthrough + BN3+ReLU);
-//   backward: recompute u1, u2, u3 with the same kernels from the saved
-//             block input and the saved stats, then BN3 backward (one CTA
-//             per (group, channel): the sums, then du3) -> dW2 partials ->
-//             dv = w2 du3 -> BN2 backward -> dwd partials -> transposed dw
-//             -> BN1 backward (ReLU mask from the recomputed u1) -> dW1
-//             partials -> dx (odd channels w1 du1, even channels dy).
-// The intermediates u1, u2, u3 (and du, dv) are in device memory.  Stats
-// are two-pass within a CTA (the mean, then sum (u-mu)^2), never
-// E[u^2]-mu^2.  Weight gradients: each CTA writes a partial sum for its
-// chunk of pixels (BN gammas and betas: for its group) into its own row,
-// and one launch adds the rows in a fixed order, so two runs give the
-// same bits (no atomics).
+// Design.  Every kernel is one CTA per pixel tile: tr x tc pixels of one
+// image (the launch plan, `span_train_plan` in the wrapper, picks a
+// forward and a backward tile per stage and passes it), so a ghost group
+// is a run of whole tiles and the weight gradients have one partial row
+// per backward tile.  A ghost group's BN input (372-743 KB at b128
+// 352^2) does not fit one SM.  The thread-block cluster that could hold
+// it is not used at any stage: at stage 4 the 8 groups would fill 64 of
+// 132 SMs with clusters of 8 (the portable limit), and at every stage
+// the depthwise conv would read its halo rows from the neighbouring CTAs
+// over DSMEM at every block.  Instead every BN's statistics are produced
+// in the epilogue of the kernel that writes its input and merged in the
+// prologue of the kernel that reads it:
+//   forward, 3 launches per block + 1:
+//     in   the block input to xsave[i] (x itself for block 0, else
+//          ReLU(BN3(u3_{i-1})) into its second half), then u1 = pw1 and
+//          u1's tile moments;
+//     dw   BN1 merged, u2 = dw(ReLU(BN1(u1))) on a haloed tile, moments;
+//     pw2  BN2 merged, u3 = pw2(BN2(u2)), moments; the warps that hold no
+//          pointwise work meanwhile copy the next block input's first half
+//          (this input's even channels);
+//   and a last `in` writes the span's output.  A tile's moments are its
+//   mean and M2 (two passes over the tile in shared memory); the consumer
+//   merges its group's tiles, the mean as sum n_t mean_t / m, then M2 as
+//   sum (M2_t + n_t (mean_t - mean)^2) (never E[u^2]-mu^2), and the
+//   group's first tile writes the stats.  No copy of x: the first `in`
+//   writes xsave[0].  The forward's tiles are large (half an image at
+//   stage 3, a whole one at stage 4) so that its CTAs run in one wave.
+//   backward, 5 launches per block + 1:
+//     in   u1 = pw1(x_i[:, 1::2]) from the saved block input;
+//     rec  u2, u3 recomputed with the saved stats; BN3's backward sums of
+//          the tile (sum g, sum g*xhat, ReLU mask from u3);
+//     bn3  du3 with the group's sums; dW2 partial; dv = w2 du3; BN2's sums;
+//     bn2  du2 on a haloed tile; dwd partial; dy = transposed dw of du2,
+//          ReLU mask from u1; BN1's sums;
+//     bn1  du1; dW1 partial; dx (odd channels w1 du1, even ones dy[:, :MID]);
+//   then one launch adds each block's partial rows in a fixed order.
+//   Every BN-backward sum of a tile lands in its partial row, so the
+//   (dgamma, dbeta) need no other pass and the partial buffer needs no
+//   memset.
+// Sums are in a fixed order everywhere (no atomics): every CTA of a group
+// merges the same bits, and two runs give the same bits.  A kernel's
+// tile, halo, weights and taps come in by cp.async, issued together
+// before the group merge, so that one wait covers them.
+//
+// The pointwise convs stage the tile's MID inputs and the whole weight
+// matrix (2.3 / 9.2 / 36.9 KB) in shared memory; a thread computes 4
+// pixels x 8 outputs (6 loads per 32 multiply-adds).  The dW products
+// give each thread an RB x RB block of (in, out) over its share of the
+// tile's pixels (all 256 threads at every MID).
 //
 // Arithmetic: every pointwise conv sums its input channels in order,
 // acc = acc + x*w, and the depthwise conv its 9 taps in order; BN is
@@ -44,11 +75,11 @@
 // and the backward's ReLU masks agree.
 //
 // What bounds it on this card: at b128 352^2 the forward does ~8.2 GFLOP
-// (0.12 ms at 67 TFLOP/s f32) and must write the 345 MB of saved block
-// inputs (0.10 ms); the backward ~3x the operations.  This first version
-// is simple and launch-split: it re-reads the intermediates from device
-// memory at every step.  Keeping a group on chip (thread-block clusters)
-// and fewer launches per block are later work.
+// (0.12 ms at 67 TFLOP/s f32; 0.245 ms as the separate multiplies and
+// adds that --fmad=false issues) and must write the 345 MB of saved block
+// inputs (0.10 ms); the backward ~3x the operations.  The intermediates
+// (u1, u2, u3, dv, dy: 23.8 / 11.9 / 5.9 MB each at stages 2 / 3 / 4)
+// make a round trip through L2 between launches.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -56,12 +87,11 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTP = 64;       // pixels per CTA in a pointwise conv
-constexpr int kChunk = 1024;  // pixels per weight-gradient partial row
-constexpr int kSub = 32;      // pixels per shared tile in a dW product
+constexpr int kWarps = kThreads / 32;
+// CTAs per SM that every kernel's registers leave room for (their shared
+// memory at the plan's tiles allows as many)
+template <int MID> struct Occ { static constexpr int CTAS = MID == 96 ? 2 : 4; };
 constexpr float kEps = 1e-5f;
-
-enum Pro { kRaw = 0, kBN = 1, kBNRelu = 2 };
 
 template <int MID>
 struct Row {
@@ -72,333 +102,996 @@ struct Row {
   static constexpr int LEN = 2 * MID * MID + 15 * MID;
 };
 
-// the dW product's thread grid: TI x TI threads, each an RB x RB block
+// The dW product's threads: PG pixel groups of TI x TI threads, each an
+// RB x RB block of (in, out); TI*TI*PG = kThreads, TI*RB = MID.
 template <int MID> struct DW;
-template <> struct DW<24> { static constexpr int TI = 8, RB = 3; };
-template <> struct DW<48> { static constexpr int TI = 16, RB = 3; };
-template <> struct DW<96> { static constexpr int TI = 16, RB = 6; };
+template <> struct DW<24> { static constexpr int TI = 8, RB = 3, PG = 4; };
+template <> struct DW<48> { static constexpr int TI = 8, RB = 6, PG = 4; };
+template <> struct DW<96> { static constexpr int TI = 16, RB = 6, PG = 1; };
 
-// Stats of one BN: st[(gi*3 + kind)*MID + c], kind 0 mu, 1 sinv, 2 var.
-// gb points at this BN's gamma; its beta is gb[MID + c].
-template <int MID, int PRO>
-__device__ __forceinline__ float prologue(float v, const float* st,
-                                          const float* gb, int gi, int c) {
-  if (PRO == kRaw) return v;
-  const float mu = st[(gi * 3) * MID + c];
-  const float sinv = st[(gi * 3 + 1) * MID + c];
-  float r = (v - mu) * (sinv * gb[c]) + gb[MID + c];
-  if (PRO == kBNRelu) r = fmaxf(r, 0.f);
-  return r;
+// Tiling of the (B, h, w) pixels: tr x tc tiles, image-major.  ps and phs
+// are the shared-memory strides of one channel of a tile and of a tile
+// with its one-pixel halo (odd, so that rows differ in bank).
+struct Geo {
+  int b, h, w, g, G;
+  int tr, tc, tcn, tpi, ntiles;
+  int ps, phs;
+};
+
+Geo make_geo(int b, int h, int w, int g, int tr, int tc) {
+  Geo G;
+  G.b = b; G.h = h; G.w = w; G.g = g; G.G = b / g;
+  G.tr = tr; G.tc = tc;
+  G.tcn = (w + tc - 1) / tc;
+  G.tpi = ((h + tr - 1) / tr) * G.tcn;
+  G.ntiles = b * G.tpi;
+  G.ps = (tr * tc) | 1;
+  G.phs = ((tr + 2) * (tc + 2)) | 1;
+  return G;
 }
 
-// Deterministic sum over the CTA's 256 threads; every thread gets it.
-__device__ __forceinline__ float block_sum(float v, float* red) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  __syncthreads();
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float s = 0.f;
-  if (threadIdx.x == 0) {
-    for (int k = 0; k < kThreads / 32; ++k) s += red[k];
-    red[kThreads / 32] = s;
+constexpr size_t kSmemLimit = 232448;   // bytes a CTA may use on sm_90
+
+// Shared-memory floats of each kernel (the layouts below, in order).
+template <int MID>
+struct Smem {
+  static constexpr int CONSTF = 12 * MID;   // forward: BN constants, scratch
+  static constexpr int CONST = 18 * MID;    // backward
+  static constexpr int COMB = DW<MID>::PG > 1 ? DW<MID>::PG * MID * MID : 0;
+  static size_t in(const Geo& G) { return MID * MID + CONSTF + 2 * (size_t)MID * G.ps; }
+  static size_t fdw(const Geo& G) {
+    return 9 * MID + CONSTF + (size_t)MID * G.phs + (size_t)MID * G.ps;
   }
-  __syncthreads();
-  return red[kThreads / 32];
+  static size_t fpw2(const Geo& G) { return MID * MID + CONSTF + 2 * (size_t)MID * G.ps; }
+  static size_t rec(const Geo& G) {
+    return MID * MID + 9 * MID + CONST + (size_t)MID * G.phs + (size_t)MID * G.ps;
+  }
+  static size_t bn3(const Geo& G) {
+    return MID * MID + CONST + 2 * (size_t)MID * G.ps + COMB;
+  }
+  static size_t bn2(const Geo& G) { return 9 * MID + CONST + 2 * (size_t)MID * G.phs; }
+  static size_t bn1(const Geo& G) { return bn3(G); }
+  // the most of the forward's kernels, or of the backward's
+  static size_t most(const Geo& G, bool backward) {
+    return backward ? top(top(in(G), rec(G)), top(top(bn3(G), bn2(G)), bn1(G)))
+                    : top(in(G), top(fdw(G), fpw2(G)));
+  }
+  static size_t top(size_t a, size_t b) { return a > b ? a : b; }
+};
+
+struct Tile {
+  int t, b, gi, r0, c0, th, tw, n;
+  int q0;      // plane offset of the tile's first pixel
+  bool full;   // the tile spans whole rows: its pixels are consecutive
+  bool first;  // the first tile of its ghost group
+};
+
+__device__ __forceinline__ void tile_extent(const Geo& G, int local, int& r0,
+                                            int& c0, int& th, int& tw) {
+  const int ti = local / G.tcn, tj = local - ti * G.tcn;
+  r0 = ti * G.tr;
+  c0 = tj * G.tc;
+  th = min(G.tr, G.h - r0);
+  tw = min(G.tc, G.w - c0);
 }
 
-// 1x1 conv: out[b, out_off + j*out_step] = sum_k M(k, j) * f(in[b, in_off +
-// k*in_step]), k in order; M(k, j) = W[k*MID + j], or W[j*MID + k] when
-// TRANS.  f is the prologue (BN of the group, optional ReLU).
-template <int MID, int PRO, bool TRANS>
-__global__ void __launch_bounds__(kThreads)
-pw_kernel(const float* __restrict__ in, int in_c, int in_off, int in_step,
-          float* __restrict__ out, int out_c, int out_off, int out_step,
-          const float* __restrict__ W, const float* __restrict__ st,
-          const float* __restrict__ gb, int n_pix, int plane, int g) {
-  __shared__ float s_in[MID * kTP];
-  const int n0 = blockIdx.x * kTP;
-  for (int it = threadIdx.x; it < MID * kTP; it += kThreads) {
-    const int k = it / kTP, p = it - k * kTP, n = n0 + p;
-    float v = 0.f;
-    if (n < n_pix) {
-      const int b = n / plane, q = n - b * plane;
-      v = in[((size_t)b * in_c + in_off + k * in_step) * plane + q];
-      v = prologue<MID, PRO>(v, st, gb, b / g, k);
+__device__ __forceinline__ Tile make_tile(const Geo& G, int t) {
+  Tile T;
+  T.t = t;
+  T.b = t / G.tpi;
+  const int local = t - T.b * G.tpi;
+  T.gi = T.b / G.g;
+  tile_extent(G, local, T.r0, T.c0, T.th, T.tw);
+  T.n = T.th * T.tw;
+  T.q0 = T.r0 * G.w + T.c0;
+  T.full = T.tw == G.w;
+  T.first = local == 0 && T.b % G.g == 0;
+  return T;
+}
+
+// Offset in the (h, w) plane of tile pixel p (row-major in the tile).
+__device__ __forceinline__ int pix(const Geo& G, const Tile& T, int p) {
+  if (T.full) return T.q0 + p;
+  const int py = p / T.tw;
+  return T.q0 + py * G.w + (p - py * T.tw);
+}
+
+// Index in the haloed tile ((th+2) x (tw+2)) of tap t of tile pixel p.
+__device__ __forceinline__ int tap(const Tile& T, int p, int t) {
+  const int py = p / T.tw, px = p - py * T.tw;
+  return (py + t / 3) * (T.tw + 2) + px + t % 3;
+}
+
+__device__ __forceinline__ float bn(float u, float mu, float sc, float beta) {
+  return (u - mu) * sc + beta;
+}
+
+// The CTA's threads over the (channel, position) pairs of a tile: each
+// thread takes a position (consecutive threads, consecutive positions)
+// and, for it, the channels c0, c0 + cstep, ... < NC, so that the
+// position's index arithmetic is done once per thread, not per element:
+// body(pos, c0, cstep).
+template <int NC, typename Body>
+__device__ __forceinline__ void tile_positions(int npos, Body body) {
+  if (npos <= kThreads) {
+    const int cpt = min(kThreads / npos, NC);
+    const int cg = threadIdx.x / npos;
+    if (cg < cpt) body(threadIdx.x - cg * npos, cg, cpt);
+  } else {
+    for (int pos = threadIdx.x; pos < npos; pos += kThreads) body(pos, 0, 1);
+  }
+}
+
+// Asynchronous copies global -> shared (sm_80+) of 4 and 16 bytes, and
+// the wait for all of a thread's copies.
+__device__ __forceinline__ void cp_async4(float* s, const float* g) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(s);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(a), "l"(g)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* s, const float* g) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(s);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(a), "l"(g)
+               : "memory");
+}
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return ((uintptr_t)p & 15) == 0;
+}
+
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// s[i] = g[i], i < n (or s[i] = g[(i % MID) * MID + i / MID], the
+// transposed MID x MID matrix), asynchronously; 16 bytes a copy where g
+// is aligned (s is, n a multiple of 4).
+template <int MID, bool TRANS = false>
+__device__ __forceinline__ void async_copy(float* s, const float* g, int n) {
+  if (!TRANS && aligned16(g)) {
+    for (int i = 4 * threadIdx.x; i < n; i += 4 * kThreads) cp_async16(s + i, g + i);
+    return;
+  }
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    if (TRANS) {
+      const int k = i / MID, j = i - k * MID;
+      cp_async4(s + i, g + j * MID + k);
+    } else {
+      cp_async4(s + i, g + i);
     }
-    s_in[it] = v;
+  }
+}
+
+// The tile's pixels of NC channels of one image's (C', h, w) map src,
+// channel c at src + c * cstride, to s[c * ss + p], asynchronously.
+template <int NC>
+__device__ __forceinline__ void async_tile(const Geo& G, const Tile& T,
+                                           const float* src, size_t cstride,
+                                           float* s, int ss) {
+  tile_positions<NC>(T.n, [&](int p, int c0, int cstep) {
+    const float* g = src + pix(G, T, p);
+#pragma unroll 4
+    for (int c = c0; c < NC; c += cstep) cp_async4(s + c * ss + p, g + c * cstride);
+  });
+}
+
+// The haloed tile's pixels (hp over (th+2) x (tw+2)) of the MID channels
+// of one image's (MID, h, w) map src to s[c * phs + hp], asynchronously;
+// positions off the image get 0.
+template <int MID>
+__device__ __forceinline__ void async_halo(const Geo& G, const Tile& T,
+                                           const float* src, float* s) {
+  const int hw = T.tw + 2, nh = (T.th + 2) * hw;
+  const size_t plane = (size_t)G.h * G.w;
+  tile_positions<MID>(nh, [&](int hp, int c0, int cstep) {
+    const int hy = hp / hw;
+    const int y = T.r0 - 1 + hy, x = T.c0 - 1 + hp - hy * hw;
+    if (y >= 0 && y < G.h && x >= 0 && x < G.w) {
+      const float* g = src + y * G.w + x;
+#pragma unroll 4
+      for (int c = c0; c < MID; c += cstep) cp_async4(s + c * G.phs + hp, g + c * plane);
+    } else {
+      for (int c = c0; c < MID; c += cstep) s[c * G.phs + hp] = 0.f;
+    }
+  });
+}
+
+// s = ReLU(BN(s)) in place on the haloed tile's positions on the image
+// (those off it stay 0); BN's mu, sinv*gamma and beta.
+template <int MID>
+__device__ __forceinline__ void halo_bn_relu(const Geo& G, const Tile& T,
+                                             const float* mu, const float* sc,
+                                             const float* beta, float* s) {
+  const int hw = T.tw + 2, nh = (T.th + 2) * hw;
+  tile_positions<MID>(nh, [&](int hp, int c0, int cstep) {
+    const int hy = hp / hw;
+    const int y = T.r0 - 1 + hy, x = T.c0 - 1 + hp - hy * hw;
+    if (y >= 0 && y < G.h && x >= 0 && x < G.w) {
+#pragma unroll 4
+      for (int c = c0; c < MID; c += cstep)
+        s[c * G.phs + hp] = fmaxf(bn(s[c * G.phs + hp], mu[c], sc[c], beta[c]), 0.f);
+    }
+  });
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// The tile's mean and M2 of each channel of s (channel c at s + c*ss)
+// over its n pixels, two passes: thread (k, c) of MID x NP sums the
+// pixels p = k, k + NP, ... of channel c, and thread c adds the NP parts
+// in order through s_red (NP * MID floats) -> fst_t[c], fst_t[MID + c].
+// Every thread must call it.
+template <int MID>
+__device__ void tile_moments(const float* s, int ss, int n, float* fst_t,
+                             float* s_red) {
+  constexpr int NP = MID == 24 ? 8 : MID == 48 ? 4 : 2;
+  const int c = threadIdx.x % MID, k = threadIdx.x / MID;
+  const float* row = s + c * ss;
+  float a = 0.f;
+  if (k < NP)
+    for (int p = k; p < n; p += NP) a += row[p];
+  if (k < NP) s_red[k * MID + c] = a;
+  __syncthreads();
+  float mean = 0.f;
+#pragma unroll
+  for (int j = 0; j < NP; ++j) mean += s_red[j * MID + c];
+  mean = mean / (float)n;
+  __syncthreads();
+  a = 0.f;
+  if (k < NP)
+    for (int p = k; p < n; p += NP) {
+      const float d = row[p] - mean;
+      a += d * d;
+    }
+  if (k < NP) s_red[k * MID + c] = a;
+  __syncthreads();
+  if (threadIdx.x < MID) {
+    float m2 = 0.f;
+#pragma unroll
+    for (int j = 0; j < NP; ++j) m2 += s_red[j * MID + c];
+    fst_t[c] = mean;
+    fst_t[MID + c] = m2;
+  }
+}
+
+// The group's per-tile records (2*MID floats; tile t's at rec + t*stride),
+// folded per channel over the group's tiles: warp w takes the tiles w, w
+// + 8, ... in order, lanes the channels (so that a warp's loads are
+// consecutive floats); the 8 warps' sums go through s_red (8 x MID) and
+// thread c adds them in warp order: -> sum over the tiles of f(n_t,
+// rec_t, c), in every thread c < MID's return value.  Every thread must
+// call it; it ends with a barrier.
+template <int MID, typename F>
+__device__ __forceinline__ float group_sum(const Geo& G, const Tile& T,
+                                           const float* rec, size_t stride,
+                                           float* s_red, F f) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t0 = T.gi * G.g * G.tpi, nt = G.g * G.tpi;
+  for (int c = lane; c < MID; c += 32) {
+    float acc = 0.f;
+    for (int k = warp; k < nt; k += kWarps) {
+      int r0, c0, th, tw;
+      tile_extent(G, k % G.tpi, r0, c0, th, tw);
+      acc += f((float)(th * tw), rec + (size_t)(t0 + k) * stride, c);
+    }
+    s_red[warp * MID + c] = acc;
   }
   __syncthreads();
-  for (int it = threadIdx.x; it < (MID / 8) * kTP; it += kThreads) {
-    const int jg = it / kTP, p = it - jg * kTP, n = n0 + p;
-    if (n >= n_pix) continue;
-    float acc[8];
+  float sum = 0.f;
+  if (threadIdx.x < MID) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[j] = 0.f;
+    for (int w = 0; w < kWarps; ++w) sum += s_red[w * MID + threadIdx.x];
+  }
+  __syncthreads();
+  return sum;
+}
+
+// One BN's constants from the tiles' moments of its input (fst: ntiles x
+// [mean, M2] x MID), merged over the group's tiles: the group mean is
+// sum_t n_t mean_t / m, then M2 = sum_t (M2_t + n_t (mean_t - mean)^2)
+// (no E[u^2] - mu^2), both in a fixed order, so that every CTA of the
+// group gets the same bits.  -> s_c[c] = mu, s_c[MID + c] = sinv*gamma,
+// s_c[2*MID + c] = beta (s_c holds 12*MID floats, the rest scratch); the
+// group's first tile writes (mu, sinv, var) to st (G, 3, MID).  Every
+// thread must call it.
+template <int MID>
+__device__ void bn_from_moments(const Geo& G, const Tile& T, const float* fst,
+                                const float* gamma, float* st, float* s_c) {
+  float* s_red = s_c + 3 * MID;
+  float* s_mean = s_c + 11 * MID;
+  const float m = (float)(G.g * G.h * G.w);
+  const float mean = group_sum<MID>(G, T, fst, 2 * MID, s_red,
+      [](float nb, const float* r, int c) { return nb * r[c]; }) / m;
+  if (threadIdx.x < MID) s_mean[threadIdx.x] = mean;
+  __syncthreads();
+  const float m2 = group_sum<MID>(G, T, fst, 2 * MID, s_red,
+      [&](float nb, const float* r, int c) {
+        const float d = r[c] - s_mean[c];
+        return r[MID + c] + nb * (d * d);
+      });
+  if (threadIdx.x < MID) {
+    const int c = threadIdx.x;
+    const float var = m2 / m;
+    const float sinv = rsqrtf(var + kEps);
+    s_c[c] = mean;
+    s_c[MID + c] = sinv * gamma[c];
+    s_c[2 * MID + c] = gamma[MID + c];
+    if (T.first) {
+      st[(T.gi * 3) * MID + c] = mean;
+      st[(T.gi * 3 + 1) * MID + c] = sinv;
+      st[(T.gi * 3 + 2) * MID + c] = var;
+    }
+  }
+}
+
+// One BN's saved constants for the backward: s_c[c] = mu, [MID+c] = sinv,
+// [2MID+c] = sinv*gamma, [3MID+c] = beta (st: (G, 3, MID) of this BN).
+template <int MID>
+__device__ void bn_saved(const float* st, const float* gamma, int gi,
+                         float* s_c) {
+  for (int c = threadIdx.x; c < MID; c += kThreads) {
+    const float sinv = st[(gi * 3 + 1) * MID + c];
+    s_c[c] = st[(gi * 3) * MID + c];
+    s_c[MID + c] = sinv;
+    s_c[2 * MID + c] = sinv * gamma[c];
+    s_c[3 * MID + c] = gamma[MID + c];
+  }
+}
+
+// A BN backward's group means of g and g*xhat from the tiles' partial rows
+// (slot col: sum g*xhat at GB + col*MID, sum g at GB + (col+1)*MID), in a
+// fixed order -> s_a[c] = sum g / m, s_a[MID + c] = sum g*xhat / m.
+// s_red: 8 * MID floats of scratch.  Every thread must call it.
+template <int MID>
+__device__ void bn_bwd_means(const Geo& G, const Tile& T, const float* part,
+                             int col, float* s_a, float* s_red) {
+  const float* rec = part + Row<MID>::GB + col * MID;
+  const float s1 = group_sum<MID>(G, T, rec, Row<MID>::LEN, s_red,
+      [](float, const float* r, int c) { return r[MID + c]; });
+  const float s2 = group_sum<MID>(G, T, rec, Row<MID>::LEN, s_red,
+      [](float, const float* r, int c) { return r[c]; });
+  if (threadIdx.x < MID) {
+    const float m = (float)(G.g * G.h * G.w);
+    s_a[threadIdx.x] = s1 / m;
+    s_a[MID + threadIdx.x] = s2 / m;
+  }
+}
+
+// 1x1 conv of the tile: out(j, p, sum_k in[k*ss + p] * w[k*MID + j]), k in
+// order (acc = acc + x*w), p < n.  A thread computes 4 pixels (strided by
+// a quarter of the tile, so that a warp's pixels are consecutive) x 8
+// outputs; w is in shared memory, 16-byte aligned.
+template <int MID, typename Out>
+__device__ __forceinline__ void pw_tile(const float* s_in, int ss,
+                                        const float* s_w, int n, Out out) {
+  constexpr int JO = 8, PX = 4, NJ = MID / JO;
+  const int npg = (n + PX - 1) / PX;
+  for (int it = threadIdx.x; it < npg * NJ; it += kThreads) {
+    const int jg = it / npg, pg = it - jg * npg;
+    bool ok[PX];
+#pragma unroll
+    for (int r = 0; r < PX; ++r) ok[r] = pg + r * npg < n;
+    float acc[PX][JO];
+#pragma unroll
+    for (int r = 0; r < PX; ++r)
+#pragma unroll
+      for (int j = 0; j < JO; ++j) acc[r][j] = 0.f;
+    const float* wk = s_w + jg * JO;
+    const float* xk = s_in + pg;
+#pragma unroll 4
     for (int k = 0; k < MID; ++k) {
-      const float v = s_in[k * kTP + p];
+      const float4 wa = *reinterpret_cast<const float4*>(wk + k * MID);
+      const float4 wb = *reinterpret_cast<const float4*>(wk + k * MID + 4);
+      const float wv[JO] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int jj = jg * 8 + j;
-        const float w = TRANS ? __ldg(W + jj * MID + k) : __ldg(W + k * MID + jj);
-        acc[j] = acc[j] + v * w;
+      for (int r = 0; r < PX; ++r) {
+        const float xv = ok[r] ? xk[k * ss + r * npg] : 0.f;
+#pragma unroll
+        for (int j = 0; j < JO; ++j) acc[r][j] = acc[r][j] + xv * wv[j];
       }
     }
-    const int b = n / plane, q = n - b * plane;
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-      out[((size_t)b * out_c + out_off + (jg * 8 + j) * out_step) * plane + q] =
-          acc[j];
-  }
-}
-
-// Depthwise 3x3, zero pad, on (B, MID, h, w): out = sum_t wd[t'][c] *
-// f(in[neighbour t]), t in order, t' = FLIP ? 8 - t : t.
-template <int MID, int PRO, bool FLIP>
-__global__ void __launch_bounds__(kThreads)
-dw_kernel(const float* __restrict__ in, float* __restrict__ out,
-          const float* __restrict__ wd, const float* __restrict__ st,
-          const float* __restrict__ gb, int total, int h, int w, int g) {
-  const int idx = blockIdx.x * kThreads + threadIdx.x;
-  if (idx >= total) return;
-  const int plane = h * w;
-  const int bc = idx / plane, q = idx - bc * plane;
-  const int b = bc / MID, c = bc - b * MID;
-  const int y0 = q / w, x0 = q - y0 * w;
-  const float* src = in + (size_t)bc * plane;
-  float acc = 0.f;
+    for (int r = 0; r < PX; ++r)
+      if (ok[r])
 #pragma unroll
-  for (int t = 0; t < 9; ++t) {
-    const int yy = y0 + t / 3 - 1, xx = x0 + t % 3 - 1;
-    if (yy < 0 || yy >= h || xx < 0 || xx >= w) continue;
-    const float v = prologue<MID, PRO>(src[yy * w + xx], st, gb, b / g, c);
-    acc = acc + __ldg(wd + (FLIP ? 8 - t : t) * MID + c) * v;
+        for (int j = 0; j < JO; ++j) out(jg * JO + j, pg + r * npg, acc[r][j]);
   }
-  out[idx] = acc;
 }
 
-// Ghost-group stats of u (B, MID, h, w): one CTA per (group, channel).
+// Weight-gradient partial of the tile: dst[i*MID + o] = sum over p < n of
+// a[i*ps + p] * c[o*ps + p].  The PG pixel groups' blocks are added in
+// group order through s_comb (PG * MID * MID floats).  Every thread must
+// call it.
 template <int MID>
-__global__ void __launch_bounds__(kThreads)
-stats_kernel(const float* __restrict__ u, float* __restrict__ st, int plane,
-             int g) {
-  __shared__ float red[kThreads / 32 + 1];
-  const int gi = blockIdx.x / MID, c = blockIdx.x - gi * MID;
-  const int m = g * plane;
-  const float* base = u + ((size_t)gi * g * MID + c) * plane;
-  float s = 0.f;
-  for (int i = threadIdx.x; i < m; i += kThreads) {
-    const int bl = i / plane, q = i - bl * plane;
-    s += base[(size_t)bl * MID * plane + q];
-  }
-  const float mu = block_sum(s, red) / (float)m;
-  float s2 = 0.f;
-  for (int i = threadIdx.x; i < m; i += kThreads) {
-    const int bl = i / plane, q = i - bl * plane;
-    const float d = base[(size_t)bl * MID * plane + q] - mu;
-    s2 += d * d;
-  }
-  const float var = block_sum(s2, red) / (float)m;
-  if (threadIdx.x == 0) {
-    st[(gi * 3) * MID + c] = mu;
-    st[(gi * 3 + 1) * MID + c] = rsqrtf(var + kEps);
-    st[(gi * 3 + 2) * MID + c] = var;
-  }
-}
-
-// Block output: channels < MID pass x's even channels through, the rest
-// are ReLU(BN3(u3)).
-template <int MID>
-__global__ void __launch_bounds__(kThreads)
-out_kernel(const float* __restrict__ x, const float* __restrict__ u3,
-           const float* __restrict__ st, const float* __restrict__ gb,
-           float* __restrict__ out, int total, int plane, int g) {
-  const int idx = blockIdx.x * kThreads + threadIdx.x;
-  if (idx >= total) return;
-  const int bc = idx / plane, q = idx - bc * plane;
-  const int b = bc / (2 * MID), ch = bc - b * 2 * MID;
-  float v;
-  if (ch < MID) {
-    v = x[((size_t)b * 2 * MID + 2 * ch) * plane + q];
-  } else {
-    const int c = ch - MID;
-    v = prologue<MID, kBNRelu>(u3[((size_t)b * MID + c) * plane + q], st, gb,
-                               b / g, c);
-  }
-  out[idx] = v;
-}
-
-// dx's even channels: the passthrough's gradient dy[:, :MID].
-template <int MID>
-__global__ void __launch_bounds__(kThreads)
-even_grad_kernel(const float* __restrict__ dy, float* __restrict__ dx,
-                 int total, int plane) {
-  const int idx = blockIdx.x * kThreads + threadIdx.x;
-  if (idx >= total) return;
-  const int bc = idx / plane, q = idx - bc * plane;
-  const int b = bc / MID, c = bc - b * MID;
-  dx[((size_t)b * 2 * MID + 2 * c) * plane + q] =
-      dy[((size_t)b * 2 * MID + c) * plane + q];
-}
-
-// BN backward within the group, one CTA per (group, channel).  The
-// gradient at the BN output is gsrc[b, g_off + c] (B, g_c channels), with
-// the ReLU mask BN(u) > 0 when RELU.  Pass 1: s1 = sum g, s2 = sum g*xhat;
-// pass 2: du = (gamma*sinv)*(g - s1/m - xhat*(s2/m)).  The group's
-// (dgamma, dbeta) partials s2, s1 go to row gi of `part` (row stride LEN).
-template <int MID, bool RELU>
-__global__ void __launch_bounds__(kThreads)
-bn_bwd_kernel(const float* __restrict__ gsrc, int g_c, int g_off,
-              const float* __restrict__ u, const float* __restrict__ st,
-              const float* __restrict__ gb, float* __restrict__ du,
-              float* __restrict__ part, int gb_col, int plane, int g) {
-  __shared__ float red[kThreads / 32 + 1];
-  const int gi = blockIdx.x / MID, c = blockIdx.x - gi * MID;
-  const int m = g * plane;
-  const float mu = st[(gi * 3) * MID + c];
-  const float sinv = st[(gi * 3 + 1) * MID + c];
-  const float gamma = gb[c], beta = gb[MID + c];
-  const float sc = sinv * gamma;
-  float s1 = 0.f, s2 = 0.f;
-  for (int i = threadIdx.x; i < m; i += kThreads) {
-    const int b = gi * g + i / plane, q = i - (i / plane) * plane;
-    const float uv = u[((size_t)b * MID + c) * plane + q];
-    float gv = gsrc[((size_t)b * g_c + g_off + c) * plane + q];
-    if (RELU && !((uv - mu) * sc + beta > 0.f)) gv = 0.f;
-    s1 += gv;
-    s2 += gv * ((uv - mu) * sinv);
-  }
-  s1 = block_sum(s1, red);
-  s2 = block_sum(s2, red);
-  const float a1 = s1 / (float)m, a2 = s2 / (float)m;
-  const float k = gamma * sinv;
-  for (int i = threadIdx.x; i < m; i += kThreads) {
-    const int b = gi * g + i / plane, q = i - (i / plane) * plane;
-    const size_t at = ((size_t)b * MID + c) * plane + q;
-    const float uv = u[at];
-    float gv = gsrc[((size_t)b * g_c + g_off + c) * plane + q];
-    if (RELU && !((uv - mu) * sc + beta > 0.f)) gv = 0.f;
-    const float xhat = (uv - mu) * sinv;
-    du[at] = k * (gv - a1 - xhat * a2);
-  }
-  if (threadIdx.x == 0) {
-    float* row = part + (size_t)gi * Row<MID>::LEN + Row<MID>::GB;
-    row[gb_col * MID + c] = s2;
-    row[(gb_col + 1) * MID + c] = s1;
-  }
-}
-
-// Pointwise weight gradient over one chunk of pixels:
-// part[chunk][off + i*MID + o] = sum_n f(a[b, a_off + i*a_step]) * dc[b, o].
-template <int MID, int PRO>
-__global__ void __launch_bounds__(kThreads)
-dw_pw_kernel(const float* __restrict__ a, int a_c, int a_off, int a_step,
-             const float* __restrict__ st, const float* __restrict__ gb,
-             const float* __restrict__ dc, float* __restrict__ part, int off,
-             int n_pix, int plane, int g) {
-  constexpr int TI = DW<MID>::TI, RB = DW<MID>::RB;
-  __shared__ float sa[MID][kSub + 1];
-  __shared__ float sc[MID][kSub + 1];
-  const int ti = threadIdx.x / TI, to = threadIdx.x - ti * TI;
-  const bool active = threadIdx.x < TI * TI;
+__device__ void dw_product(const float* s_a, const float* s_c, int ps, int n,
+                           float* s_comb, float* dst) {
+  constexpr int TI = DW<MID>::TI, RB = DW<MID>::RB, PG = DW<MID>::PG;
+  const int grp = threadIdx.x / (TI * TI), rest = threadIdx.x - grp * TI * TI;
+  const int ti = rest / TI, to = rest - ti * TI;
   float acc[RB][RB];
 #pragma unroll
   for (int r = 0; r < RB; ++r)
 #pragma unroll
     for (int s = 0; s < RB; ++s) acc[r][s] = 0.f;
-  const int c0 = blockIdx.x * kChunk;
-  const int c1 = min(c0 + kChunk, n_pix);
-  for (int n0 = c0; n0 < c1; n0 += kSub) {
-    __syncthreads();
-    for (int it = threadIdx.x; it < MID * kSub; it += kThreads) {
-      const int k = it / kSub, p = it - k * kSub, n = n0 + p;
-      float va = 0.f, vc = 0.f;
-      if (n < c1) {
-        const int b = n / plane, q = n - b * plane;
-        va = prologue<MID, PRO>(
-            a[((size_t)b * a_c + a_off + k * a_step) * plane + q], st, gb,
-            b / g, k);
-        vc = dc[((size_t)b * MID + k) * plane + q];
-      }
-      sa[k][p] = va;
-      sc[k][p] = vc;
-    }
-    __syncthreads();
-    if (active) {
-      for (int p = 0; p < kSub; ++p) {
-        float av[RB], cv[RB];
+  for (int p = grp; p < n; p += PG) {
+    float av[RB], cv[RB];
 #pragma unroll
-        for (int r = 0; r < RB; ++r) av[r] = sa[ti * RB + r][p];
+    for (int r = 0; r < RB; ++r) av[r] = s_a[(ti * RB + r) * ps + p];
 #pragma unroll
-        for (int s = 0; s < RB; ++s) cv[s] = sc[to * RB + s][p];
-#pragma unroll
-        for (int r = 0; r < RB; ++r)
-#pragma unroll
-          for (int s = 0; s < RB; ++s) acc[r][s] = acc[r][s] + av[r] * cv[s];
-      }
-    }
-  }
-  if (active) {
-    float* row = part + (size_t)blockIdx.x * Row<MID>::LEN + off;
+    for (int s = 0; s < RB; ++s) cv[s] = s_c[(to * RB + s) * ps + p];
 #pragma unroll
     for (int r = 0; r < RB; ++r)
 #pragma unroll
-      for (int s = 0; s < RB; ++s)
-        row[(ti * RB + r) * MID + to * RB + s] = acc[r][s];
+      for (int s = 0; s < RB; ++s) acc[r][s] = acc[r][s] + av[r] * cv[s];
   }
-}
-
-// Depthwise weight gradient over one chunk of pixels and one channel:
-// part[chunk][WD + t*MID + c] = sum_n du2[b, c, q] * y[b, c, q + off_t],
-// y = ReLU(BN1(u1)), 0 off the image.  Grid (chunks, MID).
-template <int MID>
-__global__ void __launch_bounds__(kThreads)
-dw_dw_kernel(const float* __restrict__ du2, const float* __restrict__ u1,
-             const float* __restrict__ st, const float* __restrict__ gb,
-             float* __restrict__ part, int n_pix, int h, int w, int g) {
-  __shared__ float red[kThreads / 32 + 1];
-  const int c = blockIdx.y;
-  const int plane = h * w;
-  const int c0 = blockIdx.x * kChunk;
-  const int c1 = min(c0 + kChunk, n_pix);
-  float acc[9];
+  float* out = PG > 1 ? s_comb + grp * MID * MID : dst;
 #pragma unroll
-  for (int t = 0; t < 9; ++t) acc[t] = 0.f;
-  for (int n = c0 + threadIdx.x; n < c1; n += kThreads) {
-    const int b = n / plane, q = n - b * plane;
-    const int y0 = q / w, x0 = q - y0 * w;
-    const size_t base = ((size_t)b * MID + c) * plane;
-    const float d = du2[base + q];
+  for (int r = 0; r < RB; ++r)
 #pragma unroll
-    for (int t = 0; t < 9; ++t) {
-      const int yy = y0 + t / 3 - 1, xx = x0 + t % 3 - 1;
-      if (yy < 0 || yy >= h || xx < 0 || xx >= w) continue;
-      acc[t] = acc[t] + d * prologue<MID, kBNRelu>(u1[base + yy * w + xx],
-                                                   st, gb, b / g, c);
+    for (int s = 0; s < RB; ++s)
+      out[(ti * RB + r) * MID + to * RB + s] = acc[r][s];
+  if (PG > 1) {
+    __syncthreads();
+    for (int e = threadIdx.x; e < MID * MID; e += kThreads) {
+      float s = 0.f;
+#pragma unroll
+      for (int k = 0; k < PG; ++k) s += s_comb[k * MID * MID + e];
+      dst[e] = s;
     }
   }
-  float* row = part + (size_t)blockIdx.x * Row<MID>::LEN + Row<MID>::WD;
-  for (int t = 0; t < 9; ++t) {
-    const float s = block_sum(acc[t], red);
-    if (threadIdx.x == 0) row[t * MID + c] = s;
+}
+
+// ------------------------------------------------------------ forward
+
+// The block input x_i = cat[x_{i-1}[:, 0::2], z], z = ReLU(BN3(u3)):
+//   first block (u3 nullptr): x_0 = src, all C channels to dst (xsave[0]);
+//   later blocks: z to dst[:, MID:] (the passthrough half was written by
+//   the previous block's fwd_pw2_kernel), BN3's stats merged from fst3
+//   (written to st3);
+//   dst nullptr (the backward's recompute): x_i = src, nothing written.
+// Then, when W1 is given, u1 = pw1(x_i[:, 1::2]) to u1 and, when fst1 is
+// given, its tile moments to fst1.  Shared memory holds x_i's channels by
+// row (only the rows needed), u1 going to the even rows once written out.
+template <int MID>
+__global__ void __launch_bounds__(kThreads, Occ<MID>::CTAS)
+in_kernel(Geo G, const float* __restrict__ src, const float* __restrict__ u3,
+          const float* __restrict__ fst3, const float* __restrict__ gb3,
+          float* __restrict__ st3, float* __restrict__ dst,
+          const float* __restrict__ W1, float* __restrict__ u1,
+          float* __restrict__ fst1) {
+  constexpr int C = 2 * MID, H = MID / 2;
+  extern __shared__ __align__(16) float smem[];
+  float* s_w = smem;                      // MID x MID
+  float* s_c = s_w + MID * MID;           // BN3: mu, sinv*gamma, beta; scratch
+  float* s_x = s_c + Smem<MID>::CONSTF;   // C x ps: x_i by channel
+  const Tile T = make_tile(G, blockIdx.x);
+  const size_t plane = (size_t)G.h * G.w;
+  const float* sb = src + (size_t)T.b * C * plane;
+  if (W1) async_copy<MID>(s_w, W1, MID * MID);
+  if (!u3) {
+    // all channels of x_i = src, or its odd ones (rows 1, 3, ...)
+    if (dst) async_tile<C>(G, T, sb, plane, s_x, G.ps);
+    else async_tile<MID>(G, T, sb + plane, 2 * plane, s_x + G.ps, 2 * G.ps);
+  } else {
+    // x_i's odd passthrough channels 2k+1 < MID (src's 4k+2) for pw1, and u3
+    if (W1) async_tile<H>(G, T, sb + 2 * plane, 4 * plane, s_x + G.ps, 2 * G.ps);
+    async_tile<MID>(G, T, u3 + (size_t)T.b * MID * plane, plane,
+                    s_x + MID * G.ps, G.ps);
+    bn_from_moments<MID>(G, T, fst3, gb3, st3, s_c);
+  }
+  cp_async_wait();
+  __syncthreads();
+  if (dst) {
+    const int c_lo = u3 ? MID : 0;  // the channels this kernel writes
+    if (u3) {
+      float* s_z = s_x + MID * G.ps;
+      tile_positions<MID>(T.n, [&](int p, int c0, int cstep) {
+#pragma unroll 4
+        for (int c = c0; c < MID; c += cstep)
+          s_z[c * G.ps + p] = fmaxf(bn(s_z[c * G.ps + p], s_c[c], s_c[MID + c],
+                                       s_c[2 * MID + c]), 0.f);
+      });
+      __syncthreads();
+    }
+    tile_positions<C>(T.n, [&](int p, int c0, int cstep) {
+      float* d = dst + (size_t)T.b * C * plane + pix(G, T, p);
+#pragma unroll 4
+      for (int c = c_lo + c0; c < C; c += cstep) d[c * plane] = s_x[c * G.ps + p];
+    });
+  }
+  if (!W1) return;
+  if (fst1) __syncthreads();  // u1 goes to the even rows, written out above
+  pw_tile<MID>(s_x + G.ps, 2 * G.ps, s_w, T.n, [&](int j, int p, float v) {
+    u1[((size_t)T.b * MID + j) * plane + pix(G, T, p)] = v;
+    if (fst1) s_x[2 * j * G.ps + p] = v;
+  });
+  if (!fst1) return;
+  __syncthreads();
+  tile_moments<MID>(s_x, 2 * G.ps, T.n, fst1 + (size_t)T.t * 2 * MID,
+                    s_c + 3 * MID);
+}
+
+// u2 = dw3x3(ReLU(BN1(u1))), BN1's stats merged from fst1 (written to
+// st1); u2's tile moments to fst2.
+template <int MID>
+__global__ void __launch_bounds__(kThreads, Occ<MID>::CTAS)
+fwd_dw_kernel(Geo G, const float* __restrict__ u1,
+              const float* __restrict__ fst1, const float* __restrict__ row,
+              float* __restrict__ st1, float* __restrict__ u2,
+              float* __restrict__ fst2) {
+  extern __shared__ __align__(16) float smem[];
+  float* s_wd = smem;                     // 9 x MID
+  float* s_c = s_wd + 9 * MID;            // BN1 constants, scratch
+  float* s_y = s_c + Smem<MID>::CONSTF;   // MID x phs: y on the haloed tile
+  float* s_u = s_y + MID * G.phs;         // MID x ps: u2
+  const Tile T = make_tile(G, blockIdx.x);
+  const size_t plane = (size_t)G.h * G.w;
+  async_copy<MID>(s_wd, row + Row<MID>::WD, 9 * MID);
+  async_halo<MID>(G, T, u1 + (size_t)T.b * MID * plane, s_y);
+  bn_from_moments<MID>(G, T, fst1, row + Row<MID>::GB, st1, s_c);
+  cp_async_wait();
+  __syncthreads();
+  halo_bn_relu<MID>(G, T, s_c, s_c + MID, s_c + 2 * MID, s_y);
+  __syncthreads();
+  tile_positions<MID>(T.n, [&](int p, int c0, int cstep) {
+    const int h0 = tap(T, p, 0), hw = T.tw + 2;
+    float* out = u2 + (size_t)T.b * MID * plane + pix(G, T, p);
+    for (int c = c0; c < MID; c += cstep) {
+      const float* yc = s_y + c * G.phs + h0;
+      float acc = 0.f;
+#pragma unroll
+      for (int k = 0; k < 9; ++k)
+        acc = acc + s_wd[k * MID + c] * yc[(k / 3) * hw + k % 3];
+      out[c * plane] = acc;
+      s_u[c * G.ps + p] = acc;
+    }
+  });
+  __syncthreads();
+  tile_moments<MID>(s_u, G.ps, T.n, fst2 + (size_t)T.t * 2 * MID,
+                    s_c + 3 * MID);
+}
+
+// u3 = pw2(BN2(u2)), BN2's stats merged from fst2 (written to st2); u3's
+// tile moments to fst3.  Meanwhile the warps that hold no pointwise work
+// (all of them after it, if none is free) write the next block input's
+// passthrough half: xnext[:, c] = x[:, 2c], c < MID (x = xsave[i]).
+template <int MID>
+__global__ void __launch_bounds__(kThreads, Occ<MID>::CTAS)
+fwd_pw2_kernel(Geo G, const float* __restrict__ u2,
+               const float* __restrict__ fst2, const float* __restrict__ row,
+               float* __restrict__ st2, float* __restrict__ u3,
+               float* __restrict__ fst3, const float* __restrict__ x,
+               float* __restrict__ xnext) {
+  constexpr int C = 2 * MID;
+  extern __shared__ __align__(16) float smem[];
+  float* s_w = smem;                      // MID x MID
+  float* s_c = s_w + MID * MID;           // BN2 constants, scratch
+  float* s_v = s_c + Smem<MID>::CONSTF;   // MID x ps: u2, then BN2(u2)
+  float* s_u = s_v + MID * G.ps;          // MID x ps: u3
+  const Tile T = make_tile(G, blockIdx.x);
+  const size_t plane = (size_t)G.h * G.w;
+  async_copy<MID>(s_w, row + Row<MID>::W2, MID * MID);
+  async_tile<MID>(G, T, u2 + (size_t)T.b * MID * plane, plane, s_v, G.ps);
+  bn_from_moments<MID>(G, T, fst2, row + Row<MID>::GB + 2 * MID, st2, s_c);
+  cp_async_wait();
+  __syncthreads();
+  tile_positions<MID>(T.n, [&](int p, int c0, int cstep) {
+#pragma unroll 4
+    for (int c = c0; c < MID; c += cstep)
+      s_v[c * G.ps + p] =
+          bn(s_v[c * G.ps + p], s_c[c], s_c[MID + c], s_c[2 * MID + c]);
+  });
+  __syncthreads();
+  // the passthrough copy: by the warps past pw_tile's items, or by all
+  const int busy = min(kWarps, ((T.n + 3) / 4 * (MID / 8) + 31) / 32);
+  const int warp = threadIdx.x >> 5;
+  auto copy = [&](int first) {
+    const int n0 = 32 * first, nthr = kThreads - n0;
+    for (int p = threadIdx.x - n0; p < T.n; p += nthr) {
+      const size_t q = (size_t)T.b * C * plane + pix(G, T, p);
+      for (int cb = 0; cb < MID; cb += 8) {
+        float v[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) v[u] = x[q + 2 * (cb + u) * plane];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) xnext[q + (cb + u) * plane] = v[u];
+      }
+    }
+  };
+  if (busy < kWarps && warp >= busy) copy(busy);
+  pw_tile<MID>(s_v, G.ps, s_w, T.n, [&](int j, int p, float v) {
+    u3[((size_t)T.b * MID + j) * plane + pix(G, T, p)] = v;
+    s_u[j * G.ps + p] = v;
+  });
+  if (busy == kWarps) copy(0);
+  __syncthreads();
+  tile_moments<MID>(s_u, G.ps, T.n, fst3 + (size_t)T.t * 2 * MID,
+                    s_c + 3 * MID);
+}
+
+// ------------------------------------------------------------ backward
+
+// Recompute u2 = dw(ReLU(BN1(u1))) and u3 = pw2(BN2(u2)) with the saved
+// stats st (3, G, 3, MID) and write both; then BN3's backward sums of the
+// tile into its partial row: gz = gin[:, MID + j] where BN3(u3) > 0, sum
+// gz*xhat3 (dgamma3) and sum gz (dbeta3).
+template <int MID>
+__global__ void __launch_bounds__(kThreads, Occ<MID>::CTAS)
+rec_kernel(Geo G, const float* __restrict__ u1, const float* __restrict__ st,
+           const float* __restrict__ row, const float* __restrict__ gin,
+           float* __restrict__ u2, float* __restrict__ u3,
+           float* __restrict__ part) {
+  constexpr int C = 2 * MID, CW = MID / kWarps;
+  extern __shared__ __align__(16) float smem[];
+  float* s_w = smem;                      // MID x MID: w2
+  float* s_wd = s_w + MID * MID;          // 9 x MID
+  float* s_c = s_wd + 9 * MID;            // BN1, BN2, BN3 constants
+  float* s_y = s_c + Smem<MID>::CONST;    // MID x phs: y, then u3 (ps)
+  float* s_v = s_y + MID * G.phs;         // MID x ps: BN2(u2)
+  const Tile T = make_tile(G, blockIdx.x);
+  const size_t plane = (size_t)G.h * G.w;
+  const size_t bnst = (size_t)G.G * 3 * MID;
+  const float* gb = row + Row<MID>::GB;
+  async_copy<MID>(s_w, row + Row<MID>::W2, MID * MID);
+  async_copy<MID>(s_wd, row + Row<MID>::WD, 9 * MID);
+  async_halo<MID>(G, T, u1 + (size_t)T.b * MID * plane, s_y);
+  bn_saved<MID>(st, gb, T.gi, s_c);
+  bn_saved<MID>(st + bnst, gb + 2 * MID, T.gi, s_c + 4 * MID);
+  bn_saved<MID>(st + 2 * bnst, gb + 4 * MID, T.gi, s_c + 8 * MID);
+  cp_async_wait();
+  __syncthreads();
+  halo_bn_relu<MID>(G, T, s_c, s_c + 2 * MID, s_c + 3 * MID, s_y);
+  __syncthreads();
+  const float* c2 = s_c + 4 * MID;
+  tile_positions<MID>(T.n, [&](int p, int c0, int cstep) {
+    const int h0 = tap(T, p, 0), hw = T.tw + 2;
+    float* out = u2 + (size_t)T.b * MID * plane + pix(G, T, p);
+    for (int c = c0; c < MID; c += cstep) {
+      const float* yc = s_y + c * G.phs + h0;
+      float acc = 0.f;
+#pragma unroll
+      for (int t = 0; t < 9; ++t)
+        acc = acc + s_wd[t * MID + c] * yc[(t / 3) * hw + t % 3];
+      out[c * plane] = acc;
+      s_v[c * G.ps + p] = bn(acc, c2[c], c2[2 * MID + c], c2[3 * MID + c]);
+    }
+  });
+  __syncthreads();
+  float* s_u = s_y;
+  pw_tile<MID>(s_v, G.ps, s_w, T.n, [&](int j, int p, float v) {
+    u3[((size_t)T.b * MID + j) * plane + pix(G, T, p)] = v;
+    s_u[j * G.ps + p] = v;
+  });
+  __syncthreads();
+  // warp w: channels w, w + 8, ...; lanes over the pixels, the loads of
+  // a pixel's CW channels issued together
+  const float* c3 = s_c + 8 * MID;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float s1[CW], s2[CW];
+#pragma unroll
+  for (int i = 0; i < CW; ++i) s1[i] = s2[i] = 0.f;
+  const float* gz = gin + ((size_t)T.b * C + MID + warp) * plane;
+  for (int p = lane; p < T.n; p += 32) {
+    const int q = pix(G, T, p);
+    float gv[CW];
+#pragma unroll
+    for (int i = 0; i < CW; ++i) gv[i] = gz[i * kWarps * plane + q];
+#pragma unroll
+    for (int i = 0; i < CW; ++i) {
+      const int c = warp + i * kWarps;
+      const float u = s_u[c * G.ps + p];
+      const float g = bn(u, c3[c], c3[2 * MID + c], c3[3 * MID + c]) > 0.f ? gv[i] : 0.f;
+      s1[i] += g;
+      s2[i] += g * ((u - c3[c]) * c3[MID + c]);
+    }
+  }
+  float* prow = part + (size_t)T.t * Row<MID>::LEN + Row<MID>::GB;
+#pragma unroll
+  for (int i = 0; i < CW; ++i) {
+    const float a = warp_sum(s1[i]), b = warp_sum(s2[i]);
+    if (lane == 0) {
+      prow[4 * MID + warp + i * kWarps] = b;
+      prow[5 * MID + warp + i * kWarps] = a;
+    }
   }
 }
 
-// dblocks[i][j] = sum over the P partial rows of block i, in order.
-__global__ void __launch_bounds__(kThreads)
-reduce_rows_kernel(const float* __restrict__ part, float* __restrict__ out,
-                   int nblk, int prows, int len) {
-  const int idx = blockIdx.x * kThreads + threadIdx.x;
-  if (idx >= nblk * len) return;
-  const int i = idx / len, j = idx - i * len;
-  const float* p = part + (size_t)i * prows * len + j;
-  float s = 0.f;
-  for (int r = 0; r < prows; ++r) s += p[(size_t)r * len];
-  out[idx] = s;
+// BN3 backward: du3 = (gamma3*sinv3)*(gz - mean gz - xhat3*mean gz*xhat3)
+// with the group's means from the tiles' rows; dW2 partial = sum v (x)
+// du3 (v = BN2(u2)); dv = w2 du3 to dv; BN2's backward sums of the tile:
+// sum dv*xhat2 (dgamma2), sum dv (dbeta2).
+template <int MID>
+__global__ void __launch_bounds__(kThreads, Occ<MID>::CTAS)
+bn3_kernel(Geo G, const float* __restrict__ u2, const float* __restrict__ u3,
+           const float* __restrict__ st, const float* __restrict__ row,
+           const float* __restrict__ gin, float* __restrict__ dv,
+           float* __restrict__ part) {
+  constexpr int C = 2 * MID, CW = MID / kWarps;
+  extern __shared__ __align__(16) float smem[];
+  float* s_w = smem;                      // MID x MID: w2 transposed
+  float* s_c = s_w + MID * MID;           // BN2, BN3 constants, BN3 means
+  float* s_v = s_c + Smem<MID>::CONST;    // MID x ps: u2, v, then dv
+  float* s_du = s_v + MID * G.ps;         // MID x ps: u3, then du3
+  float* s_comb = s_du + MID * G.ps;      // the dW product's groups
+  const Tile T = make_tile(G, blockIdx.x);
+  const size_t plane = (size_t)G.h * G.w;
+  const size_t bnst = (size_t)G.G * 3 * MID;
+  const float* gb = row + Row<MID>::GB;
+  float* c2 = s_c;
+  float* c3 = s_c + 4 * MID;
+  float* a3 = s_c + 8 * MID;
+  async_copy<MID, true>(s_w, row + Row<MID>::W2, MID * MID);
+  async_tile<MID>(G, T, u2 + (size_t)T.b * MID * plane, plane, s_v, G.ps);
+  async_tile<MID>(G, T, u3 + (size_t)T.b * MID * plane, plane, s_du, G.ps);
+  bn_saved<MID>(st + bnst, gb + 2 * MID, T.gi, c2);
+  bn_saved<MID>(st + 2 * bnst, gb + 4 * MID, T.gi, c3);
+  bn_bwd_means<MID>(G, T, part, 4, a3, s_c + Smem<MID>::CONST - 8 * MID);
+  cp_async_wait();
+  __syncthreads();
+  tile_positions<MID>(T.n, [&](int p, int c0, int cstep) {
+    const float* gq = gin + ((size_t)T.b * C + MID) * plane + pix(G, T, p);
+    for (int cb = c0; cb < MID; cb += 4 * cstep) {
+      float gv[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int c = cb + u * cstep;
+        gv[u] = c < MID ? gq[c * plane] : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int c = cb + u * cstep;
+        if (c >= MID) break;
+        const float uu = s_du[c * G.ps + p];
+        const float g =
+            bn(uu, c3[c], c3[2 * MID + c], c3[3 * MID + c]) > 0.f ? gv[u] : 0.f;
+        const float xhat = (uu - c3[c]) * c3[MID + c];
+        const float k3 = gb[4 * MID + c] * c3[MID + c];
+        s_du[c * G.ps + p] = k3 * (g - a3[c] - xhat * a3[MID + c]);
+        s_v[c * G.ps + p] =
+            bn(s_v[c * G.ps + p], c2[c], c2[2 * MID + c], c2[3 * MID + c]);
+      }
+    }
+  });
+  __syncthreads();
+  float* prow = part + (size_t)T.t * Row<MID>::LEN;
+  dw_product<MID>(s_v, s_du, G.ps, T.n, s_comb, prow + Row<MID>::W2);
+  __syncthreads();
+  pw_tile<MID>(s_du, G.ps, s_w, T.n, [&](int i, int p, float v) {
+    dv[((size_t)T.b * MID + i) * plane + pix(G, T, p)] = v;
+    s_v[i * G.ps + p] = v;
+  });
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float s1[CW], s2[CW];
+#pragma unroll
+  for (int i = 0; i < CW; ++i) s1[i] = s2[i] = 0.f;
+  const float* uw = u2 + ((size_t)T.b * MID + warp) * plane;
+  for (int p = lane; p < T.n; p += 32) {
+    const int q = pix(G, T, p);
+    float uv[CW];
+#pragma unroll
+    for (int i = 0; i < CW; ++i) uv[i] = uw[i * kWarps * plane + q];
+#pragma unroll
+    for (int i = 0; i < CW; ++i) {
+      const int c = warp + i * kWarps;
+      const float d = s_v[c * G.ps + p];
+      s1[i] += d;
+      s2[i] += d * ((uv[i] - c2[c]) * c2[MID + c]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < CW; ++i) {
+    const float a = warp_sum(s1[i]), b = warp_sum(s2[i]);
+    if (lane == 0) {
+      prow[Row<MID>::GB + 2 * MID + warp + i * kWarps] = b;
+      prow[Row<MID>::GB + 3 * MID + warp + i * kWarps] = a;
+    }
+  }
 }
 
-inline int grid1(size_t n) { return (int)((n + kThreads - 1) / kThreads); }
-inline int chunks(int n_pix) { return (n_pix + kChunk - 1) / kChunk; }
+// BN2 backward: du2 = (gamma2*sinv2)*(dv - mean dv - xhat2*mean dv*xhat2)
+// on the haloed tile (0 off the image); the dw taps' gradients sum du2 *
+// shifted y; dy = the transposed dw of du2 (taps 8-t), gy = dy where
+// BN1(u1) > 0, to gy; BN1's backward sums: sum gy*xhat1 (dgamma1), sum gy
+// (dbeta1).
+template <int MID>
+__global__ void __launch_bounds__(kThreads, Occ<MID>::CTAS)
+bn2_kernel(Geo G, const float* __restrict__ u1, const float* __restrict__ u2,
+           const float* __restrict__ dv, const float* __restrict__ st,
+           const float* __restrict__ row, float* __restrict__ gy,
+           float* __restrict__ part) {
+  extern __shared__ __align__(16) float smem[];
+  float* s_wd = smem;                     // 9 x MID
+  float* s_c = s_wd + 9 * MID;            // BN1, BN2 constants, BN2 means
+  float* s_d = s_c + Smem<MID>::CONST;    // MID x phs: dv, then du2
+  float* s_y = s_d + MID * G.phs;         // MID x phs: u1, then y
+  const Tile T = make_tile(G, blockIdx.x);
+  const size_t plane = (size_t)G.h * G.w;
+  const size_t bnst = (size_t)G.G * 3 * MID;
+  const float* gb = row + Row<MID>::GB;
+  float* c1 = s_c;
+  float* c2 = s_c + 4 * MID;
+  float* a2 = s_c + 8 * MID;
+  async_copy<MID>(s_wd, row + Row<MID>::WD, 9 * MID);
+  async_halo<MID>(G, T, u1 + (size_t)T.b * MID * plane, s_y);
+  async_halo<MID>(G, T, dv + (size_t)T.b * MID * plane, s_d);
+  bn_saved<MID>(st, gb, T.gi, c1);
+  bn_saved<MID>(st + bnst, gb + 2 * MID, T.gi, c2);
+  bn_bwd_means<MID>(G, T, part, 2, a2, s_c + Smem<MID>::CONST - 8 * MID);
+  cp_async_wait();
+  __syncthreads();
+  // du2 on the haloed tile: u2 from device memory, the loads of 4
+  // channels issued together
+  const int hw = T.tw + 2, nh = (T.th + 2) * hw;
+  tile_positions<MID>(nh, [&](int hp, int c0, int cstep) {
+    const int hy = hp / hw;
+    const int y = T.r0 - 1 + hy, x = T.c0 - 1 + hp - hy * hw;
+    if (!(y >= 0 && y < G.h && x >= 0 && x < G.w)) return;
+    const float* uq = u2 + (size_t)T.b * MID * plane + y * G.w + x;
+    for (int cb = c0; cb < MID; cb += 4 * cstep) {
+      float uv[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int c = cb + u * cstep;
+        uv[u] = c < MID ? uq[c * plane] : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int c = cb + u * cstep;
+        if (c >= MID) break;
+        const float xhat = (uv[u] - c2[c]) * c2[MID + c];
+        const float k2 = gb[2 * MID + c] * c2[MID + c];
+        s_d[c * G.phs + hp] = k2 * (s_d[c * G.phs + hp] - a2[c] - xhat * a2[MID + c]);
+      }
+    }
+  });
+  // y = ReLU(BN1(u1)) in place; xhat1 below reads u1 from device memory
+  halo_bn_relu<MID>(G, T, c1, c1 + 2 * MID, c1 + 3 * MID, s_y);
+  __syncthreads();
+  float* prow = part + (size_t)T.t * Row<MID>::LEN;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int c = warp; c < MID; c += kWarps) {
+    const float* yc = s_y + c * G.phs;
+    const float* dc = s_d + c * G.phs;
+    const float* uc = u1 + ((size_t)T.b * MID + c) * plane;
+    float* gyc = gy + ((size_t)T.b * MID + c) * plane;
+    float tg[9];
+#pragma unroll
+    for (int t = 0; t < 9; ++t) tg[t] = 0.f;
+    float s1 = 0.f, s2 = 0.f;
+    for (int p = lane; p < T.n; p += 32) {
+      const int q = pix(G, T, p);
+      const float uv = uc[q];
+      const int h0 = tap(T, p, 0);
+      const float d0 = dc[h0 + hw + 1];
+      float acc = 0.f;
+#pragma unroll
+      for (int t = 0; t < 9; ++t) {
+        const int at = h0 + (t / 3) * hw + t % 3;
+        tg[t] = tg[t] + d0 * yc[at];
+        acc = acc + s_wd[(8 - t) * MID + c] * dc[at];
+      }
+      // y > 0 exactly where BN1(u1) > 0
+      const float gv = yc[h0 + hw + 1] > 0.f ? acc : 0.f;
+      gyc[q] = gv;
+      s1 += gv;
+      s2 += gv * ((uv - c1[c]) * c1[MID + c]);
+    }
+#pragma unroll
+    for (int t = 0; t < 9; ++t) tg[t] = warp_sum(tg[t]);
+    s1 = warp_sum(s1);
+    s2 = warp_sum(s2);
+    if (lane == 0) {
+#pragma unroll
+      for (int t = 0; t < 9; ++t) prow[Row<MID>::WD + t * MID + c] = tg[t];
+      prow[Row<MID>::GB + c] = s2;
+      prow[Row<MID>::GB + MID + c] = s1;
+    }
+  }
+}
+
+// BN1 backward: du1 = (gamma1*sinv1)*(gy - mean gy - xhat1*mean gy*xhat1);
+// dW1 partial = sum x[:, 1::2] (x) du1; gout's odd channels w1 du1, its
+// even channels gin[:, :MID] (the passthrough's gradient).
+template <int MID>
+__global__ void __launch_bounds__(kThreads, Occ<MID>::CTAS)
+bn1_kernel(Geo G, const float* __restrict__ x, const float* __restrict__ u1,
+           const float* __restrict__ gy, const float* __restrict__ st,
+           const float* __restrict__ row, const float* __restrict__ gin,
+           float* __restrict__ gout, float* __restrict__ part) {
+  constexpr int C = 2 * MID;
+  extern __shared__ __align__(16) float smem[];
+  float* s_w = smem;                      // MID x MID: w1 transposed
+  float* s_c = s_w + MID * MID;           // BN1 constants, BN1 means
+  float* s_x = s_c + Smem<MID>::CONST;    // MID x ps: x's odd channels
+  float* s_du = s_x + MID * G.ps;         // MID x ps: gy, then du1
+  float* s_comb = s_du + MID * G.ps;      // the dW product's groups
+  const Tile T = make_tile(G, blockIdx.x);
+  const size_t plane = (size_t)G.h * G.w;
+  const float* gb = row + Row<MID>::GB;
+  float* c1 = s_c;
+  float* a1 = s_c + 4 * MID;
+  async_copy<MID, true>(s_w, row + Row<MID>::W1, MID * MID);
+  async_tile<MID>(G, T, x + (size_t)T.b * C * plane + plane, 2 * plane, s_x,
+                  G.ps);
+  async_tile<MID>(G, T, gy + (size_t)T.b * MID * plane, plane, s_du, G.ps);
+  bn_saved<MID>(st, gb, T.gi, c1);
+  bn_bwd_means<MID>(G, T, part, 0, a1, s_c + Smem<MID>::CONST - 8 * MID);
+  // dx's even channels, the passthrough's gradient, meanwhile
+  tile_positions<MID>(T.n, [&](int p, int c0, int cstep) {
+    const size_t q = (size_t)T.b * C * plane + pix(G, T, p);
+    for (int cb = c0; cb < MID; cb += 4 * cstep) {
+      float v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int c = cb + u * cstep;
+        v[u] = c < MID ? gin[q + c * plane] : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int c = cb + u * cstep;
+        if (c < MID) gout[q + 2 * c * plane] = v[u];
+      }
+    }
+  });
+  cp_async_wait();
+  __syncthreads();
+  tile_positions<MID>(T.n, [&](int p, int c0, int cstep) {
+    const float* uq = u1 + (size_t)T.b * MID * plane + pix(G, T, p);
+    for (int cb = c0; cb < MID; cb += 4 * cstep) {
+      float uv[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int c = cb + u * cstep;
+        uv[u] = c < MID ? uq[c * plane] : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int c = cb + u * cstep;
+        if (c >= MID) break;
+        const float xhat = (uv[u] - c1[c]) * c1[MID + c];
+        const float k1 = gb[c] * c1[MID + c];
+        s_du[c * G.ps + p] = k1 * (s_du[c * G.ps + p] - a1[c] - xhat * a1[MID + c]);
+      }
+    }
+  });
+  __syncthreads();
+  float* prow = part + (size_t)T.t * Row<MID>::LEN;
+  dw_product<MID>(s_x, s_du, G.ps, T.n, s_comb, prow + Row<MID>::W1);
+  pw_tile<MID>(s_du, G.ps, s_w, T.n, [&](int i, int p, float v) {
+    gout[((size_t)T.b * C + 2 * i + 1) * plane + pix(G, T, p)] = v;
+  });
+}
+
+// dblocks[i][j] = the sum of column j over the P partial rows of block i:
+// a CTA per (32 columns, block); warp k sums the rows r = k (mod 8) in
+// order, and the 8 sums are added in warp order.
+__global__ void __launch_bounds__(kThreads)
+reduce_rows_kernel(const float* __restrict__ part, float* __restrict__ out,
+                   int prows, int len) {
+  __shared__ float red[kWarps][32];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int i = blockIdx.y, j = blockIdx.x * 32 + lane;
+  float s = 0.f;
+  if (j < len) {
+    const float* p = part + (size_t)i * prows * len + j;
+#pragma unroll 4
+    for (int r = warp; r < prows; r += kWarps) s += p[(size_t)r * len];
+  }
+  red[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && j < len) {
+    float t = 0.f;
+#pragma unroll
+    for (int k = 0; k < kWarps; ++k) t += red[k][lane];
+    out[(size_t)i * len + j] = t;
+  }
+}
 
 #define FASTDET_CHECK()                          \
   do {                                           \
@@ -406,201 +1099,180 @@ inline int chunks(int n_pix) { return (n_pix + kChunk - 1) / kChunk; }
     if (e_ != cudaSuccess) return (int)e_;       \
   } while (0)
 
-// u1, u2, u3 of one block from its input x and the stats st (3 BNs).
+// Allow a kernel the dynamic shared memory it is launched with.
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+#define FASTDET_LAUNCH(kernel, floats, s, ...)                         \
+  do {                                                                 \
+    const size_t bytes_ = (floats) * sizeof(float);                    \
+    cudaError_t e_ = allow_smem(kernel, bytes_);                       \
+    if (e_ != cudaSuccess) return (int)e_;                             \
+    kernel<<<G.ntiles, kThreads, bytes_, s>>>(__VA_ARGS__);            \
+    FASTDET_CHECK();                                                   \
+  } while (0)
+
 template <int MID>
-int recompute(const float* x, const float* row, const float* st, float* u1,
-              float* u2, float* u3, int b, int h, int w, int g, int G,
-              cudaStream_t s, bool with_stats, float* st_out) {
-  constexpr int C = 2 * MID;
-  const int plane = h * w, n_pix = b * plane;
-  const size_t total = (size_t)n_pix * MID;
-  const size_t bn = (size_t)G * 3 * MID;  // floats of one BN's stats
-  const float* gb = row + Row<MID>::GB;
-  pw_kernel<MID, kRaw, false><<<(n_pix + kTP - 1) / kTP, kThreads, 0, s>>>(
-      x, C, 1, 2, u1, MID, 0, 1, row + Row<MID>::W1, nullptr, nullptr, n_pix,
-      plane, g);
-  FASTDET_CHECK();
-  if (with_stats) {
-    stats_kernel<MID><<<G * MID, kThreads, 0, s>>>(u1, st_out, plane, g);
-    FASTDET_CHECK();
-  }
-  dw_kernel<MID, kBNRelu, false><<<grid1(total), kThreads, 0, s>>>(
-      u1, u2, row + Row<MID>::WD, st, gb, (int)total, h, w, g);
-  FASTDET_CHECK();
-  if (with_stats) {
-    stats_kernel<MID><<<G * MID, kThreads, 0, s>>>(u2, st_out + bn, plane, g);
-    FASTDET_CHECK();
-  }
-  pw_kernel<MID, kBN, false><<<(n_pix + kTP - 1) / kTP, kThreads, 0, s>>>(
-      u2, MID, 0, 1, u3, MID, 0, 1, row + Row<MID>::W2, st + bn,
-      gb + 2 * MID, n_pix, plane, g);
-  FASTDET_CHECK();
-  if (with_stats) {
-    stats_kernel<MID><<<G * MID, kThreads, 0, s>>>(u3, st_out + 2 * bn, plane,
-                                                   g);
-    FASTDET_CHECK();
-  }
-  return 0;
+size_t fwd_scratch(const Geo& G) {
+  return 3 * (size_t)G.b * MID * G.h * G.w + 3 * (size_t)G.ntiles * 2 * MID;
+}
+
+template <int MID>
+size_t bwd_scratch(const Geo& G, int nblk) {
+  const size_t half = (size_t)G.b * MID * G.h * G.w;
+  return 5 * half + 2 * half + (size_t)nblk * G.ntiles * Row<MID>::LEN;
 }
 
 template <int MID>
 int span_fwd(const float* x, const float* blocks, float* out, float* xsave,
-             float* stats, float* scratch, int b, int h, int w, int nblk,
-             int g, cudaStream_t s) {
-  constexpr int C = 2 * MID;
-  const int plane = h * w, G = b / g;
-  const size_t act = (size_t)b * C * plane;
-  const size_t half = (size_t)b * MID * plane;
+             float* stats, float* scratch, const Geo& G, int nblk,
+             cudaStream_t s) {
+  constexpr int C = 2 * MID, LEN = Row<MID>::LEN;
+  const size_t act = (size_t)G.b * C * G.h * G.w;
+  const size_t half = act / 2;
+  const size_t bnst = (size_t)G.G * 3 * MID;   // floats of one BN's stats
+  const size_t slot = (size_t)G.ntiles * 2 * MID;
   float* u1 = scratch;
-  float* u2 = scratch + half;
-  float* u3 = scratch + 2 * half;
-  cudaError_t err = cudaMemcpyAsync(xsave, x, act * sizeof(float),
-                                    cudaMemcpyDeviceToDevice, s);
-  if (err != cudaSuccess) return (int)err;
-  for (int i = 0; i < nblk; ++i) {
-    const float* row = blocks + (size_t)i * Row<MID>::LEN;
-    const float* xi = xsave + i * act;
-    float* st = stats + (size_t)i * 3 * G * 3 * MID;
-    // the stats of each BN are written before the kernel that reads them
-    int rc = recompute<MID>(xi, row, st, u1, u2, u3, b, h, w, g, G, s, true,
-                            st);
-    if (rc) return rc;
-    float* dst = (i + 1 < nblk) ? xsave + (i + 1) * act : out;
-    out_kernel<MID><<<grid1(act), kThreads, 0, s>>>(
-        xi, u3, st + 2 * (size_t)G * 3 * MID, row + Row<MID>::GB + 4 * MID,
-        dst, (int)act, plane, g);
-    FASTDET_CHECK();
+  float* u2 = u1 + half;
+  float* u3 = u2 + half;
+  float* fst1 = u3 + half;
+  float* fst2 = fst1 + slot;
+  float* fst3 = fst2 + slot;
+  for (int i = 0; i <= nblk; ++i) {
+    const float* row = blocks + (size_t)i * LEN;
+    float* st = stats + (size_t)i * 3 * bnst;
+    const bool last = i == nblk;
+    const float* prev = i ? blocks + (size_t)(i - 1) * LEN : nullptr;
+    float* xi = last ? out : xsave + i * act;
+    FASTDET_LAUNCH(in_kernel<MID>, Smem<MID>::in(G), s, G,
+                   i ? xsave + (i - 1) * act : x, i ? u3 : nullptr, fst3,
+                   i ? prev + Row<MID>::GB + 4 * MID : nullptr,
+                   i ? st - bnst : nullptr, xi,
+                   last ? nullptr : row + Row<MID>::W1, u1, fst1);
+    if (last) break;
+    FASTDET_LAUNCH(fwd_dw_kernel<MID>, Smem<MID>::fdw(G), s, G, u1, fst1, row,
+                   st, u2, fst2);
+    FASTDET_LAUNCH(fwd_pw2_kernel<MID>, Smem<MID>::fpw2(G), s, G, u2, fst2,
+                   row, st + bnst, u3, fst3, xi,
+                   i + 1 < nblk ? xsave + (i + 1) * act : out);
   }
   return 0;
-}
-
-template <int MID>
-size_t bwd_scratch(int b, int h, int w, int nblk, int g) {
-  const size_t plane = (size_t)h * w;
-  const int prows = chunks(b * h * w) > b / g ? chunks(b * h * w) : b / g;
-  return 5 * (size_t)b * MID * plane + (size_t)b * 2 * MID * plane +
-         (size_t)nblk * prows * Row<MID>::LEN;
 }
 
 template <int MID>
 int span_bwd(const float* dy, const float* xsave, const float* stats,
              const float* blocks, float* dx, float* dblocks, float* scratch,
-             int b, int h, int w, int nblk, int g, cudaStream_t s) {
-  constexpr int C = 2 * MID;
-  constexpr int LEN = Row<MID>::LEN;
-  const int plane = h * w, G = b / g, n_pix = b * plane;
-  const int nch = chunks(n_pix);
-  const int prows = nch > G ? nch : G;
-  const size_t act = (size_t)b * C * plane;
-  const size_t half = (size_t)b * MID * plane;
-  const size_t bn = (size_t)G * 3 * MID;
+             const Geo& G, int nblk, cudaStream_t s) {
+  constexpr int C = 2 * MID, LEN = Row<MID>::LEN;
+  const size_t act = (size_t)G.b * C * G.h * G.w;
+  const size_t half = act / 2;
+  const size_t bnst = (size_t)G.G * 3 * MID;
   float* u1 = scratch;
   float* u2 = u1 + half;
   float* u3 = u2 + half;
-  float* du = u3 + half;
-  float* t = du + half;
-  float* tmp = t + half;         // (B, C, h, w): ping-pong with dx
-  float* part = tmp + act;       // (nblk, prows, LEN)
-  cudaError_t err = cudaMemsetAsync(
-      part, 0, (size_t)nblk * prows * LEN * sizeof(float), s);
-  if (err != cudaSuccess) return (int)err;
-  const float* g_in = dy;
+  float* dv = u3 + half;
+  float* gy = dv + half;
+  float* tmp = gy + half;                    // (B, C, h, w): ping-pong with dx
+  float* part = tmp + act;                   // (nblk, ntiles, LEN)
+  const float* gin = dy;
   for (int i = nblk - 1; i >= 0; --i) {
     const float* row = blocks + (size_t)i * LEN;
-    const float* gb = row + Row<MID>::GB;
     const float* xi = xsave + i * act;
-    const float* st = stats + (size_t)i * 3 * bn;
-    float* pi = part + (size_t)i * prows * LEN;
-    float* g_out = (i % 2 == 0) ? dx : tmp;   // block 0 writes dx
-    int rc = recompute<MID>(xi, row, st, u1, u2, u3, b, h, w, g, G, s, false,
-                            nullptr);
-    if (rc) return rc;
-    // BN3 (ReLU): dz = g_in[:, MID:] -> du3; dgamma3, dbeta3
-    bn_bwd_kernel<MID, true><<<G * MID, kThreads, 0, s>>>(
-        g_in, C, MID, u3, st + 2 * bn, gb + 4 * MID, du, pi, 4, plane, g);
-    FASTDET_CHECK();
-    // dW2 = sum v du3, v = BN2(u2)
-    dw_pw_kernel<MID, kBN><<<nch, kThreads, 0, s>>>(
-        u2, MID, 0, 1, st + bn, gb + 2 * MID, du, pi, Row<MID>::W2, n_pix,
-        plane, g);
-    FASTDET_CHECK();
-    // dv = w2 du3
-    pw_kernel<MID, kRaw, true><<<(n_pix + kTP - 1) / kTP, kThreads, 0, s>>>(
-        du, MID, 0, 1, t, MID, 0, 1, row + Row<MID>::W2, nullptr, nullptr,
-        n_pix, plane, g);
-    FASTDET_CHECK();
-    // BN2 (no ReLU): dv -> du2; dgamma2, dbeta2
-    bn_bwd_kernel<MID, false><<<G * MID, kThreads, 0, s>>>(
-        t, MID, 0, u2, st + bn, gb + 2 * MID, du, pi, 2, plane, g);
-    FASTDET_CHECK();
-    // dwd = sum du2 * shifted y
-    dw_dw_kernel<MID><<<dim3(nch, MID), kThreads, 0, s>>>(
-        du, u1, st, gb, pi, n_pix, h, w, g);
-    FASTDET_CHECK();
-    // dy_y = transposed dw of du2
-    dw_kernel<MID, kRaw, true><<<grid1(half), kThreads, 0, s>>>(
-        du, t, row + Row<MID>::WD, nullptr, nullptr, (int)half, h, w, g);
-    FASTDET_CHECK();
-    // BN1 (ReLU): -> du1; dgamma1, dbeta1
-    bn_bwd_kernel<MID, true><<<G * MID, kThreads, 0, s>>>(
-        t, MID, 0, u1, st, gb, du, pi, 0, plane, g);
-    FASTDET_CHECK();
-    // dW1 = sum x_odd du1
-    dw_pw_kernel<MID, kRaw><<<nch, kThreads, 0, s>>>(
-        xi, C, 1, 2, nullptr, nullptr, du, pi, Row<MID>::W1, n_pix, plane, g);
-    FASTDET_CHECK();
-    // dx: odd channels w1 du1, even channels the passthrough's gradient
-    pw_kernel<MID, kRaw, true><<<(n_pix + kTP - 1) / kTP, kThreads, 0, s>>>(
-        du, MID, 0, 1, g_out, C, 1, 2, row + Row<MID>::W1, nullptr, nullptr,
-        n_pix, plane, g);
-    FASTDET_CHECK();
-    even_grad_kernel<MID><<<grid1(half), kThreads, 0, s>>>(g_in, g_out,
-                                                           (int)half, plane);
-    FASTDET_CHECK();
-    g_in = g_out;
+    const float* st = stats + (size_t)i * 3 * bnst;
+    float* pi = part + (size_t)i * G.ntiles * LEN;
+    float* gout = (i % 2 == 0) ? dx : tmp;   // block 0 writes dx
+    FASTDET_LAUNCH(in_kernel<MID>, Smem<MID>::in(G), s, G, xi, nullptr,
+                   nullptr, nullptr, nullptr, nullptr, row + Row<MID>::W1,
+                   u1, nullptr);
+    FASTDET_LAUNCH(rec_kernel<MID>, Smem<MID>::rec(G), s, G, u1, st, row, gin,
+                   u2, u3, pi);
+    FASTDET_LAUNCH(bn3_kernel<MID>, Smem<MID>::bn3(G), s, G, u2, u3, st, row,
+                   gin, dv, pi);
+    FASTDET_LAUNCH(bn2_kernel<MID>, Smem<MID>::bn2(G), s, G, u1, u2, dv, st,
+                   row, gy, pi);
+    FASTDET_LAUNCH(bn1_kernel<MID>, Smem<MID>::bn1(G), s, G, xi, u1, gy, st,
+                   row, gin, gout, pi);
+    gin = gout;
   }
-  reduce_rows_kernel<<<grid1((size_t)nblk * LEN), kThreads, 0, s>>>(
-      part, dblocks, nblk, prows, LEN);
+  reduce_rows_kernel<<<dim3((LEN + 31) / 32, nblk), kThreads, 0, s>>>(
+      part, dblocks, G.ntiles, LEN);
   FASTDET_CHECK();
   return 0;
 }
 
-bool valid(int b, int c, int h, int w, int nblk, int g) {
+size_t most_smem(int c, const Geo& G, bool backward) {
+  switch (c) {
+    case 48: return Smem<24>::most(G, backward) * sizeof(float);
+    case 96: return Smem<48>::most(G, backward) * sizeof(float);
+    default: return Smem<96>::most(G, backward) * sizeof(float);
+  }
+}
+
+bool valid(int b, int c, int h, int w, int nblk, int g, int tr, int tc,
+           bool backward) {
   if (b < 1 || h < 1 || w < 1 || nblk < 1 || g < 1 || b % g) return false;
   if (c != 48 && c != 96 && c != 192) return false;
-  // element indices of one activation are ints in the elementwise kernels
-  return (size_t)b * c * h * w < (size_t)1 << 31;
+  if (tr < 1 || tr > h || tc < 1 || tc > w) return false;
+  if ((size_t)b * c * h * w >= (size_t)1 << 31) return false;
+  return most_smem(c, make_geo(b, h, w, g, tr, tc), backward) <= kSmemLimit;
 }
 
 }  // namespace
 
 extern "C" {
 
+// Bytes of shared memory of the forward's (backward 0) or the backward's
+// (1) kernel that uses the most at tiles of tr x tc pixels.
+size_t fastdet_span_train_smem(int c, int h, int w, int tr, int tc,
+                               int backward) {
+  if (c != 48 && c != 96 && c != 192) return 0;
+  return most_smem(c, make_geo(1, h, w, 1, tr, tc), backward != 0);
+}
+
+// Floats of scratch that fastdet_span_train_fwd needs (0 if invalid).
+size_t fastdet_span_train_fwd_scratch(int b, int c, int h, int w, int nblk,
+                                      int g, int tr, int tc) {
+  if (!valid(b, c, h, w, nblk, g, tr, tc, false)) return 0;
+  const Geo G = make_geo(b, h, w, g, tr, tc);
+  switch (c) {
+    case 48: return fwd_scratch<24>(G);
+    case 96: return fwd_scratch<48>(G);
+    default: return fwd_scratch<96>(G);
+  }
+}
+
 // x (B, C, h, w) f32 -> out (B, C, h, w), xsave (nblk, B, C, h, w) block
-// inputs, stats (nblk, 3, B/g, 3, C/2); scratch holds 3*B*(C/2)*h*w
-// floats; blocks (nblk, 2*MID^2 + 15*MID).  All on the card.  Returns a
-// cudaError_t (0 = launched).
+// inputs, stats (nblk, 3, B/g, 3, C/2); blocks (nblk, 2*MID^2 + 15*MID);
+// tiles of tr x tc pixels.  All on the card.  Returns a cudaError_t (0 =
+// launched).
 int fastdet_span_train_fwd(const float* x, const float* blocks, float* out,
                            float* xsave, float* stats, float* scratch, int b,
-                           int c, int h, int w, int nblk, int g,
-                           void* stream) {
-  if (!valid(b, c, h, w, nblk, g)) return (int)cudaErrorInvalidValue;
+                           int c, int h, int w, int nblk, int g, int tr,
+                           int tc, void* stream) {
+  if (!valid(b, c, h, w, nblk, g, tr, tc, false)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  const Geo G = make_geo(b, h, w, g, tr, tc);
   switch (c) {
-    case 48: return span_fwd<24>(x, blocks, out, xsave, stats, scratch, b, h, w, nblk, g, s);
-    case 96: return span_fwd<48>(x, blocks, out, xsave, stats, scratch, b, h, w, nblk, g, s);
-    default: return span_fwd<96>(x, blocks, out, xsave, stats, scratch, b, h, w, nblk, g, s);
+    case 48: return span_fwd<24>(x, blocks, out, xsave, stats, scratch, G, nblk, s);
+    case 96: return span_fwd<48>(x, blocks, out, xsave, stats, scratch, G, nblk, s);
+    default: return span_fwd<96>(x, blocks, out, xsave, stats, scratch, G, nblk, s);
   }
 }
 
 // Floats of scratch that fastdet_span_train_bwd needs (0 if invalid).
 size_t fastdet_span_train_bwd_scratch(int b, int c, int h, int w, int nblk,
-                                      int g) {
-  if (!valid(b, c, h, w, nblk, g)) return 0;
+                                      int g, int tr, int tc) {
+  if (!valid(b, c, h, w, nblk, g, tr, tc, true)) return 0;
+  const Geo G = make_geo(b, h, w, g, tr, tc);
   switch (c) {
-    case 48: return bwd_scratch<24>(b, h, w, nblk, g);
-    case 96: return bwd_scratch<48>(b, h, w, nblk, g);
-    default: return bwd_scratch<96>(b, h, w, nblk, g);
+    case 48: return bwd_scratch<24>(G, nblk);
+    case 96: return bwd_scratch<48>(G, nblk);
+    default: return bwd_scratch<96>(G, nblk);
   }
 }
 
@@ -609,13 +1281,15 @@ size_t fastdet_span_train_bwd_scratch(int b, int c, int h, int w, int nblk,
 int fastdet_span_train_bwd(const float* dy, const float* xsave,
                            const float* stats, const float* blocks, float* dx,
                            float* dblocks, float* scratch, int b, int c, int h,
-                           int w, int nblk, int g, void* stream) {
-  if (!valid(b, c, h, w, nblk, g)) return (int)cudaErrorInvalidValue;
+                           int w, int nblk, int g, int tr, int tc,
+                           void* stream) {
+  if (!valid(b, c, h, w, nblk, g, tr, tc, true)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  const Geo G = make_geo(b, h, w, g, tr, tc);
   switch (c) {
-    case 48: return span_bwd<24>(dy, xsave, stats, blocks, dx, dblocks, scratch, b, h, w, nblk, g, s);
-    case 96: return span_bwd<48>(dy, xsave, stats, blocks, dx, dblocks, scratch, b, h, w, nblk, g, s);
-    default: return span_bwd<96>(dy, xsave, stats, blocks, dx, dblocks, scratch, b, h, w, nblk, g, s);
+    case 48: return span_bwd<24>(dy, xsave, stats, blocks, dx, dblocks, scratch, G, nblk, s);
+    case 96: return span_bwd<48>(dy, xsave, stats, blocks, dx, dblocks, scratch, G, nblk, s);
+    default: return span_bwd<96>(dy, xsave, stats, blocks, dx, dblocks, scratch, G, nblk, s);
   }
 }
 

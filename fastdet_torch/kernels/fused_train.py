@@ -32,9 +32,13 @@ inputs (nblk, B, C, h, w).
 CUDA kernels of `csrc/span_train.cu` on a CUDA tensor (or raise) and run
 the plain versions `span_train_forward_reference` /
 `span_train_backward_reference` only on a CPU tensor.  Each counts its
-calls that launch kernels in `.launches`.  `SpanTrain` is the
-autograd.Function around them: its forward saves the block inputs and
-the ghost stats, its backward recomputes each block from them.
+calls that launch kernels in `.launches`.  `span_train_plan` is their
+launch plan (each CTA's pixel tile in the forward and in the backward,
+shared memory, grids, device launches per call); the wrappers pass its
+tiles to the kernels.
+`SpanTrain` is the autograd.Function around them: its forward saves the
+block inputs and the ghost stats, its backward recomputes each block
+from them.
 
 The plain versions repeat the kernels' arithmetic in order: a pointwise
 conv is a loop over input channels of acc = acc + x·w, the depthwise
@@ -48,7 +52,8 @@ their sums.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from dataclasses import dataclass
+from typing import Dict, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -266,14 +271,117 @@ def combine_ghost_stats(stats: torch.Tensor):
     return mean, vars_.mean(2) + (d * d).mean(2)
 
 
+# ------------------------------------------------------------ launch plan
+
+# Pixels of one CTA's tile by mid, at most TILE_COLS wide, chosen by
+# timing the stage calls at b128 352² on the card with several tile
+# heights (PERF.md §6).  Backward: 4×44, 6×22 and 6×11, the stage-4
+# tile the largest whose weight gradients still have one partial row for
+# each of 132 SMs (whole images would leave 128).  Forward: 11×44, 11×22
+# and 11×11 (a quarter, half and whole image), so that stages 3-4 run in
+# one wave of CTAs.
+TILE_PIXELS = {24: 176, 48: 132, 96: 66}
+FWD_TILE_PIXELS = {24: 484, 48: 242, 96: 121}
+TILE_COLS = 64
+SMEM_PER_CTA = 232_448     # bytes of shared memory a CTA may use on sm_90
+SMEM_PER_SM = 233_472      # the SM's 228 KB, 1 KB of it reserved per CTA
+THREADS = 256
+# the dW product's pixel groups (csrc/span_train.cu, DW<MID>::PG)
+_DW_GROUPS = {24: 4, 48: 4, 96: 1}
+FWD_KERNELS = ("in", "fwd_dw", "fwd_pw2")
+BWD_KERNELS = ("in", "rec", "bn3", "bn2", "bn1")
+
+
+def _smem_floats(mid: int, tr: int, tc: int) -> Dict[str, int]:
+    """Shared-memory floats of each kernel of csrc/span_train.cu
+    (`Smem<MID>`), for tiles of tr × tc pixels."""
+    ps = (tr * tc) | 1
+    phs = ((tr + 2) * (tc + 2)) | 1
+    constf, const = 12 * mid, 18 * mid
+    comb = _DW_GROUPS[mid] * mid * mid if _DW_GROUPS[mid] > 1 else 0
+    bn3 = mid * mid + const + 2 * mid * ps + comb
+    return {"in": mid * mid + constf + 2 * mid * ps,
+            "fwd_dw": 9 * mid + constf + mid * phs + mid * ps,
+            "fwd_pw2": mid * mid + constf + 2 * mid * ps,
+            "rec": mid * mid + 9 * mid + const + mid * phs + mid * ps,
+            "bn3": bn3, "bn2": 9 * mid + const + 2 * mid * phs, "bn1": bn3}
+
+
+def _tile(h: int, w: int, pixels: int) -> Tuple[int, int]:
+    tc = min(w, TILE_COLS)
+    return max(1, min(h, pixels // tc)), tc
+
+
+@dataclass(frozen=True)
+class SpanTrainPlan:
+    """How `csrc/span_train.cu` runs one stage call.  Every kernel is one
+    CTA of THREADS threads per tile of (rows, cols) pixels of one image,
+    `tile_fwd` in the forward, `tile_bwd` in the backward; a ghost group
+    is a run of whole tiles, and each BN's statistics go from the
+    producing kernel's epilogue (per tile) to the consuming kernel's
+    prologue (merged over the group's tiles), so no thread-block cluster
+    is used (`cluster` 1).  The weight gradients have one partial row per
+    backward tile (`dw_grid` CTAs), added in a fixed order by one last
+    launch.  `smem_bytes` is the most any kernel takes (`smem_by_kernel`:
+    "in" at the backward tile, the forward's "in" as "in_fwd")."""
+    cluster: int
+    tile_fwd: Tuple[int, int]
+    tile_bwd: Tuple[int, int]
+    ctas_fwd: int
+    ctas_bwd: int
+    smem_bytes: int
+    smem_by_kernel: Dict[str, int]
+    dw_grid: int
+    launches_fwd: int
+    launches_bwd: int
+
+    def smem_of(self, backward: bool) -> int:
+        """Bytes of the forward's or the backward's largest kernel
+        (`fastdet_span_train_smem`)."""
+        keys = BWD_KERNELS if backward else ("in_fwd",) + FWD_KERNELS[1:]
+        return max(self.smem_by_kernel[k] for k in keys)
+
+    @property
+    def pixels_per_cta(self) -> Tuple[int, int]:
+        """(forward, backward) tile pixels."""
+        return (self.tile_fwd[0] * self.tile_fwd[1],
+                self.tile_bwd[0] * self.tile_bwd[1])
+
+
+def span_train_plan(b: int, c: int, h: int, w: int, nblk: int,
+                    g: int) -> SpanTrainPlan:
+    """The launch plan of B8 for a (b, c, h, w) span input of nblk blocks
+    at ghost group g."""
+    mid = c // 2
+    tf, tb = _tile(h, w, FWD_TILE_PIXELS[mid]), _tile(h, w, TILE_PIXELS[mid])
+    fwd, bwd = _smem_floats(mid, *tf), _smem_floats(mid, *tb)
+    smem = {k: 4 * bwd[k] for k in BWD_KERNELS}
+    smem.update({k if k != "in" else "in_fwd": 4 * fwd[k]
+                 for k in FWD_KERNELS})
+    most = max(smem.values())
+
+    def tiles(t):
+        return b * -(-h // t[0]) * -(-w // t[1])
+
+    return SpanTrainPlan(
+        cluster=1, tile_fwd=tf, tile_bwd=tb, ctas_fwd=tiles(tf),
+        ctas_bwd=tiles(tb), smem_bytes=most, smem_by_kernel=smem,
+        dw_grid=tiles(tb),
+        # forward: in, dw, pw2 per block and a last in; backward: in, rec,
+        # bn3, bn2, bn1 per block and the partial rows' sum
+        launches_fwd=3 * nblk + 1, launches_bwd=5 * nblk + 1)
+
+
 # ------------------------------------------------------------ the kernels
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "fastdet_span_train_fwd": ([_P] * 6 + [_I] * 6 + [_P], _I),
-    "fastdet_span_train_bwd": ([_P] * 7 + [_I] * 6 + [_P], _I),
-    "fastdet_span_train_bwd_scratch": ([_I] * 6, ctypes.c_size_t),
+    "fastdet_span_train_fwd": ([_P] * 6 + [_I] * 8 + [_P], _I),
+    "fastdet_span_train_fwd_scratch": ([_I] * 8, ctypes.c_size_t),
+    "fastdet_span_train_bwd": ([_P] * 7 + [_I] * 8 + [_P], _I),
+    "fastdet_span_train_bwd_scratch": ([_I] * 8, ctypes.c_size_t),
+    "fastdet_span_train_smem": ([_I] * 6, ctypes.c_size_t),
 }
 
 
@@ -307,17 +415,20 @@ def span_train_forward(x: torch.Tensor, blocks: torch.Tensor, g: int):
     _check_inputs("span_train_forward", x, blocks, g)
     b, c, h, w = x.shape
     nblk, mid = blocks.shape[0], c // 2
+    tr, tc = span_train_plan(b, c, h, w, nblk, g).tile_fwd
     out = torch.empty_like(x)
     xsave = torch.empty((nblk,) + tuple(x.shape), dtype=x.dtype, device=dev)
     stats = torch.empty((nblk, 3, b // g, 3, mid), dtype=x.dtype,
                         device=dev)
-    scratch = torch.empty(3 * b * mid * h * w, dtype=x.dtype, device=dev)
     lib = _build.load("span_train", _SIGNATURES)
+    scratch = torch.empty(
+        lib.fastdet_span_train_fwd_scratch(b, c, h, w, nblk, g, tr, tc),
+        dtype=x.dtype, device=dev)
     with torch.cuda.device(dev):
         rc = lib.fastdet_span_train_fwd(
             x.data_ptr(), blocks.data_ptr(), out.data_ptr(),
             xsave.data_ptr(), stats.data_ptr(), scratch.data_ptr(), b, c, h,
-            w, nblk, g, torch.cuda.current_stream(dev).cuda_stream)
+            w, nblk, g, tr, tc, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, "span_train_forward")
     span_train_forward.launches += 1
     return out, xsave, stats
@@ -330,7 +441,7 @@ def span_train_backward(dy: torch.Tensor, xsave: torch.Tensor,
                         stats: torch.Tensor, blocks: torch.Tensor, g: int):
     """→ (dx, dblocks) as `span_train_backward_reference`.  CUDA: the
     backward kernels of `csrc/span_train.cu` (one counted call); the
-    weight gradients are per-chunk partial sums reduced in a fixed order,
+    weight gradients are per-tile partial sums reduced in a fixed order,
     so two runs give the same bits.  CPU: the plain version."""
     dev = dy.device
     if dev.type == "cpu":
@@ -347,17 +458,18 @@ def span_train_backward(dy: torch.Tensor, xsave: torch.Tensor,
             raise ValueError(
                 f"span_train_backward: expected a contiguous f32 {shape} "
                 f"tensor on {dev}, got {t.dtype} {tuple(t.shape)}")
+    tr, tc = span_train_plan(b, c, h, w, nblk, g).tile_bwd
     lib = _build.load("span_train", _SIGNATURES)
     dx = torch.empty_like(dy)
     dblocks = torch.empty_like(blocks)
     scratch = torch.empty(
-        lib.fastdet_span_train_bwd_scratch(b, c, h, w, nblk, g),
+        lib.fastdet_span_train_bwd_scratch(b, c, h, w, nblk, g, tr, tc),
         dtype=dy.dtype, device=dev)
     with torch.cuda.device(dev):
         rc = lib.fastdet_span_train_bwd(
             dy.data_ptr(), xsave.data_ptr(), stats.data_ptr(),
             blocks.data_ptr(), dx.data_ptr(), dblocks.data_ptr(),
-            scratch.data_ptr(), b, c, h, w, nblk, g,
+            scratch.data_ptr(), b, c, h, w, nblk, g, tr, tc,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, "span_train_backward")
     span_train_backward.launches += 1

@@ -21,12 +21,12 @@ from fastdet_torch.ops import nms
 from fastdet_torch.ops.postprocess import postprocess
 from fastdet_torch.serve import DevicePipeline, FusedPipeline
 from torch_cases import (ANCHORS, BOX_ULPS_CARD, IOU, NC, S2SPAN_CASES,
-                         SPAN_TRAIN_B1, SPAN_TRAIN_FULL, SPAN_TRAIN_SMALL,
-                         STEM8_CASES, STEM_TRAIN_CASES, box_ulps, crowded,
-                         grad_err, head_outputs, make_inputs, pool_ties,
-                         port_geo, s2span_case, span_train_case,
-                         span_train_grad_errs, staged_reference, stem8_case,
-                         stem_train_case)
+                         SPAN_TRAIN_B1, SPAN_TRAIN_EDGE, SPAN_TRAIN_FULL,
+                         SPAN_TRAIN_SMALL, STEM8_CASES, STEM_TRAIN_CASES,
+                         box_ulps, crowded, grad_err, head_outputs,
+                         make_inputs, pool_ties, port_geo, s2span_case,
+                         span_train_case, span_train_grad_errs,
+                         staged_reference, stem8_case, stem_train_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -303,7 +303,7 @@ def test_fused_pipeline_card_matches_device_pipeline(card):
 
 
 @pytest.mark.parametrize("case", SPAN_TRAIN_FULL + SPAN_TRAIN_B1
-                         + SPAN_TRAIN_SMALL)
+                         + SPAN_TRAIN_SMALL + SPAN_TRAIN_EDGE)
 def test_span_train_kernels_match_plain(card, case):
     """B8 forward against its plain version (out, saved inputs, stats
     within 2e-4 of each one's scale), then the backward kernel and the
@@ -334,6 +334,19 @@ def test_span_train_kernels_match_plain(card, case):
     # fixed-order sums: a second run gives the same bits
     dx2, drows2 = fused_train.span_train_backward(dy, xsave, stats, rows, g)
     assert torch.equal(dx, dx2) and torch.equal(drows, drows2)
+
+
+def test_span_train_plan_matches_the_kernels(card):
+    """The plan's shared memory is the kernels' own (`Smem<MID>` in
+    csrc/span_train.cu) at every shape the card tests run."""
+    from fastdet_torch.kernels import _build
+    lib = _build.load("span_train", fused_train._SIGNATURES)
+    for b, c, h, w, nblk, g in (SPAN_TRAIN_FULL + SPAN_TRAIN_B1
+                                + SPAN_TRAIN_SMALL + SPAN_TRAIN_EDGE):
+        plan = fused_train.span_train_plan(b, c, h, w, nblk, g)
+        for bwd, tile in ((0, plan.tile_fwd), (1, plan.tile_bwd)):
+            assert lib.fastdet_span_train_smem(c, h, w, *tile, bwd) == \
+                plan.smem_of(bwd), (b, c, h, w, bwd)
 
 
 def test_span_train_wrappers_check_their_inputs(card):

@@ -146,6 +146,14 @@ SPAN_TRAIN_B1 = ((1, 48, 44, 44, 3, 1), (1, 96, 22, 22, 7, 1),
                  (1, 192, 11, 11, 3, 1))
 SPAN_TRAIN_SMALL = ((4, 48, 6, 7, 2, 2), (4, 192, 3, 3, 3, 2),
                     (6, 96, 5, 4, 2, 3))
+# the edges of the kernels' launch plan (`span_train_plan`): a group of 3
+# images in 3 tiles, g = 1 at an odd batch, a stage-4-width group of 16
+# whose images the backward cuts into tiles of 6 and 5 rows, the stage-2
+# geometry at b8, backward tiles of 6 and 3 rows, and tiles of 64 and 6
+# columns
+SPAN_TRAIN_EDGE = ((3, 96, 9, 7, 2, 3), (5, 48, 13, 5, 3, 1),
+                   (16, 192, 11, 11, 1, 16), (8, 48, 44, 44, 1, 2),
+                   (2, 96, 9, 22, 2, 1), (2, 48, 5, 70, 2, 2))
 
 
 def span_train_case(seed, b, c, h, w, nblk, device="cpu"):
