@@ -73,10 +73,14 @@ Phases:
   8c. stem_train (B7) forward and backward against their plain versions
      at b128 352² (photo variants, reference weights) at ghost group 1
      and 16, b8 at group 4, b2 160×96 with pad lanes, on images with
-     flat blocks (positive pool ties), and at 32×48 and 36×52 (tiles cut
-     off at the image's edge); the backward bitwise repeatable;
-     times, bounds and the nhwc stem's (cuDNN conv, training BN, ReLU,
-     max_pool2d) at b128;
+     flat blocks (positive pool ties), at 32×48 and 36×52 (tiles cut
+     off at the image's edge), and with γ of both signs and one γ = 0;
+     y and the pooled conv z bit for bit the plain conv, BN, ReLU and
+     pool with the kernel's own stats; the backward bitwise repeatable;
+     the plan's shared memory the kernels'; times, bounds and the nhwc
+     stem's (cuDNN conv, training BN, ReLU, max_pool2d) at b128, and by
+     torch.profiler each call's time by kernel name and its device
+     launches (held to `stem_train_plan`'s);
   8b. training: 4 steps at b128 352² from the reference weights on each
      path: default and --fused-backbone through
      `fastdet_torch.cli.train.run_training` (B8's launches counted over
@@ -89,7 +93,8 @@ Phases:
      fused step against the default step at b2, the s2d step at stem
      group 2 (b2) and 1 (b1) against the default step on noise images
      (in the s2d ones, the stem's three gradients also one by one);
-     ms/step, img/s and a profile of the three modes;
+     ms/step, img/s and a profile of the three modes (B7's kernels'
+     share of the s2d step read from its profile);
   6. the kernel summary (a JSON line: launches of stem_s2d, span and
      rank_decode_nms from the fused serving path, of nms_keep from the
      eval path, of stem_s2d at 640² from FusedPipeline there, of
@@ -730,7 +735,7 @@ def profile_device(fn, what: str, calls: int = 5, top: int = 12):
     busy_us = sum(t for _, t in dev)
     if not dev:
         log("  profile: the profiler saw no device time (not measured)")
-        return
+        return None
     log(f"  profile of {calls} {what} (torch.profiler): device busy "
         f"{busy_us / calls / 1e3:.3f} ms of {window_us / calls / 1e3:.3f} ms "
         f"per call, idle share {1 - busy_us / window_us:.3f}; by kernel, ms "
@@ -738,6 +743,11 @@ def profile_device(fn, what: str, calls: int = 5, top: int = 12):
     for key, t in dev[:top]:
         log(f"    {t / calls / 1e3:.4f}  {100 * t / busy_us:5.1f}%  "
             f"{key[:90]}")
+    by_name = {}
+    for key, t in dev:
+        name = kernel_base_name(key)
+        by_name[name] = by_name.get(name, 0.0) + t / calls / 1e3
+    return by_name
 
 
 def kernel_base_name(key: str) -> str:
@@ -778,6 +788,29 @@ def kernel_split(fn, calls: int = 3):
         split[name] = (ms + e.self_device_time_total / calls / 1e3,
                        n + e.count / calls)
     return split or None
+
+
+def planned_split(fn, want: int, tries: int = 3):
+    """`kernel_split` of fn, taken again (up to `tries` times) while it
+    sees no device time or its device launches per call are not `want`:
+    the profiler has been seen to drop kernel records now and then, a
+    whole session's too.  → (split, launches per call), (None, None)
+    where no try saw device time."""
+    split, n = None, None
+    for _ in range(tries):
+        got = kernel_split(fn)
+        if got is None:
+            continue
+        split, n = got, sum(v[1] for v in got.values())
+        if n == want:
+            break
+    return split, n
+
+
+def split_text(split) -> str:
+    """"name ms (count×), ..." by falling time."""
+    return ", ".join(f"{name} {ms:.4f} ({cnt:g}×)" for name, (ms, cnt)
+                     in sorted(split.items(), key=lambda kv: -kv[1][0]))
 
 
 def phase_fused_timing(sd, dev_pipe, fused_pipe, big, card):
@@ -1611,15 +1644,7 @@ def phase_span_train(sd, card):
                 ("bwd", lambda: ft.span_train_backward(dy, xsave, stats,
                                                        rows, g),
                  plan.launches_bwd, plan.tile_bwd, plan.ctas_bwd)):
-            # the profiler has been seen to drop kernel records now and
-            # then: a count off the plan is taken again, up to 3 times
-            for _ in range(3):
-                split = kernel_split(fn)
-                if split is None:
-                    break
-                n = sum(v[1] for v in split.values())
-                if n == want:
-                    break
+            split, n = planned_split(fn, want)
             if split is None:
                 log(f"  B8 {k} split at C={c}: the profiler saw no device "
                     f"time (not measured)")
@@ -1629,10 +1654,8 @@ def phase_span_train(sd, card):
                   f"call, the plan says {want}")
             launches[k].append(f"{n:g}")
             log(f"  B8 {k} split at C={c} (torch.profiler, ms per call): "
-                + ", ".join(f"{name} {ms:.4f} ({cnt:g}×)" for name, (ms, cnt)
-                            in sorted(split.items(), key=lambda kv: -kv[1][0]))
-                + f"; {n:g} device launches per call (plan: tiles "
-                f"{'×'.join(map(str, tile))}, {ctas} CTAs, "
+                + split_text(split) + f"; {n:g} device launches per "
+                f"call (plan: tiles {'×'.join(map(str, tile))}, {ctas} CTAs, "
                 f"{plan.smem_of(k == 'bwd')} B of shared memory at most)")
     out = {}
     for k in ("fwd", "bwd"):
@@ -1679,20 +1702,25 @@ def phase_stem_train(sd, photo, card):
     weights, at ghost group 1 (the main path) and STEM_GROUPED; then the
     cases of tests/torch_cases.py (b8 at group 4, b2 160×96 with pad
     lanes, images with flat blocks whose pool windows hold positive ties,
-    32×48 and 36×52 whose 8×8-cell tiles are cut off at the edge).
-    y within 2e-4 of its scale, the stats per kind within 2e-4 of each
-    one's; the backward kernels and the plain backward get the same dy, x
-    and stats (so the same recomputed masks and pool routing) and dW, dγ,
-    dβ are held to 1e-4·max|ref| + 1e-4 each; a second backward gives the
-    same bits.  Times at b128 (CUDA events): kernels, plain versions, the
-    bounds, and as yardstick the nhwc path's stem (cuDNN conv, the port's
-    training BatchNorm, ReLU, max_pool2d) forward and forward + backward.
-    → {"g1"/"grouped": {"fwd"/"bwd": (ms, plain_ms, bound_ms, bound_by,
-    max |Δ|, library_ms)}}."""
+    32×48 and 36×52 whose 8×8-cell tiles are cut off at the edge, and γ
+    of both signs with one γ = 0).  y within 2e-4 of its scale, the stats
+    per kind within 2e-4 of each one's, and y and z bit for bit the plain
+    conv, BN, ReLU and pool with the kernel's own stats; the backward
+    kernels and the plain backward get the same dy, x and stats (so the
+    same recomputed masks and pool routing) and dW, dγ, dβ are held to
+    1e-4·max|ref| + 1e-4 each; a second backward gives the same bits.
+    The plan's shared memory is the kernels' own.  Times at b128 (CUDA
+    events): kernels, plain versions, the bounds, and as yardstick the
+    nhwc path's stem (cuDNN conv, the port's training BatchNorm, ReLU,
+    max_pool2d) forward and forward + backward; then, by torch.profiler,
+    each call's time by kernel name and its device launches, which must
+    be the plan's.  → {"g1"/"grouped": {"fwd"/"bwd": (ms, plain_ms,
+    bound_ms, bound_by, max |Δ|, library_ms)}}."""
     import torch
     import torch.nn.functional as F
     from torch_cases import (STEM_TRAIN_CASES, grad_err, pool_ties,
                              stem_train_case)
+    from fastdet_torch.kernels import _build
     from fastdet_torch.kernels import stem_train as stt
     from fastdet_torch.kernels.fused_infer import pack_images_s2d
     from fastdet_torch.models import Detector
@@ -1710,12 +1738,18 @@ def phase_stem_train(sd, photo, card):
     cases = [(f"b{bsz} 352² photos g={g}", x_main, w_real, g_real, b_real,
               dy_main, 88, 88, g, False) for g in (1, STEM_GROUPED)]
     for case in STEM_TRAIN_CASES[1:]:
-        b, hgt, wid, g, tie = case
+        b, hgt, wid, g, tie, signed = case
         x, w_raw, gamma, beta, dy = stem_train_case(sum(case), b, hgt, wid,
-                                                    tie, "cuda")
-        cases.append((f"b{b} {hgt}x{wid} g={g}{' ties' if tie else ''}", x,
+                                                    tie, "cuda", signed)
+        cases.append((f"b{b} {hgt}x{wid} g={g}{' ties' if tie else ''}"
+                      f"{' γ±,0' if signed else ''}", x,
                       (w_raw * (1.0 / 255.0)).contiguous(), gamma, beta, dy,
                       hgt // 4, wid // 4, g, tie))
+    lib = _build.load("stem_train", stt._SIGNATURES)
+    smem = stt.stem_train_plan(bsz, 88, 88, 1).smem_by_kernel
+    check([lib.fastdet_stem_train_smem(k) for k in (0, 1)]
+          == [smem["stem_fwd_sweep_kernel"], smem["stem_bwd_sweep_kernel"]],
+          f"B7 plan's shared memory {smem}")
     img = torch.from_numpy(photos).cuda().permute(0, 3, 1, 2).float() / 255.0
 
     def lib_stem():
@@ -1726,8 +1760,9 @@ def phase_stem_train(sd, photo, card):
     fc.zero_grad(set_to_none=True)
     timed = {}
     errs = [0.0, 0.0]
+    launches = {"fwd": [], "bwd": []}
     for name, x, w, gamma, beta, dy, h4, w4, g, tie in cases:
-        y, stats = stt.stem_train_forward(x, w, gamma, beta, h4, w4, g)
+        y, stats, z = stt.stem_train_forward(x, w, gamma, beta, h4, w4, g)
         ry, rstats = stt.stem_train_forward_reference(x, w, gamma, beta, h4,
                                                       w4, g)
         torch.cuda.synchronize()
@@ -1740,8 +1775,17 @@ def phase_stem_train(sd, photo, card):
             check(e <= 2e-4 * scale, f"B7 forward {what} {e} off (scale "
                   f"{scale}) at {name}")
             f_err = max(f_err, e)
+        # the pool before BN (identity 1): y and z bit for bit
+        u = stt._conv(stt._image(x, h4, w4, w.dtype), w)
+        bn, _ = stt._bn_parts(u, stats, gamma, beta, g)
+        check(torch.equal(y, F.max_pool2d(torch.relu(bn), 3, 2, 1)),
+              f"B7 y is not the plain BN + ReLU + pool with the kernel's "
+              f"stats at {name}")
+        check(torch.equal(z, stt.pooled_extreme(u, gamma)),
+              f"B7 z is not the plain pooled conv at {name}")
+        del u, bn
         grads = stt.stem_train_backward(dy, x, stats, w, gamma, beta, h4, w4,
-                                        g)
+                                        g, z)
         refs = stt.stem_train_backward_reference(dy, x, stats, w, gamma,
                                                  beta, h4, w4, g)
         torch.cuda.synchronize()
@@ -1753,12 +1797,13 @@ def phase_stem_train(sd, photo, card):
             b_err = max(b_err, e)
             worst = max(worst, (leaf, e / lim), key=lambda t: t[1])
         again = stt.stem_train_backward(dy, x, stats, w, gamma, beta, h4, w4,
-                                        g)
+                                        g, z)
         check(all(torch.equal(a, c) for a, c in zip(grads, again)),
               f"B7 backward not deterministic at {name}")
-        msg = (f"  stem_train {name}: forward max |Δ| {f_err:.3g}, backward "
-               f"max |Δ| {b_err:.3g} (worst leaf {worst[0]} at "
-               f"{worst[1]:.3g} of its bound 1e-4·max|ref| + 1e-4)")
+        msg = (f"  stem_train {name}: forward max |Δ| {f_err:.3g} (y, z "
+               f"bitwise), backward max |Δ| {b_err:.3g} (worst leaf "
+               f"{worst[0]} at {worst[1]:.3g} of its bound 1e-4·max|ref| + "
+               f"1e-4)")
         if tie:
             n_ties = pool_ties(x, w, stats, gamma, beta, h4, w4, g)
             check(n_ties > 0, f"no positive pool ties at {name}")
@@ -1767,10 +1812,10 @@ def phase_stem_train(sd, photo, card):
         if x is not x_main:
             log(msg)
             continue
-        ms_f = cuda_ms(lambda: stt.stem_train_forward(x, w, gamma, beta, h4,
-                                                      w4, g), 10)
+        ms_f = cuda_ms(lambda: stt.stem_train_forward(
+            x, w, gamma, beta, h4, w4, g), 10)
         ms_b = cuda_ms(lambda: stt.stem_train_backward(
-            dy, x, stats, w, gamma, beta, h4, w4, g), 10)
+            dy, x, stats, w, gamma, beta, h4, w4, g, z), 10)
         pl_f = cuda_ms(lambda: stt.stem_train_forward_reference(
             x, w, gamma, beta, h4, w4, g), 2, 1)
         pl_b = cuda_ms(lambda: stt.stem_train_backward_reference(
@@ -1781,18 +1826,47 @@ def phase_stem_train(sd, photo, card):
         log(msg + f"; kernels fwd {ms_f:.4f} ms, bwd {ms_b:.4f} ms; plain "
             f"fwd {pl_f:.3f} ms, bwd {pl_b:.3f} ms; bound fwd {bf:.4f} ms "
             f"({byf}), bwd {bb:.4f} ms ({byb})")
+        # the split by kernel name and the device launches per call
+        plan = stt.stem_train_plan(bsz, h4, w4, g)
+        for k, fn, names, tile, ctas, sweeps in (
+                ("fwd", lambda: stt.stem_train_forward(
+                    x, w, gamma, beta, h4, w4, g),
+                 plan.kernels_fwd, plan.tile_fwd, plan.ctas_fwd,
+                 plan.sweeps_fwd),
+                ("bwd", lambda: stt.stem_train_backward(
+                    dy, x, stats, w, gamma, beta, h4, w4, g, z),
+                 plan.kernels_bwd, plan.tile_bwd, plan.ctas_bwd,
+                 plan.sweeps_bwd)):
+            split, n = planned_split(fn, len(names))
+            if split is None:
+                log(f"  B7 {k} split at g={g}: the profiler saw no device "
+                    f"time (not measured)")
+                launches[k].append("not measured")
+                continue
+            check(n == len(names) and sorted(split) == sorted(names),
+                  f"B7 {k} at {name}: {n:g} device launches per call of "
+                  f"{sorted(split)}, the plan says {len(names)} of "
+                  f"{sorted(names)}")
+            launches[k].append(f"{n:g}")
+            log(f"  B7 {k} split at g={g} (torch.profiler, ms per call): "
+                + split_text(split) + f"; {n:g} device launches per call "
+                f"(plan: tiles {'×'.join(map(str, tile))} cells, {ctas} "
+                f"CTAs of the sweep, {sweeps:.3f} conv sweeps)")
     # max |Δ|: the worst over every shape
     out = {key: {"fwd": f + (errs[0], lib_f), "bwd": b + (errs[1],
                                                           lib_fb - lib_f)}
            for key, (f, b) in timed.items()}
-    g1 = out["g1"]
+    g1, gr = out["g1"], out["grouped"]
     log(f"phase 8c stem_train: B7 forward and backward within bounds of "
-        f"their plain versions at {len(cases)} shapes; b{bsz} 352² g=1 "
-        f"({card}): forward {g1['fwd'][0]:.4f} ms (bound {g1['fwd'][2]:.4f},"
-        f" plain {g1['fwd'][1]:.3f}), backward {g1['bwd'][0]:.4f} ms (bound "
-        f"{g1['bwd'][2]:.4f}, plain {g1['bwd'][1]:.3f}); the nhwc stem (cuDNN"
-        f" conv, training BN, ReLU, max_pool2d) forward {lib_f:.4f} ms, "
-        f"forward + backward {lib_fb:.4f} ms")
+        f"their plain versions at {len(cases)} shapes, y and z bit for bit; "
+        f"device launches per call forward {' / '.join(launches['fwd'])}, "
+        f"backward {' / '.join(launches['bwd'])}; b{bsz} 352² g=1 ({card}): "
+        f"forward {g1['fwd'][0]:.4f} ms (bound {g1['fwd'][2]:.4f}, plain "
+        f"{g1['fwd'][1]:.3f}), backward {g1['bwd'][0]:.4f} ms (bound "
+        f"{g1['bwd'][2]:.4f}, plain {g1['bwd'][1]:.3f}); g={STEM_GROUPED} "
+        f"forward {gr['fwd'][0]:.4f} ms, backward {gr['bwd'][0]:.4f} ms; "
+        f"the nhwc stem (cuDNN conv, training BN, ReLU, max_pool2d) forward "
+        f"{lib_f:.4f} ms, forward + backward {lib_fb:.4f} ms")
     return out
 
 
@@ -1944,6 +2018,15 @@ def phase_training(sd, photo, dev_pipe, card, b8, b7):
             f"CIou:{vals['box']:f} Obj:{vals['obj']:f} Cls:{vals['cls']:f} "
             f"Total:{vals['total']:f}; B8 launches {c8}, B7 launches {c7}")
 
+    def plain_stem_forward(x, w, gamma, beta, h4, w4, g):
+        return (*stt.stem_train_forward_reference(x, w, gamma, beta, h4, w4,
+                                                  g),
+                stt.stem_train_pooled_reference(x, w, gamma, h4, w4))
+
+    def plain_stem_backward(dy, x, stats, w, gamma, beta, h4, w4, g, z):
+        return stt.stem_train_backward_reference(dy, x, stats, w, gamma,
+                                                 beta, h4, w4, g)
+
     def run(mode, imgs, lbl, msk, plain=False, plain_stem=False, group=None,
             n=2):
         tr = make_trainer(sd, cfg, mode, group)
@@ -1952,8 +2035,8 @@ def phase_training(sd, photo, dev_pipe, card, b8, b7):
             ft.span_train_forward = ft.span_train_forward_reference
             ft.span_train_backward = ft.span_train_backward_reference
         if plain_stem:
-            stt.stem_train_forward = stt.stem_train_forward_reference
-            stt.stem_train_backward = stt.stem_train_backward_reference
+            stt.stem_train_forward = plain_stem_forward
+            stt.stem_train_backward = plain_stem_backward
         try:
             losses = [float(tr.step(imgs, lbl, msk)["total"])
                       for _ in range(n)]
@@ -2029,6 +2112,7 @@ def phase_training(sd, photo, dev_pipe, card, b8, b7):
               f"{g_rel:.3g}, stem leaves {stem}")
 
     times = {}
+    b7_prof = None
     for mode, tr in trainers.items():
         t0 = time.perf_counter()
         batch = inputs[mode]
@@ -2045,8 +2129,12 @@ def phase_training(sd, photo, dev_pipe, card, b8, b7):
         log(f"  train step {mode} b{bsz} 352² ({card}): median "
             f"{per[2]:.3f} ms of 5 (CUDA events, spread {per[0]:.3f}-"
             f"{per[4]:.3f}), {bsz * 1e3 / per[2]:.1f} img/s")
-        profile_device(lambda: tr.step(batch, labels, mask),
-                       f"{mode} b{bsz} train steps", calls=3, top=16)
+        prof = profile_device(lambda: tr.step(batch, labels, mask),
+                              f"{mode} b{bsz} train steps", calls=3, top=16)
+        if mode == "fused_s2d":
+            b7_kernels = stt.FWD_KERNELS + stt.BWD_KERNELS
+            b7_prof = (None if prof is None else
+                       sum(prof.get(k, 0.0) for k in b7_kernels))
         log(f"  timing and profile of {mode}: "
             f"{time.perf_counter() - t0:.1f} s")
     b8_ms = b8["fwd"][0] + b8["bwd"][0]
@@ -2060,8 +2148,11 @@ def phase_training(sd, photo, dev_pipe, card, b8, b7):
         f"stages, timed apart in 8a) {b8_ms:.3f} ms = "
         f"{100 * b8_ms / times['fused']:.1f}% of a fused step; B7 (forward + "
         f"backward, timed apart in 8c) {b7_ms:.3f} ms = "
-        f"{100 * b7_ms / times['fused_s2d']:.1f}% of a fused s2d step "
-        f"({card})")
+        f"{100 * b7_ms / times['fused_s2d']:.1f}% of a fused s2d step; B7's "
+        f"kernels inside that step (its profile) "
+        + ("not measured" if b7_prof is None else
+           f"{b7_prof:.3f} ms = {100 * b7_prof / times['fused_s2d']:.1f}%")
+        + f" ({card})")
     return launches
 
 

@@ -28,22 +28,35 @@ where no positive tie occurs.
 The TPU kernel's forms are not carried over: no (192, 96) phase matrix
 and its selection matmuls, no lane rolls or bf16 bitcasts, no ×4 phase
 tiling of γ/β.  One CUDA design (`csrc/stem_train.cu`) serves the JAX
-package's group-1 and grouped kernels, with g as an argument.
+package's group-1 and grouped kernels, with g as an argument.  It sweeps
+the conv once each way, from two identities that the plain helpers below
+state: the pool commutes with BN and ReLU if it takes the raw conv's max
+where γ ≥ 0 and its min where γ < 0 (`stem_train_pooled_reference`,
+`stem_train_emit_reference`: bit for bit), so the forward pools the raw
+conv in the sweep that takes the moments and writes that extreme z; and
+the backward's BN sums Sg, Sgx follow from (dy, z) without a conv
+(`stem_train_sums_reference`), so its one sweep recomputes the conv,
+routes dy, forms du and the weight gradient, and takes dγ, dβ from the
+routed gradient (z does not tell the winner where γ = 0).
+`stem_train_plan` gives the launches, tiles and shared memory.
 
 `stem_train_forward` / `stem_train_backward` launch the CUDA kernels on a
 CUDA tensor (or raise) and run the plain versions
 `stem_train_forward_reference` / `stem_train_backward_reference` only on a
 CPU tensor; each counts its calls that launch kernels in `.launches`.
-`StemTrain` is the autograd.Function around them: it saves x and the
-stats, and its backward recomputes from them.  The plain versions do the
-kernels' operations in the kernels' order (the CUDA source is built with
-`--fmad=false`), so from the same saved stats both recompute the same
+`StemTrain` is the autograd.Function around them: it saves x, the stats
+and z, and its backward recomputes the conv from them.  The plain versions
+do the kernels' operations in the kernels' order (the CUDA source is built
+with `--fmad=false`), so from the same saved stats both recompute the same
 conv outputs, ReLU masks and pool routing bit for bit.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -197,6 +210,46 @@ def stem_train_backward_reference(dy, x, stats, w, gamma, beta, h4: int,
     return dw, sgx.sum(0), sg.sum(0)
 
 
+def pooled_extreme(u: torch.Tensor, gamma: torch.Tensor) -> torch.Tensor:
+    """Raw conv outputs (B, 24, 2·h4, 2·w4) → z (B, 24, h4, w4): the 3×3
+    s2 pad-1 pool of u, its max on a channel with γ ≥ 0 and its min on one
+    with γ < 0."""
+    neg = (gamma < 0)[None, :, None, None]
+    return torch.where(neg, -F.max_pool2d(-u, 3, 2, 1),
+                       F.max_pool2d(u, 3, 2, 1))
+
+
+def stem_train_pooled_reference(x, w, gamma, h4: int, w4: int):
+    """Plain version of the forward sweep's pooled output: z of the conv,
+    (B, 24, h4, w4).  Each rounded step of bn and ReLU is monotone in u
+    (non-decreasing for γ ≥ 0, non-increasing for γ < 0), so
+    `stem_train_emit_reference(z, stats, …)` is the forward's y bit for
+    bit, whatever the stats."""
+    return pooled_extreme(_conv(_image(x, h4, w4, w.dtype), w), gamma)
+
+
+def stem_train_emit_reference(z, stats, gamma, beta, g: int):
+    """y = ReLU((z − μ)·(σinv·γ) + β) with the group's stats: BN and ReLU
+    after the pool (the forward's last pass)."""
+    bn, _ = _bn_parts(z, stats, gamma, beta, g)
+    return torch.relu(bn)
+
+
+def stem_train_sums_reference(dy, z, stats, gamma, beta, g: int):
+    """The backward's BN sums from the pooled cotangent alone → (Sg, Sgx),
+    each (B/g, 24): Sg = Σ dy·[bn(z) > 0], Sgx = Σ dy·[bn(z) > 0]·x̂(z).
+    A pool window passes dy to one winner, whose ReLU output is y, so these
+    are the routed sums wherever the winner's x̂ is z's: up to ties of bn
+    between different u (rounding noise in Sgx), and not on a channel
+    whose σinv·γ is 0, where every member ties and only the routed gy
+    gives dγ (there du = 0, so dW does not depend on it)."""
+    b = dy.shape[0]
+    bn, xhat = _bn_parts(z, stats, gamma, beta, g)
+    gy = torch.where(bn > 0, dy, torch.zeros_like(dy))
+    return (gy.reshape(b // g, g, COUT, -1).sum((1, 3)),
+            (gy * xhat).reshape(b // g, g, COUT, -1).sum((1, 3)))
+
+
 def combine_stem_stats(stats: torch.Tensor):
     """(G, 24, [μ, σinv, var]) per-group stats → the exact full-batch
     (mean (24,), var (24,)) for equal group sizes: mean = E_g[μ_g], var =
@@ -209,15 +262,149 @@ def combine_stem_stats(stats: torch.Tensor):
     return mean, vars_.mean(0) + (d * d).mean(0)
 
 
+# ------------------------------------------------------------ the plan
+
+FWD_ROWS = 11           # cell rows of a forward tile, at most (kFR)
+FWD_WARP_COLS = 31      # cell columns a forward warp owns (kFWarpCols)
+FWD_MAX_WARPS = 3       # warps across a forward tile (93 columns)
+FWD_GROUPS = 4          # channel groups of 6, each its own warps (kFGroups)
+BWD_TILE = 8            # a backward tile is 8×8 cells (kBT)
+BWD_THREADS = 256
+BWD_HALO = 33           # halo conv outputs a backward tile recomputes
+SMEM_PER_CTA = 232_448  # bytes of shared memory a CTA may use on sm_90
+SMS = 132
+FWD_KERNELS = ("stem_fwd_sweep_kernel", "stem_stats_combine_kernel",
+               "stem_fwd_emit_kernel")
+BWD_KERNELS = ("stem_bwd_sums_kernel", "stem_bwd_sweep_kernel",
+               "stem_bwd_reduce_kernel")
+
+
+def _smem_bytes() -> Dict[str, int]:
+    """Dynamic shared memory of the two sweeps (`fastdet_stem_train_smem`):
+    the forward's weights, signs, per-warp moments and input rows; the
+    backward's `BwdSmem`."""
+    fwd = (4 * (27 * COUT + COUT + FWD_MAX_WARPS * FWD_GROUPS * 6 * 3)
+           + 48 * (FWD_ROWS + 1) * 100)
+    rc, wc = (BWD_TILE + 1) ** 2, (BWD_TILE + 2) ** 2
+    floats = (27 * COUT + 3 * COUT + 4 * COUT * rc + 2 * COUT * wc
+              + (4 * BWD_TILE ** 2 + BWD_HALO) * COUT + 8 * COUT * 2)
+    codes = 3 * COUT * wc
+    inputs = 2 * 48 * (BWD_TILE + 1) * 16
+    return {"stem_fwd_sweep_kernel": fwd,
+            "stem_bwd_sweep_kernel": 4 * floats + codes + inputs}
+
+
+def _bwd_halo():
+    """The 33 halo outputs of a backward tile as (row, col, phase) of its
+    9×9-cell region (`halo_point`): phase (0, 1) of the left column, phase
+    (1, 0) of the top row, then phase (1, 1) of the top row, the left
+    column and the corner."""
+    edge = range(1, BWD_TILE + 1)
+    return ([(r, 0, 1) for r in edge] + [(0, c, 2) for c in edge]
+            + [(0, c, 3) for c in edge] + [(r, 0, 3) for r in edge]
+            + [(0, 0, 3)])
+
+
+def _fwd_outputs(h4: int, w4: int, tr: int, ncw: int) -> int:
+    """Conv outputs inside the image that the forward sweep computes: each
+    band's cells (and a warp's left column again where it lies inside the
+    image), four phases each, and the phases py = 1 of the row above a
+    band that does not start at row 0."""
+    cw = FWD_WARP_COLS * ncw
+    cols = 0
+    for c0 in range(0, w4, cw):
+        for k in range(ncw):
+            lo = c0 + k * FWD_WARP_COLS - 1
+            cols += len(range(max(lo, 0), min(lo + 32, c0 + cw, w4)))
+    rows = sum(4 * min(tr, h4 - i0) + 2 * (i0 > 0) for i0 in range(0, h4, tr))
+    return cols * rows
+
+
+def _bwd_outputs(h4: int, w4: int) -> int:
+    """Conv outputs inside the image that the backward sweep computes: each
+    tile's own and its halo's."""
+    t = BWD_TILE
+    halo = _bwd_halo()
+    n = 0
+    for i0 in range(0, h4, t):
+        for j0 in range(0, w4, t):
+            n += 4 * min(t, h4 - i0) * min(t, w4 - j0)
+            n += sum(0 <= i0 - 1 + r < h4 and 0 <= j0 - 1 + c < w4
+                     for r, c, _ in halo)
+    return n
+
+
+@dataclass(frozen=True)
+class StemTrainPlan:
+    """How `csrc/stem_train.cu` runs one call at (b, h4, w4, g).
+
+    Forward sweep: one CTA of 128·ncw threads per tile of `tile_fwd` =
+    (rows, 31·ncw) cells of one image (row bands; wider images in column
+    chunks): each warp owns 31 cell columns for one group of 6 channels
+    and computes the column to their left again (the pool's column 2j−1
+    comes by shuffle); the band's top row costs the phases py = 1 of one
+    more row.  Backward sweep: one CTA of 256 threads per band of 8 cell
+    rows of one image, its 8×8-cell tiles left to right; a tile owns its
+    64 windows and recomputes 33 halo outputs (the pool's row 2i−1 and
+    column 2j−1 to its top and left).  `sweeps_*` counts the conv outputs
+    a call computes at places inside the image, a tile's own and its
+    halo's, over the image's."""
+    tile_fwd: Tuple[int, int]
+    tile_bwd: Tuple[int, int]
+    ctas_fwd: int
+    ctas_bwd: int
+    threads_fwd: int
+    threads_bwd: int
+    smem_by_kernel: Dict[str, int]
+    kernels_fwd: Tuple[str, ...]
+    kernels_bwd: Tuple[str, ...]
+    sweeps_fwd: float
+    sweeps_bwd: float
+
+    @property
+    def launches_fwd(self) -> int:
+        return len(self.kernels_fwd)
+
+    @property
+    def launches_bwd(self) -> int:
+        return len(self.kernels_bwd)
+
+    @property
+    def ncw(self) -> int:
+        return self.tile_fwd[1] // FWD_WARP_COLS
+
+
+@functools.lru_cache(maxsize=64)
+def stem_train_plan(b: int, h4: int, w4: int, g: int) -> StemTrainPlan:
+    """The launch plan of B7 for b images of (4·h4)×(4·w4) at ghost group
+    g (g does not change it: a group is whole images)."""
+    del g
+    tr = -(-h4 // -(-h4 // FWD_ROWS))    # balanced bands of ≤ FWD_ROWS
+    ncw = min(FWD_MAX_WARPS, -(-w4 // FWD_WARP_COLS))
+    cw = FWD_WARP_COLS * ncw
+    nchunk = -(-w4 // cw)
+    nband = -(-h4 // tr)
+    hw4 = 4 * h4 * w4
+    return StemTrainPlan(
+        tile_fwd=(tr, cw), tile_bwd=(BWD_TILE, BWD_TILE),
+        ctas_fwd=b * nband * nchunk, ctas_bwd=b * -(-h4 // BWD_TILE),
+        threads_fwd=FWD_GROUPS * 32 * ncw, threads_bwd=BWD_THREADS,
+        smem_by_kernel=_smem_bytes(), kernels_fwd=FWD_KERNELS,
+        kernels_bwd=BWD_KERNELS,
+        sweeps_fwd=_fwd_outputs(h4, w4, tr, ncw) / hw4,
+        sweeps_bwd=_bwd_outputs(h4, w4) / hw4)
+
+
 # ------------------------------------------------------------ the kernels
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "fastdet_stem_train_fwd": ([_P] * 7 + [_I] * 5 + [_P], _I),
-    "fastdet_stem_train_bwd": ([_P] * 10 + [_I] * 5 + [_P], _I),
-    "fastdet_stem_train_fwd_scratch": ([_I] * 3, ctypes.c_size_t),
-    "fastdet_stem_train_bwd_scratch": ([_I] * 4, ctypes.c_size_t),
+    "fastdet_stem_train_fwd": ([_P] * 8 + [_I] * 7 + [_P], _I),
+    "fastdet_stem_train_bwd": ([_P] * 11 + [_I] * 5 + [_P], _I),
+    "fastdet_stem_train_fwd_scratch": ([_I] * 5, ctypes.c_size_t),
+    "fastdet_stem_train_bwd_scratch": ([_I] * 2, ctypes.c_size_t),
+    "fastdet_stem_train_smem": ([_I], ctypes.c_size_t),
 }
 
 
@@ -244,38 +431,47 @@ def _check(what: str, x, w, gamma, beta, h4: int, w4: int, g: int):
 
 def stem_train_forward(x, w, gamma, beta, h4: int, w4: int, g: int):
     """→ (y (B, 24, h4, w4), stats (B/g, 24, 3)) as
-    `stem_train_forward_reference`.  CUDA: the forward kernels of
-    `csrc/stem_train.cu` (one counted call); CPU: the plain version."""
+    `stem_train_forward_reference`, and z (B, 24, h4, w4), the pooled raw
+    conv that the backward takes.  CUDA: the forward kernels of
+    `csrc/stem_train.cu` (one counted call); CPU: the plain versions."""
     dev = x.device
     if dev.type == "cpu":
-        return stem_train_forward_reference(x, w, gamma, beta, h4, w4, g)
+        return (*stem_train_forward_reference(x, w, gamma, beta, h4, w4, g),
+                stem_train_pooled_reference(x, w, gamma, h4, w4))
     if dev.type != "cuda":
         raise ValueError(f"stem_train_forward: unsupported device {dev}")
     b, npad = _check("stem_train_forward", x, w, gamma, beta, h4, w4, g)
+    plan = stem_train_plan(b, h4, w4, g)
     lib = _build.load("stem_train", _SIGNATURES)
     y = torch.empty((b, COUT, h4, w4), dtype=torch.float32, device=dev)
+    z = torch.empty_like(y)
     stats = torch.empty((b // g, COUT, 3), dtype=torch.float32, device=dev)
-    scratch = torch.empty(lib.fastdet_stem_train_fwd_scratch(b, h4, w4),
-                          dtype=torch.float32, device=dev)
+    tr, ncw = plan.tile_fwd[0], plan.ncw
+    scratch = torch.empty(
+        lib.fastdet_stem_train_fwd_scratch(b, h4, w4, tr, ncw),
+        dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.fastdet_stem_train_fwd(
             x.data_ptr(), w.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-            y.data_ptr(), stats.data_ptr(), scratch.data_ptr(), b, h4, w4,
-            npad, g, torch.cuda.current_stream(dev).cuda_stream)
+            y.data_ptr(), z.data_ptr(), stats.data_ptr(), scratch.data_ptr(),
+            b, h4, w4, npad, g, tr, ncw,
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, "stem_train_forward")
     stem_train_forward.launches += 1
-    return y, stats
+    return y, stats, z
 
 
 stem_train_forward.launches = 0
 
 
 def stem_train_backward(dy, x, stats, w, gamma, beta, h4: int, w4: int,
-                        g: int):
+                        g: int, z):
     """→ (dW, dγ, dβ) as `stem_train_backward_reference`.  CUDA: the
-    backward kernels of `csrc/stem_train.cu` (one counted call); partial
-    sums reduced in a fixed order, so two runs give the same bits.  CPU:
-    the plain version."""
+    backward kernels of `csrc/stem_train.cu` (one counted call), which
+    take z, the forward's pooled raw conv, for the BN sums; partial sums
+    reduced in a fixed order, so two runs give the same bits.  CPU: the
+    plain version, which recomputes everything from x and does not read
+    z."""
     dev = x.device
     if dev.type == "cpu":
         return stem_train_backward_reference(dy, x, stats, w, gamma, beta,
@@ -284,6 +480,7 @@ def stem_train_backward(dy, x, stats, w, gamma, beta, h4: int, w4: int,
         raise ValueError(f"stem_train_backward: unsupported device {dev}")
     b, npad = _check("stem_train_backward", x, w, gamma, beta, h4, w4, g)
     for name, t, shape in (("dy", dy, (b, COUT, h4, w4)),
+                           ("z", z, (b, COUT, h4, w4)),
                            ("stats", stats, (b // g, COUT, 3))):
         if (t.device != dev or t.dtype != torch.float32
                 or tuple(t.shape) != shape or not t.is_contiguous()):
@@ -295,12 +492,12 @@ def stem_train_backward(dy, x, stats, w, gamma, beta, h4: int, w4: int,
     dw = torch.empty_like(w)
     dgamma = torch.empty_like(gamma)
     dbeta = torch.empty_like(beta)
-    scratch = torch.empty(lib.fastdet_stem_train_bwd_scratch(b, h4, w4, g),
+    scratch = torch.empty(lib.fastdet_stem_train_bwd_scratch(b, h4),
                           dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.fastdet_stem_train_bwd(
-            dy.data_ptr(), x.data_ptr(), stats.data_ptr(), w.data_ptr(),
-            gamma.data_ptr(), beta.data_ptr(), dw.data_ptr(),
+            dy.data_ptr(), x.data_ptr(), z.data_ptr(), stats.data_ptr(),
+            w.data_ptr(), gamma.data_ptr(), beta.data_ptr(), dw.data_ptr(),
             dgamma.data_ptr(), dbeta.data_ptr(), scratch.data_ptr(), b, h4,
             w4, npad, g, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, "stem_train_backward")
@@ -314,19 +511,21 @@ stem_train_backward.launches = 0
 class StemTrain(torch.autograd.Function):
     """The differentiable training stem: `StemTrain.apply(x_u8, w, gamma,
     beta, h4, w4, g) -> (y, stats)`; w is the scaled OIHW weight; stats
-    carry no gradient (they feed the running statistics), x gets none."""
+    carry no gradient (they feed the running statistics), x gets none.
+    It saves z, the pooled raw conv, for the backward's BN sums
+    ((B, 24, h4, w4) f32, as large as y)."""
 
     @staticmethod
     def forward(ctx, x, w, gamma, beta, h4, w4, g):
-        y, stats = stem_train_forward(x, w, gamma, beta, h4, w4, g)
-        ctx.save_for_backward(x, stats, w, gamma, beta)
+        y, stats, z = stem_train_forward(x, w, gamma, beta, h4, w4, g)
+        ctx.save_for_backward(x, stats, w, gamma, beta, z)
         ctx.geom = (h4, w4, g)
         ctx.mark_non_differentiable(stats)
         return y, stats
 
     @staticmethod
     def backward(ctx, dy, _dstats):
-        x, stats, w, gamma, beta = ctx.saved_tensors
+        x, stats, w, gamma, beta, z = ctx.saved_tensors
         dw, dgamma, dbeta = stem_train_backward(dy.contiguous(), x, stats, w,
-                                                gamma, beta, *ctx.geom)
+                                                gamma, beta, *ctx.geom, z)
         return None, dw, dgamma, dbeta, None, None, None

@@ -10,6 +10,7 @@ file imports no JAX, so that it runs on a machine without it:
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from fastdet_torch import disable_tf32
 from fastdet_torch.config import Config
@@ -371,22 +372,25 @@ def test_span_train_wrappers_check_their_inputs(card):
 @pytest.mark.parametrize("case", STEM_TRAIN_CASES,
                          ids=["b128_352_g1", "b8_352_g4", "b2_160x96_g1",
                               "b4_96_ties", "b2_32x48_g1_edge",
-                              "b4_36x52_g2_edge_ties"])
+                              "b4_36x52_g2_edge_ties", "b4_96_g2_ties_signed",
+                              "b2_160x96_g1_signed"])
 def test_stem_train_kernels_match_plain(card, case):
     """B7 forward against its plain version (y within 2e-4 of its scale,
-    the stats μ, σinv, var each within 2e-4 of its own), then the
-    backward kernels and the plain backward on the same dy, x and stats:
-    dW, dγ, dβ within 1e-4·max|ref| + 1e-4 each (the same recomputed
-    conv outputs, masks and pool routing on both sides, the sums in
-    another order); a second backward gives the same bits."""
-    b, hgt, wid, g, tie = case
+    the stats μ, σinv, var each within 2e-4 of its own; y and z bit for bit
+    those of the plain conv, BN, ReLU and pool with the kernel's own
+    stats), then the backward kernels and the plain backward on the same
+    dy, x and stats: dW, dγ, dβ within 1e-4·max|ref| + 1e-4 each (the same
+    recomputed conv outputs, masks and pool routing on both sides, the sums
+    in another order); a second backward gives the same bits."""
+    b, hgt, wid, g, tie, signed = case
     h4, w4 = hgt // 4, wid // 4
     x, w_raw, gamma, beta, dy = stem_train_case(sum(case), b, hgt, wid, tie,
-                                                card)
+                                                card, signed)
     w = (w_raw * (1.0 / 255.0)).contiguous()
     before = (stem_train.stem_train_forward.launches,
               stem_train.stem_train_backward.launches)
-    y, stats = stem_train.stem_train_forward(x, w, gamma, beta, h4, w4, g)
+    y, stats, z = stem_train.stem_train_forward(x, w, gamma, beta, h4, w4,
+                                                g)
     ry, rstats = stem_train.stem_train_forward_reference(x, w, gamma, beta,
                                                          h4, w4, g)
     torch.cuda.synchronize()
@@ -395,8 +399,12 @@ def test_stem_train_kernels_match_plain(card, case):
                                   for k in range(3)]:
         assert float((got - want).abs().max()) <= 2e-4 * float(
             want.abs().max())
+    u = stem_train._conv(stem_train._image(x, h4, w4, w.dtype), w)
+    bn, _ = stem_train._bn_parts(u, stats, gamma, beta, g)
+    assert torch.equal(y, F.max_pool2d(torch.relu(bn), 3, 2, 1))
+    assert torch.equal(z, stem_train.pooled_extreme(u, gamma))
     grads = stem_train.stem_train_backward(dy, x, stats, w, gamma, beta,
-                                           h4, w4, g)
+                                           h4, w4, g, z)
     refs = stem_train.stem_train_backward_reference(dy, x, stats, w, gamma,
                                                     beta, h4, w4, g)
     torch.cuda.synchronize()
@@ -407,7 +415,7 @@ def test_stem_train_kernels_match_plain(card, case):
         err, bound = grad_err(got, want)
         assert err <= bound, (name, err, bound)
     again = stem_train.stem_train_backward(dy, x, stats, w, gamma, beta, h4,
-                                           w4, g)
+                                           w4, g, z)
     assert all(torch.equal(a, b_) for a, b_ in zip(grads, again))
     if tie:
         assert pool_ties(x, w, stats, gamma, beta, h4, w4, g) > 0
@@ -416,7 +424,7 @@ def test_stem_train_kernels_match_plain(card, case):
 def test_stem_train_wrappers_check_their_inputs(card):
     x, w_raw, gamma, beta, dy = stem_train_case(0, 4, 32, 48, device=card)
     w = (w_raw * (1.0 / 255.0)).contiguous()
-    y, stats = stem_train.stem_train_forward(x, w, gamma, beta, 8, 12, 2)
+    y, stats, z = stem_train.stem_train_forward(x, w, gamma, beta, 8, 12, 2)
     with pytest.raises(ValueError, match="w as"):
         stem_train.stem_train_forward(x, w.cpu(), gamma, beta, 8, 12, 2)
     with pytest.raises(ValueError, match="uint8"):
@@ -428,7 +436,10 @@ def test_stem_train_wrappers_check_their_inputs(card):
                                       beta, 8, 12, 2)
     with pytest.raises(ValueError, match="stats"):
         stem_train.stem_train_backward(dy, x, stats.cpu(), w, gamma, beta, 8,
-                                       12, 2)
+                                       12, 2, z)
     with pytest.raises(ValueError, match="dy"):
         stem_train.stem_train_backward(dy[:2], x, stats, w, gamma, beta, 8,
-                                       12, 2)
+                                       12, 2, z)
+    with pytest.raises(ValueError, match="z as"):
+        stem_train.stem_train_backward(dy, x, stats, w, gamma, beta, 8, 12,
+                                       2, z[:2])

@@ -204,14 +204,23 @@ def span_train_grad_errs(dx, drows, rdx, rdrows):
     return out
 
 
-# (b, H, W, group, tie): the training stem B7 at the main path's b128
-# 352² with ghost group 1, grouped at b8, with pad lanes (160×96: 960 of
-# 1024 lanes), on images with flat blocks (positive ties in the pool), and
-# at sizes whose 8×8-cell tiles are cut off at the image's edge: 32×48
-# (w4 = 12) and 36×52 (h4 = 9, w4 = 13, grouped, with ties)
-STEM_TRAIN_CASES = ((128, 352, 352, 1, False), (8, 352, 352, 4, False),
-                    (2, 160, 96, 1, False), (4, 96, 96, 1, True),
-                    (2, 32, 48, 1, False), (4, 36, 52, 2, True))
+# (b, H, W, group, tie, signed): the training stem B7 at the main path's
+# b128 352² with ghost group 1, grouped at b8, with pad lanes (160×96: 960
+# of 1024 lanes), on images with flat blocks (positive ties in the pool),
+# and at sizes whose 8×8-cell tiles are cut off at the image's edge: 32×48
+# (w4 = 12) and 36×52 (h4 = 9, w4 = 13, grouped, with ties); then with γ
+# of both signs and one γ = 0 (`signed`), grouped on the tie images and
+# at 160×96
+STEM_TRAIN_CASES = ((128, 352, 352, 1, False, False),
+                    (8, 352, 352, 4, False, False),
+                    (2, 160, 96, 1, False, False),
+                    (4, 96, 96, 1, True, False),
+                    (2, 32, 48, 1, False, False),
+                    (4, 36, 52, 2, True, False),
+                    (4, 96, 96, 2, True, True),
+                    (2, 160, 96, 1, False, True))
+# the channel whose γ a signed case sets to 0
+STEM_ZERO_GAMMA = 4
 
 
 def tie_blocks(images):
@@ -224,11 +233,14 @@ def tie_blocks(images):
     return images
 
 
-def stem_train_case(seed, b, hgt, wid, tie=False, device="cpu"):
+def stem_train_case(seed, b, hgt, wid, tie=False, device="cpu",
+                    signed=False):
     """Seeded training-stem inputs: s2d uint8 images (B, 48, npad)
     (noise, with `tie_blocks` if tie), a raw OIHW conv weight (w ~ 0.3·N,
-    before the 1/255 scale), γ ~ 1 + 0.1·N, β ~ 0.1·N and a pooled output
-    gradient (B, 24, H/4, W/4), on `device`."""
+    before the 1/255 scale), γ ~ 1 + 0.1·N (if signed, negated on every
+    third channel and 0 on channel STEM_ZERO_GAMMA, whose β is then
+    0.2), β ~ 0.1·N and a
+    pooled output gradient (B, 24, H/4, W/4), on `device`."""
     import torch
     from fastdet_torch.kernels.fused_infer import pack_images_s2d
     rng = np.random.default_rng(seed)
@@ -239,6 +251,10 @@ def stem_train_case(seed, b, hgt, wid, tie=False, device="cpu"):
     w = rng.normal(0.0, 0.3, (24, 3, 3, 3))
     gamma = 1.0 + 0.1 * rng.normal(size=24)
     beta = 0.1 * rng.normal(size=24)
+    if signed:
+        gamma[::3] *= -1.0
+        gamma[STEM_ZERO_GAMMA] = 0.0
+        beta[STEM_ZERO_GAMMA] = 0.2      # ReLU passes the constant BN
     dy = rng.normal(0.0, 1.0, (b, 24, hgt // 4, wid // 4))
     return (x,) + tuple(torch.from_numpy(a.astype(np.float32)).to(device)
                         for a in (w, gamma, beta, dy))
