@@ -28,11 +28,13 @@ Phases:
      32}, and suppress_ranked_batch against the plain chain;
   2b. stem_s2d (B ∈ {1, 128} at 352², B = 2 at 160×96 with pad lanes) and
      span (C = 48/96/192 at 44²/22²/11², B ∈ {1, 128}) against their
-     plain versions, ≤ 2e-4;
+     plain versions, ≤ 2e-4; the stage kernel's launch plan
+     (`span_stage_plan`) its shared memory the kernel's own;
   2d. stem_s2d8 (B10: B ∈ {1, 128} at 352², B = 2 at 160×96 with pad
      lanes, 72×104 and 40×24 with tiles cut off at the edge) and s2span
      (B9: the three stages of 352² at B ∈ {1, 128}, stage 2 of 160×96,
-     partial tiles and odd sizes) against their plain versions, ≤ 2e-4;
+     partial tiles and odd sizes) against their plain versions, ≤ 2e-4,
+     and the plan's shared memory the kernel's own;
   3. weights through the carrier, forward on the card (TF32 off) against
      the same forward on the CPU, ≤ 2e-4;
   3b. the fused forward on the card against Detector on the card, ≤ 2e-4;
@@ -44,7 +46,9 @@ Phases:
      `FusedPipeline` on the same batch, detections as `DevicePipeline`'s;
      the three kernels' launch counts on this path; b128 throughput of both
      pipelines, the fused forward's per-stage split (`upto=`), and each
-     fused kernel on the served batch's inputs with its bound;
+     fused kernel on the served batch's inputs with its bound; each span
+     stage call's time by kernel name and its device launches
+     (torch.profiler), held to `span_stage_plan`'s;
   4c. the flag paths: the five other combinations of `input_format`
      (nhwc, s2d_u8, s2d8_u8) and `fuse_s2` at b128 352² on photo
      variants, each forward against Detector on the card (TF32 off) and
@@ -52,16 +56,19 @@ Phases:
      FusedPipeline's on the same batch, the launches of stem_s2d8 and
      s2span over the five (counts to 0 just before, read just after); the
      per-stage split of all six combinations (`upto=`); s2span per stage
-     against the cuDNN stride-2 block + span it replaces, stem_s2d8
-     against stem_s2d on the same images, each with its bound;
+     against the cuDNN stride-2 block + span it replaces, with its time
+     by kernel name and device launches held to `span_stage_plan`'s,
+     stem_s2d8 against stem_s2d on the same images, each with its bound;
   5. shutdown: server, batcher and threads;
   7. eval: `fastdet_torch.cli.evaluation.run_evaluation`, both passes
      (windows 1815 and 1024, through nms_keep), default and --fused mode,
      over 256 seeded photo variants in b128 batches with seeded labels;
      P/R/AP/F1 exactly those of the plain staged chain on the same
      forward outputs, images/s; nms_keep timed at b128, k = 512 and 1815;
-  7b. 640²: stem_s2d and span against their plain versions there (and
-     the cuDNN stem at b32 beside stem_s2d), and
+  7b. 640²: stem_s2d and span against their plain versions there (span
+     at B ∈ {1, 32}: stage 2 through the stage kernel's per-block
+     variant, stages 3-4 through clusters; the cuDNN stem at b32 beside
+     stem_s2d), and
      FusedPipeline against DevicePipeline on 8 photo variants;
   8a. span_train (B8) forward and backward against their plain versions
      at the three stages at b128 352², at b1, at small geometries with
@@ -606,6 +613,7 @@ def phase_fused_kernels(sd):
     class the fused path dispatches, with the folded weights of the fused
     forward.  → max |Δ| of each."""
     import torch
+    from fastdet_torch.kernels import _build
     from fastdet_torch.kernels import fused_infer as fi
     from fastdet_torch.kernels.fold import STAGES
     _, p = fi.build_fused_forward(sd)
@@ -630,9 +638,11 @@ def phase_fused_kernels(sd):
         log(f"  stem_s2d b={bsz} {ih}x{iw} (h4={h4}, w4={w4}, npad="
             f"{xs.shape[2]}): max |Δ| {e:.3g}, kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms")
+    lib = _build.load("span", fi._SPAN_SIGNATURES)
     for (stage, reps, c), hw in zip(STAGES, (44, 22, 11)):
         weights = p[f"s{stage}_span"]
         for bsz in (1, 128):
+            plan = check_stage_smem(lib, bsz, c, hw, hw, reps - 1, False)
             rng = np.random.default_rng(stage * 1000 + bsz)
             x = torch.from_numpy(np.abs(rng.normal(
                 0.0, 1.0, (bsz, c, hw, hw))).astype(np.float32)).cuda()
@@ -644,11 +654,14 @@ def phase_fused_kernels(sd):
             ms = cuda_ms(lambda: fi.span(x, weights, reps - 1), 20)
             plain_ms = cuda_ms(
                 lambda: fi.span_reference(x, weights, reps - 1), 5, 1)
-            log(f"  span b={bsz} C={c} {hw}x{hw} nblk={reps - 1}: max |Δ| "
-                f"{e:.3g}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            log(f"  span b={bsz} C={c} {hw}x{hw} nblk={reps - 1} "
+                f"({plan.variant}, cluster {plan.cluster}, {plan.launches} "
+                f"launch): max |Δ| {e:.3g}, kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms")
     log(f"phase 2b fused kernels: stem_s2d (3 shape classes) and span "
-        f"(6) within {FUSED_ATOL:g} of their plain versions; max |Δ| "
-        f"stem_s2d {err['stem_s2d']:.3g}, span {err['span']:.3g}")
+        f"(6) within {FUSED_ATOL:g} of their plain versions; the stage "
+        f"plan's shared memory the kernel's; max |Δ| stem_s2d "
+        f"{err['stem_s2d']:.3g}, span {err['span']:.3g}")
     return err
 
 
@@ -813,6 +826,64 @@ def split_text(split) -> str:
                      in sorted(split.items(), key=lambda kv: -kv[1][0]))
 
 
+def stage_split(fn, wrapper, what: str, plan, tries: int = 5):
+    """One stage call of B2 or B9: its device time by kernel name and its
+    device launches (torch.profiler), held to the launch plan
+    (`span_stage_plan`: its launches, all of the stage kernel) and to the
+    launches the wrapper counts for one call.  The profiler has been seen
+    to drop kernel records for several sessions running, so a profile
+    that disagrees is taken again, up to `tries` times: the first that
+    agrees is kept; if none does but every one saw only the stage kernel
+    and fewer launches than the plan, that is reported beside the
+    wrapper's count and the check stands; anything else fails.  →
+    (split, launches per call)."""
+    from fastdet_torch.kernels.fused_infer import STAGE_KERNEL
+    before = wrapper.launches
+    fn()
+    counted = wrapper.launches - before
+    check(counted == plan.launches, f"{what}: the wrapper counts {counted} "
+          f"launches per call, the plan {plan.launches}")
+    seen = []
+    for _ in range(tries):
+        got = kernel_split(fn)
+        if got is None:
+            continue
+        seen.append((got, sum(v[1] for v in got.values())))
+        if set(got) == {STAGE_KERNEL} and seen[-1][1] == plan.launches:
+            break
+    check(seen, f"{what}: the profiler saw no device time")
+    split, n = max(seen, key=lambda gn: gn[1])
+    short = ""
+    if n != plan.launches or set(split) != {STAGE_KERNEL}:
+        check(all(set(g) == {STAGE_KERNEL} and k < plan.launches
+                  for g, k in seen),
+              f"{what}: device launches per call {[k for _, k in seen]} "
+              f"({[g for g, _ in seen]}), the plan has {plan.launches} of "
+              f"{STAGE_KERNEL}")
+        short = (f" (the profiler dropped records in all {len(seen)} "
+                 f"tries: {', '.join(f'{k:g}' for _, k in seen)} per call; "
+                 f"the wrapper counts the plan's {plan.launches})")
+    log(f"  {what} by kernel (torch.profiler, ms per call): "
+        f"{split_text(split)}; {n:g} device launches per call{short}, the "
+        f"plan {plan.launches} ({plan.variant}, cluster {plan.cluster}, "
+        f"{plan.rows} rows per CTA, {plan.ctas} CTAs of {plan.threads} "
+        f"threads, {plan.smem_bytes} B of shared memory each)")
+    return split, n
+
+
+def check_stage_smem(lib, b, c, h, w, nblk, stride2):
+    """`span_stage_plan`'s shared memory against the kernel's own
+    (`fastdet_span_stage_smem`, from `stage_layout`) for each of the
+    plan's kinds of launch.  → the plan."""
+    from fastdet_torch.kernels import fused_infer as fi
+    plan = fi.span_stage_plan(b, c, h, w, nblk, stride2)
+    got = max(lib.fastdet_span_stage_smem(c // 2, rows, w, halo, int(s2))
+              for rows, halo, s2 in plan.layouts)
+    check(got == plan.smem_bytes, f"stage kernel at {(b, c, h, w)}: "
+          f"{got} B of shared memory, the plan says {plan.smem_bytes}")
+    return plan
+
+
 def phase_fused_timing(sd, dev_pipe, fused_pipe, big, card):
     """b128 throughput of both pipelines (in turns), the fused forward's
     per-stage split, and each fused kernel on the inputs the b128 batch
@@ -907,6 +978,10 @@ def phase_fused_timing(sd, dev_pipe, fused_pipe, big, card):
                 return a
 
             yard = cuda_ms(cudnn_span, 20)
+            stage_split(lambda: fi.span(xin, wts, reps - 1), fi.span,
+                        f"span stage {sid}",
+                        fi.span_stage_plan(128, c, xin.shape[2],
+                                           xin.shape[3], reps - 1))
             log(f"  span stage {sid} on the served b128 batch (C={c}, "
                 f"{xin.shape[2]}², nblk={reps - 1}): kernel {ms:.4f} ms, "
                 f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
@@ -964,6 +1039,7 @@ def phase_flag_kernels(sd):
     lanes, tiles cut off at the edge), with the folded weights of the
     fused forward.  → max |Δ| of each."""
     import torch
+    from fastdet_torch.kernels import _build
     from fastdet_torch.kernels import fused_infer as fi
     from fastdet_torch.kernels.fold import STAGES
     from torch_cases import (S2SPAN_CASES, STEM8_CASES, s2span_case,
@@ -981,8 +1057,11 @@ def phase_flag_kernels(sd):
         log(f"  stem_s2d8 b={bsz} {ih}x{iw} (h8={h8}, w8={w8}, npad="
             f"{x.shape[2]}): max |Δ| {e:.3g}")
     reps = {sid: r for sid, r, _ in STAGES}
+    lib = _build.load("s2span", fi._S2SPAN_SIGNATURES)
     for bsz, stage, hin, win in S2SPAN_CASES:
         cin, nblk = {2: 24, 3: 48, 4: 96}[stage], reps[stage] - 1
+        plan = check_stage_smem(lib, bsz, 2 * cin, (hin + 1) // 2,
+                                (win + 1) // 2, nblk, True)
         x = s2span_case(stage * 1000 + hin, bsz, cin, hin, win, "cuda")
         wts = p[f"s{stage}_s2span"]
         e = float((fi.s2span(x, wts, nblk)
@@ -991,12 +1070,14 @@ def phase_flag_kernels(sd):
               f"{hin}x{win}")
         err["s2span"] = max(err["s2span"], e)
         log(f"  s2span b={bsz} stage {stage} {hin}x{win} → "
-            f"{(hin + 1) // 2}x{(win + 1) // 2} nblk={nblk}: max |Δ| {e:.3g}")
+            f"{(hin + 1) // 2}x{(win + 1) // 2} nblk={nblk} ({plan.variant},"
+            f" cluster {plan.cluster}, {plan.launches} launch): max |Δ| "
+            f"{e:.3g}")
     torch.cuda.synchronize()
     log(f"phase 2d flag kernels: stem_s2d8 ({len(STEM8_CASES)} shapes) and "
         f"s2span ({len(S2SPAN_CASES)}) within {FUSED_ATOL:g} of their plain "
-        f"versions; max |Δ| stem_s2d8 {err['stem_s2d8']:.3g}, s2span "
-        f"{err['s2span']:.3g}")
+        f"versions; the stage plan's shared memory the kernel's; max |Δ| "
+        f"stem_s2d8 {err['stem_s2d8']:.3g}, s2span {err['s2span']:.3g}")
     return err
 
 
@@ -1159,6 +1240,10 @@ def phase_flag_paths(sd, photo, fused_pipe, card):
             b_ms, b_by = s2span_bound(128, c // 2, xin.shape[2],
                                       xin.shape[3], reps - 1)
             b9_ms = sum(ms["b9"]) / 2
+            stage_split(lambda: fi.s2span(xin, wts, reps - 1), fi.s2span,
+                        f"s2span stage {sid}",
+                        fi.span_stage_plan(128, c, x.shape[2], x.shape[3],
+                                           reps - 1, True))
             log(f"  s2span stage {sid} on the b128 batch ({c // 2}→{c}, "
                 f"{xin.shape[2]}²→{x.shape[2]}², nblk={reps - 1}): kernel "
                 f"{b9_ms:.4f} ms (calls "
@@ -1476,7 +1561,10 @@ def phase_640(sd, photo, card):
                        - fi.span_reference(a, weights, reps - 1))
                       .abs().max())
             check(e <= FUSED_ATOL, f"span {e} off at b={bsz} C={c} {hw}²")
-            log(f"  span b={bsz} C={c} {hw}x{hw}: max |Δ| {e:.3g}")
+            plan = fi.span_stage_plan(bsz, c, hw, hw, reps - 1)
+            log(f"  span b={bsz} C={c} {hw}x{hw} ({plan.variant}, cluster "
+                f"{plan.cluster}, {plan.rows} rows per CTA, {plan.launches} "
+                f"launches): max |Δ| {e:.3g}")
 
     cfg = dataclasses.replace(Config.from_file(DATA), width=640, height=640)
     images = photo_variants(photo, 8, seed=640, hw=(640, 640))

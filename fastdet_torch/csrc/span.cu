@@ -11,59 +11,46 @@
 //   [w1 (MID_in x MID_out, row i = input channel) | b1 (MID) |
 //    wd (9 x MID, tap dy*3+dx major) | bd (MID) | w2 (MID x MID) | b2 (MID)].
 //
-// What bounds it on this card: at b128 352^2 a block does 2*(2*MID^2 +
-// 9*MID) FLOP per pixel and moves 8*C bytes per pixel if it reads and
-// writes the activation once: 57 / 111 / 219 FLOP per byte at MID 24 /
-// 48 / 96, above the f32 ridge (20), so operations bound each block.  The
-// TPU kernel composes dw3x3 and pw2 into one (MID, 9*MID) matrix to give
-// the MXU a deep K; that is ~8x the real work, so here dw and pw2 run
-// apart.  The design:
-//   * one launch per block, one CTA per (image, spatial tile of TH x TW
-//     pixels, fixed per width); the tile and a one-pixel halo live in shared
-//     memory through the whole block: odd input channels -> pw1 + ReLU ->
-//     dw -> pw2 + ReLU -> out.  Only the halo's pw1 is computed twice;
-//   * halo pixels outside the image are set to 0 after pw1 + ReLU: the
-//     dw's zero pad is on the post-ReLU branch, and ReLU(b1) is not 0
-//     (the TPU kernel's `valid` masks do the same);
-//   * the tile's sizes are compile-time constants: the first version's
-//     runtime tile made every element pay integer divisions by a runtime
-//     divisor, which cost more than its products;
-//   * a thread issues 8 independent global loads before it stores them
-//     into shared memory (6% faster than one at a time, chip run);
-//   * the pointwise products run on CUDA cores in f32 FMA (no TF32: 13
-//     blocks of 10-bit mantissas would not hold the forward's 2e-4); one
-//     thread makes 8 output channels of one pixel, and a warp shares one
-//     output group, so its 16-byte weight loads are uniform.
-// The span reads and writes the activation once per block, nblk times in
-// all: its floor is nblk times the one-pass byte bound.  Fusing the blocks
-// so that the activation stays on chip across them is later work.
-//
-// The block kernel and its launcher live in span_block.cuh, which the
-// stage kernel (s2span.cu) includes too.
+// What bounds it on this card: a block does 2*(2*MID^2 + 9*MID) FLOP per
+// pixel; read and written once per span, the activation moves 8*C bytes
+// per pixel: 21 / 92 / 75 FLOP per byte for the 3 / 7 / 3 blocks at MID
+// 24 / 48 / 96, above the f32 ridge (20), so operations bound each span.
+// The TPU kernel composes dw3x3 and pw2 into one (MID, 9*MID) matrix to
+// give the MXU a deep K; that is ~8x the real work, so here dw and pw2 run
+// apart.  The design (span_block.cuh): the whole span in one launch, each
+// image's activation held in the shared memory of a thread-block cluster
+// (a band of rows per CTA), the depthwise halo rows traded over
+// distributed shared memory, the passthrough half never moved, register-
+// tiled pointwise products in f32 FMA.  Where a cluster of 8 cannot hold
+// an image (80^2 x 48 at 640^2), one launch per block, each CTA computing
+// its halo rows' pw1 (the per-block variant of the same kernel).  The
+// launch plan is fused_infer.span_stage_plan; its rows, cluster and
+// variant arrive as arguments.
 
 #include "span_block.cuh"
 
 extern "C" {
 
 // x (B, C, h, w) f32 -> out (B, C, h, w) f32 through nblk blocks; tmp is a
-// scratch tensor of the same shape (unused when nblk == 1); wts is
-// (nblk, 2*MID^2 + 12*MID) f32, all on the card.  Returns a cudaError_t
-// (0 = launched).
+// scratch tensor of the same shape (used by the per-block variant when
+// nblk > 1); wts is (nblk, 2*MID^2 + 12*MID) f32, 16-byte aligned, all on
+// the card.  rows, cluster and per_block are the plan's.  Returns a
+// cudaError_t (0 = launched).
 int fastdet_span(const float* x, float* out, float* tmp, const float* wts,
-                 int b, int c, int h, int w, int nblk, void* stream) {
+                 int b, int c, int h, int w, int nblk, int rows, int cluster,
+                 int per_block, void* stream) {
   if (b < 1 || b > 65535 || h < 1 || w < 1 || nblk < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (c) {
-    case 48: return launch_span<24>(x, out, tmp, wts, b, h, w, nblk, s);
-    case 96: return launch_span<48>(x, out, tmp, wts, b, h, w, nblk, s);
-    case 192: return launch_span<96>(x, out, tmp, wts, b, h, w, nblk, s);
+    case 48: return launch_span<24>(x, out, tmp, wts, b, h, w, nblk, rows,
+                                    cluster, per_block, s);
+    case 96: return launch_span<48>(x, out, tmp, wts, b, h, w, nblk, rows,
+                                    cluster, per_block, s);
+    case 192: return launch_span<96>(x, out, tmp, wts, b, h, w, nblk, rows,
+                                     cluster, per_block, s);
     default: return (int)cudaErrorInvalidValue;
   }
-}
-
-const char* fastdet_cuda_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
 }
 
 }  // extern "C"

@@ -37,9 +37,11 @@ input phase-split, because Mosaic has no strided lane addressing.  Here
 B10 writes the NCHW map that B1 writes, and B9 reads any stage input
 NCHW with stride-2 addressing.  Nor are the TPU's lane grouping
 (`_pick_group`, `_LANE_BUDGET`, `_LANE_BUDGET_S2`) and its row-chunked
-stem (`_stem_call_chunked`, B6) ported: they fit VMEM, and the CUDA
-grids here tile any size with shared memory that does not grow with the
-image, so one launch serves every size.  The s2d(8) guard (at most 2048
+stem (`_stem_call_chunked`, B6) ported: they fit VMEM.  Here the stem
+kernels tile any size with shared memory that does not grow with the
+image, and the stage kernel's launch plan (`span_stage_plan`) holds a
+stage in a thread-block cluster where it fits and runs it one block per
+launch where it does not.  The s2d(8) guard (at most 2048
 lanes) is the JAX package's and is kept.  Not ported yet: bf16 and the
 anchor-free head (ROADMAP A1, A8).
 """
@@ -47,7 +49,9 @@ anchor-free head (ROADMAP A1, A8).
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Dict, Tuple
+import functools
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -168,6 +172,131 @@ def stem_s2d(x, w, b, h4: int, w4: int):
 stem_s2d.launches = 0
 
 
+# ------------------------------------------- the stage kernel (B2 and B9)
+#
+# `csrc/span_block.cuh` holds a band of output rows of one image, all C
+# channels and a scratch of C/2 planes, in one CTA's shared memory, and
+# runs the span's blocks there: the channel shuffle relabels slots
+# (`span_slot_tables`), the depthwise halo rows come from the neighbouring
+# CTAs of the image's thread-block cluster.  `span_stage_plan` picks the
+# launch; the C function `fastdet_span_stage_smem` reports the same shared
+# memory as `span_stage_smem`.
+
+STAGE_THREADS = 384          # kThreads
+STAGE_CHUNK_ROWS = 5         # kChunkRows: input rows per stride-2 pw1 chunk
+STAGE_CLUSTERS = (1, 2, 4, 8)
+SMEM_PER_CTA = 227 * 1024    # the card's shared memory per block
+STAGE_KERNEL = "span_stage_kernel"
+
+
+def _pad4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def span_stage_smem(mid: int, rows: int, w: int, halo: int,
+                    stride2: bool) -> int:
+    """Shared memory (bytes) of one CTA of the stage kernel
+    (`stage_layout`): 3·mid slot planes of a band of `rows` rows of width
+    w; with halo 1 (cluster neighbours) a halo buffer, with halo 2 (per
+    block) also its pw1 input; a block's weights, or with stride2 one
+    pointwise matrix beside the 5-row chunk buffers X and Y (X in the free
+    slots when it fits); the slot tables."""
+    ps = _pad4(rows * w)
+    hs = _pad4(2 * w) if halo else 0
+    floats = 3 * mid * ps + mid * hs * (2 if halo == 2 else 1)
+    region = 2 * mid * mid + 12 * mid
+    if stride2:
+        xs = _pad4(STAGE_CHUNK_ROWS * (2 * w + 2))
+        region = max(region, mid * mid + mid
+                     + (1 if xs <= ps else 2) * mid * xs)
+    return 4 * (floats + region + 7 * mid)
+
+
+@dataclass(frozen=True)
+class SpanStagePlan:
+    """How one call of `span` or `s2span` runs on the card."""
+    variant: str     # "stage": one launch; "per_block": one per block
+    cluster: int     # CTAs of an image's cluster (1 for "per_block")
+    rows: int        # output rows per CTA in the span's launches
+    rows_s2: int     # in the stride-2 launch ("per_block"; else rows)
+    bands: int       # CTAs per image in the span's launches
+    halo: int        # 0 none, 1 from the cluster neighbours, 2 recomputed
+    threads: int
+    layouts: tuple   # (rows, halo, stride2) of each kind of launch
+    smem_bytes: int  # shared memory per CTA, the largest launch's
+    launches: int    # device launches per call
+    ctas: int        # CTAs of the span's launch (of the whole call, "stage")
+
+    def band_rows(self, h: int) -> List[Tuple[int, int]]:
+        """(first row, rows) of each CTA's band of an image."""
+        return [(i * self.rows, min(self.rows, h - i * self.rows))
+                for i in range(self.bands)]
+
+
+def _fit_rows(mid: int, h: int, w: int, stride2: bool, span: bool) -> int:
+    """The largest band that fits one CTA in a per-block launch."""
+    for rows in range(h, 0, -1):
+        halo = 2 if span and rows < h else 0
+        if span_stage_smem(mid, rows, w, halo, stride2) <= SMEM_PER_CTA:
+            return rows
+    raise ValueError(f"no band of {w} columns at mid {mid} fits a CTA")
+
+
+@functools.lru_cache(maxsize=None)
+def span_stage_plan(b: int, c: int, h: int, w: int, nblk: int,
+                    stride2: bool = False) -> SpanStagePlan:
+    """The launch plan of the stage kernel for a stage output (b, c, h, w)
+    of nblk span blocks, after a stride-2 block when stride2 (B9).  The
+    smallest cluster (1, 2, 4 or 8 CTAs, a band of ⌈h/n⌉ rows each, no
+    band empty) whose CTA fits the card's shared memory holds the whole
+    stage: one launch.  Else one launch per block (and one for the
+    stride-2 block), each CTA as large a band as fits, its halo rows' pw1
+    computed by itself."""
+    mid = c // 2
+    for n in STAGE_CLUSTERS:
+        rows = -(-h // n)
+        if (n - 1) * rows >= h:
+            continue
+        halo = 1 if n > 1 and nblk > 0 else 0
+        smem = span_stage_smem(mid, rows, w, halo, stride2)
+        if smem <= SMEM_PER_CTA:
+            return SpanStagePlan("stage", n, rows, rows, n, halo,
+                                 STAGE_THREADS, ((rows, halo, stride2),),
+                                 smem, 1, b * n)
+    rows = _fit_rows(mid, h, w, False, True) if nblk else h
+    rows_s2 = _fit_rows(mid, h, w, True, False) if stride2 else rows
+    halo = 2 if rows < h else 0
+    layouts = (((rows, halo, False),) if nblk else ()) + (
+        ((rows_s2, 0, True),) if stride2 else ())
+    bands = -(-h // rows)
+    return SpanStagePlan("per_block", 1, rows, rows_s2, bands, halo,
+                         STAGE_THREADS, layouts,
+                         max(span_stage_smem(mid, r, w, hl, s2)
+                             for r, hl, s2 in layouts),
+                         nblk + int(stride2), b * bands)
+
+
+def span_slot_tables(mid: int, nblk: int, stride2: bool = False):
+    """The stage kernel's slot relabelling.  → (blocks, lmap): blocks[k] =
+    (odd, scratch), the slots of block k's odd logical channels (pw1's
+    input, dw's output, pw2's input) and of its scratch (pw1's output,
+    dw's input, pw2's output); lmap, the slot of each logical channel
+    after the last block.  The band starts in slots 0..C-1 (the span) or,
+    after a stride-2 block, with the projection in 2·mid..3·mid-1 and the
+    main branch in mid..2·mid-1."""
+    if stride2:
+        lmap = list(range(2 * mid, 3 * mid)) + list(range(mid, 2 * mid))
+        free = list(range(mid))
+    else:
+        lmap, free = list(range(2 * mid)), list(range(2 * mid, 3 * mid))
+    blocks = []
+    for _ in range(nblk):
+        odd = [lmap[2 * j + 1] for j in range(mid)]
+        blocks.append((odd, free))
+        lmap, free = [lmap[2 * j] for j in range(mid)] + free, odd
+    return blocks, lmap
+
+
 # ------------------------------------------------------------ kernel B2
 
 def _unpack_block(row: torch.Tensor, mid: int):
@@ -191,16 +320,45 @@ def span_reference(x, weights, nblk: int):
     return x
 
 
+def span_slots_reference(x, weights, nblk: int):
+    """`span_reference` through the stage kernel's decomposition, any
+    device: the activation in 3·mid slot planes, pw1 from the odd slots
+    into the scratch, dw from the scratch back into the odd slots, pw2
+    into the scratch, the shuffle a relabelling (`span_slot_tables`).  The
+    same convolutions on the same values as `span_reference`."""
+    mid = x.shape[1] // 2
+    slots = [x[:, c] for c in range(2 * mid)] + [None] * mid
+    blocks, lmap = span_slot_tables(mid, nblk)
+
+    def planes(idx):
+        return torch.stack([slots[s] for s in idx], 1)
+
+    def put(idx, y):
+        for j, s in enumerate(idx):
+            slots[s] = y[:, j]
+
+    for k, (odd, scratch) in enumerate(blocks):
+        w1, b1, wd, bd, w2, b2 = _unpack_block(weights[k], mid)
+        put(scratch, F.relu(F.conv2d(planes(odd), w1.t()[:, :, None, None],
+                                     b1)))
+        put(odd, F.conv2d(planes(scratch), wd.t().reshape(mid, 1, 3, 3), bd,
+                          padding=1, groups=mid))
+        put(scratch, F.relu(F.conv2d(planes(odd), w2.t()[:, :, None, None],
+                                     b2)))
+    return planes(lmap)
+
+
 _SPAN_SIGNATURES = {
-    "fastdet_span": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+    "fastdet_span": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
                      + [ctypes.c_void_p], ctypes.c_int),
+    "fastdet_span_stage_smem": ([ctypes.c_int] * 5, ctypes.c_size_t),
 }
 
 
 def span(x, weights, nblk: int):
-    """→ (B,C,h,w) f32 after `nblk` stride-1 blocks.  CUDA: the kernel of
-    `csrc/span.cu`, one launch per block (each counted); CPU: the plain
-    version."""
+    """→ (B,C,h,w) f32 after `nblk` stride-1 blocks.  CUDA: the stage
+    kernel of `csrc/span.cu` as `span_stage_plan` launches it (its
+    launches counted); CPU: the plain version."""
     dev = x.device
     if dev.type == "cpu":
         return span_reference(x, weights, nblk)
@@ -221,15 +379,18 @@ def span(x, weights, nblk: int):
             f"span: expected contiguous 16-byte-aligned f32 weights {shape} "
             f"on {dev}, got {weights.dtype} {tuple(weights.shape)} on "
             f"{weights.device}")
+    plan = span_stage_plan(bsz, c, h, w, nblk)
+    per_block = plan.variant == "per_block"
     out = torch.empty_like(x)
-    tmp = torch.empty_like(x) if nblk > 1 else out
+    tmp = torch.empty_like(x) if per_block and nblk > 1 else out
     lib = _build.load("span", _SPAN_SIGNATURES)
     with torch.cuda.device(dev):
         rc = lib.fastdet_span(
             x.data_ptr(), out.data_ptr(), tmp.data_ptr(), weights.data_ptr(),
-            bsz, c, h, w, nblk, torch.cuda.current_stream(dev).cuda_stream)
+            bsz, c, h, w, nblk, plan.rows, plan.cluster, int(per_block),
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, "span")
-    span.launches += nblk
+    span.launches += plan.launches
     return out
 
 
@@ -345,15 +506,17 @@ def s2span_reference(x, weights, nblk: int):
 
 
 _S2SPAN_SIGNATURES = {
-    "fastdet_s2span": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+    "fastdet_s2span": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
                        + [ctypes.c_void_p], ctypes.c_int),
+    "fastdet_span_stage_smem": ([ctypes.c_int] * 5, ctypes.c_size_t),
 }
 
 
 def s2span(x, weights, nblk: int):
     """→ (B, 2·cin, ⌈H/2⌉, ⌈W/2⌉) f32 after the stride-2 block and `nblk`
-    stride-1 blocks.  CUDA: the kernels of `csrc/s2span.cu`, 1 + nblk
-    launches (each counted); CPU: the plain version."""
+    stride-1 blocks.  CUDA: the stage kernel of `csrc/s2span.cu` as
+    `span_stage_plan(..., stride2=True)` launches it (its launches
+    counted); CPU: the plain version."""
     dev = x.device
     if dev.type == "cpu":
         return s2span_reference(x, weights, nblk)
@@ -374,16 +537,18 @@ def s2span(x, weights, nblk: int):
             f"on {dev}, got {weights.dtype} {tuple(weights.shape)} on "
             f"{weights.device}")
     shape = (bsz, 2 * cin, (hin + 1) // 2, (win + 1) // 2)
+    plan = span_stage_plan(bsz, 2 * cin, shape[2], shape[3], nblk, True)
+    per_block = plan.variant == "per_block"
     out = torch.empty(shape, dtype=torch.float32, device=dev)
-    tmp = torch.empty_like(out) if nblk > 0 else out
+    tmp = torch.empty_like(out) if per_block and nblk > 0 else out
     lib = _build.load("s2span", _S2SPAN_SIGNATURES)
     with torch.cuda.device(dev):
         rc = lib.fastdet_s2span(
             x.data_ptr(), out.data_ptr(), tmp.data_ptr(), weights.data_ptr(),
-            bsz, cin, hin, win, nblk,
-            torch.cuda.current_stream(dev).cuda_stream)
+            bsz, cin, hin, win, nblk, plan.rows, plan.rows_s2, plan.cluster,
+            int(per_block), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, "s2span")
-    s2span.launches += 1 + nblk
+    s2span.launches += plan.launches
     return out
 
 

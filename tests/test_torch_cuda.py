@@ -22,6 +22,7 @@ from fastdet_torch.ops import nms
 from fastdet_torch.ops.postprocess import postprocess
 from fastdet_torch.serve import DevicePipeline, FusedPipeline
 from torch_cases import (ANCHORS, BOX_ULPS_CARD, IOU, NC, S2SPAN_CASES,
+                         SPAN_CASES,
                          SPAN_TRAIN_B1, SPAN_TRAIN_EDGE, SPAN_TRAIN_FULL,
                          SPAN_TRAIN_SMALL, STEM8_CASES, STEM_TRAIN_CASES,
                          box_ulps, crowded, grad_err, head_outputs,
@@ -181,19 +182,23 @@ def test_stem_kernel_matches_plain(card, packed, b, hw):
     assert float((got - want).abs().max()) <= ATOL
 
 
-@pytest.mark.parametrize("b", [1, 128])
-@pytest.mark.parametrize("stage,hw", [(2, (44, 44)), (3, (22, 22)),
-                                      (4, (11, 11)), (2, (20, 12)),
-                                      (3, (10, 6)), (4, (5, 3))])
-def test_span_kernel_matches_plain(card, packed, b, stage, hw):
+@pytest.mark.parametrize("case", SPAN_CASES,
+                         ids=[f"b{b}-s{s}-{h}x{w}"
+                              for b, s, h, w in SPAN_CASES])
+def test_span_kernel_matches_plain(card, packed, case):
+    """Every shape class of the fused forward at 352², 160×96 and 640²:
+    the stage kernel in one launch (a cluster per image) or, at 640²
+    stage 2, one launch per block; launches as `span_stage_plan` says."""
+    b, stage, *hw = case
     weights, nblk = _span_weights(packed, stage)
     c = {sid: ch for sid, _, ch in fold.STAGES}[stage]
     rng = np.random.default_rng(stage)
     x = torch.from_numpy(np.abs(rng.normal(
-        0.0, 1.0, (b, c) + hw)).astype(np.float32)).to(card)
+        0.0, 1.0, (b, c, *hw))).astype(np.float32)).to(card)
     before = fused_infer.span.launches
     got = fused_infer.span(x, weights, nblk)
-    assert fused_infer.span.launches == before + nblk
+    assert fused_infer.span.launches == before + fused_infer.span_stage_plan(
+        b, c, *hw, nblk).launches
     want = fused_infer.span_reference(x, weights, nblk)
     torch.cuda.synchronize()
     assert float((got - want).abs().max()) <= ATOL
@@ -250,13 +255,54 @@ def test_s2span_kernel_matches_plain(card, packed, case):
     cin = {sid: ch for sid, _, ch in fold.STAGES}[stage] // 2
     x = s2span_case(stage * 1000 + hin, b, cin, hin, win, card)
     weights = packed[f"s{stage}_s2span"]
+    h, w = (hin + 1) // 2, (win + 1) // 2
     before = fused_infer.s2span.launches
     got = fused_infer.s2span(x, weights, nblk)
-    assert fused_infer.s2span.launches == before + 1 + nblk
+    assert fused_infer.s2span.launches == before + fused_infer.span_stage_plan(
+        b, 2 * cin, h, w, nblk, True).launches
     want = fused_infer.s2span_reference(x, weights, nblk)
     torch.cuda.synchronize()
-    assert tuple(got.shape) == (b, 2 * cin, (hin + 1) // 2, (win + 1) // 2)
+    assert tuple(got.shape) == (b, 2 * cin, h, w)
     assert float((got - want).abs().max()) <= ATOL
+
+
+@pytest.mark.parametrize("case", [(128, 2, 88, 88), (2, 3, 30, 26),
+                                  (2, 4, 40, 40)],
+                         ids=["b128-s2-88x88", "b2-s3-30x26", "b2-s4-40x40"])
+def test_s2span_kernel_without_span_blocks(card, packed, case):
+    """nblk = 0: the stride-2 block alone (one launch of the stage kernel
+    with no span blocks, in both of the plan's variants)."""
+    b, stage, hin, win = case
+    cin = {sid: ch for sid, _, ch in fold.STAGES}[stage] // 2
+    x = s2span_case(stage * 1000 + hin, b, cin, hin, win, card)
+    weights = packed[f"s{stage}_s2span"][:fused_infer.s2span_floats(cin, 0)]
+    before = fused_infer.s2span.launches
+    got = fused_infer.s2span(x, weights, 0)
+    assert fused_infer.s2span.launches == before + 1
+    want = fused_infer.s2span_reference(x, weights, 0)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= ATOL
+
+
+def test_span_stage_plan_matches_the_kernels(card):
+    """The plan's shared memory is the stage kernel's own (`stage_layout`
+    in csrc/span_block.cuh, through `fastdet_span_stage_smem` of both
+    libraries) at every shape the card tests run."""
+    from fastdet_torch.kernels import _build
+    libs = (_build.load("span", fused_infer._SPAN_SIGNATURES),
+            _build.load("s2span", fused_infer._S2SPAN_SIGNATURES))
+    chans = {sid: ch for sid, _, ch in fold.STAGES}
+    shapes = ([(b, chans[s], h, w, False) for b, s, h, w in SPAN_CASES]
+              + [(b, chans[s], (hin + 1) // 2, (win + 1) // 2, True)
+                 for b, s, hin, win in S2SPAN_CASES])
+    for b, c, h, w, s2 in shapes:
+        nblk = {ch: reps - 1 for _, reps, ch in fold.STAGES}[c]
+        plan = fused_infer.span_stage_plan(b, c, h, w, nblk, s2)
+        for lib in libs:
+            got = max(lib.fastdet_span_stage_smem(c // 2, rows, w, halo,
+                                                  int(t))
+                      for rows, halo, t in plan.layouts)
+            assert got == plan.smem_bytes, (b, c, h, w, s2)
 
 
 def test_stem_s2d8_and_s2span_wrappers_check_their_inputs(card, packed):

@@ -284,6 +284,18 @@ def pool_ties(x, w, stats, gamma, beta, h4, w4, g):
 STEM8_CASES = ((1, 352, 352), (128, 352, 352), (2, 160, 96), (3, 72, 104),
                (2, 40, 24))
 
+# (b, stage, h, w): the span B2 at the three stages of 352² (44², 22², 11²)
+# and of 160×96 (20×12, 10×6, 5×3), each at b1 and b128; and at 640² (80²,
+# 40², 20²) at b1 and b32, where stage 2 takes the stage kernel's
+# per-block variant and stages 3-4 clusters of 8 and 4 CTAs
+SPAN_CASES = (tuple((b, stage, hw, hw) for b in (1, 128)
+                    for stage, hw in ((2, 44), (3, 22), (4, 11)))
+              + tuple((b, stage, h, w) for b in (1, 128)
+                      for stage, h, w in ((2, 20, 12), (3, 10, 6),
+                                          (4, 5, 3)))
+              + tuple((b, stage, hw, hw) for b in (1, 32)
+                      for stage, hw in ((2, 80), (3, 40), (4, 20))))
+
 # (b, stage, Hin, Win): the stage kernel B9 at the three stages of 352²
 # (88² → 44², 44² → 22², 22² → 11²) at b1 and b128; stage 2 of 160×96
 # (40×24 → 20×12, where the TPU kernel's lanes hold pad); and partial
