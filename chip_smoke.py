@@ -25,7 +25,11 @@ Phases:
      nc = 80);
   2c. nms_keep (keep_mask_batch) bitwise against its plain version on
      seeded crowded fields, k ∈ {385, 512, 1024, 1815, 2048} × B ∈ {1, 8,
-     32}, and suppress_ranked_batch against the plain chain;
+     32, 64, 128}, in both variants of `nms_keep_plan`, and
+     suppress_ranked_batch against the plain chain; each class with the
+     plan's variant and both variants' times (back to back and on the
+     device); the plan's shared memory and workspace against the
+     kernel's;
   2b. stem_s2d (B ∈ {1, 128} at 352², B = 2 at 160×96 with pad lanes) and
      span (C = 48/96/192 at 44²/22²/11², B ∈ {1, 128}) against their
      plain versions, ≤ 2e-4; the stage kernel's launch plan
@@ -64,7 +68,12 @@ Phases:
      (windows 1815 and 1024, through nms_keep), default and --fused mode,
      over 256 seeded photo variants in b128 batches with seeded labels;
      P/R/AP/F1 exactly those of the plain staged chain on the same
-     forward outputs, images/s; nms_keep timed at b128, k = 512 and 1815;
+     forward outputs, images/s; the eval batch's split (the postprocess
+     also as device busy time and the host's enqueue time); nms_keep at
+     b128 on the windows k = 512, 1024 (conf 0.3) and 1815, back to back,
+     and its time by kernel name and device launches (torch.profiler),
+     held to `nms_keep_plan`'s; both variants on the first 8, 32, 64 and
+     128 images of each window;
   7b. 640²: stem_s2d and span against their plain versions there (span
      at B ∈ {1, 32}: stage 2 through the stage kernel's per-block
      variant, stages 3-4 through clusters; the cuDNN stem at b32 beside
@@ -250,6 +259,22 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Mean host time (host clock) to enqueue fn() over iters calls, the
+    device not waited for until the last: where it is about the CUDA-event
+    time of the same calls back to back, the host sets their pace."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return secs * 1e3 / iters
 
 
 def bound(nbytes: float, ops: float):
@@ -774,6 +799,23 @@ def kernel_base_name(key: str) -> str:
     return name[-1].split("::")[-1] if name else key
 
 
+# Profiler sessions this run, and those taken again because a profile
+# lost records (the phase-times line prints both).  The profiler loses
+# kernel records now and then, in every session open during a spell of
+# a fraction of a second to over a second (whole sessions' or a few
+# calls'), so a profile is taken again only after a pause.
+PROFILES = {"sessions": 0, "retaken": 0}
+PROFILE_RETAKE_PAUSE_S = 2.0
+
+
+def retake(i: int) -> None:
+    """Before try i of a profile: after a failed one, count it and let
+    the profiler's bad spell pass."""
+    if i:
+        PROFILES["retaken"] += 1
+        time.sleep(PROFILE_RETAKE_PAUSE_S)
+
+
 def kernel_split(fn, calls: int = 3):
     """torch.profiler over `calls` calls of fn(), device activity only,
     after one warm-up step of the profiler (the first records of a session
@@ -784,6 +826,7 @@ def kernel_split(fn, calls: int = 3):
     from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
+    PROFILES["sessions"] += 1
     with profile(activities=[ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=calls,
                                    repeat=1)) as prof:
@@ -805,19 +848,32 @@ def kernel_split(fn, calls: int = 3):
 
 def planned_split(fn, want: int, tries: int = 3):
     """`kernel_split` of fn, taken again (up to `tries` times) while it
-    sees no device time or its device launches per call are not `want`:
+    sees no device time or fewer device launches per call than `want`:
     the profiler has been seen to drop kernel records now and then, a
     whole session's too.  → (split, launches per call), (None, None)
     where no try saw device time."""
     split, n = None, None
-    for _ in range(tries):
+    for i in range(tries):
+        retake(i)
         got = kernel_split(fn)
         if got is None:
             continue
         split, n = got, sum(v[1] for v in got.values())
-        if n == want:
+        if n >= want:       # more launches than planned is no lost record
             break
+        log(f"  (profile {i + 1} of {tries} saw {n:g} device launches per "
+            f"call, {want} planned)")
     return split, n
+
+
+def device_busy_ms(fn) -> float:
+    """The device's busy time in one call of fn(): its kernels' and copies'
+    time by torch.profiler (`kernel_split`), for fn whose calls back to
+    back the host paces."""
+    split = kernel_split(fn)
+    check(split is not None, "device_busy_ms: the profiler saw no device "
+          "time")
+    return sum(ms for ms, _ in split.values())
 
 
 def split_text(split) -> str:
@@ -844,7 +900,8 @@ def stage_split(fn, wrapper, what: str, plan, tries: int = 5):
     check(counted == plan.launches, f"{what}: the wrapper counts {counted} "
           f"launches per call, the plan {plan.launches}")
     seen = []
-    for _ in range(tries):
+    for i in range(tries):
+        retake(i)
         got = kernel_split(fn)
         if got is None:
             continue
@@ -1278,18 +1335,91 @@ def nms_keep_bound(valid, k):
     return bound(valid.shape[0] * k * (16 + 8 + 1 + 1), pairs * 14)
 
 
+def nms_split(fn, b, k):
+    """One keep_mask_batch call's device time by kernel name and its
+    device launches (torch.profiler), held to `nms_keep_plan`'s kernel
+    names and launches."""
+    from fastdet_torch.kernels import nms_kernel as nk
+    plan = nk.nms_keep_plan(b, k)
+    split, n = planned_split(fn, plan.launches)
+    check(split is not None, f"nms_keep b={b} k={k}: the profiler saw no "
+          f"device time")
+    check(n == plan.launches and set(split) == set(plan.kernels),
+          f"nms_keep b={b} k={k}: device launches {n} of {split}, the plan "
+          f"{plan.launches} of {plan.kernels}")
+    log(f"  nms_keep b={b} k={k} by kernel (torch.profiler, ms per call): "
+        f"{split_text(split)}; {n:g} device launches per call, the plan "
+        f"{plan.launches} ({plan.variant}, {plan.threads} threads, "
+        f"{plan.smem_bytes} B of shared memory a CTA, rows on chip to n_v "
+        f"{plan.nv_cap}, workspace {plan.workspace_bytes} B)")
+    return split, n
+
+
+def nms_variant_ms(boxes, cls, valid, want, what):
+    """Both variants of `nms_keep` on one input, each held bitwise to the
+    plain version's keep `want`, then timed: CUDA events over calls back
+    to back and the device time a call (torch.profiler).  Launched through
+    the wrapper's private launcher with the variant's plan (not counted as
+    the main path's).  → {variant: (back-to-back ms, device ms)}."""
+    import torch
+    from fastdet_torch.kernels import nms_kernel as nk
+    b, k = valid.shape
+    times = {}
+    for variant in nk.NMS_VARIANTS:
+        plan = nk._variant_plan(variant, b, k)
+
+        def fn(plan=plan):
+            return nk._launch(boxes, cls, valid, NMS_IOU, plan)
+        keep = fn()
+        torch.cuda.synchronize()
+        check(torch.equal(keep, want),
+              f"nms_keep {variant} differs on {what} b={b} k={k}")
+        split, _ = planned_split(fn, plan.launches)
+        check(split is not None, f"nms_keep {variant} on {what} b={b} "
+              f"k={k}: the profiler saw no device time")
+        times[variant] = (cuda_ms(fn, 20),
+                          sum(ms for ms, _ in split.values()))
+    return times
+
+
+def variant_text(times, chosen) -> str:
+    """"cta X ms (device Y), grid X ms (device Y); the plan: cta"."""
+    return (", ".join(f"{v} {ms:.4f} ms (device {dev:.4f})"
+                      for v, (ms, dev) in times.items())
+            + f"; the plan: {chosen}")
+
+
+def check_nms_plan(b, k):
+    """`nms_keep_plan`'s shared memory and workspace against the kernel's
+    own (`fastdet_nms_keep_smem`, `fastdet_nms_keep_workspace`), for both
+    variants.  → the plan."""
+    from fastdet_torch.kernels import _build
+    from fastdet_torch.kernels import nms_kernel as nk
+    lib = _build.load("nms_keep", nk._SIGNATURES)
+    for v, variant in enumerate(nk.NMS_VARIANTS):
+        plan = nk._variant_plan(variant, b, k)
+        got = (lib.fastdet_nms_keep_smem(v, k),
+               lib.fastdet_nms_keep_workspace(v, b, k))
+        check(got == (plan.smem_bytes, plan.workspace_bytes),
+              f"nms_keep {variant} at b={b} k={k}: the kernel's shared "
+              f"memory and workspace {got}, the plan's "
+              f"{(plan.smem_bytes, plan.workspace_bytes)}")
+    return nk.nms_keep_plan(b, k)
+
+
 def phase_nms_keep():
     """nms_keep against its plain version, bitwise, on seeded crowded
-    fields at k ∈ {385, 512, 1024, 1815, 2048} × B ∈ {1, 8, 32}; then
-    suppress_ranked_batch's (dets, counts) against the plain chain
-    (`ops.nms.suppress_ranked`).  → max |Δ| (0 when bitwise)."""
+    fields at k ∈ {385, 512, 1024, 1815, 2048} × B ∈ {1, 8, 32, 64, 128};
+    then suppress_ranked_batch's (dets, counts) against the plain chain
+    (`ops.nms.suppress_ranked`); both variants of the kernel held and
+    timed at each class.  → max |Δ| (0 when bitwise)."""
     import torch
     from torch_cases import crowded
     from fastdet_torch.kernels import nms_kernel as nk
     from fastdet_torch.ops import nms
     err = 0.0
     for k in (385, 512, 1024, 1815, 2048):
-        for b in (1, 8, 32):
+        for b in (1, 8, 32, 64, 128):
             boxes, score, cls, valid = (torch.from_numpy(a).cuda()
                                         for a in crowded(k + b, b, k))
             keep = nk.keep_mask_batch(boxes, cls, valid, iou_thres=NMS_IOU)
@@ -1308,13 +1438,18 @@ def phase_nms_keep():
                   f"trivial case b={b} k={k}: {n_keep}/{n_valid}")
             err = max(err, float((keep.float() - want.float()).abs().max()),
                       float((det - wdet).abs().max()))
+            plan = check_nms_plan(b, k)
             ms = cuda_ms(lambda: nk.keep_mask_batch(
                 boxes, cls, valid, iou_thres=NMS_IOU), 20)
+            times = nms_variant_ms(boxes, cls, valid, want, "crowded")
             log(f"  nms_keep b={b} k={k}: keep and (dets, counts) equal "
-                f"({n_keep}/{n_valid} kept), kernel {ms:.4f} ms")
-    log("phase 2c nms_keep: keep bitwise against its plain version and "
-        "suppress_ranked_batch equal to the plain chain at 15 shape "
-        "classes (k 385-2048, B 1-32)")
+                f"({n_keep}/{n_valid} kept), kernel {ms:.4f} ms (CUDA "
+                f"events back to back); both variants bitwise, "
+                f"{variant_text(times, plan.variant)}")
+    log("phase 2c nms_keep: keep bitwise against its plain version in both "
+        "variants and suppress_ranked_batch equal to the plain chain at 25 "
+        "shape classes (k 385-2048, B 1-128); the plan's shared memory and "
+        "workspace the kernel's")
     return err
 
 
@@ -1382,7 +1517,8 @@ def phase_eval(sd, photo, dev_pipe, card):
     mode's launch counts are set to 0 just before its run and read just
     after; P/R/AP/F1 must equal the plain staged chain's on the same
     forward outputs.  Then nms_keep timed at b128 on the eval batch's
-    windows, k = 512 (B4's shape) and 1815 (B5's).  → (launches,
+    windows, k = 512 (B4's shape), 1024 (the P/R pass's) and 1815 (B5's),
+    and both variants on their first b images.  → (launches,
     {window: (ms, plain_ms, bound_ms, bound_by, max |Δ|)})."""
     import torch
     from torch_cases import ANCHORS, staged_window
@@ -1466,6 +1602,12 @@ def phase_eval(sd, photo, dev_pipe, card):
         post_ms = [cuda_ms(lambda kw=kw: postprocess(
             outs, ANCHORS, (352, 352), **kw), 20) for kw in (MAP_PASS,
                                                                PR_PASS)]
+        post_dev = [device_busy_ms(lambda kw=kw: postprocess(
+            outs, ANCHORS, (352, 352), **kw)) for kw in (MAP_PASS,
+                                                           PR_PASS)]
+        post_host = [host_ms(lambda kw=kw: postprocess(
+            outs, ANCHORS, (352, 352), **kw), 20) for kw in (MAP_PASS,
+                                                               PR_PASS)]
         dets = postprocess(outs, ANCHORS, (352, 352), **MAP_PASS)
     t0 = time.perf_counter()
     evaluate(lambda _images: dets, [(images[:bsz], labels[:bsz],
@@ -1481,15 +1623,21 @@ def phase_eval(sd, photo, dev_pipe, card):
     log(f"  eval b128 split ({card}): on the device (CUDA events) forward "
         f"{fwd_ms:.3f} ms (fused forward {fused_ms:.3f} ms), postprocess "
         f"{post_ms[0]:.3f} ms in the mAP pass (k=1815), {post_ms[1]:.3f} ms "
-        f"in the P/R pass (k=1024); on the host (host clock) the metrics of "
+        f"in the P/R pass (k=1024) called back to back, the device busy "
+        f"{post_dev[0]:.3f} and {post_dev[1]:.3f} ms of them (its kernels' "
+        f"time, torch.profiler), the host's enqueue {post_host[0]:.3f} and "
+        f"{post_host[1]:.3f} ms a call (host clock); on the host the "
+        f"metrics of "
         f"the mAP pass {metrics_ms:.1f} ms, the upload {upload_ms:.1f} ms, "
         f"the s2d packing (--fused) {pack_ms:.1f} ms")
 
     out = {}
     with torch.inference_mode():
-        for k in (512, 1815):
+        # B4's shape (k = 512), the P/R pass's window and the mAP pass's
+        for k, conf in ((512, 0.01), (1024, PR_PASS["conf_thres"]),
+                        (1815, 0.01)):
             boxes, score, cls = staged_window(outs, ANCHORS, (352, 352),
-                                              conf_thres=0.01, max_nms=k)
+                                              conf_thres=conf, max_nms=k)
             valid = score > 0
             keep = nk.keep_mask_batch(boxes, cls, valid, iou_thres=NMS_IOU)
             want = nk.keep_mask_batch_reference(boxes, cls, valid,
@@ -1497,16 +1645,34 @@ def phase_eval(sd, photo, dev_pipe, card):
             torch.cuda.synchronize()
             check(torch.equal(keep, want), f"nms_keep differs at b128 k={k}")
             e = float((keep.float() - want.float()).abs().max())
-            ms = cuda_ms(lambda: nk.keep_mask_batch(
-                boxes, cls, valid, iou_thres=NMS_IOU), 50, 5)
+            check_nms_plan(bsz, k)
+
+            def fn():
+                return nk.keep_mask_batch(boxes, cls, valid,
+                                          iou_thres=NMS_IOU)
+            ms = cuda_ms(fn, 50, 5)
             plain_ms = cuda_ms(lambda: nk.keep_mask_batch_reference(
                 boxes, cls, valid, iou_thres=NMS_IOU), 2, 1)
             b_ms, b_by = nms_keep_bound(valid, k)
             out[k] = (ms, plain_ms, b_ms, b_by, e)
-            log(f"  nms_keep on the eval batch (B=128, k={k}, conf 0.01, "
-                f"{int(valid.sum())} valid, {int(keep.sum())} kept): kernel "
-                f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.6f} ms "
-                f"({b_by}), keep equal ({card})")
+            split, _ = nms_split(fn, bsz, k)
+            log(f"  nms_keep on the eval batch (B=128, k={k}, conf {conf}, "
+                f"{int(valid.sum())} valid, at most {int(valid.sum(1).max())}"
+                f" and {int(keep.sum(1).max())} kept in an image, "
+                f"{int(keep.sum())} kept): kernel {ms:.4f} ms (CUDA events "
+                f"back to back), {sum(v[0] for v in split.values()):.4f} ms "
+                f"of it on the device (torch.profiler), plain "
+                f"{plain_ms:.3f} ms, bound {b_ms:.6f} ms ({b_by}), keep "
+                f"equal ({card})")
+            # both variants on the first b images of the window: the
+            # traffic the plan's choice by (B, k) is set from
+            for b in (8, 32, 64, 128):
+                times = nms_variant_ms(boxes[:b], cls[:b], valid[:b],
+                                       want[:b], "the eval window")
+                log(f"  nms_keep variants, eval window k={k} b={b} "
+                    f"(n_v {float(valid[:b].sum(1).float().mean()):.1f} on "
+                    f"average, {int(valid[:b].sum(1).max())} at most): "
+                    f"{variant_text(times, nk.nms_keep_plan(b, k).variant)}")
     return launches, out
 
 
@@ -2311,7 +2477,9 @@ def main() -> int:
         f'{flag_launches["s2span"]})')
     log("phase times (host clock, s): " + ", ".join(
         f"{name} {t - laps[i][1]:.1f}"
-        for i, (name, t) in enumerate(laps[1:])))
+        for i, (name, t) in enumerate(laps[1:]))
+        + f"; profiler sessions {PROFILES['sessions']}, "
+        f"{PROFILES['retaken']} of them taken again")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     kernels = []
     for name, replaces in (("stem_s2d", "fastdet/kernels/fused_infer.py:418"),

@@ -28,7 +28,8 @@ from torch_cases import (ANCHORS, BOX_ULPS_CARD, IOU, NC, S2SPAN_CASES,
                          box_ulps, crowded, grad_err, head_outputs,
                          make_inputs, pool_ties, port_geo, s2span_case,
                          span_train_case, span_train_grad_errs,
-                         staged_reference, stem8_case, stem_train_case)
+                         staged_reference, staged_window, stem8_case,
+                         stem_train_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -85,9 +86,10 @@ def test_wide_window_goes_through_nms_keep(card):
 # ------------------------------------------------ the staged NMS (B4, B5)
 
 @pytest.mark.parametrize("b", [1, 8, 32])
-@pytest.mark.parametrize("k", [385, 512, 1024, 1815, 2048])
+@pytest.mark.parametrize("k", [64, 65, 129, 385, 512, 1024, 1815, 2048])
 def test_nms_keep_matches_plain(card, b, k):
-    """Bitwise: the kernel's IoU is the plain version's op for op."""
+    """Bitwise: the kernel's IoU is the plain version's op for op; both
+    variants of `nms_keep_plan`, the plan's first."""
     boxes, score, cls, valid = (torch.from_numpy(a).to(card)
                                 for a in crowded(k + b, b, k))
     before = nms_kernel.keep_mask_batch.launches
@@ -98,11 +100,89 @@ def test_nms_keep_matches_plain(card, b, k):
     torch.cuda.synchronize()
     assert torch.equal(keep, want)
     assert 0 < int(keep.sum()) < int(valid.sum())
+    for variant in nms_kernel.NMS_VARIANTS:
+        other = _nms_keep_variant(variant, boxes, cls, valid)
+        torch.cuda.synchronize()
+        assert torch.equal(other, want), variant
     det, n = nms_kernel.suppress_ranked_batch(boxes, score, cls, valid,
                                               iou_thres=0.4, max_det=300)
     wdet, wn = nms.suppress_ranked(boxes, score, cls, valid, iou_thres=0.4,
                                    max_det=300)
     assert torch.equal(n, wn) and torch.equal(det, wdet)
+
+
+def _nms_keep_variant(variant, boxes, cls, valid):
+    """The kernel launched as the named variant's plan."""
+    b, k = valid.shape
+    return nms_kernel._launch(boxes, cls, valid, 0.4,
+                              nms_kernel._variant_plan(variant, b, k))
+
+
+def _nms_keep_both_variants(boxes, cls, valid):
+    want = nms_kernel.keep_mask_batch_reference(boxes, cls, valid,
+                                                iou_thres=0.4)
+    for variant in nms_kernel.NMS_VARIANTS:
+        keep = _nms_keep_variant(variant, boxes, cls, valid)
+        torch.cuda.synchronize()
+        assert torch.equal(keep, want), variant
+    return want
+
+
+@pytest.mark.parametrize("b", [3, 128])
+def test_nms_keep_images_with_no_one_and_all_valid(card, b):
+    """Images with no valid candidate, with one, with all valid (k = 129,
+    int32 classes), beside crowded ones."""
+    boxes, _, cls, valid = crowded(7, b, 129)
+    valid[b // 2:b // 2 + 4] = False
+    valid[0] = False
+    valid[1] = False
+    valid[1, 40] = True
+    valid[2] = True
+    want = _nms_keep_both_variants(*(torch.from_numpy(a).to(card) for a in
+                                     (boxes, cls.astype(np.int32), valid)))
+    assert not want[0].any() and want[1].tolist() == valid[1].tolist()
+    assert 0 < int(want[2].sum()) < 129
+
+
+def test_nms_keep_all_valid_past_the_on_chip_cap(card):
+    """b128 k = 2048, every candidate valid: n_v = 2048 is past the cta
+    variant's rows on chip (`nv_cap`), so its CTAs work in the
+    workspace."""
+    boxes, _, cls, valid = crowded(12, 128, 2048)
+    valid[:] = True
+    assert nms_kernel.nms_keep_plan(128, 2048).nv_cap < 2048
+    want = _nms_keep_both_variants(*(torch.from_numpy(a).to(card)
+                                     for a in (boxes, cls, valid)))
+    assert 0 < int(want.sum()) < want.numel()
+
+
+@pytest.mark.parametrize("k,conf", [(512, 0.01), (1024, 0.3), (1815, 0.01),
+                                    (2048, 0.01)])
+def test_nms_keep_prefix_valid_windows(card, k, conf):
+    """The main path's windows: validity (score > 0 on ranked scores) is
+    a prefix of each image's window."""
+    outs = [torch.from_numpy(o).to(card) for o in head_outputs(21, b=8)]
+    boxes, score, cls = staged_window(outs, ANCHORS, (352, 352),
+                                      conf_thres=conf, max_nms=k)
+    valid = score > 0
+    assert bool(((~valid).cumsum(1) > 0).eq(~valid).all())
+    assert bool(valid[:, 0].all())
+    want = _nms_keep_both_variants(boxes, cls, valid)
+    assert 0 < int(want.sum()) < int(valid.sum())
+
+
+def test_nms_keep_plan_matches_the_kernel(card):
+    """`nms_keep_plan`'s shared memory and workspace are the kernel's own
+    (`fastdet_nms_keep_smem`, `fastdet_nms_keep_workspace`)."""
+    lib = nms_kernel._build.load("nms_keep", nms_kernel._SIGNATURES)
+    for b in (1, 8, 32, 128):
+        for k in (64, 65, 129, 385, 512, 1024, 1664, 1665, 1815, 2048):
+            for variant in nms_kernel.NMS_VARIANTS:
+                plan = nms_kernel._variant_plan(variant, b, k)
+                v = nms_kernel.NMS_VARIANTS.index(variant)
+                assert lib.fastdet_nms_keep_smem(v, k) == plan.smem_bytes
+                assert (lib.fastdet_nms_keep_workspace(v, b, k)
+                        == plan.workspace_bytes), (b, k, variant)
 
 
 def test_nms_keep_wrapper_checks_its_inputs(card):
