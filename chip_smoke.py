@@ -30,15 +30,17 @@ Phases:
      plan's variant and both variants' times (back to back and on the
      device); the plan's shared memory and workspace against the
      kernel's;
-  2b. stem_s2d (B ∈ {1, 128} at 352², B = 2 at 160×96 with pad lanes) and
-     span (C = 48/96/192 at 44²/22²/11², B ∈ {1, 128}) against their
-     plain versions, ≤ 2e-4; the stage kernel's launch plan
-     (`span_stage_plan`) its shared memory the kernel's own;
+  2b. stem_s2d (B1 at the shapes of `STEM_CASES`: B ∈ {1, 128} at 352²,
+     B = 2 at 160×96 with pad lanes, B = 32 at 640², 36×52 and 20×12 with
+     tiles cut off at the edge) and span (C = 48/96/192 at 44²/22²/11²,
+     B ∈ {1, 128}) against their plain versions, ≤ 2e-4; the launch
+     plans (`stem_plan`, `span_stage_plan`) their shared memory the
+     kernels' own;
   2d. stem_s2d8 (B10: B ∈ {1, 128} at 352², B = 2 at 160×96 with pad
      lanes, 72×104 and 40×24 with tiles cut off at the edge) and s2span
      (B9: the three stages of 352² at B ∈ {1, 128}, stage 2 of 160×96,
      partial tiles and odd sizes) against their plain versions, ≤ 2e-4,
-     and the plan's shared memory the kernel's own;
+     and the plans' shared memory the kernels' own;
   3. weights through the carrier, forward on the card (TF32 off) against
      the same forward on the CPU, ≤ 2e-4;
   3b. the fused forward on the card against Detector on the card, ≤ 2e-4;
@@ -50,9 +52,10 @@ Phases:
      `FusedPipeline` on the same batch, detections as `DevicePipeline`'s;
      the three kernels' launch counts on this path; b128 throughput of both
      pipelines, the fused forward's per-stage split (`upto=`), and each
-     fused kernel on the served batch's inputs with its bound; each span
-     stage call's time by kernel name and its device launches
-     (torch.profiler), held to `span_stage_plan`'s;
+     fused kernel on the served batch's inputs with its bound; the
+     stem call's and each span stage call's time by kernel name and
+     device launches (torch.profiler), held to `stem_plan`'s and
+     `span_stage_plan`'s;
   4c. the flag paths: the five other combinations of `input_format`
      (nhwc, s2d_u8, s2d8_u8) and `fuse_s2` at b128 352² on photo
      variants, each forward against Detector on the card (TF32 off) and
@@ -62,7 +65,9 @@ Phases:
      per-stage split of all six combinations (`upto=`); s2span per stage
      against the cuDNN stride-2 block + span it replaces, with its time
      by kernel name and device launches held to `span_stage_plan`'s,
-     stem_s2d8 against stem_s2d on the same images, each with its bound;
+     stem_s2d8 against stem_s2d on the same images, each with its bound,
+     and stem_s2d8's time by kernel name and launches held to
+     `stem_plan`'s;
   5. shutdown: server, batcher and threads;
   7. eval: `fastdet_torch.cli.evaluation.run_evaluation`, both passes
      (windows 1815 and 1024, through nms_keep), default and --fused mode,
@@ -77,7 +82,8 @@ Phases:
   7b. 640²: stem_s2d and span against their plain versions there (span
      at B ∈ {1, 32}: stage 2 through the stage kernel's per-block
      variant, stages 3-4 through clusters; the cuDNN stem at b32 beside
-     stem_s2d), and
+     stem_s2d, whose time by kernel name and launches are held to
+     `stem_plan`'s), and
      FusedPipeline against DevicePipeline on 8 photo variants;
   8a. span_train (B8) forward and backward against their plain versions
      at the three stages at b128 352², at b1, at small geometries with
@@ -148,6 +154,7 @@ PHOTO = os.path.join(REPO, "test_result.png")
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense, 700 W)
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_OPS_S = 67e12
+PEAK_F16_TC_OPS_S = 989e12     # f16 on the tensor cores, f32 accumulate
 
 # rank_decode_nms is held against its plain version on the card with the
 # seeded windows and tolerance of tests/torch_cases.py: keep bitwise, boxes
@@ -277,10 +284,11 @@ def host_ms(fn, iters: int, warmup: int = 3) -> float:
     return secs * 1e3 / iters
 
 
-def bound(nbytes: float, ops: float):
+def bound(nbytes: float, ops: float, peak_ops_s: float = PEAK_F32_OPS_S):
     """→ (ms, "bytes" or "operations"): the larger of the two least times
-    on the card's published peaks."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_OPS_S
+    on the card's published peaks (f32 outside the tensor cores unless
+    `peak_ops_s` names the rate of the kernel's operation type)."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / peak_ops_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -620,9 +628,12 @@ FUSED_ATOL = 2e-4   # stem and span against their plain versions, and the
 def stem_bound(b, h4, w4):
     """stem_s2d: the image's uint8 pixels read once, its 672 weights, the
     pooled f32 map written once; 2 operations per conv MAC (27 per conv
-    output, 4 conv outputs per pooled cell and channel)."""
+    output, 4 conv outputs per pooled cell and channel), twice over (the
+    weights' two f16 terms), at the f16 tensor-core rate the kernel's
+    products run at."""
     nbytes = b * 48 * h4 * w4 + 672 * 4 + b * 24 * h4 * w4 * 4
-    return bound(nbytes, b * 4 * h4 * w4 * 24 * 27 * 2)
+    return bound(nbytes, b * 4 * h4 * w4 * 24 * 27 * 2 * 2,
+                 PEAK_F16_TC_OPS_S)
 
 
 def span_bound(b, c, h, w, nblk):
@@ -641,17 +652,15 @@ def phase_fused_kernels(sd):
     from fastdet_torch.kernels import _build
     from fastdet_torch.kernels import fused_infer as fi
     from fastdet_torch.kernels.fold import STAGES
+    from torch_cases import STEM_CASES, stem_case
     _, p = fi.build_fused_forward(sd)
     w, bias = p["stem_w"], p["stem_b"]
     err = {"stem_s2d": 0.0, "span": 0.0}
-    for bsz, (ih, iw) in ((1, (352, 352)), (128, (352, 352)),
-                          (2, (160, 96))):
+    stem_lib = _build.load("stem_s2d", fi._STEM_SIGNATURES)
+    for bsz, ih, iw in STEM_CASES:
         h4, w4 = ih // 4, iw // 4
-        rng = np.random.default_rng(bsz + ih)
-        xs = fi.pack_images_s2d(rng.integers(0, 256, (bsz, ih, iw, 3),
-                                             dtype=np.uint8))
-        xs[:, :, h4 * w4:] = 255                     # junk in the pad lanes
-        x = torch.from_numpy(xs).cuda()
+        plan = check_stem_smem(stem_lib, bsz, h4, w4, 4)
+        x = stem_case(bsz + ih, bsz, ih, iw, "cuda")   # junk in the pad
         got = fi.stem_s2d(x, w, bias, h4, w4)
         want = fi.stem_s2d_reference(x, w, bias, h4, w4)
         e = float((got - want).abs().max())
@@ -661,8 +670,9 @@ def phase_fused_kernels(sd):
         plain_ms = cuda_ms(
             lambda: fi.stem_s2d_reference(x, w, bias, h4, w4), 5, 1)
         log(f"  stem_s2d b={bsz} {ih}x{iw} (h4={h4}, w4={w4}, npad="
-            f"{xs.shape[2]}): max |Δ| {e:.3g}, kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms")
+            f"{x.shape[2]}; {plan.tiles} tiles of {plan.rows} × "
+            f"{plan.cols}, {plan.grid[0]} CTAs, {plan.smem_bytes} B): "
+            f"max |Δ| {e:.3g}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
     lib = _build.load("span", fi._SPAN_SIGNATURES)
     for (stage, reps, c), hw in zip(STAGES, (44, 22, 11)):
         weights = p[f"s{stage}_span"]
@@ -683,9 +693,9 @@ def phase_fused_kernels(sd):
                 f"({plan.variant}, cluster {plan.cluster}, {plan.launches} "
                 f"launch): max |Δ| {e:.3g}, kernel {ms:.4f} ms, plain "
                 f"{plain_ms:.4f} ms")
-    log(f"phase 2b fused kernels: stem_s2d (3 shape classes) and span "
-        f"(6) within {FUSED_ATOL:g} of their plain versions; the stage "
-        f"plan's shared memory the kernel's; max |Δ| stem_s2d "
+    log(f"phase 2b fused kernels: stem_s2d ({len(STEM_CASES)} shapes) and "
+        f"span (6) within {FUSED_ATOL:g} of their plain versions; the stem "
+        f"and stage plans' shared memory the kernels'; max |Δ| stem_s2d "
         f"{err['stem_s2d']:.3g}, span {err['span']:.3g}")
     return err
 
@@ -882,23 +892,23 @@ def split_text(split) -> str:
                      in sorted(split.items(), key=lambda kv: -kv[1][0]))
 
 
-def stage_split(fn, wrapper, what: str, plan, tries: int = 5):
-    """One stage call of B2 or B9: its device time by kernel name and its
-    device launches (torch.profiler), held to the launch plan
-    (`span_stage_plan`: its launches, all of the stage kernel) and to the
+def kernel_launch_split(fn, wrapper, what: str, launches: int, kernel: str,
+                        desc: str, tries: int = 5):
+    """One call of a wrapper whose launch plan says `launches` device
+    launches, all of `kernel`: its device time by kernel name and its
+    device launches (torch.profiler), held to the plan and to the
     launches the wrapper counts for one call.  The profiler has been seen
     to drop kernel records for several sessions running, so a profile
     that disagrees is taken again, up to `tries` times: the first that
-    agrees is kept; if none does but every one saw only the stage kernel
-    and fewer launches than the plan, that is reported beside the
-    wrapper's count and the check stands; anything else fails.  →
-    (split, launches per call)."""
-    from fastdet_torch.kernels.fused_infer import STAGE_KERNEL
+    agrees is kept; if none does but every one saw only the kernel and
+    fewer launches than the plan, that is reported beside the wrapper's
+    count and the check stands; anything else fails.  → (split, launches
+    per call)."""
     before = wrapper.launches
     fn()
     counted = wrapper.launches - before
-    check(counted == plan.launches, f"{what}: the wrapper counts {counted} "
-          f"launches per call, the plan {plan.launches}")
+    check(counted == launches, f"{what}: the wrapper counts {counted} "
+          f"launches per call, the plan {launches}")
     seen = []
     for i in range(tries):
         retake(i)
@@ -906,26 +916,61 @@ def stage_split(fn, wrapper, what: str, plan, tries: int = 5):
         if got is None:
             continue
         seen.append((got, sum(v[1] for v in got.values())))
-        if set(got) == {STAGE_KERNEL} and seen[-1][1] == plan.launches:
+        if set(got) == {kernel} and seen[-1][1] == launches:
             break
     check(seen, f"{what}: the profiler saw no device time")
     split, n = max(seen, key=lambda gn: gn[1])
     short = ""
-    if n != plan.launches or set(split) != {STAGE_KERNEL}:
-        check(all(set(g) == {STAGE_KERNEL} and k < plan.launches
-                  for g, k in seen),
+    if n != launches or set(split) != {kernel}:
+        check(all(set(g) == {kernel} and k < launches for g, k in seen),
               f"{what}: device launches per call {[k for _, k in seen]} "
-              f"({[g for g, _ in seen]}), the plan has {plan.launches} of "
-              f"{STAGE_KERNEL}")
+              f"({[g for g, _ in seen]}), the plan has {launches} of "
+              f"{kernel}")
         short = (f" (the profiler dropped records in all {len(seen)} "
                  f"tries: {', '.join(f'{k:g}' for _, k in seen)} per call; "
-                 f"the wrapper counts the plan's {plan.launches})")
+                 f"the wrapper counts the plan's {launches})")
     log(f"  {what} by kernel (torch.profiler, ms per call): "
         f"{split_text(split)}; {n:g} device launches per call{short}, the "
-        f"plan {plan.launches} ({plan.variant}, cluster {plan.cluster}, "
-        f"{plan.rows} rows per CTA, {plan.ctas} CTAs of {plan.threads} "
-        f"threads, {plan.smem_bytes} B of shared memory each)")
+        f"plan {launches} ({desc})")
     return split, n
+
+
+def stage_split(fn, wrapper, what: str, plan, tries: int = 5):
+    """One stage call of B2 or B9 held to `span_stage_plan`
+    (`kernel_launch_split`: its launches, all of the stage kernel)."""
+    from fastdet_torch.kernels.fused_infer import STAGE_KERNEL
+    return kernel_launch_split(
+        fn, wrapper, what, plan.launches, STAGE_KERNEL,
+        f"{plan.variant}, cluster {plan.cluster}, {plan.rows} rows per CTA, "
+        f"{plan.ctas} CTAs of {plan.threads} threads, {plan.smem_bytes} B "
+        f"of shared memory each", tries)
+
+
+def stem_split(fn, wrapper, what: str, plan, tries: int = 5):
+    """One call of B1, B6 or B10 held to `stem_plan`
+    (`kernel_launch_split`: one launch of the stem kernel)."""
+    return kernel_launch_split(
+        fn, wrapper, what, plan.launches, plan.kernel,
+        f"{plan.tiles} tiles of {plan.rows} × {plan.cols} cells over "
+        f"{plan.grid[0]} CTAs of {plan.threads} threads, {plan.smem_bytes} "
+        f"B of shared memory each", tries)
+
+
+def check_stem_smem(lib, b, h4, w4, factor):
+    """`stem_plan`'s shared memory against the kernel's own
+    (`fastdet_stem_smem`, from `stem_smem_bytes`), and the CTAs an SM
+    holds (the occupancy calculator) against the plan's persistent grid.
+    → the plan."""
+    from fastdet_torch.kernels import fused_infer as fi
+    plan = fi.stem_plan(b, h4, w4, factor)
+    got = lib.fastdet_stem_smem(plan.rows, plan.strips)
+    check(got == plan.smem_bytes, f"stem kernel at {(b, h4, w4, factor)}: "
+          f"{got} B of shared memory, the plan says {plan.smem_bytes}")
+    occ = lib.fastdet_stem_ctas_per_sm(plan.rows, plan.strips)
+    check(occ >= fi.STEM_CTAS_PER_SM, f"stem kernel at "
+          f"{(b, h4, w4, factor)}: {occ} CTAs an SM, the plan's grid "
+          f"assumes {fi.STEM_CTAS_PER_SM}")
+    return plan
 
 
 def check_stage_smem(lib, b, c, h, w, nblk, stride2):
@@ -1001,6 +1046,9 @@ def phase_fused_timing(sd, dev_pipe, fused_pipe, big, card):
         plain_ms = cuda_ms(
             lambda: fi.stem_s2d_reference(big_s2d, w, bias, 88, 88), 10, 2)
         out["stem_s2d"] = (ms, plain_ms, *stem_bound(128, 88, 88), e)
+        stem_split(lambda: fi.stem_s2d(big_s2d, w, bias, 88, 88),
+                   fi.stem_s2d, "stem_s2d b128 352²",
+                   fi.stem_plan(128, 88, 88, 4))
         det = Detector(80, 3)
         det.load_state_dict(sd)
         det = det.cuda().eval()
@@ -1068,9 +1116,10 @@ def stem8_bound(b, h8, w8):
     """stem_s2d8: the image's uint8 pixels read once, its 672 weights, the
     pooled f32 map written once; 2 operations per conv MAC (27 per conv
     output, 16 conv outputs per coarse cell and channel): the s2d(4)
-    stem's work at h4 = 2·h8, w4 = 2·w8."""
+    stem's work at h4 = 2·h8, w4 = 2·w8, counted as `stem_bound` does."""
     nbytes = b * 192 * h8 * w8 + 672 * 4 + b * 24 * 4 * h8 * w8 * 4
-    return bound(nbytes, b * 16 * h8 * w8 * 24 * 27 * 2)
+    return bound(nbytes, b * 16 * h8 * w8 * 24 * 27 * 2 * 2,
+                 PEAK_F16_TC_OPS_S)
 
 
 def s2span_bound(b, cin, hin, win, nblk):
@@ -1104,8 +1153,10 @@ def phase_flag_kernels(sd):
     _, p = fi.build_fused_forward(sd)
     w, bias = p["stem_w"], p["stem_b"]
     err = {"stem_s2d8": 0.0, "s2span": 0.0}
+    stem_lib = _build.load("stem_s2d8", fi._STEM8_SIGNATURES)
     for bsz, ih, iw in STEM8_CASES:
         h8, w8 = ih // 8, iw // 8
+        check_stem_smem(stem_lib, bsz, 2 * h8, 2 * w8, 8)
         x = stem8_case(bsz + ih, bsz, ih, iw, "cuda")
         e = float((fi.stem_s2d8(x, w, bias, h8, w8)
                    - fi.stem_s2d8_reference(x, w, bias, h8, w8)).abs().max())
@@ -1133,7 +1184,8 @@ def phase_flag_kernels(sd):
     torch.cuda.synchronize()
     log(f"phase 2d flag kernels: stem_s2d8 ({len(STEM8_CASES)} shapes) and "
         f"s2span ({len(S2SPAN_CASES)}) within {FUSED_ATOL:g} of their plain "
-        f"versions; the stage plan's shared memory the kernel's; max |Δ| "
+        f"versions; the stem and stage plans' shared memory the kernels'; "
+        f"max |Δ| "
         f"stem_s2d8 {err['stem_s2d8']:.3g}, s2span {err['s2span']:.3g}")
     return err
 
@@ -1269,6 +1321,8 @@ def phase_flag_paths(sd, photo, fused_pipe, card):
                                             2, 1), 20)
         b10_ms = sum(ms["b10"]) / 2
         out["stem_s2d8"] = (b10_ms, plain_ms, *stem8_bound(128, 44, 44), e)
+        stem_split(t["b10"], fi.stem_s2d8, "stem_s2d8 b128 352²",
+                   fi.stem_plan(128, 88, 88, 8))
         log(f"  stem_s2d8 on the b128 batch: kernel {b10_ms:.4f} ms (calls "
             f"{', '.join(f'{v:.4f}' for v in ms['b10'])}), B1 on the same "
             f"images {sum(ms['b1']) / 2:.4f} ms (calls "
@@ -1708,6 +1762,8 @@ def phase_640(sd, photo, card):
         log(f"  stem_s2d b={bsz} 640² (npad={xs.shape[2]}): max |Δ| {e:.3g},"
             f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
     b6 = (ms, plain_ms, *stem_bound(32, 160, 160), err)
+    stem_split(lambda: fi.stem_s2d(x, w, bias, 160, 160), fi.stem_s2d,
+               "stem_s2d b32 640² (B6)", fi.stem_plan(32, 160, 160, 4))
     det = Detector(80, 3)
     det.load_state_dict(sd)
     det = det.cuda().eval()

@@ -13,8 +13,10 @@ Inside, activations are NCHW f32.  The forward:
 
   1. the stem, conv3×3 s2 (3→24, /255 and BN folded) + ReLU + maxpool
      3×3 s2 → (B, 24, H/4, W/4): `stem_s2d` (kernel B1,
-     `csrc/stem_s2d.cu`), `stem_s2d8` (B10, `csrc/stem_s2d8.cu`) or, from
-     NHWC, PyTorch (the JAX package leaves that stem to XLA);
+     `csrc/stem_s2d.cu`) or `stem_s2d8` (B10, `csrc/stem_s2d8.cu`), one
+     stem kernel (`csrc/stem_core.cuh`, `stem_plan`) under two entry
+     points, or, from NHWC, PyTorch (the JAX package leaves that stem to
+     XLA);
   2. per stage (48/96/192 channels) either the stride-2 ShuffleV2 block
      in PyTorch (cuDNN on the card) and then `span`, the stage's 3/7/3
      stride-1 blocks (B2, `csrc/span.cu`), or, with `fuse_s2=True` (and at
@@ -63,6 +65,7 @@ from fastdet_torch.kernels.fold import (S2_ROW_KEYS, STAGES,
                                         pack_fused_weights,
                                         pack_s2span_weights,
                                         pack_span_weights)
+from fastdet_torch.kernels.stem_train import SMS
 
 SPAN_CHANNELS = (48, 96, 192)
 S2SPAN_CHANNELS = (24, 48, 96)           # stage inputs, = each stage's MID
@@ -81,7 +84,8 @@ def pack_stem_s2d(stem_w: np.ndarray, stem_b: np.ndarray,
     """Fold the input scale into the (3,3,3,24) HWIO stem conv.  → (w
     (3,3,3,24) f32, b (24,) f32).  The values are the nonzero entries of
     the TPU kernel's (192, 96) phase matrix (`pack_stem_s2d` of the JAX
-    package); the CUDA kernel convolves directly and needs no phase form."""
+    package); the CUDA kernel needs no phase form (it splits the weights
+    into its f16 terms itself, on the host, at each launch)."""
     return (np.asarray(stem_w, np.float32) * scale,
             np.asarray(stem_b, np.float32).copy())
 
@@ -120,6 +124,105 @@ def pack_images_s2d(images: np.ndarray) -> np.ndarray:
     return _space_to_depth(images, 4)
 
 
+# --------------------------------------------- the stem kernel (B1, B10)
+#
+# `csrc/stem_core.cuh`, under the entry points `stem_s2d.cu` (s2d(4), B1
+# and B6) and `stem_s2d8.cu` (s2d(8), B10): persistent CTAs walk tiles of
+# pooled rows × 7·strips pooled columns; a CTA unpacks a tile's s2d plane
+# words into f16 pixel planes and starts the copies of its next tile,
+# then a warp walks a strip of 7 cells (and a halo cell) down the tile's
+# rows, the conv on f16 tensor cores with the weights in two f16 terms,
+# the pool in registers.  `stem_plan` picks the tile and the grid; the C
+# function `fastdet_stem_smem` reports the same shared memory as
+# `stem_smem`.
+
+STEM_KERNEL = "stem_kernel"
+STEM_STRIP_CELLS = 7         # kStripCells: own pooled cells a warp
+STEM_MAX_STRIPS = 8          # kMaxStrips: warps a CTA
+STEM_ROWS = 8                # pooled rows a tile
+STEM_FRAG_WORDS = 24 * 32    # the B fragments of the parameter block
+STEM_FACTORS = (4, 8)
+STEM_CTAS_PER_SM = 2         # resident CTAs an SM (registers, shared memory)
+
+
+def stem_row_stride(strips: int) -> int:
+    """f16 elements of one pixel row of a tile (`stem_row_stride`): 8
+    halo columns and 28 a strip, made 32 modulo 64 (bank spread)."""
+    need = 8 + 4 * STEM_STRIP_CELLS * strips
+    return need + (32 - need) % 64
+
+
+def stem_raw_words(rows: int, strips: int, factor: int) -> int:
+    """Words of a CTA's raw buffer (`stem_raw_words`): `factor` plane
+    words a staging task, for the most tasks a tile can have."""
+    urows = -(-(4 * rows + 4) // factor) + 1
+    lanes = -(-(4 * STEM_STRIP_CELLS * strips + 4) // factor) + 1
+    return urows * 3 * factor * ((lanes + 3) // 4 + 1) * factor
+
+
+def stem_smem(rows: int, strips: int, factor: int) -> int:
+    """Shared memory (bytes) of one CTA of the stem kernel
+    (`stem_smem_bytes`): three f16 pixel planes of 4·rows + 4 rows (a
+    16-element skew between planes), the raw buffer of the next tile's
+    plane words, the B fragments, b·2^e and 2^-e."""
+    plane = (4 * rows + 4) * stem_row_stride(strips) + 16
+    return (2 * 3 * plane + 4 * (stem_raw_words(rows, strips, factor)
+                                 + STEM_FRAG_WORDS) + 4 * 2 * 24)
+
+
+@dataclass(frozen=True)
+class StemPlan:
+    """How one call of `stem_s2d` or `stem_s2d8` runs on the card."""
+    factor: int        # the s2d factor of the input, 4 or 8
+    rows: int          # pooled rows a tile
+    strips: int        # warps a CTA, each 7 pooled columns
+    bands: int         # tiles down an image
+    tiles_x: int       # tiles across an image
+    tiles: int         # tiles of the call, b · bands · tiles_x
+    grid: tuple        # (persistent CTAs,), each walking every grid-th tile
+    threads: int
+    smem_bytes: int    # shared memory a CTA
+    kernel: str        # the kernel's name (both factors)
+    launches: int      # device launches a call
+    split_weights: bool  # the weights travel as two f16 terms (hi + lo)
+
+    @property
+    def cols(self) -> int:
+        """Pooled columns a tile."""
+        return STEM_STRIP_CELLS * self.strips
+
+    def image_tiles(self, h4: int, w4: int) -> List[Tuple[int, int, int, int]]:
+        """(first row, rows, first column, columns) of each tile of an
+        image's pooled map, in the kernel's order."""
+        return [(by * self.rows, min(self.rows, h4 - by * self.rows),
+                 tx * self.cols, min(self.cols, w4 - tx * self.cols))
+                for by in range(self.bands) for tx in range(self.tiles_x)]
+
+
+@functools.lru_cache(maxsize=None)
+def stem_plan(b: int, h4: int, w4: int, factor: int) -> StemPlan:
+    """The launch plan of the stem kernel for a pooled map (b, 24, h4, w4)
+    from s2d(`factor`) input: tiles of STEM_ROWS pooled rows (fewer where
+    the image has fewer) across as few tiles as hold the width at most
+    STEM_MAX_STRIPS strips each, the strips spread evenly over them; one
+    launch of as many persistent CTAs as the card holds at once, at most
+    one a tile."""
+    if factor not in STEM_FACTORS:
+        raise ValueError(f"stem_plan: factor {factor} not in {STEM_FACTORS}")
+    if b < 1 or h4 < 1 or w4 < 1:
+        raise ValueError(f"stem_plan: empty map {(b, h4, w4)}")
+    rows = min(STEM_ROWS, h4)
+    need = -(-w4 // STEM_STRIP_CELLS)
+    tiles_x = -(-need // STEM_MAX_STRIPS)
+    strips = -(-need // tiles_x)
+    tiles_x = -(-w4 // (STEM_STRIP_CELLS * strips))
+    bands = -(-h4 // rows)
+    tiles = b * bands * tiles_x
+    return StemPlan(factor, rows, strips, bands, tiles_x, tiles,
+                    (min(tiles, STEM_CTAS_PER_SM * SMS),), 32 * strips,
+                    stem_smem(rows, strips, factor), STEM_KERNEL, 1, True)
+
+
 # ------------------------------------------------------------ kernel B1
 
 def stem_s2d_reference(x, w, b, h4: int, w4: int):
@@ -130,15 +233,18 @@ def stem_s2d_reference(x, w, b, h4: int, w4: int):
 
 
 _STEM_SIGNATURES = {
-    "fastdet_stem_s2d": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+    "fastdet_stem_s2d": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                          + [ctypes.c_void_p], ctypes.c_int),
+    "fastdet_stem_smem": ([ctypes.c_int] * 2, ctypes.c_size_t),
+    "fastdet_stem_ctas_per_sm": ([ctypes.c_int] * 2, ctypes.c_int),
 }
 
 
 def stem_s2d(x, w, b, h4: int, w4: int):
-    """→ (B, 24, h4, w4) f32.  CUDA: the kernel of `csrc/stem_s2d.cu`, with
-    `w` and `b` f32 on the host (they travel as the kernel's parameter
-    block); CPU: the plain version."""
+    """→ (B, 24, h4, w4) f32.  CUDA: the stem kernel through
+    `csrc/stem_s2d.cu` as `stem_plan(..., 4)` launches it, with `w` and `b`
+    f32 on the host (they travel as the kernel's parameter block); CPU: the
+    plain version."""
     dev = x.device
     if dev.type == "cpu":
         return stem_s2d_reference(x, w, b, h4, w4)
@@ -158,14 +264,18 @@ def stem_s2d(x, w, b, h4: int, w4: int):
             raise ValueError(
                 f"stem_s2d: the weights are kernel parameters: expected a "
                 f"contiguous f32 {shape} tensor on the CPU")
+    if x.data_ptr() % 4:   # the kernel copies 4-byte plane words: an
+        x = x.clone()      # unaligned view goes through an aligned copy
+    plan = stem_plan(bsz, h4, w4, 4)
     out = torch.empty((bsz, 24, h4, w4), dtype=torch.float32, device=dev)
     lib = _build.load("stem_s2d", _STEM_SIGNATURES)
     with torch.cuda.device(dev):
         rc = lib.fastdet_stem_s2d(
             x.data_ptr(), out.data_ptr(), w.data_ptr(), b.data_ptr(), bsz,
-            h4, w4, npad, torch.cuda.current_stream(dev).cuda_stream)
+            h4, w4, npad, plan.rows, plan.strips, plan.grid[0],
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, "stem_s2d")
-    stem_s2d.launches += 1
+    stem_s2d.launches += plan.launches
     return out
 
 
@@ -424,15 +534,18 @@ def stem_s2d8_reference(x, w, b, h8: int, w8: int):
 
 
 _STEM8_SIGNATURES = {
-    "fastdet_stem_s2d8": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+    "fastdet_stem_s2d8": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                           + [ctypes.c_void_p], ctypes.c_int),
+    "fastdet_stem_smem": ([ctypes.c_int] * 2, ctypes.c_size_t),
+    "fastdet_stem_ctas_per_sm": ([ctypes.c_int] * 2, ctypes.c_int),
 }
 
 
 def stem_s2d8(x, w, b, h8: int, w8: int):
     """→ (B, 24, 2·h8, 2·w8) f32, NCHW (the layout the stage kernel B9
-    reads).  CUDA: the kernel of `csrc/stem_s2d8.cu`, with `w` and `b` f32
-    on the host (its parameter block); CPU: the plain version."""
+    reads).  CUDA: the stem kernel through `csrc/stem_s2d8.cu` as
+    `stem_plan(..., 8)` launches it, with `w` and `b` f32 on the host (its
+    parameter block); CPU: the plain version."""
     dev = x.device
     if dev.type == "cpu":
         return stem_s2d8_reference(x, w, b, h8, w8)
@@ -452,15 +565,19 @@ def stem_s2d8(x, w, b, h8: int, w8: int):
             raise ValueError(
                 f"stem_s2d8: the weights are kernel parameters: expected a "
                 f"contiguous f32 {shape} tensor on the CPU")
+    if x.data_ptr() % 4:   # the kernel copies 4-byte plane words: an
+        x = x.clone()      # unaligned view goes through an aligned copy
+    plan = stem_plan(bsz, 2 * h8, 2 * w8, 8)
     out = torch.empty((bsz, 24, 2 * h8, 2 * w8), dtype=torch.float32,
                       device=dev)
     lib = _build.load("stem_s2d8", _STEM8_SIGNATURES)
     with torch.cuda.device(dev):
         rc = lib.fastdet_stem_s2d8(
             x.data_ptr(), out.data_ptr(), w.data_ptr(), b.data_ptr(), bsz,
-            h8, w8, npad, torch.cuda.current_stream(dev).cuda_stream)
+            h8, w8, npad, plan.rows, plan.strips, plan.grid[0],
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, "stem_s2d8")
-    stem_s2d8.launches += 1
+    stem_s2d8.launches += plan.launches
     return out
 
 

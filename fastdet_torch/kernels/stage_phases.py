@@ -13,17 +13,14 @@ call, the plan's launch) of the whole kernel and of each cut build.
 
 from __future__ import annotations
 
-import ctypes
 import os
-import shutil
-import subprocess
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from fastdet_torch.kernels import _build
 from fastdet_torch.kernels import fused_infer as fi
+from fastdet_torch.kernels.phase_cuts import build_variants, ms
 
 HEADER = "span_block.cuh"
 PW1_S2 = ("    pw_phase<MID>(sm, tsrc, tdst, wb, wb + MID * MID,\n"
@@ -56,54 +53,6 @@ CUTS = {
 }
 
 
-def _cut_source(text: str, pairs) -> str:
-    for old, new in pairs:
-        if old not in text:
-            raise RuntimeError(f"stage_phases: {old.strip()!r} is not in "
-                               f"{HEADER}; update CUTS")
-        text = text.replace(old, new)
-    return text
-
-
-def _build_variant(name: str, pairs, root: str) -> dict:
-    d = os.path.join(root, name.replace(" ", "_").replace("+", "_"))
-    os.makedirs(d, exist_ok=True)
-    for f in ("span.cu", "s2span.cu"):
-        shutil.copy(os.path.join(_build.CSRC, f), d)
-    with open(os.path.join(_build.CSRC, HEADER)) as f:
-        text = _cut_source(f.read(), pairs)
-    with open(os.path.join(d, HEADER), "w") as f:
-        f.write(text)
-    libs = {}
-    for src, sigs in (("span", fi._SPAN_SIGNATURES),
-                      ("s2span", fi._S2SPAN_SIGNATURES)):
-        out = os.path.join(d, src + ".so")
-        p = subprocess.run([_build.nvcc_path(), *_build.flags(src), "-o",
-                            out, os.path.join(d, src + ".cu")],
-                           capture_output=True, text=True, check=False)
-        if p.returncode:
-            raise RuntimeError(f"nvcc failed on {name}/{src}:\n{p.stderr}")
-        lib = ctypes.CDLL(out)
-        for fn, (argtypes, restype) in sigs.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = restype
-        libs[src] = lib
-    return libs
-
-
-def _ms(fn, calls: int = 20) -> float:
-    for _ in range(3):
-        fn()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(calls):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / calls
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("stage_phases: needs a CUDA card")
@@ -113,12 +62,9 @@ def main() -> int:
     from fastdet_torch.kernels.fold import STAGES
     disable_tf32(torch.device("cuda"))
     root = os.path.join(os.path.dirname(_build.BUILD_DIR), "stage_phases")
-    variants = {"whole": []}
-    variants.update(CUTS)
-    with ThreadPoolExecutor(len(variants)) as pool:
-        libs = dict(zip(variants, pool.map(
-            lambda kv: _build_variant(kv[0], kv[1], root),
-            variants.items())))
+    libs = build_variants(CUTS, root, HEADER,
+                          {"span": fi._SPAN_SIGNATURES,
+                           "s2span": fi._S2SPAN_SIGNATURES})
     weights = os.path.join(os.path.dirname(_build._PKG), "weights",
                            "coco2017-ref.npz")
     _, p = fi.build_fused_forward(load_state_dict(weights))
@@ -139,11 +85,11 @@ def main() -> int:
             out = torch.empty_like(xin)
             times = {}
             for name, lib in libs.items():
-                t2 = _ms(lambda: lib["span"].fastdet_span(
+                t2 = ms(lambda: lib["span"].fastdet_span(
                     xin.data_ptr(), out.data_ptr(), out.data_ptr(),
                     w2.data_ptr(), b, c, h, w, nblk, p2.rows, p2.cluster,
                     0, stream))
-                t9 = _ms(lambda: lib["s2span"].fastdet_s2span(
+                t9 = ms(lambda: lib["s2span"].fastdet_s2span(
                     x.data_ptr(), out.data_ptr(), out.data_ptr(),
                     w9.data_ptr(), b, c // 2, x.shape[2], x.shape[3], nblk,
                     p9.rows, p9.rows, p9.cluster, 0, stream))

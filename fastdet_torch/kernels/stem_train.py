@@ -272,7 +272,7 @@ BWD_TILE = 8            # a backward tile is 8×8 cells (kBT)
 BWD_THREADS = 256
 BWD_HALO = 33           # halo conv outputs a backward tile recomputes
 SMEM_PER_CTA = 232_448  # bytes of shared memory a CTA may use on sm_90
-SMS = 132
+SMS = 132               # the H100's SMs
 FWD_KERNELS = ("stem_fwd_sweep_kernel", "stem_stats_combine_kernel",
                "stem_fwd_emit_kernel")
 BWD_KERNELS = ("stem_bwd_sums_kernel", "stem_bwd_sweep_kernel",

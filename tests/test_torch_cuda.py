@@ -24,12 +24,13 @@ from fastdet_torch.serve import DevicePipeline, FusedPipeline
 from torch_cases import (ANCHORS, BOX_ULPS_CARD, IOU, NC, S2SPAN_CASES,
                          SPAN_CASES,
                          SPAN_TRAIN_B1, SPAN_TRAIN_EDGE, SPAN_TRAIN_FULL,
-                         SPAN_TRAIN_SMALL, STEM8_CASES, STEM_TRAIN_CASES,
+                         SPAN_TRAIN_SMALL, STEM8_CASES, STEM_CASES,
+                         STEM_TRAIN_CASES,
                          box_ulps, crowded, grad_err, head_outputs,
                          make_inputs, pool_ties, port_geo, s2span_case,
                          span_train_case, span_train_grad_errs,
                          staged_reference, staged_window, stem8_case,
-                         stem_train_case)
+                         stem_case, stem_train_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -242,23 +243,66 @@ def _span_weights(packed, stage):
     return packed[f"s{stage}_span"], reps - 1
 
 
-@pytest.mark.parametrize("b,hw", [(1, (352, 352)), (128, (352, 352)),
-                                  (2, (160, 96))])
-def test_stem_kernel_matches_plain(card, packed, b, hw):
-    """160×96: h4·w4 = 960 lanes padded to 1024, with junk in the pad."""
-    h4, w4 = hw[0] // 4, hw[1] // 4
-    rng = np.random.default_rng(b)
-    xs = fused_infer.pack_images_s2d(
-        rng.integers(0, 256, (b,) + hw + (3,), dtype=np.uint8))
-    xs[:, :, h4 * w4:] = rng.integers(0, 256, xs[:, :, h4 * w4:].shape)
-    x = torch.from_numpy(xs).to(card)
+@pytest.mark.parametrize("case", STEM_CASES,
+                         ids=[f"b{b}-{h}x{w}" for b, h, w in STEM_CASES])
+def test_stem_kernel_matches_plain(card, packed, case):
+    """b1 and b128 352², 160×96 (960 lanes padded to 1024, junk in the
+    pad), b32 640² (B6) and tiles cut off at the image's edge; one launch
+    (`stem_plan`)."""
+    b, hgt, wid = case
+    h4, w4 = hgt // 4, wid // 4
+    x = stem_case(b + hgt, b, hgt, wid, card)
     w, bias = packed["stem_w"], packed["stem_b"]
     before = fused_infer.stem_s2d.launches
     got = fused_infer.stem_s2d(x, w, bias, h4, w4)
-    assert fused_infer.stem_s2d.launches == before + 1
+    assert fused_infer.stem_s2d.launches == before + fused_infer.stem_plan(
+        b, h4, w4, 4).launches == before + 1
     want = fused_infer.stem_s2d_reference(x, w, bias, h4, w4)
     torch.cuda.synchronize()
     assert tuple(got.shape) == (b, 24, h4, w4)
+    assert float((got - want).abs().max()) <= ATOL
+
+
+def test_stem_plan_matches_the_kernels(card):
+    """The plan's shared memory is the stem kernel's own
+    (`stem_smem_bytes` in csrc/stem_core.cuh, through `fastdet_stem_smem`
+    of the factor's library) at every shape the card tests run, and an SM
+    holds the CTAs the plan's persistent grid counts on."""
+    from fastdet_torch.kernels import _build
+    libs = {4: _build.load("stem_s2d", fused_infer._STEM_SIGNATURES),
+            8: _build.load("stem_s2d8", fused_infer._STEM8_SIGNATURES)}
+    shapes = ([(b, h // 4, w // 4, 4) for b, h, w in STEM_CASES]
+              + [(b, h // 4, w // 4, 8) for b, h, w in STEM8_CASES])
+    for b, h4, w4, factor in shapes:
+        plan = fused_infer.stem_plan(b, h4, w4, factor)
+        assert libs[factor].fastdet_stem_smem(plan.rows, plan.strips) == \
+            plan.smem_bytes, (b, h4, w4, factor)
+        assert libs[factor].fastdet_stem_ctas_per_sm(
+            plan.rows, plan.strips) >= fused_infer.STEM_CTAS_PER_SM
+
+
+@pytest.mark.parametrize("factor", [4, 8])
+@pytest.mark.parametrize("offset", [1, 2])
+def test_stems_take_unaligned_views(card, packed, factor, offset):
+    """A contiguous uint8 view that starts off a 4-byte boundary (the
+    kernel copies 4-byte plane words): the plain version's map, one
+    launch."""
+    w, bias = packed["stem_w"], packed["stem_b"]
+    case = stem_case if factor == 4 else stem8_case
+    fn, ref = ((fused_infer.stem_s2d, fused_infer.stem_s2d_reference)
+               if factor == 4 else
+               (fused_infer.stem_s2d8, fused_infer.stem_s2d8_reference))
+    x = case(offset, 2, 160, 96, card)
+    view = torch.empty(x.numel() + offset, dtype=torch.uint8,
+                       device=card)[offset:].view(x.shape)
+    view.copy_(x)
+    assert view.is_contiguous() and view.data_ptr() % 4
+    hk, wk = 160 // factor, 96 // factor
+    before = fn.launches
+    got = fn(view, w, bias, hk, wk)
+    assert fn.launches == before + 1
+    want = ref(x, w, bias, hk, wk)
+    torch.cuda.synchronize()
     assert float((got - want).abs().max()) <= ATOL
 
 

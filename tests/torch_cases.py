@@ -275,6 +275,29 @@ def pool_ties(x, w, stats, gamma, beta, h4, w4, g):
     return int(((win == top).sum(1) > 1)[top[:, 0] > 0].sum())
 
 
+# ---------------------------------------------- the inference stem B1 (B6)
+
+# (b, H, W): the s2d(4) stem B1 at b1 and b128 352² (88² cells, 7,744 of
+# 7,808 lanes), b2 160×96 (960 of 1,024 lanes, junk in the pad), b32 640²
+# (B6: 25,600 lanes, no pad), and sizes whose tiles are cut off at the
+# image's edge: 36×52 (9×13 cells) and 20×12 (5×3)
+STEM_CASES = ((1, 352, 352), (128, 352, 352), (2, 160, 96), (32, 640, 640),
+              (2, 36, 52), (3, 20, 12))
+
+
+def stem_case(seed, b, hgt, wid, device="cpu", tie=False):
+    """Seeded s2d(4) uint8 images (B, 48, npad) (noise, with `tie_blocks`
+    if tie) with junk in the pad lanes, on `device`."""
+    import torch
+    from fastdet_torch.kernels.fused_infer import pack_images_s2d
+    rng = np.random.default_rng(seed)
+    img = rng.integers(0, 256, (b, hgt, wid, 3), dtype=np.uint8)
+    xs = pack_images_s2d(tie_blocks(img) if tie else img)
+    n = (hgt // 4) * (wid // 4)
+    xs[:, :, n:] = rng.integers(0, 256, xs[:, :, n:].shape)
+    return torch.from_numpy(xs).to(device)
+
+
 # ---------------------------------------- the flag paths' kernels B10, B9
 
 # (b, H, W): the s2d(8) stem B10 at b1 and b128 352² (44² coarse cells,
