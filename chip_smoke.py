@@ -22,7 +22,10 @@ Phases:
   1. device: card name and power limit, kernel build times and ptxas info;
   2. rank_decode_nms against its plain version at every shape class the
      port dispatches (B ∈ {1, 128}, k ∈ {128, 256, 384}, N = 1815,
-     nc = 80);
+     nc = 80) and at n_v ∈ `NV_CLASSES` of a k = 384 window (prefix and
+     scattered validity); each class's time by kernel name and device
+     launches (torch.profiler), held to `rank_decode_nms_plan`, beside
+     its time back to back;
   2c. nms_keep (keep_mask_batch) bitwise against its plain version on
      seeded crowded fields, k ∈ {385, 512, 1024, 1815, 2048} × B ∈ {1, 8,
      32, 64, 128}, in both variants of `nms_keep_plan`, and
@@ -47,7 +50,9 @@ Phases:
   4. serving: ≥ 8 concurrent raw requests through the HTTP server, each
      answer equal to `DevicePipeline` on the same batch; a conf-0.01 batch
      that fills the 128-wide NMS window, against the CPU pipeline; the
-     b128 throughput and the split of its batch;
+     b128 throughput and the split of its batch; rank_decode_nms on that
+     batch's window: its n_v per image, its time on the device by kernel
+     name and device launches (held to the plan) and back to back;
   4b. the same requests over `FusedPipeline`: each answer equal to
      `FusedPipeline` on the same batch, detections as `DevicePipeline`'s;
      the three kernels' launch counts on this path; b128 throughput of both
@@ -118,7 +123,8 @@ Phases:
      ms/step, img/s and a profile of the three modes (B7's kernels'
      share of the s2d step read from its profile);
   6. the kernel summary (a JSON line: launches of stem_s2d, span and
-     rank_decode_nms from the fused serving path, of nms_keep from the
+     rank_decode_nms from the fused serving path (rank_decode_nms's ms
+     its device time on the served window, phase 4), of nms_keep from the
      eval path, of stem_s2d at 640² from FusedPipeline there, of
      span_train_fwd/bwd from the fused training run, of stem_train_fwd/bwd
      from the s2d training runs at group 1 and 16, of stem_s2d8 and
@@ -335,45 +341,67 @@ def phase_device():
     return card
 
 
+def rdn_split(fn, what: str, b: int, k: int):
+    """One rank_decode_nms call's device time by kernel name and its
+    device launches (torch.profiler), held to `rank_decode_nms_plan`
+    (`kernel_launch_split`) → device ms a call."""
+    from fastdet_torch.kernels import pp_fused
+    plan = pp_fused.rank_decode_nms_plan(b, k)
+    split, _ = kernel_launch_split(
+        fn, pp_fused.rank_decode_nms, what, plan.launches, plan.kernel,
+        f"{plan.ctas} CTAs of {plan.threads} threads, {plan.smem_bytes} B "
+        f"of shared memory each", tries=5)
+    return split[plan.kernel][0]
+
+
 def phase_kernels():
     import torch
-    from torch_cases import (BOX_ULPS_CARD, IOU, NC, box_ulps, make_inputs,
-                             port_geo)
+    from torch_cases import (BOX_ULPS_CARD, IOU, NC, NV_CLASSES, box_ulps,
+                             make_inputs, nv_window, port_geo)
     from fastdet_torch.kernels import pp_fused
     geo = port_geo("cuda:0")
     max_err, bitwise = 0.0, True
-    for b in (1, 128):
-        for k in (128, 256, 384):
-            for case in ("dense", "sparse", "clustered"):
-                args = [torch.from_numpy(a).cuda() for a in
-                        make_inputs(k + b, b, k, case)] + [geo]
-                keep, boxes = pp_fused.rank_decode_nms(
-                    *args, nc=NC, iou_thres=IOU)
-                rkeep, rboxes = pp_fused.rank_decode_nms_reference(
-                    *args, nc=NC, iou_thres=IOU)
-                torch.cuda.synchronize()
-                nb, rb = boxes.cpu().numpy(), rboxes.cpu().numpy()
-                ulps = float(box_ulps(nb, rb).max())
-                n_valid = int((args[0] < 0).sum())
-                n_keep = int(keep.sum())
-                check(torch.equal(keep, rkeep),
-                      f"keep differs at b={b} k={k} {case}")
-                check(ulps <= BOX_ULPS_CARD,
-                      f"boxes {ulps} ULPs off at b={b} k={k} {case}")
-                check(0 < n_keep < n_valid,
-                      f"trivial case b={b} k={k} {case}: {n_keep}/{n_valid}")
-                max_err = max(max_err, float(np.abs(nb - rb).max()))
-                bitwise &= bool(np.array_equal(nb, rb))
-                run = (lambda a=args: pp_fused.rank_decode_nms(
-                    *a, nc=NC, iou_thres=IOU))
-                plain = (lambda a=args: pp_fused.rank_decode_nms_reference(
-                    *a, nc=NC, iou_thres=IOU))
-                ms, plain_ms = cuda_ms(run, 50), cuda_ms(plain, 3, 1)
-                log(f"  rank_decode_nms b={b} k={k} {case}: keep equal "
-                    f"({n_keep}/{n_valid} kept), boxes {ulps:g} ULPs, "
-                    f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms")
-    log(f"phase 2 kernels: rank_decode_nms equals its plain version at 18 "
-        f"shape classes; boxes bitwise: {bitwise}, max |Δ| {max_err:g}")
+    classes = [(b, k, case, make_inputs(k + b, b, k, case))
+               for b in (1, 128) for k in (128, 256, 384)
+               for case in ("dense", "sparse", "clustered")]
+    classes += [(b, 384, f"n_v {nv}", nv_window(nv, b))
+                for b in (1, 128) for nv in NV_CLASSES]
+    for b, k, case, arrays in classes:
+        args = [torch.from_numpy(a).cuda() for a in arrays] + [geo]
+        keep, boxes = pp_fused.rank_decode_nms(*args, nc=NC, iou_thres=IOU)
+        rkeep, rboxes = pp_fused.rank_decode_nms_reference(
+            *args, nc=NC, iou_thres=IOU)
+        torch.cuda.synchronize()
+        nb, rb = boxes.cpu().numpy(), rboxes.cpu().numpy()
+        ulps = float(box_ulps(nb, rb).max())
+        n_valid = int((args[0] < 0).sum())
+        n_keep = int(keep.sum())
+        check(torch.equal(keep, rkeep), f"keep differs at b={b} k={k} {case}")
+        check(ulps <= BOX_ULPS_CARD,
+              f"boxes {ulps} ULPs off at b={b} k={k} {case}")
+        if case.startswith("n_v"):
+            nv = int(case.split()[1])
+            check(n_valid == nv * b and (n_keep == n_valid if nv <= 1
+                                         else 0 < n_keep < n_valid),
+                  f"b={b} k={k} {case}: {n_keep}/{n_valid} kept")
+        else:
+            check(0 < n_keep < n_valid,
+                  f"trivial case b={b} k={k} {case}: {n_keep}/{n_valid}")
+        max_err = max(max_err, float(np.abs(nb - rb).max()))
+        bitwise &= bool(np.array_equal(nb, rb))
+        run = (lambda a=args: pp_fused.rank_decode_nms(
+            *a, nc=NC, iou_thres=IOU))
+        plain = (lambda a=args: pp_fused.rank_decode_nms_reference(
+            *a, nc=NC, iou_thres=IOU))
+        what = f"rank_decode_nms b={b} k={k} {case}"
+        dev_ms = rdn_split(run, what, b, k)
+        ms, plain_ms = cuda_ms(run, 50), cuda_ms(plain, 3, 1)
+        log(f"  {what}: keep equal ({n_keep}/{n_valid} kept), boxes "
+            f"{ulps:g} ULPs, kernel {dev_ms:.4f} ms on the device, {ms:.4f} "
+            f"back to back, plain {plain_ms:.3f} ms")
+    log(f"phase 2 kernels: rank_decode_nms equals its plain version at "
+        f"{len(classes)} shape classes (18 windows, 18 n_v classes); boxes "
+        f"bitwise: {bitwise}, max |Δ| {max_err:g}")
     return max_err
 
 
@@ -517,7 +545,7 @@ def phase_serving(sd, photo, card):
     cfg = Config.from_file(DATA)
     names = load_names(resolve_path(cfg.names, DATA))
     pipe = DevicePipeline(Detector(80, 3), sd, cfg)
-    images = photo_variants(photo, 12, seed=0)
+    images, big = served_batch(photo)
     answers, _, stats, launches = serve_concurrently(
         pipe, images, cfg, names, [pp_fused.rank_decode_nms])
     launches = launches["rank_decode_nms"]
@@ -551,10 +579,7 @@ def phase_serving(sd, photo, card):
         f"detections {[len(a) for a in got]}, equal to the CPU pipeline "
         f"(classes; scores ≤ 1e-4, boxes ≤ 1e-2 px)")
 
-    # throughput at b128 on the device, and the main path's own kernel
-    # inputs for the kernel's time
-    big = torch.from_numpy(np.concatenate(
-        [images] * 11)[:128]).cuda()
+    # throughput at b128 on the device
     ips_ms = cuda_ms(lambda: pipe.detect(big), 20)
     host_big = big.cpu().numpy()
     pipe(host_big)
@@ -568,33 +593,59 @@ def phase_serving(sd, photo, card):
     return launches, big, pipe, images
 
 
-def main_path_kernel_timing(sd, big):
-    """The b128 serving batch split into forward and postprocess, and
-    rank_decode_nms on the inputs that batch gives it."""
+def served_batch(photo):
+    """The served batch: 12 variants of the photo (phase 4's concurrent
+    requests) and those repeated to b128 → (images (12, 352, 352, 3) u8,
+    big (128, 352, 352, 3) u8 on the card)."""
     import torch
+    images = photo_variants(photo, 12, seed=0)
+    return images, torch.from_numpy(np.concatenate([images] * 11)[:128]).cuda()
+
+
+def served_window(sd, big):
+    """The reference model (state dict `sd`, f32, TF32 off) on the served
+    batch `big`, and the window its postprocess hands rank_decode_nms at
+    the serving point (conf 0.3, k = 128; `ops.postprocess.postprocess`'s
+    steps) → (model, its input x, its outputs, (neg_k, combo_k, regs,
+    geo)), all on the card."""
+    import torch
+    from fastdet_torch import disable_tf32
     from fastdet_torch.config import Config
-    from fastdet_torch.kernels import pp_fused
     from fastdet_torch.models import Detector
     from fastdet_torch.ops.postprocess import (_anchors_array, _geo_table,
-                                               postprocess, rank_scores,
-                                               rank_topk)
-    from torch_cases import BOX_ULPS_CARD, IOU, NC, box_ulps
+                                               rank_scores, rank_topk)
+    from torch_cases import NC
+    disable_tf32(torch.device("cuda"))
     cfg = Config.from_file(DATA)
-    anchors = np.asarray(cfg.anchors, np.float32).reshape(2, 3, 2)
     model = Detector(80, 3)
     model.load_state_dict(sd)
     model = model.cuda().eval()
     with torch.inference_mode():
         x = big.float() / 255.0
         outputs = model(x)
-        fwd_ms = cuda_ms(lambda: model(x), 20)
-        post_ms = cuda_ms(lambda: postprocess(
-            outputs, anchors, (352, 352), max_nms=128), 20)
         ranked, reg_f, cls_f, meta = rank_scores(outputs, (352, 352), 0.3)
         neg_k, combo_k = rank_topk(ranked, cls_f, nc=NC, k=128)
         geo = _geo_table(meta, tuple(_anchors_array(np.asarray(
             cfg.anchors, np.float32)).ravel().tolist()), "cuda:0")
-        args = (neg_k, combo_k, reg_f.contiguous(), geo)
+    return model, x, outputs, (neg_k, combo_k, reg_f.contiguous(), geo)
+
+
+def main_path_kernel_timing(sd, big):
+    """The b128 serving batch split into forward and postprocess, and
+    rank_decode_nms on the inputs that batch gives it."""
+    import torch
+    from fastdet_torch.config import Config
+    from fastdet_torch.kernels import pp_fused
+    from fastdet_torch.ops.postprocess import postprocess
+    from torch_cases import BOX_ULPS_CARD, IOU, NC, box_ulps
+    cfg = Config.from_file(DATA)
+    anchors = np.asarray(cfg.anchors, np.float32).reshape(2, 3, 2)
+    model, x, outputs, args = served_window(sd, big)
+    neg_k, combo_k = args[:2]
+    with torch.inference_mode():
+        fwd_ms = cuda_ms(lambda: model(x), 20)
+        post_ms = cuda_ms(lambda: postprocess(
+            outputs, anchors, (352, 352), max_nms=128), 20)
         keep, boxes = pp_fused.rank_decode_nms(*args, nc=NC, iou_thres=IOU)
         rkeep, rboxes = pp_fused.rank_decode_nms_reference(
             *args, nc=NC, iou_thres=IOU)
@@ -604,17 +655,24 @@ def main_path_kernel_timing(sd, big):
         ulps = float(box_ulps(nb, rb).max())
         check(ulps <= BOX_ULPS_CARD,
               f"boxes {ulps} ULPs off on the served batch")
-        ms = cuda_ms(lambda: pp_fused.rank_decode_nms(
+        b2b_ms = cuda_ms(lambda: pp_fused.rank_decode_nms(
             *args, nc=NC, iou_thres=IOU), 100, 10)
         plain_ms = cuda_ms(lambda: pp_fused.rank_decode_nms_reference(
             *args, nc=NC, iou_thres=IOU), 10, 2)
+        ms = rdn_split(lambda: pp_fused.rank_decode_nms(
+            *args, nc=NC, iou_thres=IOU),
+            "rank_decode_nms on the served b128 batch", 128, 128)
+    nv = (neg_k < 0).sum(1).float().cpu()
     bound_ms, bound_by = rdn_bound(neg_k, combo_k)
     log(f"  b128 split (CUDA events): forward {fwd_ms:.3f} ms, postprocess "
         f"{post_ms:.3f} ms (scores, sort, window, rank_decode_nms, "
         f"compaction)")
-    log(f"  rank_decode_nms on the served b128 batch (B=128, k=128, N=1815): "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.6f} "
-        f"ms ({bound_by}), keep equal, boxes {ulps:g} ULPs (max |Δ| {err:g})")
+    log(f"  rank_decode_nms on the served b128 batch (B=128, k=128, N=1815; "
+        f"n_v per image min {int(nv.min())} median {float(nv.median()):g} "
+        f"max {int(nv.max())}, {int(keep.sum())} kept): kernel {ms:.4f} ms "
+        f"on the device, {b2b_ms:.4f} back to back, plain {plain_ms:.3f} ms, "
+        f"bound {bound_ms:.6f} ms ({bound_by}), keep equal, boxes {ulps:g} "
+        f"ULPs (max |Δ| {err:g})")
     return ms, plain_ms, bound_ms, bound_by, err
 
 
@@ -1023,7 +1081,14 @@ def phase_fused_timing(sd, dev_pipe, fused_pipe, big, card):
             f"{', '.join(f'{x:.3f}' for x in dev_ms[k])} ms), "
             f"{128e3 / host_ms[k]:.1f} img/s host to host")
 
-    profile_device(lambda: fused_pipe.detect(big_s2d), "fused b128 batches")
+    inside = profile_device(lambda: fused_pipe.detect(big_s2d),
+                            "fused b128 batches")
+    if inside is not None:
+        log("  the port's kernels inside a fused b128 batch (torch.profiler, "
+            "ms per batch; alone: phases 4 and 4b): " + ", ".join(
+                f"{name} {inside.get(name, 0.0):.4f}" for name in (
+                    "stem_kernel", "span_stage_kernel",
+                    "rank_decode_nms_kernel")))
     out = {}
     with torch.inference_mode():
         cum = {}

@@ -1,8 +1,9 @@
 """Builds of a kernel with phases cut out of its header, for timing on the
 card, whose machine has no `ncu`: a phase's share is read from the builds
 without it.  A cut build computes a wrong function; its outputs are not
-checked.  `stage_phases` (B2, B9) and `stem_phases` (B1, B6, B10) hold
-the cuts and the calls; this module builds and times them.
+checked.  `stage_phases` (B2, B9), `stem_phases` (B1, B6, B10) and the
+repo root's `pp_phases.py` (B3) hold the cuts and the calls; this module
+builds and times them.
 """
 
 from __future__ import annotations

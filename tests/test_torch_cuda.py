@@ -21,13 +21,14 @@ from fastdet_torch.models import Detector
 from fastdet_torch.ops import nms
 from fastdet_torch.ops.postprocess import postprocess
 from fastdet_torch.serve import DevicePipeline, FusedPipeline
-from torch_cases import (ANCHORS, BOX_ULPS_CARD, IOU, NC, S2SPAN_CASES,
-                         SPAN_CASES,
+from torch_cases import (ANCHORS, BOX_ULPS_CARD, IOU, NC, NV_CLASSES,
+                         OUT_OF_RANGE, S2SPAN_CASES, SPAN_CASES,
                          SPAN_TRAIN_B1, SPAN_TRAIN_EDGE, SPAN_TRAIN_FULL,
                          SPAN_TRAIN_SMALL, STEM8_CASES, STEM_CASES,
                          STEM_TRAIN_CASES,
                          box_ulps, crowded, grad_err, head_outputs,
-                         make_inputs, pool_ties, port_geo, s2span_case,
+                         make_inputs, nv_window, out_of_range_window,
+                         pool_ties, port_geo, s2span_case,
                          span_train_case, span_train_grad_errs,
                          staged_reference, staged_window, stem8_case,
                          stem_case, stem_train_case)
@@ -64,6 +65,98 @@ def test_kernel_matches_plain(card, b, k, case):
     assert box_ulps(boxes.cpu().numpy(), rboxes.cpu().numpy()).max() \
         <= BOX_ULPS_CARD
     assert 0 < int(keep.sum()) < int((args[0] < 0).sum())
+
+
+def _kernel_and_plain(card, arrays):
+    """rank_decode_nms on the card (one launch) and its plain version on
+    the same inputs → (keep, boxes, plain keep, plain boxes)."""
+    args = [torch.from_numpy(a).to(card) for a in arrays]
+    args.append(port_geo(str(card)))
+    before = pp_fused.rank_decode_nms.launches
+    keep, boxes = pp_fused.rank_decode_nms(*args, nc=NC, iou_thres=IOU)
+    assert pp_fused.rank_decode_nms.launches == before + 1
+    rkeep, rboxes = pp_fused.rank_decode_nms_reference(*args, nc=NC,
+                                                       iou_thres=IOU)
+    torch.cuda.synchronize()
+    return keep, boxes, rkeep, rboxes
+
+
+@pytest.mark.parametrize("b", [1, 128])
+@pytest.mark.parametrize("nv", NV_CLASSES)
+def test_kernel_matches_plain_across_words(card, b, nv):
+    """n_v on both sides of the compacted list's 64-candidate words, none,
+    one and all 384 valid (`nv_window`: prefix and scattered validity)."""
+    keep, boxes, rkeep, rboxes = _kernel_and_plain(card, nv_window(nv, b))
+    assert torch.equal(keep, rkeep)
+    assert box_ulps(boxes.cpu().numpy(), rboxes.cpu().numpy()).max() \
+        <= BOX_ULPS_CARD
+    assert int(keep.sum(1).max()) <= nv
+    if nv <= 1:
+        assert int(keep.sum()) == nv * b
+
+
+def test_kernel_with_out_of_range_combos(card):
+    """Out-of-range combos are never read: NaN box, never kept; every
+    other rank is the plain version's on the window with them invalid."""
+    neg_k, combo_k, regs, clean_neg, clean_combo = out_of_range_window()
+    geo = port_geo(str(card))
+    keep, boxes = pp_fused.rank_decode_nms(
+        *[torch.from_numpy(a).to(card) for a in (neg_k, combo_k, regs)],
+        geo, nc=NC, iou_thres=IOU)
+    rkeep, rboxes = pp_fused.rank_decode_nms_reference(
+        *[torch.from_numpy(a).to(card)
+          for a in (clean_neg, clean_combo, regs)],
+        geo, nc=NC, iou_thres=IOU)
+    torch.cuda.synchronize()
+    hit = torch.zeros_like(keep)
+    for m, i in OUT_OF_RANGE:
+        hit[m, i] = True
+        assert torch.isnan(boxes[m, i, 0]) and not boxes[m, i, 1:].any()
+    assert torch.equal(keep, rkeep) and not keep[hit].any()
+    assert box_ulps(boxes[~hit].cpu().numpy(),
+                    rboxes[~hit].cpu().numpy()).max() <= BOX_ULPS_CARD
+
+
+@pytest.mark.parametrize("conf,k", [(0.3, 128), (0.01, 384)])
+def test_kernel_matches_plain_on_served_windows(card, conf, k):
+    """The served path's windows (`rank_scores`, `rank_topk` on head
+    outputs, b8): validity a prefix of each window."""
+    from fastdet_torch.ops.postprocess import rank_scores, rank_topk
+    outs = [torch.from_numpy(o).to(card) for o in head_outputs(5, b=8)]
+    ranked, reg_f, cls_f, _ = rank_scores(outs, (352, 352), conf)
+    neg_k, combo_k = rank_topk(ranked, cls_f, nc=NC, k=k)
+    keep, boxes, rkeep, rboxes = _kernel_and_plain(
+        card, [t.cpu().numpy() for t in (neg_k, combo_k, reg_f)])
+    assert torch.equal(keep, rkeep)
+    assert box_ulps(boxes.cpu().numpy(), rboxes.cpu().numpy()).max() \
+        <= BOX_ULPS_CARD
+    assert 0 < int(keep.sum()) < int((neg_k < 0).sum())
+
+
+def test_rank_decode_nms_plan_matches_the_kernel(card):
+    """`rank_decode_nms_plan`'s shared memory is the kernel's own
+    (`fastdet_rank_decode_nms_smem`)."""
+    lib = pp_fused._build.load("pp_fused", pp_fused._SIGNATURES)
+    for k in (1, 63, 64, 65, 128, 129, 256, 383, 384):
+        plan = pp_fused.rank_decode_nms_plan(128, k)
+        assert lib.fastdet_rank_decode_nms_smem(k) == plan.smem_bytes, k
+
+
+def test_rank_decode_nms_wrapper_checks_its_inputs(card):
+    args = [torch.from_numpy(a).to(card)
+            for a in make_inputs(0, 2, 128, "dense")] + [port_geo(str(card))]
+    neg_k, combo_k, regs, geo = args
+    for bad in ((neg_k.double(), combo_k, regs, geo),
+                (neg_k, combo_k.long(), regs, geo),
+                (neg_k, combo_k, regs[:, :-1], geo),
+                (neg_k, combo_k, regs, geo.cpu()),
+                (neg_k[:, ::2], combo_k[:, ::2], regs, geo)):
+        with pytest.raises(ValueError, match="rank_decode_nms"):
+            pp_fused.rank_decode_nms(*bad, nc=NC, iou_thres=IOU)
+    wide = [torch.zeros((1, pp_fused.MAX_K + 1), dtype=t.dtype, device=card)
+            for t in (neg_k, combo_k)]
+    with pytest.raises(ValueError, match="rank_decode_nms"):
+        pp_fused.rank_decode_nms(*wide, regs[:1], geo, nc=NC, iou_thres=IOU)
 
 
 def test_wide_window_goes_through_nms_keep(card):

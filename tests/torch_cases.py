@@ -74,6 +74,43 @@ def make_inputs(seed, b, k, case):
     return neg_k.astype(np.float32), combo_k, regs
 
 
+# n_v classes of the serving kernel's tests and smoke: both sides of its
+# 64-candidate words, none, one and the whole k = 384 window
+NV_CLASSES = (0, 1, 63, 64, 65, 127, 128, 129, 384)
+
+
+def nv_window(nv, b, k=384):
+    """`make_inputs`' tied window (every score equal, every candidate
+    valid) cut to n_v = nv valid candidates an image: a prefix of the
+    window in even images, a seeded scatter in odd ones."""
+    neg_k, combo_k, regs = make_inputs(nv, b, k, "tied")
+    rng = np.random.default_rng(nv)
+    for m in range(b):
+        drop = np.arange(nv, k) if m % 2 == 0 else rng.permutation(k)[nv:]
+        neg_k[m, drop] = 1.0
+    return neg_k, combo_k, regs
+
+
+# (image, rank) → a combo out of range: negative, or idx = combo // nc ≥ N
+OUT_OF_RANGE = {(0, 0): -1, (0, 5): -NC * 5, (0, 40): N * NC,
+                (1, 3): N * NC + 7, (1, 64): 2 ** 31 - 1,
+                (1, 127): -(2 ** 31)}
+
+
+def out_of_range_window():
+    """A dense b2 k128 window whose `OUT_OF_RANGE` ranks (all of them
+    valid by their score) carry combos out of range, and the same window
+    with those ranks made invalid and in range (score +1, combo 0) →
+    (neg_k, combo_k, regs, clean_neg, clean_combo)."""
+    neg_k, combo_k, regs = make_inputs(7, 2, 128, "dense")
+    clean_neg, clean_combo = neg_k.copy(), combo_k.copy()
+    for (m, i), c in OUT_OF_RANGE.items():
+        assert neg_k[m, i] < 0
+        combo_k[m, i] = c
+        clean_neg[m, i], clean_combo[m, i] = 1.0, 0
+    return neg_k, combo_k, regs, clean_neg, clean_combo
+
+
 def box_ulps(a, b):
     """|a − b| in ULPs of each box's largest |coordinate|."""
     scale = np.maximum(np.abs(a), np.abs(b)).max(-1, keepdims=True)
