@@ -12,8 +12,8 @@ over `DevicePipeline` and over `FusedPipeline` and checks the answers,
 drives the fused forward's five other combinations of `input_format` and
 `fuse_s2` into detections, evaluates seeded labelled photos through the
 eval entry point in both of its modes, serves 640² through
-`FusedPipeline`, and trains at full width on the default, fused and fused
-s2d paths.
+`FusedPipeline`, trains at full width on the default, fused and fused
+s2d paths, and serves, evaluates and trains the anchor-free family.
 One line per phase; any failed check ends the run with a non-zero exit.
 Without a card, or outside the repository, it exits non-zero and prints
 no result.
@@ -122,13 +122,37 @@ Phases:
      (in the s2d ones, the stem's three gradients also one by one);
      ms/step, img/s and a profile of the three modes (B7's kernels'
      share of the s2d step read from its profile);
+  8d. the anchor-free family: the golden detections
+     (tests/data/anchorfree_golden.json, `weights/anchorfree-synth.npz`,
+     128²) through `FusedPipeline(family="anchorfree")` (B1, B2, their
+     launches held to the plans) and through the nn path in cuDNN; at
+     full width (`AnchorFreeDetector(classes=80)`, seeded, 352², b128
+     photo variants packed s2d on the card) the fused maps within 2e-4
+     of the nn model's on three input forms, detections equal to the nn
+     path's at the serving point (conf 0.3, window 128) and the eval mAP
+     window (conf 0.01, window 1024) but for near ties (printed, each
+     with its distance from the threshold or its partner), B1 and B2
+     launched on the main
+     path (counts to 0 just before, read just after; the plain stem and
+     span swapped for ones that raise), img/s by CUDA-event medians,
+     `stem_kernel` and the stage kernel in the detect call's profile
+     held to `stem_plan` and `span_stage_plan`;
+     `run_evaluation(family="anchorfree")` on phase 7's images (labels
+     from the model's own detections, as phase 7's) in both modes, each
+     mode's P/R/AP/F1 exactly those of decode, `batched_nms`
+     and the metrics on the same forward's maps, the fused pass's within
+     1e-3 of the default pass's; 3 b128 352²
+     `Trainer(loss_fn=)` steps (finite losses, ms/step by CUDA events,
+     the idle share by torch.profiler) and a b4 128² step's loss within
+     1e-4 of the same step on the CPU;
   6. the kernel summary (a JSON line: launches of stem_s2d, span and
      rank_decode_nms from the fused serving path (rank_decode_nms's ms
      its device time on the served window, phase 4), of nms_keep from the
      eval path, of stem_s2d at 640² from FusedPipeline there, of
      span_train_fwd/bwd from the fused training run, of stem_train_fwd/bwd
      from the s2d training runs at group 1 and 16, of stem_s2d8 and
-     s2span from the flag paths of 4c), the card line, and
+     s2span from the flag paths of 4c; the phase line adds stem_s2d's and
+     span's launches on the anchor-free path of 8d), the card line, and
      the host time of each phase, and the last line {"ok": true,
      "device": {...}}.
 
@@ -1638,7 +1662,8 @@ def phase_eval(sd, photo, dev_pipe, card):
     forward outputs.  Then nms_keep timed at b128 on the eval batch's
     windows, k = 512 (B4's shape), 1024 (the P/R pass's) and 1815 (B5's),
     and both variants on their first b images.  → (launches,
-    {window: (ms, plain_ms, bound_ms, bound_by, max |Δ|)})."""
+    {window: (ms, plain_ms, bound_ms, bound_by, max |Δ|)}, the eval
+    images)."""
     import torch
     from torch_cases import ANCHORS, staged_window
     from fastdet_torch.cli.evaluation import (MAP_PASS, PR_PASS,
@@ -1792,7 +1817,7 @@ def phase_eval(sd, photo, dev_pipe, card):
                     f"(n_v {float(valid[:b].sum(1).float().mean()):.1f} on "
                     f"average, {int(valid[:b].sum(1).max())} at most): "
                     f"{variant_text(times, nk.nms_keep_plan(b, k).variant)}")
-    return launches, out
+    return launches, out, images
 
 
 def phase_640(sd, photo, card):
@@ -2531,6 +2556,458 @@ def phase_training(sd, photo, dev_pipe, card, b8, b7):
     return launches
 
 
+# ------------------------------------------ the anchor-free family (8d)
+
+AF_CLS_GAIN = 4.0   # out_cls ×4 on the seeded full-width model: its class
+                    # scores then cross both thresholds (conf 0.3, 0.01)
+AF_BOX_PX = 1e-3    # fused against nn detections: boxes within, in px
+AF_TIE = 1e-5       # scores this close may rank either way: the fused and
+                    # nn maps differ by ≤ 4e-5, the scores by ≤ 2.5e-6
+AF_IOU_TIE = 1e-3   # two NMS IoUs of one pair this far apart may fall on
+                    # either side of iou_thres: the NMS adds cls·4096 to
+                    # the coordinates, which f32 holds to 1/64 px there
+AF_EVAL_ATOL = 1e-3  # --fused against default P/R/AP/F1: such ties flip
+                     # a few of the ~60k detections of the mAP pass
+
+
+def pack_s2d_on_device(images, k: int = 4):
+    """(B, H, W, 3) uint8 tensor → (B, 3·k², pad128(H/k·W/k)) uint8, the
+    layout of `pack_images_s2d` (k = 4) and `pack_images_s2d8` (k = 8),
+    made on the tensor's device."""
+    import torch.nn.functional as F
+    b, ih, iw, _ = images.shape
+    h, w = ih // k, iw // k
+    x = images.reshape(b, h, k, w, k, 3).permute(0, 2, 4, 5, 1, 3)
+    x = x.reshape(b, 3 * k * k, h * w)
+    return F.pad(x, (0, -(-h * w // 128) * 128 - h * w)).contiguous()
+
+
+def af_full_width_model(x):
+    """AnchorFreeDetector(classes=80) at full width, its weights drawn
+    from a seeded generator (`seeded_init`: flax's LeCun-normal convs),
+    its BN running statistics then taken from 20 training-mode passes
+    over the f32 NHWC batch `x` (so that the fused path folds statistics
+    other than 0 and 1, and the maps have their real scale), out_cls
+    ×AF_CLS_GAIN.  → the model on the card, in eval mode."""
+    import torch
+    from fastdet_torch.models.anchorfree import (AnchorFreeDetector,
+                                                 seeded_init)
+    model = seeded_init(AnchorFreeDetector(80),
+                        torch.Generator().manual_seed(16)).cuda().train()
+    with torch.no_grad():
+        for _ in range(20):
+            model(x)
+        model.out_cls.weight.mul_(AF_CLS_GAIN)
+        model.out_cls.bias.mul_(AF_CLS_GAIN)
+    return model.eval()
+
+
+def af_cells(maps, hw):
+    """Every cell of the raw (obj, cls, reg) maps as `batched_nms` ranks
+    it → numpy (boxes xyxy (B,N,4), score (B,N), class (B,N), the gap to
+    the second class's score (B,N))."""
+    from fastdet_torch.models.anchorfree import decode_anchorfree
+    from fastdet_torch.ops.iou import xywh2xyxy
+    boxes, obj, cls = decode_anchorfree(*maps, hw)
+    top2 = (cls * obj[..., None]).topk(2, dim=-1)
+    v, i = top2.values.cpu().numpy(), top2.indices.cpu().numpy()
+    return (xywh2xyxy(boxes).cpu().numpy(), v[..., 0], i[..., 0],
+            v[..., 0] - v[..., 1])
+
+
+def af_disagreements(got, want, cells, conf_thres, iou_thres):
+    """Per image, the fused path's detections (dets, counts) against the
+    nn path's: the same rows (class, box within AF_BOX_PX, score within
+    AF_TIE), in the same order or, where two scores tie within AF_TIE,
+    in another.  A row that one path keeps and the other lacks is
+    explained by a near tie at its cell (`cells`: `af_cells` of each
+    path's maps, keyed "fused" and "nn"): its two best classes within
+    AF_TIE in either path; its score within AF_TIE of `conf_thres`; or,
+    in the path that lacks it, a kept row of its class that suppresses
+    it (the NMS's own f32 IoU on class-offset boxes above `iou_thres`)
+    where the path that keeps it puts the same pair's IoU at or below
+    `iou_thres` by less than AF_IOU_TIE, or with a score within AF_TIE
+    of its own, or that the first path lacks in its turn (the tie is
+    then that row's).  → (lines of images that disagree, each
+    unmatched row with its distances from the thresholds, whether all
+    are explained)."""
+    from fastdet_torch.ops.nms import MAX_WH
+    dets = {name: (d.cpu().numpy(), c.cpu().numpy())
+            for name, (d, c) in (("fused", got), ("nn", want))}
+
+    def iou(p, q):
+        """The IoU `ops.nms.keep_mask` compares, in its f32 operations on
+        the class-offset boxes (p's class)."""
+        off = np.float32(p[5] * MAX_WH)
+        p, q = (np.asarray(x[:4], np.float32) + off for x in (p, q))
+        lt, rb = np.maximum(p[:2], q[:2]), np.minimum(p[2:], q[2:])
+        wh = np.maximum(rb - lt, np.float32(0))
+        inter = wh[0] * wh[1]
+        area = [(x[2] - x[0]) * (x[3] - x[1]) for x in (p, q)]
+        return float(inter / (area[0] + area[1] - inter + np.float32(1e-9)))
+
+    def unmatched(a, b):
+        """Rows of a with no row of b of the same class, box and score
+        (one to one, in order), and the rows of b left over."""
+        free = list(range(len(b)))
+        left = []
+        for r in a:
+            j = next((j for j in free if b[j, 5] == r[5]
+                      and np.abs(b[j, :4] - r[:4]).max() <= AF_BOX_PX
+                      and abs(b[j, 4] - r[4]) <= AF_TIE), None)
+            if j is None:
+                left.append(r)
+            else:
+                free.remove(j)
+        return left, [b[j] for j in free]
+
+    lines, explained = [], True
+    for i in range(len(got[1])):
+        a = dets["fused"][0][i, :dets["fused"][1][i]]
+        b = dets["nn"][0][i, :dets["nn"][1][i]]
+        if (a.shape == b.shape and np.array_equal(a[:, 5], b[:, 5])
+                and np.abs(a[:, :4] - b[:, :4]).max(initial=0) <= AF_BOX_PX):
+            continue
+        only = dict(zip(("fused", "nn"), unmatched(a, b)))
+        if not only["fused"] and not only["nn"]:
+            lines.append(f"image {i}: the same {len(a)} rows, tied scores "
+                         f"(within {AF_TIE:g}) in another order")
+            continue
+        kept = {"fused": a, "nn": b}
+        parts = []
+        for name, other in (("fused", "nn"), ("nn", "fused")):
+            for r in only[name]:
+                boxes = cells[name][0][i]
+                c = int(np.abs(boxes - r[:4]).max(1).argmin())
+                gap = min(cells[n][3][i, c] for n in cells)
+                d_conf = abs(float(r[4]) - conf_thres)
+                ob, os_, oc = (cells[other][k][i, c] for k in range(3))
+                ob = np.append(ob, [os_, r[5]])
+                sup = [(iou(ob, q), q) for q in kept[other]
+                       if q[5] == r[5] and q[4] >= os_ - AF_TIE
+                       and iou(ob, q) > iou_thres]
+                why = []
+                if gap <= AF_TIE:
+                    why.append(f"its two best classes {gap:.3g} apart")
+                if d_conf <= AF_TIE:
+                    why.append(f"{d_conf:.3g} from conf {conf_thres}")
+                for v, q in sup:
+                    twin = [x for x in kept[name] if q[5] == x[5]
+                            and np.abs(q[:4] - x[:4]).max() <= AF_BOX_PX]
+                    v_here = iou(r, twin[0]) if twin else None
+                    if (not twin or abs(float(q[4]) - os_) <= AF_TIE
+                            or v - v_here <= AF_IOU_TIE):
+                        why.append(
+                            f"suppressed in {other} by a row of score "
+                            f"{q[4]:.7f} at IoU {v:.7f}"
+                            + (f", a row {name} lacks" if not twin else
+                               f" ({v_here:.7f} in {name})"))
+                explained &= bool(why)
+                parts.append(
+                    f"{name} only: class {int(r[5])} score {r[4]:.7f} at "
+                    f"cell {c} ({other}: class {int(oc)}, score {os_:.7f}, "
+                    f"suppressed by {len(sup)}): "
+                    + ("; ".join(why) if why else "UNEXPLAINED"))
+        lines.append(f"image {i}: counts {len(a)} / {len(b)}; "
+                     + " | ".join(parts))
+    return lines, explained
+
+
+def phase_anchorfree(photo, card, images):
+    """8d: the anchor-free family on the card, with no fallback: the
+    golden detections through B1 and B2 and through cuDNN; the full-width
+    fused forward against the nn model; FusedPipeline against the nn
+    path's detections at both windows, its B1 and B2 launches (counts to
+    0 just before, read just after, the plain stem and span swapped for
+    ones that raise), img/s, the profile's `stem_kernel` and stage kernel
+    rows held to the plans; `run_evaluation(family="anchorfree")` in both
+    modes on phase 7's images; 3 b128 steps of `Trainer(loss_fn=)` and a b4
+    128² step against the CPU.  → {kernel: launches} on the main path."""
+    import dataclasses
+    import torch
+    from fastdet_torch.cli.evaluation import (MAP_PASS, PR_PASS,
+                                              run_evaluation)
+    from fastdet_torch.config import Config
+    from fastdet_torch.eval.runner import evaluate
+    from fastdet_torch.io import load_state_dict
+    from fastdet_torch.kernels import fused_infer as fi
+    from fastdet_torch.kernels.fold import STAGES
+    from fastdet_torch.models.anchorfree import (AnchorFreeDetector,
+                                                 build_anchorfree_detect_fn,
+                                                 decode_anchorfree)
+    from fastdet_torch.ops.nms import batched_nms
+    from fastdet_torch.models.registry import get_family
+    from fastdet_torch.serve import FusedPipeline
+    from fastdet_torch.train.trainer import Trainer
+    from torch_cases import (AF_GOLDEN, golden_image, golden_mismatches,
+                             make_sample)
+    kernels = (fi.stem_s2d, fi.span)
+
+    def planned(b, h4, w4):
+        """B1's and B2's launches a forward at (b, h4, w4), their plans'."""
+        return {"stem_s2d": fi.stem_plan(b, h4, w4, 4).launches,
+                "span": sum(fi.span_stage_plan(b, c, h4 >> i, w4 >> i,
+                                               reps - 1).launches
+                            for i, (_, reps, c) in enumerate(STAGES, 1))}
+
+    def counted(fn):
+        """fn() with the counts set to 0 just before and read just after,
+        the plain stem and span replaced by functions that raise."""
+        saved = fi.stem_s2d_reference, fi.span_reference
+
+        def refuse(*args, **kw):
+            raise RuntimeError("a plain version ran on the card's path")
+        for k in kernels:
+            k.launches = 0
+        fi.stem_s2d_reference = fi.span_reference = refuse
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+        finally:
+            fi.stem_s2d_reference, fi.span_reference = saved
+        return out, {k.__name__: k.launches for k in kernels}
+
+    # ---- 1. the golden detections
+    with open(os.path.join(REPO, AF_GOLDEN)) as f:
+        golden = json.load(f)
+    img = golden_image(golden)[0][None]
+    size = golden["size"]
+    gcfg = Config.from_dict({"classes": 3, "width": size, "height": size,
+                             "anchor_num": 3})
+    gsd = load_state_dict(os.path.join(REPO, golden["weights"]))
+    kw = dict(conf_thres=golden["conf_thres"],
+              iou_thres=golden["iou_thres"], max_nms=golden["max_nms"])
+    gpipe = FusedPipeline(gsd, gcfg, family="anchorfree", **kw)
+    gpipe(img)                                         # warm-up
+    fused_rows, counts = counted(lambda: gpipe(img)[0])
+    want = planned(1, size // 4, size // 4)
+    check(counts == want, f"golden: launches {counts}, the plans {want}")
+    gmodel = AnchorFreeDetector(3)
+    gmodel.load_state_dict(gsd)
+    dets, n = build_anchorfree_detect_fn(gmodel, (size, size), **kw)(
+        torch.from_numpy(img).cuda())
+    plain_rows = dets[0, :int(n[0])].cpu().numpy()
+    for name, rows in (("FusedPipeline", fused_rows), ("cuDNN", plain_rows)):
+        bad = golden_mismatches(rows, golden)
+        check(not bad, f"anchor-free golden through {name}: {bad}")
+    log(f"  anchor-free golden: {len(fused_rows)} detections through "
+        f"FusedPipeline (launches {counts}, the plans') and "
+        f"{len(plain_rows)} through the nn path in cuDNN, both the golden "
+        f"file's by its rule (count {golden['count']}; classes "
+        f"{fused_rows[:, 5].astype(int).tolist()}, scores "
+        f"{np.round(fused_rows[:, 4], 4).tolist()})")
+
+    # ---- 2. full width: 80 classes, 352², b128
+    cfg = Config.from_file(DATA)
+    host = photo_variants(photo, 128, seed=61)
+    big = torch.from_numpy(host).cuda()
+    xs = pack_s2d_on_device(big)
+    xs8 = pack_s2d_on_device(big, 8)
+    check(torch.equal(xs[:4].cpu(), torch.from_numpy(
+        fi.pack_images_s2d(host[:4]))) and torch.equal(
+        xs8[:4].cpu(), torch.from_numpy(fi.pack_images_s2d8(host[:4]))),
+        "the s2d packing on the card differs from pack_images_s2d(8)")
+    xf = big.float() / 255.0
+    model = af_full_width_model(xf)
+    sd = model.state_dict()
+    errs = {}
+    with torch.inference_mode():
+        maps = model(xf)
+        for fmt, fuse_s2, x in (("s2d_u8", False, xs), ("s2d_u8", True, xs),
+                                ("s2d8_u8", False, xs8)):
+            fwd, p = fi.build_fused_forward(sd, input_format=fmt,
+                                            fuse_s2=fuse_s2,
+                                            head="anchorfree")
+            got = fwd(x, p)
+            check([g.shape for g in got] == [m.shape for m in maps]
+                  and all(g.dtype == torch.float32 for g in got),
+                  f"anchor-free fused maps {fmt} fuse_s2={fuse_s2}: shapes "
+                  f"{[tuple(g.shape) for g in got]}")
+            e = max(float((g - m).abs().max()) for g, m in zip(got, maps))
+            check(e <= FUSED_ATOL, f"anchor-free fused maps {fmt} "
+                  f"fuse_s2={fuse_s2} {e} off the nn model's")
+            errs[f"{fmt}{'+fuse_s2' if fuse_s2 else ''}"] = e
+        fwd, p = fi.build_fused_forward(sd, head="anchorfree")
+        cells = {"fused": af_cells(fwd(xs, p), (352, 352)),
+                 "nn": af_cells(maps, (352, 352))}
+        fwd_ms = cuda_median_ms(lambda: fwd(xs, p))
+        nn_ms = cuda_median_ms(lambda: model(xf))
+    log(f"  anchor-free full width (80 classes, b128 352², photo variants "
+        f"packed on the card, BN statistics of 20 training passes, out_cls "
+        f"×{AF_CLS_GAIN:g}): fused (obj, cls, reg) "
+        f"{[tuple(m.shape) for m in maps]} against the nn model's, max |Δ| "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + f" (≤ {FUSED_ATOL:g}); forward medians (CUDA events) fused "
+        f"{fwd_ms:.3f} ms, nn (cuDNN) {nn_ms:.3f} ms")
+
+    main_counts = None
+    for conf, window in ((0.3, 128), (0.01, 1024)):
+        pipe = FusedPipeline(sd, cfg, conf_thres=conf, iou_thres=0.45,
+                             max_nms=window, family="anchorfree")
+        plain = build_anchorfree_detect_fn(model, (352, 352),
+                                           conf_thres=conf, iou_thres=0.45,
+                                           max_nms=window)
+        pipe.detect(xs)                                # warm-up
+        # ---- the main path: counts to 0, detect, read the counts
+        got, counts = counted(lambda: pipe.detect(xs))
+        want_n = planned(128, 88, 88)
+        check(counts == want_n, f"anchor-free detect (conf {conf}): "
+              f"launches {counts}, the plans {want_n}")
+        if main_counts is None:
+            main_counts = counts
+        want = plain(big)
+        lines, explained = af_disagreements(got, want, cells, conf, 0.45)
+        for line in lines:
+            log(f"  disagreement at conf {conf}, window {window}: {line}")
+        check(explained, f"anchor-free detections at conf {conf}: an "
+              f"unexplained disagreement with the nn path")
+        n_det = int(got[1].sum())
+        check(n_det > 0, f"anchor-free: no detections at conf {conf}")
+        f_ms = cuda_median_ms(lambda: pipe.detect(xs))
+        p_ms = cuda_median_ms(lambda: plain(big))
+        log(f"  anchor-free FusedPipeline.detect conf {conf} window "
+            f"{window}: {n_det} detections in 128 images, the nn path's "
+            f"(counts, classes; boxes ≤ {AF_BOX_PX:g} px) in "
+            f"{128 - len(lines)} images, near ties in {len(lines)}; launches "
+            f"{counts}; {128e3 / f_ms:.1f} img/s on the device ({f_ms:.3f} "
+            f"ms a b128 batch, median of 15 by CUDA events), nn path "
+            f"{128e3 / p_ms:.1f} img/s ({p_ms:.3f} ms) ({card})")
+        if conf == 0.3:
+            want_k = {fi.STEM_KERNEL: want_n["stem_s2d"],
+                      fi.STAGE_KERNEL: want_n["span"]}
+            for i in range(3):
+                retake(i)
+                split = kernel_split(lambda: pipe.detect(xs)) or {}
+                rows = {k: split.get(k, (0.0, 0.0)) for k in want_k}
+                if all(rows[k][1] == n for k, n in want_k.items()):
+                    break
+                log(f"  (profile {i + 1} of 3 saw launches "
+                    f"{ {k: v[1] for k, v in rows.items()} } per call, "
+                    f"{want_k} planned)")
+            check(all(rows[k][1] == n for k, n in want_k.items()),
+                  f"anchor-free detect profile: {rows}, the plans {want_k}")
+            log(f"  anchor-free detect b128 by kernel (torch.profiler, ms per "
+                f"call): {split_text(split)}; {fi.STEM_KERNEL} and "
+                f"{fi.STAGE_KERNEL} launches {want_k}, the plans'")
+
+    # ---- 3. eval on phase 7's images, both modes, with labels made from
+    # the full-width model's own detections as phase 7 makes them from
+    # DevicePipeline's (Yolo-FastestV2's classes would give AP 0 here)
+    af_detect = build_anchorfree_detect_fn(model, (352, 352))
+    own = []
+    for s in range(0, len(images), 128):
+        dets, n = af_detect(torch.from_numpy(images[s:s + 128]).cuda())
+        dets, n = dets.cpu().numpy(), n.cpu().numpy()
+        own += [dets[i, :n[i]] for i in range(len(n))]
+    labels, mask = eval_labels(own, seed=7)
+
+    def batches(bs):
+        for s in range(0, len(images), bs):
+            yield images[s:s + bs], labels[s:s + bs], mask[s:s + bs]
+
+    fwd, p = fi.build_fused_forward(sd, head="anchorfree")
+    forwards = {
+        "default": lambda x: model(torch.from_numpy(x).cuda().float()
+                                   / 255.0),
+        "fused": lambda x: fwd(torch.from_numpy(
+            fi.pack_images_s2d(x)).cuda(), p)}
+    results = {}
+    for mode in ("default", "fused"):
+        run_evaluation(cfg, sd, batches, fused=mode == "fused",
+                       device="cuda", batch=128, family="anchorfree")
+        t0 = time.perf_counter()
+        res, counts = counted(lambda: run_evaluation(
+            cfg, sd, batches, fused=mode == "fused", device="cuda",
+            batch=128, family="anchorfree"))
+        secs = time.perf_counter() - t0
+        check(None not in res, f"anchor-free eval {mode}: no detections")
+        check((counts["stem_s2d"] > 0 and counts["span"] > 0)
+              == (mode == "fused"), f"anchor-free eval {mode}: launches "
+              f"{counts}")
+        # the same passes by hand on the same forward's maps
+        plain = []
+        for kw in (MAP_PASS, PR_PASS):
+            with torch.inference_mode():
+                dets = [batched_nms(*decode_anchorfree(
+                    *forwards[mode](images[s:s + 128]), (352, 352)), **kw)
+                    for s in range(0, len(images), 128)]
+            it = iter(dets)
+            plain.append(evaluate(lambda _images: next(it), batches(128),
+                                  (352, 352)))
+        check(tuple(plain) == res, f"anchor-free eval {mode}: {res} differs "
+              f"from the same passes on the same maps {plain}")
+        res_map, res_pr = res
+        results[mode] = (res_pr[0], res_pr[1], res_map[2], res_pr[3])
+        check(all(np.isfinite(v) and 0 < v < 1 for v in results[mode]),
+              f"anchor-free eval {mode}: P/R/AP/F1 {results[mode]}")
+        log(f"  anchor-free eval {mode}: Precision:{results[mode][0]:f} "
+            f"Recall:{results[mode][1]:f} AP:{results[mode][2]:f} "
+            f"F1:{results[mode][3]:f} over {len(images)} images (b128), "
+            f"equal to decode + batched_nms + the metrics on the same "
+            f"forward's maps; {2 * len(images) / secs:.1f} img/s over both "
+            f"passes ({secs:.3f} s, host clock, {card}); launches {counts}")
+    diff = max(abs(x - y) for x, y in zip(results["fused"],
+                                          results["default"]))
+    check(diff <= AF_EVAL_ATOL, f"anchor-free eval: --fused "
+          f"{results['fused']} off the default mode's {results['default']}")
+    log(f"  anchor-free eval: --fused P/R/AP/F1 "
+        + ("equal to" if diff == 0 else f"within {diff:.3g} (≤ "
+           f"{AF_EVAL_ATOL:g}) of") + " the default mode's")
+
+    # ---- 4. training: 3 b128 352² steps; a b4 128² step on both devices
+    fam = get_family("anchorfree", cfg)
+    fam.model.load_state_dict(sd)
+    tr = Trainer(fam.model, cfg, 1, device="cuda", loss_fn=fam.loss_fn)
+    timg, tlab, tmask = images[:128], labels[:128], mask[:128]
+    evs = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    losses = []
+    evs[0].record()
+    for i in range(3):
+        m = tr.step(timg, tlab, tmask)
+        evs[i + 1].record()
+        losses.append(m)
+    torch.cuda.synchronize()
+    losses = [{k: float(v) for k, v in m.items()} for m in losses]
+    check(all(np.isfinite(v) for m in losses for v in m.values()),
+          f"anchor-free training: non-finite losses {losses}")
+    step_ms = [evs[i].elapsed_time(evs[i + 1]) for i in range(3)]
+    prof = profile_device(lambda: tr.step(timg, tlab, tmask),
+                          "anchor-free b128 train steps", calls=2, top=8)
+    log(f"  anchor-free training b128 352² ({card}): "
+        + "; ".join(f"CIou:{m['box']:f} Obj:{m['obj']:f} Cls:{m['cls']:f} "
+                    f"Total:{m['total']:f}" for m in losses)
+        + f"; ms/step (CUDA events) {', '.join(f'{t:.3f}' for t in step_ms)}"
+        f" (the first with the set-up), {128e3 / step_ms[-1]:.1f} img/s at "
+        f"the last" + ("; the profiler saw no device time (idle share not "
+                       "measured)" if prof is None else ""))
+    rng = np.random.RandomState(5)
+    samples = [make_sample(rng, 128) for _ in range(4)]
+    simg = np.stack([s[0] for s in samples])
+    slab = np.zeros((4, 3, 5), np.float32)
+    smask = np.zeros((4, 3), bool)
+    for i, (_, lab) in enumerate(samples):
+        slab[i, :len(lab)], smask[i, :len(lab)] = lab, True
+    scfg = dataclasses.replace(cfg, classes=3, width=128, height=128,
+                               batch_size=4)
+    small = {}
+    for dev in ("cuda", "cpu"):
+        f = get_family("anchorfree", scfg)
+        f.model.load_state_dict(gsd)
+        small[dev] = float(Trainer(f.model, scfg, 1, device=dev,
+                                   loss_fn=f.loss_fn).step(
+            simg, slab, smask)["total"])
+    rel = abs(small["cuda"] - small["cpu"]) / abs(small["cpu"])
+    check(rel <= 1e-4, f"anchor-free b4 128² step: loss {small['cuda']} on "
+          f"the card, {small['cpu']} on the CPU")
+    log(f"phase 8d anchor-free: the golden detections, full-width maps and "
+        f"detections at both windows, eval (each mode's P/R/AP/F1 those of "
+        f"its maps; --fused within {diff:.3g} of the default) "
+        f"and training (3 b128 steps finite; b4 128² loss "
+        f"{small['cuda']:.6f} on the card, {small['cpu']:.6f} on the CPU, "
+        f"rel {rel:.3g} ≤ 1e-4); main-path launches {main_counts}")
+    return main_counts
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import torch
@@ -2580,7 +3057,8 @@ def main() -> int:
              if t is not threading.main_thread()]
     check(not alive, f"threads still running: {alive}")
     log("phase 5 shutdown: server stopped, batcher closed, no threads left")
-    eval_launches, eval_nms = phase_eval(sd, photo, dev_pipe, card)
+    eval_launches, eval_nms, eval_images = phase_eval(sd, photo, dev_pipe,
+                                                      card)
     lap("7")
     b6_launches, b6 = phase_640(sd, photo, card)
     lap("7b")
@@ -2590,12 +3068,15 @@ def main() -> int:
     lap("8c")
     train_launches = phase_training(sd, photo, dev_pipe, card, b8, b7)
     lap("8b")
+    af_launches = phase_anchorfree(photo, card, eval_images)
+    lap("8d")
     log('phase 6 kernels: ["stem_s2d", "span", "rank_decode_nms", '
         '"nms_keep", "span_train", "stem_train", "stem_s2d8", "s2span"] '
         f'(rank_decode_nms launches on the device path: {launches}; '
         f'nms_keep on the eval path: {eval_launches}; stem_s2d8 and s2span '
         f'on the flag paths: {flag_launches["stem_s2d8"]}, '
-        f'{flag_launches["s2span"]})')
+        f'{flag_launches["s2span"]}; stem_s2d and span on the anchor-free '
+        f'path: {af_launches["stem_s2d"]}, {af_launches["span"]})')
     log("phase times (host clock, s): " + ", ".join(
         f"{name} {t - laps[i][1]:.1f}"
         for i, (name, t) in enumerate(laps[1:]))

@@ -8,11 +8,12 @@ Usage, from the repository root:
       [--device cpu]
 
 Runs on CUDA unless `--device cpu` is given.  The default mode runs the
-port's `Detector` through `build_detect_fn`; `--fused` runs the fused
-forward (`build_fused_forward`, the host packs s2d(4) in numpy).  Both
-windows exceed 384, so on the card every pass goes through the `nms_keep`
-kernel.  `--model anchorfree` (ROADMAP A8) and `--int8` (A11) are not
-ported and raise.
+family's model through its detect builder (`models/registry.py`); `--fused`
+runs the fused forward (`build_fused_forward`, the host packs s2d(4) in
+numpy).  For Yolo-FastestV2 both windows exceed 384, so on the card every
+pass goes through the `nms_keep` kernel.  `--model anchorfree` decodes
+the single-scale maps and suppresses with `batched_nms` in both modes, as
+the JAX CLI does.  `--int8` (ROADMAP A11) is not ported and raises.
 
 The data loader reads images with cv2, which the card's machine lacks;
 `run_evaluation` takes the batches from its caller, so that
@@ -35,8 +36,10 @@ from fastdet_torch.eval.runner import evaluate
 from fastdet_torch.io import load_state_dict
 from fastdet_torch.kernels.fused_infer import (build_fused_forward,
                                                pack_images_s2d)
-from fastdet_torch.models import Detector
-from fastdet_torch.ops.postprocess import build_detect_fn, postprocess
+from fastdet_torch.models.anchorfree import decode_anchorfree
+from fastdet_torch.models.registry import family_name, get_family
+from fastdet_torch.ops.nms import batched_nms
+from fastdet_torch.ops.postprocess import postprocess
 
 MAP_PASS = dict(conf_thres=0.01, iou_thres=0.4, max_nms=2048)
 PR_PASS = dict(conf_thres=0.3, iou_thres=0.4, max_nms=1024)
@@ -44,37 +47,46 @@ PR_PASS = dict(conf_thres=0.3, iou_thres=0.4, max_nms=1024)
 
 def run_evaluation(cfg: Config, state_dict, batches: Callable[[int],
                                                               Iterable], *,
-                   fused: bool, device=None, batch: int):
+                   fused: bool, device=None, batch: int,
+                   family: str = "yolo-fastestv2"):
     """The eval CLI after data loading: both passes over `batches(batch)`,
     which yields (images_u8 (B,H,W,3) with B ≤ batch, labels (B,M,5)
     normalized [cls,cx,cy,w,h], label_mask (B,M)) and is called once per
-    pass.  → (mAP pass, P/R pass), each `evaluate`'s (P, R, mAP, F1) or
-    None."""
+    pass, for the model family `family` (`models/registry.py`) whose
+    weights `state_dict` holds.  → (mAP pass, P/R pass), each
+    `evaluate`'s (P, R, mAP, F1) or None."""
     dev = resolve_device(device)
     hw = (cfg.height, cfg.width)
     if fused:
         disable_tf32(dev)
-        fwd, packed = build_fused_forward(state_dict, input_hw=hw,
-                                          device=dev)
+        anchorfree = family_name(family) == "anchorfree"
+        fwd, packed = build_fused_forward(
+            state_dict, input_hw=hw, device=dev,
+            head="anchorfree" if anchorfree else "yolo")
         anchors = np.asarray(cfg.anchors, np.float32).reshape(
             cfg.num_scales, cfg.anchor_num, 2)
+
+        def postprocess_family(outs, **kw):
+            if anchorfree:
+                return batched_nms(*decode_anchorfree(*outs, hw), **kw)
+            return postprocess(outs, anchors, hw, **kw)
 
         def make_detect(conf_thres, iou_thres, max_nms):
             @torch.inference_mode()
             def detect(images):
                 xs = torch.from_numpy(pack_images_s2d(images.cpu().numpy()))
-                return postprocess(fwd(xs.to(dev), packed), anchors, hw,
-                                   conf_thres=conf_thres,
-                                   iou_thres=iou_thres, max_nms=max_nms)
+                return postprocess_family(
+                    fwd(xs.to(dev), packed), conf_thres=conf_thres,
+                    iou_thres=iou_thres, max_nms=max_nms)
             return detect
     else:
-        model = Detector(cfg.classes, cfg.anchor_num)
-        model.load_state_dict(state_dict)
+        fam = get_family(family, cfg)
+        fam.model.load_state_dict(state_dict)
 
         def make_detect(conf_thres, iou_thres, max_nms):
-            return build_detect_fn(model, cfg, conf_thres=conf_thres,
-                                   iou_thres=iou_thres, max_nms=max_nms,
-                                   device=dev)
+            return fam.build_detect_fn(conf_thres=conf_thres,
+                                       iou_thres=iou_thres, max_nms=max_nms,
+                                       device=dev)
 
     def on_device():
         for images, labels, mask in batches(batch):
@@ -96,8 +108,7 @@ def main(argv=None) -> int:
     parser.add_argument("--weights", type=str, default="",
                         help="The path of the model weights (.npz)")
     parser.add_argument("--model", type=str, default="yolo-fastestv2",
-                        help="model family: yolo-fastestv2 | anchorfree "
-                             "(only yolo-fastestv2 is ported)")
+                        help="model family: yolo-fastestv2 | anchorfree")
     parser.add_argument("--batch", type=int, default=0,
                         help="override eval batch size")
     parser.add_argument("--fused", action="store_true",
@@ -109,13 +120,7 @@ def main(argv=None) -> int:
                         help="cuda (default) or cpu")
     opt = parser.parse_args(argv)
 
-    family = (opt.model or "yolo-fastestv2").lower()
-    if family in ("anchorfree", "fastestdet"):
-        raise NotImplementedError(
-            "fastdet_torch: the anchor-free family is ROADMAP A8, not "
-            "ported yet")
-    if family not in ("yolo-fastestv2", "yolofastestv2", "v2", "default"):
-        raise ValueError(f"unknown model family {opt.model!r}")
+    family = family_name(opt.model)
     if opt.int8:
         raise NotImplementedError(
             "fastdet_torch: int8 PTQ evaluation is ROADMAP A11, not ported "
@@ -143,7 +148,7 @@ def main(argv=None) -> int:
 
     res_map, res_pr = run_evaluation(cfg, state_dict, batches,
                                      fused=opt.fused, device=opt.device,
-                                     batch=batch_size)
+                                     batch=batch_size, family=family)
     ap = res_map[2] if res_map else 0.0
     precision, recall, f1 = (res_pr[0], res_pr[1], res_pr[3]) if res_pr \
         else (0.0, 0.0, 0.0)

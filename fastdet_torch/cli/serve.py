@@ -11,8 +11,12 @@ Usage, from the repository root:
 Runs on CUDA unless `--device cpu` is given.  `--pipeline fused` (the
 default, as in the JAX CLI) serves through FusedPipeline: the host packs
 each batch into the s2d(4) layout and the card runs the stem and span
-kernels.  `--pipeline device` serves through DevicePipeline.  Only the
-yolo-fastestv2 family is ported; another family exits with an error.
+kernels.  `--pipeline device` serves through DevicePipeline.
+`--model anchorfree` serves the anchor-free family through FusedPipeline
+(`family="anchorfree"`); `--pipeline device` takes yolo-fastestv2 only
+and exits with an error for it (the JAX package's DevicePipeline feeds any
+model's maps to the anchor postprocess, which the anchor-free maps do not
+fit).
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ def main(argv=None) -> int:
     parser.add_argument("--weights", type=str, default="",
                         help="The path of the model weights (.npz)")
     parser.add_argument("--model", type=str, default="yolo-fastestv2",
-                        help="model family (only yolo-fastestv2 is ported)")
+                        help="model family: yolo-fastestv2 | anchorfree")
     parser.add_argument("--host", type=str, default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8000)
     parser.add_argument("--batch", type=int, default=32,
@@ -49,10 +53,15 @@ def main(argv=None) -> int:
                         help="log each HTTP request")
     opt = parser.parse_args(argv)
 
-    if opt.model.lower() not in ("yolo-fastestv2", "yolofastestv2", "v2",
-                                 "default"):
-        print(f"error: model family {opt.model!r} is not ported to "
-              "fastdet_torch yet", file=sys.stderr)
+    from fastdet_torch.models.registry import family_name
+    try:
+        family = family_name(opt.model)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    if opt.pipeline == "device" and family != "yolo-fastestv2":
+        print(f"error: --pipeline device serves the yolo-fastestv2 family "
+              f"only; serve {family} with --pipeline fused", file=sys.stderr)
         return 2
     if not os.path.exists(opt.weights):
         print(f"error: invalid weights path {opt.weights!r}", file=sys.stderr)
@@ -70,7 +79,8 @@ def main(argv=None) -> int:
     sd = load_state_dict(opt.weights)
     if opt.pipeline == "fused":
         pipe = FusedPipeline(sd, cfg, conf_thres=opt.conf,
-                             iou_thres=opt.nms, device=opt.device)
+                             iou_thres=opt.nms, device=opt.device,
+                             family=family)
     else:
         pipe = DevicePipeline(Detector(cfg.classes, cfg.anchor_num), sd,
                               cfg, conf_thres=opt.conf, iou_thres=opt.nms,

@@ -18,9 +18,12 @@ that `--resume` continues from.
 
 Runs on CUDA unless `--device cpu` is given.  `--fused-backbone` runs the
 backbone's stride-1 spans through the training span kernel B8 (ghost
-BN).  Not ported, each raises naming its ROADMAP item: `--bf16` (A1),
-`--model anchorfree` (A8), multi-process jobs through the FASTDET_*
-environment variables (A12), `--backbone *.pth` (A13).
+BN); it takes the yolo-fastestv2 family only, as in the JAX CLI.
+`--model anchorfree` trains the anchor-free family with its loss and
+evaluates it with its detect builder (`models/registry.py`).  Not
+ported, each raises naming its ROADMAP item: `--bf16` (A1), multi-process
+jobs through the FASTDET_* environment variables (A12), `--backbone
+*.pth` (A13).
 
 The data loader reads images with cv2, which the card's machine lacks;
 `run_training` takes the batches from its caller, so that
@@ -43,7 +46,7 @@ from fastdet_torch.config import Config
 from fastdet_torch.io import (latest_step, load_checkpoint, load_state_dict,
                               merge_variables, save_checkpoint,
                               save_npz_variables)
-from fastdet_torch.models import Detector
+from fastdet_torch.models.registry import family_name, get_family
 from fastdet_torch.train.trainer import Trainer
 from fastdet_torch.utils import MetricsLogger, StepTimer, trace
 
@@ -55,20 +58,22 @@ def run_training(cfg: Config, state_dict, batches: Callable[[int], Iterable],
                  val_batches: Optional[Callable[[int], Iterable]] = None,
                  eval_every: int = 10, weights_dir: Optional[str] = None,
                  ckpt_dir: Optional[str] = None, resume: bool = False,
-                 profile: str = "", mlog: Optional[MetricsLogger] = None
-                 ) -> Trainer:
+                 profile: str = "", mlog: Optional[MetricsLogger] = None,
+                 family: str = "yolo-fastestv2") -> Trainer:
     """The train CLI after data loading.  `batches(epoch)` yields
     (images_u8 (B,H,W,3), labels (B,M,5) normalized [cls,cx,cy,w,h],
     label_mask (B,M)) for one epoch; `steps_per_epoch` (the schedule's)
     defaults to `len(batches(0))`.  Trains `cfg.epochs` epochs, or stops
     after `steps` micro-steps.  `val_batches(batch)` (optional) feeds the
-    periodic evaluation.  → the Trainer."""
+    periodic evaluation.  `family` names the model family
+    (`models/registry.py`) whose weights `state_dict` holds.  → the
+    Trainer."""
     dev = resolve_device(device)
-    model = Detector(cfg.classes, cfg.anchor_num)
-    model.load_state_dict(state_dict)
+    fam = get_family(family, cfg)
+    fam.model.load_state_dict(state_dict)
     spe = steps_per_epoch or len(batches(0))
-    trainer = Trainer(model, cfg, spe, fused_backbone=fused_backbone,
-                      device=dev)
+    trainer = Trainer(fam.model, cfg, spe, fused_backbone=fused_backbone,
+                      device=dev, loss_fn=fam.loss_fn)
     mlog = mlog or MetricsLogger(None)
     timer = StepTimer()
     bsz = int(cfg.batch_size / (cfg.subdivisions or 1))
@@ -117,7 +122,7 @@ def run_training(cfg: Config, state_dict, batches: Callable[[int], Iterable],
                        for k, v in trainer.model.state_dict().items()}
             res_map, res_pr = run_evaluation(cfg, eval_sd, val_batches,
                                              fused=False, device=dev,
-                                             batch=bsz)
+                                             batch=bsz, family=fam.name)
             ap = res_map[2] if res_map else 0.0
             precision, recall, f1 = (res_pr[0], res_pr[1], res_pr[3]) \
                 if res_pr else (0.0, 0.0, 0.0)
@@ -171,8 +176,7 @@ def main(argv=None) -> int:
                         help="also write TensorBoard event files under "
                              "<logdir>/train_tb (requires --logdir)")
     parser.add_argument("--model", type=str, default="yolo-fastestv2",
-                        help="model family: yolo-fastestv2 | anchorfree "
-                             "(only yolo-fastestv2 is ported)")
+                        help="model family: yolo-fastestv2 | anchorfree")
     parser.add_argument("--backbone", type=str, default="",
                         help="pretrained backbone weights (.npz) to "
                              "initialize from when not finetuning")
@@ -180,13 +184,10 @@ def main(argv=None) -> int:
                         help="cuda (default) or cpu")
     opt = parser.parse_args(argv)
 
-    family = (opt.model or "yolo-fastestv2").lower()
-    if family in ("anchorfree", "fastestdet"):
-        raise NotImplementedError(
-            "fastdet_torch: the anchor-free family is ROADMAP A8, not "
-            "ported yet")
-    if family not in ("yolo-fastestv2", "yolofastestv2", "v2", "default"):
-        raise ValueError(f"unknown model family {opt.model!r}")
+    family = family_name(opt.model)
+    if opt.fused_backbone and family != "yolo-fastestv2":
+        raise SystemExit("--fused-backbone supports the yolo-fastestv2 "
+                         "family only")
     if opt.bf16:
         raise NotImplementedError(
             "fastdet_torch: bf16 training is ROADMAP A1, not ported yet")
@@ -219,7 +220,7 @@ def main(argv=None) -> int:
     # seeded init; pre_weights merge with strict=False semantics
     # (matching tensors load, the rest keep the fresh init)
     torch.manual_seed(0)
-    model = Detector(cfg.classes, cfg.anchor_num)
+    model = get_family(family, cfg).model
     state_dict = model.state_dict()
     if cfg.pre_weights and os.path.exists(cfg.pre_weights):
         state_dict, n_load, n_keep = merge_variables(
@@ -256,7 +257,7 @@ def main(argv=None) -> int:
 
     mlog = MetricsLogger(opt.logdir or None, "train", tensorboard=opt.tb)
     try:
-        run_training(cfg, state_dict, batches,
+        run_training(cfg, state_dict, batches, family=family,
                      fused_backbone=opt.fused_backbone, device=opt.device,
                      steps_per_epoch=len(train_loader),
                      val_batches=val_batches, eval_every=opt.eval_every,

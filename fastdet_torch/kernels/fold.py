@@ -19,7 +19,8 @@ w2, b2 into the span kernel's rows, and `pack_s2span_weights` packs
 `pack_s2_block`'s ten arrays, followed by those rows, into the stage
 kernel's one flat row.
 
-`pack_fused_weights_af` (the anchor-free heads) is not ported yet.
+`pack_fused_weights` packs the Yolo-FastestV2 heads, `pack_fused_weights_af`
+the anchor-free family's (`models/anchorfree.py`) over the same backbone.
 """
 
 from __future__ import annotations
@@ -161,6 +162,25 @@ def pack_fused_weights(sd) -> Dict[str, np.ndarray]:
         for k, v in pack_dwconvblock(sd, f"fpn.{head}").items():
             packed[f"{head}_{k}"] = v
     for out in ("output_reg", "output_obj", "output_cls"):
+        hc = pack_head_conv(sd, out)
+        packed[f"{out}_w"] = hc["w"]
+        packed[f"{out}_b"] = hc["b"]
+    return packed
+
+
+def pack_fused_weights_af(sd) -> Dict[str, np.ndarray]:
+    """The anchor-free family (`models/anchorfree.py`): the same backbone,
+    then the single-scale `fuse` ConvBN, the decoupled `head_cls` /
+    `head_reg` DWConvBlocks and the three 1×1 output convs with bias."""
+    packed: Dict[str, np.ndarray] = {}
+    _pack_backbone(packed, sd)
+    pw = pack_convbn_pw(sd, "fuse")
+    packed["fuse_w"] = pw["w"]
+    packed["fuse_b"] = pw["b"]
+    for head in ("head_cls", "head_reg"):
+        for k, v in pack_dwconvblock(sd, head).items():
+            packed[f"{head}_{k}"] = v
+    for out in ("out_obj", "out_cls", "out_reg"):
         hc = pack_head_conv(sd, out)
         packed[f"{out}_w"] = hc["w"]
         packed[f"{out}_b"] = hc["b"]

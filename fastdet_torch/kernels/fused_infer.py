@@ -1,5 +1,5 @@
 """The fused inference forward (counterpart of
-fastdet/kernels/fused_infer.py, `head="yolo"`).
+fastdet/kernels/fused_infer.py, `head="yolo"` and `head="anchorfree"`).
 
 Input contracts (`input_format`), all uint8:
   * "s2d_u8", the port's default: the host's space-to-depth(4) batch
@@ -22,12 +22,15 @@ Inside, activations are NCHW f32.  The forward:
      stride-1 blocks (B2, `csrc/span.cu`), or, with `fuse_s2=True` (and at
      stage 2 of "s2d8_u8" always, as in the JAX package), `s2span`, the
      stride-2 block and the span in one call (B9, `csrc/s2span.cu`);
-  3. LightFPN and the shared heads in PyTorch;
+  3. the neck and heads in PyTorch: for `head="yolo"` LightFPN and the
+     shared heads, returning the raw NHWC 6-tuple (reg2, obj2, cls2,
+     reg3, obj3, cls3) of the port's `Detector`; for `head="anchorfree"`
+     the single-scale fuse and the decoupled heads (`_af_neck`),
+     returning the raw NHWC (obj, cls, reg) of `AnchorFreeDetector`.
 
-and returns the raw NHWC 6-tuple (reg2, obj2, cls2, reg3, obj3, cls3) of
-the port's `Detector`.  The JAX package leaves the stride-2 blocks (off
-the fused stage), the FPN and the heads to XLA, so they stay library
-calls here.
+Both families share the ShuffleNetV2 backbone, so its kernels serve
+both.  The JAX package leaves the stride-2 blocks (off the fused stage),
+the necks and the heads to XLA, so they stay library calls here.
 
 Each kernel wrapper launches its kernel on a CUDA tensor (or raises) and
 runs its plain PyTorch version (`*_reference`) only on a CPU tensor.
@@ -44,8 +47,8 @@ kernels tile any size with shared memory that does not grow with the
 image, and the stage kernel's launch plan (`span_stage_plan`) holds a
 stage in a thread-block cluster where it fits and runs it one block per
 launch where it does not.  The s2d(8) guard (at most 2048
-lanes) is the JAX package's and is kept.  Not ported yet: bf16 and the
-anchor-free head (ROADMAP A1, A8).
+lanes) is the JAX package's and is kept.  Not ported yet: bf16 (ROADMAP
+A1).
 """
 
 from __future__ import annotations
@@ -63,6 +66,7 @@ from fastdet_torch import resolve_device
 from fastdet_torch.kernels import _build
 from fastdet_torch.kernels.fold import (S2_ROW_KEYS, STAGES,
                                         pack_fused_weights,
+                                        pack_fused_weights_af,
                                         pack_s2span_weights,
                                         pack_span_weights)
 from fastdet_torch.kernels.stem_train import SMS
@@ -715,6 +719,25 @@ def _fpn(c2, c3, p):
     return tuple(o.permute(0, 2, 3, 1) for o in outs)
 
 
+def _af_neck(c2, c3, p):
+    """The anchor-free single-scale neck and decoupled heads → the raw NHWC
+    (obj, cls, reg) at stride 16.  The concat is [C2, upsample(C3)], the
+    reverse of LightFPN's."""
+    up = F.interpolate(c3, scale_factor=2, mode="nearest")
+    s = F.relu(F.conv2d(torch.cat([c2, up], dim=1), p["fuse_w"],
+                        p["fuse_b"]))
+    cls_f = _dwcb(s, p, "head_cls")
+    reg_f = _dwcb(s, p, "head_reg")
+    outs = (F.conv2d(cls_f, p["out_obj_w"], p["out_obj_b"]),
+            F.conv2d(cls_f, p["out_cls_w"], p["out_cls_b"]),
+            F.conv2d(reg_f, p["out_reg_w"], p["out_reg_b"]))
+    return tuple(o.permute(0, 2, 3, 1) for o in outs)
+
+
+HEADS = {"yolo": (pack_fused_weights, _fpn),
+         "anchorfree": (pack_fused_weights_af, _af_neck)}
+
+
 def _device_weights(pk: Dict[str, np.ndarray],
                     device) -> Dict[str, torch.Tensor]:
     """Folded numpy weights (JAX layouts) → the forward's tensors: conv
@@ -760,9 +783,10 @@ def build_fused_forward(state_dict, input_hw: Tuple[int, int] = (352, 352),
                         ) -> Tuple[Callable, Dict[str, torch.Tensor]]:
     """Returns (forward_fn, packed): forward_fn(images, packed) with images
     a uint8 tensor on `device` in `input_format` → the raw NHWC 6-tuple of
-    `Detector`.  `state_dict` is the port's (e.g.
-    `fastdet_torch.io.load_state_dict`); the head's classes and anchors
-    follow from it.  `packed` holds the folded weights: conv weights OIHW
+    `Detector` (`head="yolo"`) or the raw NHWC (obj, cls, reg) of
+    `AnchorFreeDetector` (`head="anchorfree"`), f32.  `state_dict` is the
+    port's (e.g. `fastdet_torch.io.load_state_dict`) for that head's
+    model; the head's classes and anchors follow from it.  `packed` holds the folded weights: conv weights OIHW
     on `device`, each stage's span as one tensor `s{stage}_span` and its
     whole stage as one flat row `s{stage}_s2span`, and the stem's scaled
     `stem_w`/`stem_b` on the host.
@@ -783,9 +807,8 @@ def build_fused_forward(state_dict, input_hw: Tuple[int, int] = (352, 352),
     stage and return its NHWC map (the per-stage timing hook)."""
     if input_format not in INPUT_FORMATS:
         raise ValueError(f"unknown input_format {input_format!r}")
-    if head != "yolo":
-        raise NotImplementedError(
-            f"fastdet_torch: head={head!r} is not ported (ROADMAP A8)")
+    if head not in HEADS:
+        raise ValueError(f"unknown head {head!r}")
     if dtype != torch.float32:
         raise NotImplementedError(
             f"fastdet_torch: dtype={dtype} is not ported; the fused forward "
@@ -802,7 +825,8 @@ def build_fused_forward(state_dict, input_hw: Tuple[int, int] = (352, 352),
              "s2d8_u8": (192, _pad128(h4 * w4 // 4)),
              "nhwc": (ih, iw, 3)}[input_format]
     dev = resolve_device(device)
-    packed = _device_weights(pack_fused_weights(state_dict), dev)
+    pack, neck = HEADS[head]
+    packed = _device_weights(pack(state_dict), dev)
 
     def nhwc(x):
         return x.permute(0, 2, 3, 1)
@@ -839,6 +863,6 @@ def build_fused_forward(state_dict, input_hw: Tuple[int, int] = (352, 352),
             feats[sid] = x
             if upto == f"s{sid}":
                 return nhwc(x)
-        return _fpn(feats[3], feats[4], p)
+        return neck(feats[3], feats[4], p)
 
     return forward, packed

@@ -1,3 +1,4 @@
+from fastdet_torch.models.anchorfree import AnchorFreeDetector
 from fastdet_torch.models.detector import Detector
 
-__all__ = ["Detector"]
+__all__ = ["AnchorFreeDetector", "Detector"]

@@ -9,7 +9,10 @@ conf_thres 0.3, iou_thres 0.45, max_det 300 and a pre-NMS window of
 `FusedPipeline` runs the same chain on the fused forward
 (fastdet_torch/kernels/fused_infer.py): the host packs uint8 NHWC into the
 s2d(4) layout, and the card runs the stem and span kernels, the PyTorch
-stride-2 blocks and FPN, then the same postprocess.
+stride-2 blocks and FPN, then the same postprocess.  With
+`family="anchorfree"` it runs the anchor-free family
+(`models/anchorfree.py`) on the same backbone kernels, then its decode and
+`batched_nms`.
 
 `ShardedPipeline`, `StreamingPipeline` and `HybridPipeline` are not ported
 yet.
@@ -17,6 +20,7 @@ yet.
 
 from __future__ import annotations
 
+import functools
 from typing import List, Sequence
 
 import numpy as np
@@ -26,6 +30,8 @@ from fastdet_torch import disable_tf32, resolve_device
 from fastdet_torch.config import Config
 from fastdet_torch.kernels.fused_infer import (build_fused_forward,
                                                pack_images_s2d)
+from fastdet_torch.models.anchorfree import build_anchorfree_fused_detect
+from fastdet_torch.models.registry import family_name
 from fastdet_torch.ops.postprocess import build_detect_fn, postprocess
 
 
@@ -64,11 +70,13 @@ class FusedPipeline:
     in model input coordinates.
 
     state_dict: the port's (e.g. from `fastdet_torch.io.load_state_dict`),
-    the same weights `DevicePipeline` takes.  The forward computes f32.
+    the same weights `DevicePipeline` takes, or an `AnchorFreeDetector`'s
+    with `family="anchorfree"` ("fastestdet" too).  The forward computes
+    f32.
 
     Not ported yet, each raising `NotImplementedError`: `dtype=bfloat16`
-    (ROADMAP A1), `family="anchorfree"` (A8), `mesh` (A12), and
-    `from_files`/`preprocess_files`, which need a host image decoder."""
+    (ROADMAP A1), `mesh` (A12), and `from_files`/`preprocess_files`,
+    which need a host image decoder."""
 
     def __init__(self, state_dict, cfg: Config, conf_thres=0.3,
                  iou_thres=0.45, max_det=300, max_nms=128,
@@ -78,10 +86,6 @@ class FusedPipeline:
             raise NotImplementedError(
                 f"fastdet_torch: FusedPipeline(dtype={dtype}) is not ported; "
                 "the fused path computes f32 (bf16 is ROADMAP A1)")
-        if family in ("anchorfree", "fastestdet"):
-            raise NotImplementedError(
-                "fastdet_torch: the anchor-free fused path is ROADMAP A8, "
-                "not ported yet")
         if mesh is not None:
             raise NotImplementedError(
                 "fastdet_torch: data-parallel serving (mesh) is ROADMAP A12, "
@@ -89,18 +93,23 @@ class FusedPipeline:
         self.device = resolve_device(device)
         disable_tf32(self.device)
         hw = (cfg.height, cfg.width)
-        fwd, packed = build_fused_forward(state_dict, input_hw=hw,
-                                          device=self.device)
-        anchors = np.asarray(cfg.anchors, np.float32).reshape(
-            cfg.num_scales, cfg.anchor_num, 2)
+        nms = dict(conf_thres=conf_thres, iou_thres=iou_thres,
+                   max_det=max_det, max_nms=max_nms)
+        if family_name(family) == "anchorfree":
+            fused, packed = build_anchorfree_fused_detect(
+                state_dict, hw, device=self.device, **nms)
+            self._detect = functools.partial(fused, packed)
+        else:
+            fwd, packed = build_fused_forward(state_dict, input_hw=hw,
+                                              device=self.device)
+            anchors = np.asarray(cfg.anchors, np.float32).reshape(
+                cfg.num_scales, cfg.anchor_num, 2)
 
-        @torch.inference_mode()
-        def detect(images):
-            return postprocess(fwd(images, packed), anchors, hw,
-                               conf_thres=conf_thres, iou_thres=iou_thres,
-                               max_det=max_det, max_nms=max_nms)
+            @torch.inference_mode()
+            def detect(images):
+                return postprocess(fwd(images, packed), anchors, hw, **nms)
 
-        self._detect = detect
+            self._detect = detect
 
     def detect(self, images: torch.Tensor):
         """(B, 48, npad) uint8 s2d tensor on the device → (dets

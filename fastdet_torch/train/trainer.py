@@ -16,20 +16,25 @@ path), or with `fused_backbone=True` the fused-backbone forward
 (`train/fused_forward.py`: kernel B8 for the stride-1 spans; with
 `fused_input_format="s2d_u8"` also kernel B7 for the stem, on (B, 48,
 pad128(H/4·W/4)) uint8 batches from `pack_images_s2d`, ghost BN over
-each image, as in the JAX package).  The Trainer computes in its model's
+each image, as in the JAX package).  The loss is `loss_fn(outputs,
+labels, mask, anchors, input_hw)`: `compute_loss` by default, the
+family's (`models/registry.py`) for another model, e.g. the anchor-free
+family's, whose model has no fused training (`fused_backbone=True` raises
+for it, as the JAX CLI refuses it).  The Trainer computes in its model's
 dtype: f32 (the port's kernels), or f64 on the CPU for the parity tests.
 Not ported: bf16 compute (ROADMAP A1), data-parallel meshes (A12).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
 from fastdet_torch import disable_tf32, resolve_device
 from fastdet_torch.config import Config
+from fastdet_torch.models.detector import Detector
 from fastdet_torch.train.loss import compute_loss
 from fastdet_torch.train.schedule import make_lr_schedule
 
@@ -52,13 +57,18 @@ class Trainer:
                  subdivisions: Optional[int] = None,
                  fused_backbone: bool = False, device=None,
                  compute_dtype: Optional[torch.dtype] = None,
-                 fused_input_format: str = "nhwc"):
+                 fused_input_format: str = "nhwc",
+                 loss_fn: Callable = compute_loss):
         if compute_dtype in (torch.bfloat16, torch.float16):
             raise NotImplementedError(
                 "fastdet_torch: bf16 training is ROADMAP A1, not ported yet")
+        if fused_backbone and not isinstance(model, Detector):
+            raise ValueError("fused_backbone supports the yolo-fastestv2 "
+                             "family only")
         self.device = resolve_device(device)
         disable_tf32(self.device)
         self.cfg = cfg
+        self.loss_fn = loss_fn
         self.model = model.to(self.device, compute_dtype).train()
         self.input_hw = (cfg.height, cfg.width)
         self.schedule = make_lr_schedule(
@@ -96,7 +106,7 @@ class Trainer:
         `lr` (a float)."""
         self.model.train()
         outputs = self._forward(images_u8)
-        total, comps = compute_loss(
+        total, comps = self.loss_fn(
             outputs, torch.as_tensor(labels).to(self.device),
             torch.as_tensor(label_mask).to(self.device), self.anchors,
             self.input_hw)

@@ -7,6 +7,8 @@ file imports no JAX, so that it runs on a machine without it:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -17,16 +19,19 @@ from fastdet_torch.config import Config
 from fastdet_torch.io import load_state_dict
 from fastdet_torch.kernels import (fold, fused_infer, fused_train,
                                    nms_kernel, pp_fused, stem_train)
-from fastdet_torch.models import Detector
+from fastdet_torch.models import AnchorFreeDetector, Detector
+from fastdet_torch.models.anchorfree import (build_anchorfree_detect_fn,
+                                             seeded_init)
 from fastdet_torch.ops import nms
 from fastdet_torch.ops.postprocess import postprocess
 from fastdet_torch.serve import DevicePipeline, FusedPipeline
-from torch_cases import (ANCHORS, BOX_ULPS_CARD, IOU, NC, NV_CLASSES,
+from torch_cases import (AF_GOLDEN, ANCHORS, BOX_ULPS_CARD, IOU, NC, NV_CLASSES,
                          OUT_OF_RANGE, S2SPAN_CASES, SPAN_CASES,
                          SPAN_TRAIN_B1, SPAN_TRAIN_EDGE, SPAN_TRAIN_FULL,
                          SPAN_TRAIN_SMALL, STEM8_CASES, STEM_CASES,
                          STEM_TRAIN_CASES,
-                         box_ulps, crowded, grad_err, head_outputs,
+                         box_ulps, crowded, golden_image,
+                         golden_mismatches, grad_err, head_outputs,
                          make_inputs, nv_window, out_of_range_window,
                          pool_ties, port_geo, s2span_case,
                          span_train_case, span_train_grad_errs,
@@ -706,3 +711,75 @@ def test_stem_train_wrappers_check_their_inputs(card):
     with pytest.raises(ValueError, match="z as"):
         stem_train.stem_train_backward(dy, x, stats, w, gamma, beta, 8, 12,
                                        2, z[:2])
+
+
+# ------------------------------------------------ the anchor-free family
+
+AF_NPZ = "weights/anchorfree-synth.npz"
+
+
+@pytest.mark.parametrize("input_format,fuse_s2", [
+    ("s2d_u8", False), ("s2d_u8", True), ("s2d8_u8", False), ("nhwc", True)])
+def test_anchorfree_fused_forward_matches_the_model(card, input_format,
+                                                    fuse_s2):
+    """The anchor-free fused forward on the card (stem and span kernels)
+    against `AnchorFreeDetector` on the card, 80 classes from a seeded
+    generator, b4 352², ≤ 2e-4; the stem and stage kernels launch."""
+    model = seeded_init(AnchorFreeDetector(80),
+                        torch.Generator().manual_seed(8))
+    imgs = np.random.default_rng(9).integers(0, 256, (4, 352, 352, 3),
+                                             dtype=np.uint8)
+    x = {"s2d_u8": fused_infer.pack_images_s2d,
+         "s2d8_u8": fused_infer.pack_images_s2d8,
+         "nhwc": lambda a: a}[input_format](imgs)
+    fwd, p = fused_infer.build_fused_forward(
+        model.state_dict(), input_format=input_format, fuse_s2=fuse_s2,
+        head="anchorfree", device=card)
+    kernels = (fused_infer.stem_s2d, fused_infer.stem_s2d8,
+               fused_infer.span, fused_infer.s2span)
+    before = [k.launches for k in kernels]
+    with torch.inference_mode():
+        got = fwd(torch.from_numpy(x).to(card), p)
+        want = model.to(card).eval()(
+            torch.from_numpy(imgs).to(card).float() / 255.0)
+    torch.cuda.synchronize()
+    launched = [k.launches - b for k, b in zip(kernels, before)]
+    assert sum(launched[:2]) == (input_format != "nhwc")
+    assert sum(launched[2:]) > 0
+    assert [tuple(g.shape) for g in got] == [(4, 22, 22, c)
+                                              for c in (1, 80, 4)]
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 2e-4
+
+
+def test_anchorfree_golden_on_the_card(card):
+    """The golden detections (tests/data/anchorfree_golden.json) through
+    `FusedPipeline(family="anchorfree")` (B1, B2) and through the nn path
+    on the card, by the file's rule."""
+    with open(AF_GOLDEN) as f:
+        golden = json.load(f)
+    img = golden_image(golden)[0][None]
+    size = golden["size"]
+    cfg = Config.from_dict({"classes": 3, "width": size, "height": size,
+                            "anchor_num": 3})
+    sd = load_state_dict(golden["weights"])
+    kw = dict(conf_thres=golden["conf_thres"], iou_thres=golden["iou_thres"],
+              max_nms=golden["max_nms"])
+    before = fused_infer.stem_s2d.launches, fused_infer.span.launches
+    fused = FusedPipeline(sd, cfg, device=card, family="anchorfree",
+                          **kw)(img)[0]
+    h4 = size // 4
+    plans = [fused_infer.span_stage_plan(1, c, h4 >> i, h4 >> i, reps - 1)
+             for i, (_, reps, c) in enumerate(fold.STAGES, 1)]
+    assert (fused_infer.stem_s2d.launches - before[0],
+            fused_infer.span.launches - before[1]) == (
+        fused_infer.stem_plan(1, h4, h4, 4).launches,
+        sum(p.launches for p in plans))
+    model = AnchorFreeDetector(3)
+    model.load_state_dict(sd)
+    dets, counts = build_anchorfree_detect_fn(
+        model, (size, size), device=card, **kw)(
+            torch.from_numpy(img).to(card))
+    plain = dets[0, :int(counts[0])].cpu().numpy()
+    for got in (fused, plain):
+        assert golden_mismatches(got, golden) == []

@@ -115,7 +115,6 @@ def test_eval_cli_matches_jax(val_world):
 
 
 @pytest.mark.parametrize("extra,label", [
-    (("--model", "anchorfree"), "A8"),
     (("--int8", "weights/coco-int8.npz"), "A11"),
 ])
 def test_eval_cli_unported_options_exit_nonzero(val_world, extra, label):

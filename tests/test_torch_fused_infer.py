@@ -280,7 +280,6 @@ def test_fused_forward_matches_detector():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    ({"head": "anchorfree"}, "A8"),
     ({"dtype": torch.bfloat16}, "A1"),
 ])
 def test_unported_options_raise(kwargs, match):

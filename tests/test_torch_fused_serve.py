@@ -90,7 +90,6 @@ def test_fused_pipeline_input_forms(images, sd):
 
 @pytest.mark.parametrize("kwargs,match", [
     ({"dtype": torch.bfloat16}, "A1"),
-    ({"family": "anchorfree"}, "A8"),
     ({"mesh": object()}, "A12"),
 ])
 def test_fused_pipeline_unported_options_raise(sd, kwargs, match):

@@ -194,6 +194,7 @@ def test_server_raw_requests_match_pipeline(images, port_pipe, monkeypatch):
 
 def test_cli_refuses_unported_paths(capsys):
     args = ["--data", DATA, "--weights", REF_NPZ, "--device", "cpu"]
-    assert serve_cli.main(args + ["--model", "anchorfree"]) == 2
-    assert "not ported" in capsys.readouterr().err
+    assert serve_cli.main(args + ["--pipeline", "device", "--model",
+                                  "anchorfree"]) == 2
+    assert "yolo-fastestv2 family only" in capsys.readouterr().err
     assert serve_cli.main(["--data", DATA, "--weights", "missing.npz"]) == 2

@@ -154,7 +154,8 @@ def test_fused_backbone_cli_trains(train_world, port_run, tmp_path):
 
 @pytest.mark.parametrize("extra,env,label", [
     (("--bf16",), None, "A1"),
-    (("--model", "anchorfree"), None, "A8"),
+    (("--fused-backbone", "--model", "anchorfree"), None,
+     "--fused-backbone supports the yolo-fastestv2 family only"),
     ((), {"FASTDET_NUM_PROCESSES": "2"}, "A12"),
     (("--backbone", "weights/backbone.pth"), None, "A13"),
 ])

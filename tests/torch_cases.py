@@ -386,3 +386,112 @@ def s2span_case(seed, b, cin, hgt, wid, device="cpu"):
     rng = np.random.default_rng(seed)
     return torch.from_numpy(np.abs(rng.normal(
         0.0, 1.0, (b, cin, hgt, wid))).astype(np.float32)).to(device)
+
+
+# ------------------------------------------------ the anchor-free family
+
+AF_GOLDEN = "tests/data/anchorfree_golden.json"   # relative to the repo
+
+
+def make_sample(rng, size=128, n_max=3):
+    """One sample of the synthetic rectangle task (solid coloured
+    rectangles on a noise background, class = colour): (size, size, 3)
+    uint8 and (n, 5) [cls, cx, cy, w, h] normalized labels.  The port's
+    copy of tools/convergence_check.py::make_sample, draw for draw."""
+    img = rng.randint(0, 80, (size, size, 3), np.uint8)
+    n = rng.randint(1, n_max + 1)
+    labels = []
+    colors = [(220, 40, 40), (40, 220, 40), (40, 40, 220)]
+    for _ in range(n):
+        cls = rng.randint(0, 3)
+        w = rng.randint(size // 8, size // 2)
+        h = rng.randint(size // 8, size // 2)
+        x1 = rng.randint(0, size - w)
+        y1 = rng.randint(0, size - h)
+        img[y1:y1 + h, x1:x1 + w] = colors[cls]
+        labels.append([cls, (x1 + w / 2) / size, (y1 + h / 2) / size,
+                       w / size, h / size])
+    return img, np.asarray(labels, np.float32)
+
+
+def golden_image(golden):
+    """The golden file's image (`make_sample` at its seed and size)."""
+    return make_sample(np.random.RandomState(golden["img_seed"]),
+                       golden["size"])
+
+
+def golden_mismatches(got, golden):
+    """The golden file's rule (tests/test_anchorfree.py::
+    test_af_golden_detections) on one image's (n, 6) detections: the
+    count within 1 of the file's; every file detection scoring ≥ 0.32
+    found in `got`, every detection of `got` scoring ≥ 0.35 found in the
+    file (same class, box within 0.5 px, score within 0.02).  → the
+    failures, [] when it holds."""
+    want = np.asarray(golden["detections"], np.float32)
+
+    def match(row, pool):
+        same = pool[pool[:, 5] == row[5]]
+        if not len(same):
+            return False
+        d = np.abs(same[:, :4] - row[:4]).max(1)
+        ds = np.abs(same[:, 4] - row[4])
+        return bool(((d < 0.5) & (ds < 0.02)).any())
+
+    bad = []
+    if abs(len(got) - golden["count"]) > 1:
+        bad.append(f"count {len(got)}, golden {golden['count']}")
+    bad += [f"pinned detection lost: {row}" for row in want[want[:, 4] >= 0.32]
+            if not match(row, got)]
+    bad += [f"unpinned new detection: {row}" for row in got[got[:, 4] >= 0.35]
+            if not match(row, want)]
+    return bad
+
+
+def synth_world(root, weights):
+    """A seeded 8-image Darknet set of the synthetic task in `root` (a
+    pathlib.Path): PNGs written with cv2 at 128², label files holding each
+    image's boxes, less one box in every third image and plus one
+    spurious box (so that an evaluation has TP, FP and FN), a 3-class
+    `synth.data` (b4, 2 epochs, `weights` as its pre_weights) whose train
+    and val lists are these images.  → root."""
+    import cv2
+    rng = np.random.RandomState(17)
+    paths = []
+    for i in range(8):
+        img, labels = make_sample(rng, 128)
+        p = root / f"img{i}.png"
+        cv2.imwrite(str(p), img)
+        paths.append(str(p))
+        rows = [tuple(r) for r in labels]
+        if i % 3 == 0 and len(rows) > 1:
+            rows = rows[1:]                              # a miss
+        cx, cy = rng.uniform(0.2, 0.8, 2)
+        rows.append((labels[0, 0], cx, cy, 0.1, 0.1))    # spurious
+        with open(p.with_suffix(".txt"), "w") as f:
+            f.writelines("%d %.6f %.6f %.6f %.6f\n" % tuple(r) for r in rows)
+    (root / "list.txt").write_text("\n".join(paths) + "\n")
+    (root / "synth.names").write_text("red\ngreen\nblue\n")
+    (root / "synth.data").write_text(f"""[name]
+model_name=synth
+
+[train-configure]
+epochs=2
+steps=150,250
+batch_size=4
+subdivisions=1
+learning_rate=0.001
+
+[model-configure]
+pre_weights={weights}
+classes=3
+width=128
+height=128
+anchor_num=3
+anchors=12.64,19.39, 37.88,51.48, 55.71,138.31, 126.91,78.23, 131.57,214.55, 279.92,258.87
+
+[data-configure]
+train={root / "list.txt"}
+val={root / "list.txt"}
+names={root / "synth.names"}
+""")
+    return root

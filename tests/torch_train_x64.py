@@ -245,7 +245,140 @@ def check_fused_s2d():
     fused_case("s2d_u8", 1, with_jax=False)
 
 
+AF_NPZ = os.path.join(REPO, "weights", "anchorfree-synth.npz")
+AF_CFG = dict(CFG, classes=3)
+
+
+def af_labels(nc):
+    """Labels for 8 × 6 cells at 128 × 96 (b3, 6 slots), classes < nc:
+    image 0 a box in the top-left and one in the bottom-right border cell,
+    two boxes in one cell (the obj target's scatter-max), a box whose
+    neighbour cells all qualify, a masked slot holding a real-looking
+    box; image 1 only masked slots; image 2 one box on a cell's edges."""
+    labels = np.zeros((3, 6, 5), np.float32)
+    mask = np.zeros((3, 6), bool)
+    c = [min(i, nc - 1) for i in range(3)]
+    labels[0, :5] = [[c[0], 0.01, 0.02, 0.2, 0.3],
+                     [c[1], 0.99, 0.985, 0.1, 0.1],
+                     [c[2], 0.52, 0.43, 0.3, 0.25],
+                     [c[0], 0.55, 0.47, 0.15, 0.2],
+                     [c[1], 0.40, 0.30, 0.25, 0.25]]
+    mask[0, :4] = True
+    labels[0, 5] = [c[2], 0.75, 0.6, 0.2, 0.2]           # masked
+    labels[1, :2] = [[c[1], 0.3, 0.3, 0.2, 0.2], [c[0], 0.6, 0.5, 0.4, 0.1]]
+    labels[2, 0] = [c[2], 0.5, 0.5, 0.5, 0.5]
+    mask[2, 0] = True
+    mask[0, 4] = True
+    return labels, mask
+
+
+def check_anchorfree_loss():
+    """`anchorfree_loss` and its gradients with respect to the three raw
+    maps, f64 maps into both (each casts them to f32, as the JAX function
+    does, so the loss itself is f32 arithmetic): components within 1e-6
+    relative, gradients within 1e-5 of each map's largest."""
+    from fastdet.models.anchorfree import anchorfree_loss as jloss
+    from fastdet_torch.models.anchorfree import anchorfree_loss
+
+    rng = np.random.RandomState(5)
+    for nc in (3, 1):
+        maps = [rng.randn(3, 8, 6, c) * 2.0 for c in (1, nc, 4)]
+        labels, mask = af_labels(nc)
+
+        def jtotal(*outs):
+            total, comps = jloss(outs, jnp.asarray(labels),
+                                 jnp.asarray(mask), (128, 96))
+            return total, comps
+
+        (jt, jcomps), jg = jax.value_and_grad(
+            jtotal, argnums=(0, 1, 2), has_aux=True)(
+                *[jnp.asarray(m) for m in maps])
+        outs = [torch.from_numpy(m).requires_grad_() for m in maps]
+        total, comps = anchorfree_loss(outs, torch.from_numpy(labels),
+                                       torch.from_numpy(mask), (128, 96))
+        total.backward()
+        for k in ("box", "obj", "cls", "total"):
+            want = float(jcomps[k])
+            got = float(comps[k].detach())
+            r = abs(got - want) / max(abs(want), 1e-30)
+            assert r < 1e-6 or (want == 0 and got == 0), (nc, k, got, want)
+        assert float(jcomps["box"]) > 0 and float(jcomps["obj"]) > 0
+        assert (float(jcomps["cls"]) > 0) == (nc > 1)
+        for name, o, g in zip(("obj", "cls", "reg"), outs, jg):
+            g = np.asarray(g)
+            # nc = 1: no cls term, so no gradient reaches that map (JAX's
+            # is zeros)
+            got = (np.zeros_like(g) if o.grad is None
+                   else o.grad.numpy())
+            assert o.grad is not None or (nc == 1 and name == "cls")
+            w = rel(got, g)
+            assert w < 1e-5, (nc, name, w)
+            print(f"MAXDIFF anchorfree loss nc={nc} d{name} {w:.3e}")
+        # duplicates: the cell of the two boxes of image 0 takes both
+        # boxes' reg gradients (JAX's gather accumulates them too)
+        assert float(outs[2].grad[0, 3, 3].abs().sum()) > 0
+
+
+def check_anchorfree_step():
+    """The Trainer with the anchor-free loss from the synth checkpoint at
+    64², b4: three steps with subdivisions 1 and 2 against
+    JAX's Trainer(loss_fn=) in f64, as `check_default` holds the default
+    family."""
+    from fastdet.config import Config as JConfig
+    from fastdet.io.torch_convert import load_npz_variables
+    from fastdet.models.registry import get_family as jget_family
+    from fastdet.train.trainer import Trainer as JTrainer
+    from fastdet_torch.config import Config
+    from fastdet_torch.io import from_jax_variables
+    from fastdet_torch.models.registry import get_family
+    from fastdet_torch.train.trainer import Trainer
+
+    variables = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64),
+                             load_npz_variables(AF_NPZ))
+    images, labels, mask = batch(4, 64, seed=3)
+    labels[..., 0] = np.minimum(labels[..., 0], 2)
+    for sub in (1, 2):
+        cfg = dict(AF_CFG, subdivisions=sub)
+        jfam = jget_family("anchorfree", JConfig.from_dict(cfg),
+                           dtype=jnp.float64)
+        jt = JTrainer(jfam.model, JConfig.from_dict(cfg), steps_per_epoch=1,
+                      compute_dtype=jnp.float64, loss_fn=jfam.loss_fn)
+        state = jt.init_state(jax.tree.map(jnp.copy, variables))
+        fam = get_family("anchorfree", Config.from_dict(cfg))
+        fam.model.load_state_dict(from_jax_variables(
+            jax.tree.map(np.asarray, variables)))
+        pt = Trainer(fam.model.double(), Config.from_dict(cfg), 1,
+                     device="cpu", loss_fn=fam.loss_fn)
+        for step in range(3):
+            state, jm = jt.step(state, jnp.asarray(images),
+                                jnp.asarray(labels), jnp.asarray(mask))
+            pm = pt.step(images, labels, mask)
+            for k in ("box", "obj", "cls", "total"):
+                r = abs(float(pm[k]) - float(jm[k])) / abs(float(jm[k]))
+                assert r < 1e-6, (sub, step, k, float(pm[k]), float(jm[k]))
+            assert pm["lr"] == float(jm["lr"]), (pm["lr"], float(jm["lr"]))
+            if sub == 2 and step == 0:
+                w = worst({k: p.grad.numpy()
+                           for k, p in pt.model.named_parameters()},
+                          port_keys(state.grad_accum, "params"))
+                assert w[1] < 1e-4, f"step-0 grads diverge: {w}"
+                print(f"MAXDIFF anchorfree step-0 grads {w[1]:.3e} ({w[0]})")
+        sd = {k: v.numpy() for k, v in pt.model.state_dict().items()}
+        ref = port_keys(state.params, "params")
+        ref.update(port_keys(state.batch_stats, "batch_stats"))
+        w = worst(sd, ref)
+        assert w[1] < 1e-8, f"subdivisions={sub}: state diverges: {w}"
+        print(f"MAXDIFF anchorfree subdivisions={sub} params and "
+              f"batch_stats after 3 steps {w[1]:.3e} ({w[0]})")
+
+
+def check_anchorfree():
+    check_anchorfree_loss()
+    check_anchorfree_step()
+
+
 if __name__ == "__main__":
     {"default": check_default, "fused": check_fused,
-     "fused_s2d": check_fused_s2d}[sys.argv[1]]()
+     "fused_s2d": check_fused_s2d,
+     "anchorfree": check_anchorfree}[sys.argv[1]]()
     print("PASS")
