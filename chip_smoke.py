@@ -145,14 +145,31 @@ Phases:
      `Trainer(loss_fn=)` steps (finite losses, ms/step by CUDA events,
      the idle share by torch.profiler) and a b4 128² step's loss within
      1e-4 of the same step on the CPU;
+  9. bf16 serving, the JAX package's default: the bf16 kernels (B1, B6,
+     B10, B2, B9) against their plain versions at the f32 phases' shape
+     classes (stems within one bf16 ULP, stages within 2⁻⁶ of the output's
+     max |value|; max |Δ| and the share of equal elements), each call's
+     launches held to `stem_plan` / `span16_plan`;
+     `FusedPipeline(dtype=None)` behind the HTTP server (phase 4's 12
+     concurrent /detect_raw requests, the bf16 kernels' launches counted
+     from 0), its detections and its b128 352² detections held to the JAX
+     package's bf16 contract against the f32 pipeline (classes, boxes
+     ≤ 4 px, scores ≤ 0.05; rows near conf or iou_thres reported), img/s
+     on the device and host to host, its profile and per-stage split; each
+     bf16 kernel on the served batch's inputs with its bound, its plain
+     version's and cuDNN's bf16 time; the five other flag combinations in
+     bf16 (forward times, detections against f32); `FusedPipeline` at 640²
+     in bf16 (B6); the anchor-free family in bf16 at b128 352² (phase 8d's
+     model);
   6. the kernel summary (a JSON line: launches of stem_s2d, span and
      rank_decode_nms from the fused serving path (rank_decode_nms's ms
      its device time on the served window, phase 4), of nms_keep from the
      eval path, of stem_s2d at 640² from FusedPipeline there, of
      span_train_fwd/bwd from the fused training run, of stem_train_fwd/bwd
      from the s2d training runs at group 1 and 16, of stem_s2d8 and
-     s2span from the flag paths of 4c; the phase line adds stem_s2d's and
-     span's launches on the anchor-free path of 8d), the card line, and
+     s2span from the flag paths of 4c, and phase 9's bf16 entries; the
+     phase line adds stem_s2d's and span's launches on the anchor-free
+     path of 8d), the card line, and
      the host time of each phase, and the last line {"ok": true,
      "device": {...}}.
 
@@ -813,13 +830,14 @@ def phase_fused_serving(sd, dev_pipe, images):
     """Concurrent requests through the server over FusedPipeline; each
     answer equal to FusedPipeline on the same batch, its detections as
     DevicePipeline's on the same images.  → (pipe, launches)."""
+    import torch
     from fastdet_torch.config import Config, load_names, resolve_path
     from fastdet_torch.kernels import fused_infer as fi
     from fastdet_torch.kernels import pp_fused
     from fastdet_torch.serve import FusedPipeline
     cfg = Config.from_file(DATA)
     names = load_names(resolve_path(cfg.names, DATA))
-    pipe = FusedPipeline(sd, cfg)
+    pipe = FusedPipeline(sd, cfg, dtype=torch.float32)
     answers, served, stats, launches = serve_concurrently(
         pipe, images, cfg, names,
         [fi.stem_s2d, fi.span, pp_fused.rank_decode_nms])
@@ -1880,7 +1898,7 @@ def phase_640(sd, photo, card):
 
     cfg = dataclasses.replace(Config.from_file(DATA), width=640, height=640)
     images = photo_variants(photo, 8, seed=640, hw=(640, 640))
-    fused = FusedPipeline(sd, cfg)
+    fused = FusedPipeline(sd, cfg, dtype=torch.float32)
     fused(images[:1])                                  # warm-up
     kernels = [fi.stem_s2d, fi.span, pp_fused.rank_decode_nms]
     # ---- the main path: counts to 0, detect, read the counts
@@ -2722,7 +2740,8 @@ def phase_anchorfree(photo, card, images):
     ones that raise), img/s, the profile's `stem_kernel` and stage kernel
     rows held to the plans; `run_evaluation(family="anchorfree")` in both
     modes on phase 7's images; 3 b128 steps of `Trainer(loss_fn=)` and a b4
-    128² step against the CPU.  → {kernel: launches} on the main path."""
+    128² step against the CPU.  → ({kernel: launches} on the main path,
+    the full-width model's state dict)."""
     import dataclasses
     import torch
     from fastdet_torch.cli.evaluation import (MAP_PASS, PR_PASS,
@@ -2777,7 +2796,8 @@ def phase_anchorfree(photo, card, images):
     gsd = load_state_dict(os.path.join(REPO, golden["weights"]))
     kw = dict(conf_thres=golden["conf_thres"],
               iou_thres=golden["iou_thres"], max_nms=golden["max_nms"])
-    gpipe = FusedPipeline(gsd, gcfg, family="anchorfree", **kw)
+    gpipe = FusedPipeline(gsd, gcfg, family="anchorfree",
+                          dtype=torch.float32, **kw)
     gpipe(img)                                         # warm-up
     fused_rows, counts = counted(lambda: gpipe(img)[0])
     want = planned(1, size // 4, size // 4)
@@ -2843,7 +2863,8 @@ def phase_anchorfree(photo, card, images):
     main_counts = None
     for conf, window in ((0.3, 128), (0.01, 1024)):
         pipe = FusedPipeline(sd, cfg, conf_thres=conf, iou_thres=0.45,
-                             max_nms=window, family="anchorfree")
+                             max_nms=window, family="anchorfree",
+                             dtype=torch.float32)
         plain = build_anchorfree_detect_fn(model, (352, 352),
                                            conf_thres=conf, iou_thres=0.45,
                                            max_nms=window)
@@ -3005,7 +3026,664 @@ def phase_anchorfree(photo, card, images):
         f"and training (3 b128 steps finite; b4 128² loss "
         f"{small['cuda']:.6f} on the card, {small['cpu']:.6f} on the CPU, "
         f"rel {rel:.3g} ≤ 1e-4); main-path launches {main_counts}")
-    return main_counts
+    return main_counts, sd
+
+
+# ---------------------------------------------- bf16 serving (ROADMAP A1)
+
+PEAK_BF16_TC_OPS_S = 989e12    # bf16 on the tensor cores, f32 accumulate
+BF16_STAGE_RTOL = 2.0 ** -6    # bf16 stages against their plain versions,
+                               # of the output's max |value| (a rounding a
+                               # block; a flip moves what follows)
+BF16_BOX_PX = 4.0              # the JAX package's bf16 serving contract
+BF16_SCORE = 0.05              # (tests/test_postprocess.py): boxes, scores
+BF16_BOX_REL = 2.0 ** -5       # boxes also within this share of the box's
+                               # larger side (the 2⁻⁵ of the CPU tests' map
+                               # bound): its 4 px, set on one golden image,
+                               # is under 2.5% of a 170 px box
+BF16_WIDE = 2.0                # pairs past the contract but within this
+                               # multiple of it are counted and printed: on
+                               # image 41 of phase 4c's batch the JAX
+                               # package's own bf16 score is 0.047 off its
+                               # f32 one (0.428 / 0.381, CPU)
+BF16_MAP_RTOL = 2.0 ** -5      # a bf16 forward's maps against the plain
+                               # bf16 forward's (the CPU tests' bound against
+                               # the JAX package's bf16); against f32 maps
+                               # the JAX package's own bf16 reads up to 9%
+BF16_NEAR = 0.05               # a row missing on one side is excused when
+                               # its score is within this of conf, or its
+                               # IoU with a same-class row of the other
+                               # side within this of iou_thres
+
+
+def stem16_bound(b, h4, w4):
+    """The bf16 stem: the u8 pixels read once, its 648 bf16 weights and 24
+    f32 biases, the pooled bf16 map written once; 2 operations per conv
+    MAC (27 per conv output, 4 conv outputs per pooled cell and channel),
+    one bf16 term, at the bf16 tensor-core rate."""
+    nbytes = b * 48 * h4 * w4 + 648 * 2 + 24 * 4 + b * 24 * h4 * w4 * 2
+    return bound(nbytes, b * 4 * h4 * w4 * 24 * 27 * 2, PEAK_BF16_TC_OPS_S)
+
+
+def span16_bound(b, c, h, w, nblk):
+    """The bf16 span: the bf16 activation read and written once, the
+    weights once; per pixel and block the composed function's MACs, mid²
+    (pw1) + 9·mid² (dw3×3 ∘ pw2), at the bf16 tensor-core rate."""
+    from fastdet_torch.kernels.fold import span16_elems
+    mid = c // 2
+    nbytes = (2 * b * c * h * w * 2
+              + nblk * (span16_elems(mid) * 2 + 2 * mid * 4))
+    return bound(nbytes, nblk * b * h * w * 2 * 10 * mid * mid,
+                 PEAK_BF16_TC_OPS_S)
+
+
+def s2span16_bound(b, cin, hin, win, nblk):
+    """The bf16 stage: input and output bf16 once, weights once; pw1 on
+    every input pixel (cin·mid MACs), 9·mid² + 9·cin·mid per output pixel
+    (both composed stride-2 convs), then the span's."""
+    from fastdet_torch.kernels.fold import s2_16_elems, span16_elems
+    mid = cin
+    h, w = (hin + 1) // 2, (win + 1) // 2
+    nbytes = (b * cin * hin * win * 2 + b * 2 * mid * h * w * 2
+              + s2_16_elems(cin, mid) * 2 + 3 * mid * 4
+              + nblk * (span16_elems(mid) * 2 + 2 * mid * 4))
+    macs = (hin * win * cin * mid + h * w * 9 * mid * (mid + cin)
+            + nblk * h * w * 10 * mid * mid)
+    return bound(nbytes, b * macs * 2, PEAK_BF16_TC_OPS_S)
+
+
+BF16_ULP_FLOOR = 2.0 ** -10   # the ULP is taken at no smaller magnitude:
+                              # below it an f32 sum's own rounding is many
+                              # bf16 ULPs of a result that cancels (~1e-7:
+                              # cuDNN's f32 conv reads 20 there against f64)
+
+
+def bf16_ulps(got, want) -> float:
+    """Largest |Δ| in bf16 ULPs of each element's magnitude (at least
+    BF16_ULP_FLOOR)."""
+    import torch
+    g, w = got.float(), want.float()
+    e = torch.floor(torch.log2(torch.maximum(g.abs(), w.abs()).clamp_min(
+        BF16_ULP_FLOOR)))
+    return float(((g - w).abs() / torch.exp2(e - 7)).max())
+
+
+def np_iou(a, b):
+    """IoU of xyxy box a against each row of b (numpy)."""
+    lt = np.maximum(a[:2], b[:, :2])
+    rb = np.minimum(a[2:4], b[:, 2:4])
+    inter = np.prod(np.clip(rb - lt, 0, None), axis=1)
+    area = lambda x: (x[..., 2] - x[..., 0]) * (x[..., 3] - x[..., 1])
+    return inter / (area(a) + area(b) - inter)
+
+
+def bf16_contract(got, want, conf, iou, names=("bf16", "f32")):
+    """The JAX package's bf16 serving contract per image, `got` (bf16)
+    against `want` (f32) lists of (n, 6) rows: each row paired with one of
+    the other side of the same class, box within BF16_BOX_PX (or
+    BF16_BOX_REL of its larger side), score within BF16_SCORE.  Pairs
+    past that but within BF16_WIDE times it, and pairs whose boxes
+    overlap by IoU ≥ 0.5 with scores within BF16_SCORE (the NMS kept the
+    other of two candidates of one object), are reported apart (as
+    excused lines).  A row left without a partner is excused (and
+    reported) when its score is within BF16_NEAR of conf, or its IoU with
+    a same-class row of the other side within BF16_NEAR of iou (a
+    near-tie suppression).  → (pairs, pairs past 4 px, excused lines,
+    unexcused lines, images with equal counts)."""
+    pairs, wide, excused, bad = 0, 0, [], []
+    for i, (g, w) in enumerate(zip(got, want)):
+        free = list(range(len(w)))
+        lone_g = []
+        for row in g:
+            side = max(row[2] - row[0], row[3] - row[1])
+            tol = max(BF16_BOX_PX, BF16_BOX_REL * side)
+            for k in (1.0, BF16_WIDE, None):
+                if k is None:        # NMS kept the other of two candidates
+                    hit = [j for j in free if w[j, 5] == row[5]
+                           and np_iou(row, w[j:j + 1])[0] >= 0.5
+                           and abs(w[j, 4] - row[4]) <= BF16_SCORE]
+                else:
+                    hit = [j for j in free if w[j, 5] == row[5]
+                           and np.abs(w[j, :4] - row[:4]).max() <= k * tol
+                           and abs(w[j, 4] - row[4]) <= k * BF16_SCORE]
+                if hit:
+                    break
+            if hit:
+                d = np.abs(w[hit[0], :4] - row[:4]).max()
+                wide += d > BF16_BOX_PX
+                if k != 1.0:
+                    excused.append(
+                        f"image {i}: pair past the contract ("
+                        + ("another candidate kept, IoU "
+                           f"{np_iou(row, w[hit[0]:hit[0] + 1])[0]:.3f}"
+                           if k is None else f"within {BF16_WIDE:g}×")
+                        + f"), cls {int(row[5])} scores {row[4]:.4f} / "
+                        f"{w[hit[0], 4]:.4f}, boxes {d:.2f} px apart (box "
+                        f"{side:.1f} px)")
+                free.remove(hit[0])
+                pairs += 1
+            else:
+                lone_g.append(row)
+        for side, rows, other in ((names[0], lone_g, w),
+                                  (names[1], [w[j] for j in free], g)):
+            for row in rows:
+                same = other[other[:, 5] == row[5]]
+                near_iou = (np.abs(np_iou(row, same) - iou).min()
+                            if len(same) else 1.0)
+                line = (f"image {i}: {side} row cls {int(row[5])} score "
+                        f"{row[4]:.4f} (conf {conf}) box "
+                        f"{np.round(row[:4], 1).tolist()}, IoU with the "
+                        f"nearest same-class row off iou_thres by "
+                        f"{near_iou:.3f}")
+                if row[4] - conf <= BF16_NEAR or near_iou <= BF16_NEAR:
+                    excused.append(line)
+                else:
+                    bad.append(line)
+    equal = sum(len(g) == len(w) for g, w in zip(got, want))
+    return pairs, int(wide), excused, bad, equal
+
+
+class plain_bf16:
+    """Within it the bf16 forward runs its kernels' plain versions on the
+    card (the same bf16 function in cuDNN f32 with the JAX package's
+    rounding points): the four bf16 wrappers of `fused_infer` are swapped
+    for their plain versions, as the forward looks them up at each
+    call."""
+    NAMES = (("stem_s2d_bf16", "stem_s2d_reference_bf16"),
+             ("stem_s2d8_bf16", "stem_s2d8_reference_bf16"),
+             ("span_bf16", "span_reference_bf16"),
+             ("s2span_bf16", "s2span_reference_bf16"))
+
+    def __enter__(self):
+        from fastdet_torch.kernels import fused_infer as fi
+        self.saved = {k: getattr(fi, k) for k, _ in self.NAMES}
+        for k, ref in self.NAMES:
+            setattr(fi, k, getattr(fi, ref))
+
+    def __exit__(self, *exc):
+        from fastdet_torch.kernels import fused_infer as fi
+        for k, fn in self.saved.items():
+            setattr(fi, k, fn)
+
+
+def contract_line(what, res, n):
+    pairs, wide, excused, _, equal = res
+    return (f"{what}: {pairs} pairs ({wide} past {BF16_BOX_PX:g} px), "
+            f"{equal}/{n} equal counts, {len(excused)} excused")
+
+
+def rows_of(dets, counts):
+    d, c = dets.cpu().numpy(), counts.cpu().numpy()
+    return [d[i, :c[i]] for i in range(len(c))]
+
+
+def library16_stem(x16, w, b):
+    """cuDNN in bf16 for the stem's function: conv3×3 s2 + bias, ReLU,
+    max_pool2d on the bf16 NCHW image (x/255 folded into w as the kernel
+    has it)."""
+    import torch.nn.functional as F
+    return F.max_pool2d(F.relu(F.conv2d(x16, w, b, stride=2, padding=1)),
+                        3, 2, 1)
+
+
+def library16_blocks(x, mats, nblk, s2=None):
+    """cuDNN in bf16 for the composed blocks: the stride-2 block (if s2 =
+    (w1, b1, wc, bc, wp, bp)), then nblk stride-1 blocks (mats[k] = (w1,
+    b1, wc, bc)), each conv bf16 in and out."""
+    import torch
+    import torch.nn.functional as F
+    if s2 is not None:
+        w1, b1, wc, bc, wp, bp = s2
+        y = F.relu(F.conv2d(x, w1, b1))
+        x = torch.cat([F.relu(F.conv2d(x, wp, bp, stride=2, padding=1)),
+                       F.relu(F.conv2d(y, wc, bc, stride=2, padding=1))], 1)
+    for k in range(nblk):
+        w1, b1, wc, bc = mats[k]
+        y = F.relu(F.conv2d(x[:, 1::2], w1, b1))
+        x = torch.cat([x[:, 0::2], F.relu(F.conv2d(y, wc, bc, padding=1))],
+                      1)
+    return x
+
+
+def library16_weights(p, stage, nblk):
+    """A stage's bf16 composed matrices as cuDNN conv weights (bf16 OIHW)
+    and bf16 biases, from the fragment-ordered tensors the kernels take."""
+    import torch
+    from fastdet_torch.kernels import fused_infer as fi
+    m = {2: 24, 3: 48, 4: 96}[stage]
+    k1, kc = fi._pad16(m) * m, fi._pad16(9 * m) * m
+    b16 = torch.bfloat16
+
+    def mats(w, b, has_wp):
+        w1 = fi._frag_matrix(w[:k1], m, m)[:, :, None, None].to(b16)
+        wc = fi._tap_conv_weight(fi._frag_matrix(w[k1:k1 + kc], m, 9 * m),
+                                 m).to(b16)
+        out = [w1, b[:m].to(b16), wc, b[m:2 * m].to(b16)]
+        if has_wp:
+            out += [fi._tap_conv_weight(fi._frag_matrix(w[k1 + kc:], m,
+                                                        9 * m), m).to(b16),
+                    b[2 * m:].to(b16)]
+        return out
+    span = [mats(p[f"s{stage}_span16"][k], p[f"s{stage}_span16_b"][k],
+                 False) for k in range(nblk)]
+    return span, mats(p[f"s{stage}_s2_16"], p[f"s{stage}_s2_16_b"], True)
+
+
+def phase_bf16(sd, photo, card, images, big, fused_pipe, af_sd):
+    """9: bf16 serving, the JAX package's default.  The bf16 kernels (B1,
+    B6, B10, B2, B9) against their plain versions at the f32 phases' shape
+    classes (stems within one bf16 ULP, stages within 2⁻⁶ of the output's
+    max |value|; max |Δ| and the share of equal elements), launches per
+    call held to the plans; FusedPipeline(dtype=None) behind the HTTP
+    server (12 concurrent /detect_raw requests, counts to 0 just before,
+    read just after), its b128 detections held to the JAX package's bf16
+    contract against the f32 pipeline, img/s and its profile; each kernel
+    on the served batch's inputs with its bound, its plain version's and
+    cuDNN's bf16 time; the five other flag combinations in bf16; the
+    anchor-free family in bf16 at b128; FusedPipeline at 640² in bf16.
+    → ({kernel: launches on its main path}, {kernel: (ms, plain_ms,
+    bound_ms, bound_by, max |Δ|, library_ms)})."""
+    import dataclasses
+    import torch
+    from fastdet_torch.config import Config, load_names, resolve_path
+    from fastdet_torch.kernels import fused_infer as fi
+    from fastdet_torch.kernels import pp_fused
+    from fastdet_torch.kernels.fold import STAGES
+    from fastdet_torch.ops.postprocess import postprocess
+    from fastdet_torch.serve import FusedPipeline
+    from torch_cases import (S2SPAN_CASES, SPAN_CASES, STEM8_CASES,
+                             STEM_CASES, s2span_case, stem8_case, stem_case)
+    b16 = torch.bfloat16
+    reps = {s: r for s, r, _ in STAGES}
+    chans = {s: c for s, _, c in STAGES}
+    cfg = Config.from_file(DATA)
+    names = load_names(resolve_path(cfg.names, DATA))
+    anchors = np.asarray(cfg.anchors, np.float32).reshape(2, 3, 2)
+    _, p = fi.build_fused_forward(sd, dtype=b16)
+    err = {k: 0.0 for k in ("stem_s2d_bf16", "stem_s2d8_bf16", "span_bf16",
+                            "s2span_bf16")}
+
+    def launched(fn, call, want, what):
+        before = fn.launches
+        out = call()
+        check(fn.launches - before == want, f"{what}: {fn.launches - before} "
+              f"launches, the plan {want}")
+        return out
+
+    # ---- 1. each bf16 kernel against its plain version
+    for factor, cases, make, fn, ref in (
+            (4, STEM_CASES, stem_case, fi.stem_s2d_bf16,
+             fi.stem_s2d_reference_bf16),
+            (8, STEM8_CASES, stem8_case, fi.stem_s2d8_bf16,
+             fi.stem_s2d8_reference_bf16)):
+        worst = (0.0, 1.0)
+        for bsz, ih, iw in cases:
+            x = make(bsz + ih + 16, bsz, ih, iw, "cuda")
+            args = (p["stem_w"], p["stem_b"], ih // factor, iw // factor)
+            got = launched(fn, lambda: fn(x, *args), 1,
+                           f"{fn.__name__} b{bsz} {ih}x{iw}")
+            want = ref(x, *args)
+            ulps, eq = bf16_ulps(got, want), float((got == want).float().mean())
+            check(ulps <= 1 and eq >= 0.99, f"{fn.__name__} b{bsz} {ih}x{iw}: "
+                  f"{ulps} ULPs, {eq:.5f} equal")
+            err[fn.__name__] = max(err[fn.__name__],
+                                   float((got.float() - want.float()).abs()
+                                         .max()))
+            worst = (max(worst[0], ulps), min(worst[1], eq))
+        log(f"  {fn.__name__} against its plain version at {len(cases)} "
+            f"shapes (junk in the pad lanes): ≤ {worst[0]:g} bf16 ULP, ≥ "
+            f"{worst[1]:.5f} of the elements equal, max |Δ| "
+            f"{err[fn.__name__]:.3g}; 1 launch a call (`stem_plan`)")
+    for what, cases in (("span_bf16", SPAN_CASES), ("s2span_bf16",
+                                                    S2SPAN_CASES)):
+        worst = (0.0, 1.0)
+        for case in cases:
+            if what == "span_bf16":
+                bsz, stage, h, w = case
+                x = s2span_case(stage + h + 5, bsz, chans[stage], h, w,
+                                "cuda").to(b16)
+                n = reps[stage] - 1
+                args = (p[f"s{stage}_span16"], p[f"s{stage}_span16_b"], n)
+                plan = fi.span16_plan(bsz, chans[stage], h, w, n)
+                fn, ref = fi.span_bf16, fi.span_reference_bf16
+            else:
+                bsz, stage, hin, win = case
+                x = s2span_case(stage * 3 + hin + 5, bsz, chans[stage] // 2,
+                                hin, win, "cuda").to(b16)
+                n = reps[stage] - 1
+                args = (p[f"s{stage}_s2_16"], p[f"s{stage}_s2_16_b"],
+                        p[f"s{stage}_span16"], p[f"s{stage}_span16_b"], n)
+                plan = fi.span16_plan(bsz, chans[stage], (hin + 1) // 2,
+                                      (win + 1) // 2, n, True, win)
+                fn, ref = fi.s2span_bf16, fi.s2span_reference_bf16
+            got = launched(fn, lambda: fn(x, *args), plan.launches,
+                           f"{what} {case}")
+            want = ref(x, *args)
+            e = float((got.float() - want.float()).abs().max())
+            rel = e / float(want.float().abs().max())
+            eq = float((got == want).float().mean())
+            check(rel <= BF16_STAGE_RTOL, f"{what} {case}: {rel:.3g} of the "
+                  f"output's max |value| off")
+            err[what] = max(err[what], e)
+            worst = (max(worst[0], rel), min(worst[1], eq))
+        log(f"  {what} against its plain version at {len(cases)} shapes: "
+            f"max |Δ| ≤ {worst[0]:.3g} of the output's max |value| (≤ "
+            f"2^-6), ≥ {worst[1]:.5f} of the elements equal, max |Δ| "
+            f"{err[what]:.3g}; launches a call as `span16_plan`")
+
+    # the bf16 convs of the parts the JAX package leaves to XLA: cuDNN's
+    # bf16 conv against the f32 conv of the same bf16 values, rounded
+    with torch.inference_mode():
+        worst = (0.0, 1.0)
+        for cin, cout, k, stride, groups, hw in (
+                (96, 96, 5, 1, 96, 22), (192, 72, 1, 1, 1, 11),
+                (24, 24, 1, 1, 1, 88), (48, 48, 3, 2, 48, 44)):
+            g = torch.Generator(device="cuda").manual_seed(cin + k)
+            x = torch.rand(128, cin, hw, hw, generator=g, device="cuda").to(
+                b16)
+            w = (torch.randn(cout, cin // groups, k, k, generator=g,
+                             device="cuda") / k).to(b16)
+            got = fi._conv16(x, w, stride, k // 2, groups)
+            want = torch.nn.functional.conv2d(
+                x.float(), w.float(), None, stride, k // 2, 1, groups).to(b16)
+            ulps, eq = bf16_ulps(got, want), float((got == want).float()
+                                                    .mean())
+            check(got.dtype == b16 and ulps <= 1 and eq >= 0.99,
+                  f"_conv16 {cin}→{cout} k{k}: {ulps} ULPs, {eq:.5f} equal")
+            worst = (max(worst[0], ulps), min(worst[1], eq))
+    log(f"  _conv16 on the card (cuDNN bf16) against the f32 conv of the same "
+        f"bf16 values, rounded: ≤ {worst[0]:g} bf16 ULP, ≥ {worst[1]:.5f} "
+        f"equal (4 shapes of the heads, FPN and stride-2 blocks)")
+
+    # ---- 2. FusedPipeline(dtype=None) behind the server: the main path
+    pipe = FusedPipeline(sd, cfg)
+    check(pipe.dtype == b16, f"FusedPipeline(dtype=None) is {pipe.dtype}")
+    answers, served, stats, serve_launches = serve_concurrently(
+        pipe, images, cfg, names,
+        [fi.stem_s2d_bf16, fi.span_bf16, pp_fused.rank_decode_nms])
+    want13 = 1 + sum(fi.span16_plan(1, c, 88 >> i, 88 >> i, r - 1).launches
+                     for i, (_, r, c) in enumerate(STAGES, 1))
+    check(serve_launches["stem_s2d_bf16"] * (want13 - 1)
+          == serve_launches["span_bf16"],
+          f"served launches {serve_launches}: not 1 stem to "
+          f"{want13 - 1} span launches a batch")
+    pairs, wide, excused, bad, equal = bf16_contract(
+        served, fused_pipe(images), 0.3, 0.45)
+    check(not bad, f"bf16 served detections: {bad}")
+    log(f"phase 9 bf16 serving: FusedPipeline(dtype=None) = bf16; "
+        f"{len(images)} concurrent /detect_raw requests in "
+        f"{stats['batches']} batches {stats['batch_hist']}, "
+        f"{sum(a['count'] for a in answers)} detections, each equal to the "
+        f"bf16 pipeline on the same batch; against the f32 pipeline {pairs} "
+        f"pairs (classes, boxes ≤ {BF16_BOX_PX:g} px or 2^-5 of the box, "
+        f"{wide} of them past {BF16_BOX_PX:g} px, scores ≤ {BF16_SCORE:g}), "
+        f"{equal}/{len(images)} images with equal counts, "
+        f"{len(excused)} rows excused near conf/iou; launches on this path "
+        f"{serve_launches}")
+    for line in excused:
+        log(f"  excused: {line}")
+
+    host_big = big.cpu().numpy()
+    big_s2d = torch.from_numpy(fi.pack_images_s2d(host_big)).cuda()
+    with torch.inference_mode():
+        got16 = rows_of(*pipe.detect(big_s2d))
+        got32 = rows_of(*fused_pipe.detect(big_s2d))
+    pairs, wide, excused, bad, equal = bf16_contract(got16, got32, 0.3, 0.45)
+    check(not bad, f"bf16 b128 detections: {bad}")
+    check(pairs > 0, "no bf16 detections at b128")
+    runs = {"f32": lambda: fused_pipe.detect(big_s2d),
+            "bf16": lambda: pipe.detect(big_s2d)}
+    dev_ms = {k: [] for k in runs}
+    for k in ("f32", "bf16", "bf16", "f32"):
+        dev_ms[k].append(cuda_ms(runs[k], 20))
+    h2h = {}
+    for k, pp_ in (("f32", fused_pipe), ("bf16", pipe)):
+        pp_(host_big)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            pp_(host_big)
+        h2h[k] = (time.perf_counter() - t0) / 5 * 1e3
+    log(f"  b128 352² (conf 0.3, window 128): bf16 detections against the "
+        f"f32 pipeline's, {pairs} pairs ({wide} past {BF16_BOX_PX:g} px), "
+        f"{equal}/128 images with equal counts, {len(excused)} rows excused "
+        f"near conf/iou")
+    for line in excused:
+        log(f"  excused: {line}")
+    for k in runs:
+        m = sum(dev_ms[k]) / 2
+        log(f"  throughput b128 352² FusedPipeline {k} ({card}): "
+            f"{128e3 / m:.1f} img/s on the device ({m:.3f} ms a batch; calls "
+            f"{', '.join(f'{x:.3f}' for x in dev_ms[k])} ms), "
+            f"{128e3 / h2h[k]:.1f} img/s host to host")
+    inside = profile_device(lambda: pipe.detect(big_s2d),
+                            "bf16 fused b128 batches")
+    if inside is not None:
+        log("  the bf16 kernels inside a b128 batch (torch.profiler, ms a "
+            "batch): " + ", ".join(
+                f"{name} {inside.get(name, 0.0):.4f}" for name in (
+                    "stem_kernel", "span_bf16_kernel",
+                    "rank_decode_nms_kernel")))
+
+    # ---- 3. each kernel on the served batch's inputs: time, bound,
+    #         plain version, cuDNN in bf16
+    out = {}
+    with torch.inference_mode():
+        cum = {}
+        for upto in ("stem", "s2", "s3", "s4", None):
+            fwd, _ = fi.build_fused_forward(sd, dtype=b16, upto=upto)
+            cum[upto] = cuda_ms(lambda: fwd(big_s2d, p), 10)
+        log("  bf16 forward b128 per stage (CUDA events, upto=): " + ", ".join(
+            f"{u or 'fpn+heads'} {cum[u] - cum[v] if v else cum[u]:.3f}"
+            for v, u in zip((None, "stem", "s2", "s3", "s4"),
+                            ("stem", "s2", "s3", "s4", None)))
+            + f" ms; whole forward {cum[None]:.3f} ms")
+        args = (p["stem_w"], p["stem_b"], 88, 88)
+        x0 = fi.stem_s2d_bf16(big_s2d, *args)
+        img16 = (big.permute(0, 3, 1, 2).contiguous().to(b16))
+        w16 = p["stem_w"].cuda().permute(3, 2, 0, 1).contiguous()
+        b16v = p["stem_b"].cuda().to(b16)
+        k_ms = cuda_ms(lambda: fi.stem_s2d_bf16(big_s2d, *args), 20)
+        plain = cuda_ms(lambda: fi.stem_s2d_reference_bf16(big_s2d, *args),
+                        5, 1)
+        lib = cuda_ms(lambda: library16_stem(img16, w16, b16v), 10)
+        e = float((x0.float() - fi.stem_s2d_reference_bf16(
+            big_s2d, *args).float()).abs().max())
+        out["stem_s2d_bf16"] = (k_ms, plain) + stem16_bound(128, 88, 88) \
+            + (e, lib)
+        span_t, s2_t = [0.0] * 4, [0.0] * 4
+        x, xs2 = x0, x0
+        for (sid, r, c), hw in zip(STAGES, (44, 22, 11)):
+            xb = fi._s2_block_bf16(x, p, f"s{sid}_0")
+            a = (p[f"s{sid}_span16"], p[f"s{sid}_span16_b"], r - 1)
+            a2 = (p[f"s{sid}_s2_16"], p[f"s{sid}_s2_16_b"]) + a
+            mats, s2m = library16_weights(p, sid, r - 1)
+            for acc, fn, ref, inp, aa, libf, bnd in (
+                    (span_t, fi.span_bf16, fi.span_reference_bf16, xb, a,
+                     lambda inp=xb, m=mats: library16_blocks(inp, m, r - 1),
+                     span16_bound(128, c, hw, hw, r - 1)),
+                    (s2_t, fi.s2span_bf16, fi.s2span_reference_bf16, xs2, a2,
+                     lambda inp=xs2, m=mats, s=s2m: library16_blocks(
+                         inp, m, r - 1, s),
+                     s2span16_bound(128, c // 2, 2 * hw, 2 * hw, r - 1))):
+                y = fn(inp, *aa)
+                e = float((y.float() - ref(inp, *aa).float()).abs().max())
+                t = (cuda_ms(lambda: fn(inp, *aa), 20),
+                     cuda_ms(lambda: ref(inp, *aa), 5, 1), cuda_ms(libf, 10))
+                for i, v in enumerate(t):
+                    acc[i] += v
+                acc[3] = max(acc[3], e)
+                acc.append(bnd)
+                log(f"  {fn.__name__} s{sid} b128 {hw}² on the batch's "
+                    f"input: kernel {t[0]:.4f} ms, plain {t[1]:.4f}, cuDNN "
+                    f"bf16 {t[2]:.4f}, bound {bnd[0]:.4f} ({bnd[1]}), "
+                    f"max |Δ| {e:.3g}")
+            x = fi.span_bf16(xb, *a)
+            xs2 = fi.s2span_bf16(xs2, *a2)
+        for name, acc in (("span_bf16", span_t), ("s2span_bf16", s2_t)):
+            out[name] = (acc[0], acc[1], sum(b[0] for b in acc[4:]),
+                         max(acc[4:])[1], acc[3], acc[2])
+        log(f"  stem_s2d_bf16 b128 352²: kernel {out['stem_s2d_bf16'][0]:.4f}"
+            f" ms, plain {plain:.4f}, cuDNN bf16 conv+ReLU+max_pool2d "
+            f"{lib:.4f}, bound {out['stem_s2d_bf16'][2]:.4f} "
+            f"({out['stem_s2d_bf16'][3]})")
+
+    # ---- 4. the five other flag combinations in bf16
+    host = photo_variants(photo, 128, seed=44)
+    inputs = {"nhwc": torch.from_numpy(host).cuda(),
+              "s2d_u8": torch.from_numpy(fi.pack_images_s2d(host)).cuda(),
+              "s2d8_u8": torch.from_numpy(fi.pack_images_s2d8(host)).cuda()}
+    fwd16 = {c: fi.build_fused_forward(sd, dtype=b16, input_format=c[0],
+                                       fuse_s2=c[1])
+             for c in (("s2d_u8", False),) + FLAG_COMBOS}
+    fwd32 = {c: fi.build_fused_forward(sd, input_format=c[0], fuse_s2=c[1])
+             for c in fwd16}
+    flag_kernels = (fi.stem_s2d8_bf16, fi.s2span_bf16)
+
+    def detect(fwd_p, c):
+        f, pk = fwd_p
+        return rows_of(*postprocess(f(inputs[c[0]], pk), anchors,
+                                    (352, 352), conf_thres=0.3,
+                                    iou_thres=0.45, max_nms=128))
+    with torch.inference_mode():
+        for k in flag_kernels:
+            k.launches = 0
+        got = {c: detect(fwd16[c], c) for c in FLAG_COMBOS}
+        torch.cuda.synchronize()
+        flag_launches = {k.__name__: k.launches for k in flag_kernels}
+        for k, n in flag_launches.items():
+            check(n > 0, f"the bf16 flag paths launched no {k}")
+        for c in fwd16:
+            rows16 = got[c] if c in got else detect(fwd16[c], c)
+            maps16 = fwd16[c][0](inputs[c[0]], fwd16[c][1])
+            maps32 = fwd32[c][0](inputs[c[0]], fwd32[c][1])
+            with plain_bf16():
+                plain_maps = fwd16[c][0](inputs[c[0]], fwd16[c][1])
+                plain_rows = detect(fwd16[c], c)
+            rel = max(float((a - b).abs().max() / b.abs().max())
+                      for a, b in zip(maps16, plain_maps))
+            rel32 = max(float((a - b).abs().max() / b.abs().max())
+                        for a, b in zip(maps16, maps32))
+            check(rel <= BF16_MAP_RTOL, f"bf16 {c}: maps {rel:.3g} of their "
+                  f"max |value| off the plain bf16 forward's")
+            res = bf16_contract(rows16, plain_rows, 0.3, 0.45,
+                                ("kernels", "plain"))
+            check(not res[3], f"bf16 {c} against its plain version: {res[3]}")
+            res32 = bf16_contract(rows16, detect(fwd32[c], c), 0.3, 0.45)
+            f16, f32_ = cuda_median_ms(lambda: fwd16[c][0](inputs[c[0]],
+                                                           fwd16[c][1]), 7), \
+                cuda_median_ms(lambda: fwd32[c][0](inputs[c[0]],
+                                                   fwd32[c][1]), 7)
+            log(f"  bf16 {c[0]}{' fuse_s2' if c[1] else ''} b128: forward "
+                f"{f16:.3f} ms (f32 {f32_:.3f}); maps {rel:.3g} of their max "
+                f"|value| off the plain bf16 forward's (≤ 2^-5), {rel32:.3g} "
+                f"off the f32 forward's (not a gate); detections "
+                + contract_line("against the plain bf16 path's", res, 128)
+                + "; " + contract_line("against f32 (not a gate)", res32, 128)
+                + f", {len(res32[3])} unexplained")
+        args8 = (p["stem_w"], p["stem_b"], 44, 44)
+        x8 = inputs["s2d8_u8"]
+        y8 = fi.stem_s2d8_bf16(x8, *args8)
+        e = float((y8.float() - fi.stem_s2d8_reference_bf16(
+            x8, *args8).float()).abs().max())
+        img16 = inputs["nhwc"].permute(0, 3, 1, 2).contiguous().to(b16)
+        out["stem_s2d8_bf16"] = (
+            cuda_ms(lambda: fi.stem_s2d8_bf16(x8, *args8), 20),
+            cuda_ms(lambda: fi.stem_s2d8_reference_bf16(x8, *args8), 5, 1)) \
+            + stem16_bound(128, 88, 88) + (e, cuda_ms(
+                lambda: library16_stem(img16, w16, b16v), 10))
+    log(f"  the bf16 flag paths: launches over the five {flag_launches}")
+
+    # ---- 5. 640²: B6 in bf16, FusedPipeline(dtype=None) at 640²
+    cfg640 = dataclasses.replace(Config.from_file(DATA), width=640,
+                                 height=640)
+    host640 = photo_variants(photo, 32, seed=66, hw=(640, 640))
+    x640 = torch.from_numpy(fi.pack_images_s2d(host640)).cuda()
+    pipe640 = FusedPipeline(sd, cfg640)
+    pipe640(host640[:8])
+    fi.stem_s2d_bf16.launches = 0
+    rows640 = pipe640(host640[:8])
+    b6_launches = fi.stem_s2d_bf16.launches
+    check(b6_launches == 1, f"640² bf16 batch: {b6_launches} stem launches")
+    with plain_bf16():
+        plain640 = pipe640(host640[:8])
+    res640 = bf16_contract(rows640, plain640, 0.3, 0.45,
+                           ("kernels", "plain"))
+    check(not res640[3], f"bf16 640² against its plain version: "
+          f"{res640[3]}")
+    res640_32 = bf16_contract(rows640, FusedPipeline(
+        sd, cfg640, dtype=torch.float32)(host640[:8]), 0.3, 0.45)
+    with torch.inference_mode():
+        a640 = (p["stem_w"], p["stem_b"], 160, 160)
+        y = fi.stem_s2d_bf16(x640, *a640)
+        e = float((y.float() - fi.stem_s2d_reference_bf16(
+            x640, *a640).float()).abs().max())
+        img640 = torch.from_numpy(host640).cuda().permute(
+            0, 3, 1, 2).contiguous().to(b16)
+        out["stem_s2d_bf16@640"] = (
+            cuda_ms(lambda: fi.stem_s2d_bf16(x640, *a640), 20),
+            cuda_ms(lambda: fi.stem_s2d_reference_bf16(x640, *a640), 5, 1)) \
+            + stem16_bound(32, 160, 160) + (e, cuda_ms(
+                lambda: library16_stem(img640, w16, b16v), 10))
+    log(f"  640² bf16: FusedPipeline(dtype=None) on 8 photo variants, "
+        + contract_line("against the plain bf16 path's", res640, 8) + "; "
+        + contract_line("against f32 (not a gate)", res640_32, 8)
+        + f", {len(res640_32[3])} unexplained; stem_s2d_bf16 b32 640² "
+        f"{out['stem_s2d_bf16@640'][0]:.4f} ms (plain "
+        f"{out['stem_s2d_bf16@640'][1]:.4f}, cuDNN bf16 "
+        f"{out['stem_s2d_bf16@640'][5]:.4f}, bound "
+        f"{out['stem_s2d_bf16@640'][2]:.4f})")
+
+    # ---- 6. the anchor-free family in bf16 at b128 352²
+    xs = pack_s2d_on_device(torch.from_numpy(host).cuda())
+    af16 = FusedPipeline(af_sd, cfg, family="anchorfree")
+    af32 = FusedPipeline(af_sd, cfg, family="anchorfree",
+                         dtype=torch.float32)
+    with torch.inference_mode():
+        af16.detect(xs)
+        fi.stem_s2d_bf16.launches = fi.span_bf16.launches = 0
+        rows16 = rows_of(*af16.detect(xs))
+        torch.cuda.synchronize()
+        af_launches = {"stem_s2d_bf16": fi.stem_s2d_bf16.launches,
+                       "span_bf16": fi.span_bf16.launches}
+        check(af_launches == {"stem_s2d_bf16": 1, "span_bf16": want13 - 1},
+              f"anchor-free bf16 launches {af_launches}")
+        fwd_af, p_af = fi.build_fused_forward(af_sd, dtype=b16,
+                                              head="anchorfree")
+        maps = fwd_af(xs, p_af)
+        with plain_bf16():
+            af_plain = rows_of(*af16.detect(xs))
+            plain_maps = fwd_af(xs, p_af)
+        rel = max(float((a - b).abs().max() / b.abs().max())
+                  for a, b in zip(maps, plain_maps))
+        check(rel <= BF16_MAP_RTOL, f"anchor-free bf16 maps {rel:.3g} of "
+              f"their max |value| off the plain bf16 forward's")
+        res_af = bf16_contract(rows16, af_plain, 0.3, 0.45,
+                               ("kernels", "plain"))
+        check(res_af[0] > 0, "anchor-free bf16: no detections")
+        res_af32 = bf16_contract(rows16, rows_of(*af32.detect(xs)), 0.3,
+                                 0.45)
+        t16 = cuda_median_ms(lambda: af16.detect(xs))
+        t32 = cuda_median_ms(lambda: af32.detect(xs))
+    log(f"  anchor-free bf16 (80 classes, b128 352², phase 8d's seeded "
+        f"model, whose dense near ties make detections a report, not a "
+        f"gate): maps {rel:.3g} of their max |value| off the plain bf16 "
+        f"forward's (≤ 2^-5); "
+        + contract_line("against the plain bf16 path's", res_af, 128)
+        + f", {len(res_af[3])} unexplained; "
+        + contract_line("against f32 (not a gate)", res_af32, 128)
+        + f", {len(res_af32[3])} unexplained; launches "
+        f"{af_launches}; detect {t16:.3f} ms bf16, {t32:.3f} ms f32 "
+        f"({128e3 / t16:.1f} / {128e3 / t32:.1f} img/s)")
+    launches = {"stem_s2d_bf16": serve_launches["stem_s2d_bf16"],
+                "span_bf16": serve_launches["span_bf16"],
+                "stem_s2d8_bf16": flag_launches["stem_s2d8_bf16"],
+                "s2span_bf16": flag_launches["s2span_bf16"],
+                "stem_s2d_bf16@640": b6_launches}
+    for name in out:
+        base = name.split("@")[0]
+        out[name] = out[name][:4] + (max(out[name][4], err[base]),
+                                     out[name][5])
+    return launches, out
 
 
 def main() -> int:
@@ -3068,15 +3746,21 @@ def main() -> int:
     lap("8c")
     train_launches = phase_training(sd, photo, dev_pipe, card, b8, b7)
     lap("8b")
-    af_launches = phase_anchorfree(photo, card, eval_images)
+    af_launches, af_sd = phase_anchorfree(photo, card, eval_images)
     lap("8d")
+    bf16_launches, bf16_main = phase_bf16(sd, photo, card, images, big,
+                                          fused_pipe, af_sd)
+    lap("9")
     log('phase 6 kernels: ["stem_s2d", "span", "rank_decode_nms", '
         '"nms_keep", "span_train", "stem_train", "stem_s2d8", "s2span"] '
         f'(rank_decode_nms launches on the device path: {launches}; '
         f'nms_keep on the eval path: {eval_launches}; stem_s2d8 and s2span '
         f'on the flag paths: {flag_launches["stem_s2d8"]}, '
         f'{flag_launches["s2span"]}; stem_s2d and span on the anchor-free '
-        f'path: {af_launches["stem_s2d"]}, {af_launches["span"]})')
+        f'path: {af_launches["stem_s2d"]}, {af_launches["span"]}); the bf16 '
+        f'kernels stem_s2d_bf16 and span_bf16 on the bf16 serving path, '
+        f'stem_s2d8_bf16 and s2span_bf16 on its flag paths, stem_s2d_bf16 '
+        f'at 640²: {bf16_launches}')
     log("phase times (host clock, s): " + ", ".join(
         f"{name} {t - laps[i][1]:.1f}"
         for i, (name, t) in enumerate(laps[1:]))
@@ -3169,6 +3853,28 @@ def main() -> int:
             "max_abs_err": max(flag_err[name], k_err), "ms": k_ms,
             "plain_ms": k_plain, "bound_ms": k_bound, "bound_by": k_by,
             "library_ms": None})
+    # the bf16 forms (phase 9): B1 and B2 launches from the bf16 serving
+    # path, B10 and B9 from its flag paths, B6 from FusedPipeline at 640²;
+    # b128 352² times (b32 640² for B6), B2's and B9's summed over the
+    # three stages; library_ms is cuDNN in bf16 on the same inputs
+    for name, key, source, replaces in (
+            ("stem_s2d_bf16", "stem_s2d_bf16", "stem_s2d",
+             "fastdet/kernels/fused_infer.py:422"),
+            ("stem_s2d_bf16", "stem_s2d_bf16@640", "stem_s2d",
+             "fastdet/kernels/fused_infer.py:466"),
+            ("span_bf16", "span_bf16", "span",
+             "fastdet/kernels/fused_infer.py:223"),
+            ("s2span_bf16", "s2span_bf16", "s2span",
+             "fastdet/kernels/fused_infer.py:241"),
+            ("stem_s2d8_bf16", "stem_s2d8_bf16", "stem_s2d8",
+             "fastdet/kernels/fused_infer.py:622")):
+        k_ms, k_plain, k_bound, k_by, k_err, k_lib = bf16_main[key]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"fastdet_torch/csrc/{source}.cu",
+            "replaces": replaces, "launches": bf16_launches[key],
+            "max_abs_err": k_err, "ms": k_ms, "plain_ms": k_plain,
+            "bound_ms": k_bound, "bound_by": k_by, "library_ms": k_lib})
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

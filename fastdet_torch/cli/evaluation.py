@@ -60,8 +60,10 @@ def run_evaluation(cfg: Config, state_dict, batches: Callable[[int],
     if fused:
         disable_tf32(dev)
         anchorfree = family_name(family) == "anchorfree"
+        # f32: the JAX eval CLI's fused pass is eval-grade precision
+        # (cli/evaluation.py), not the bf16 that serving defaults to
         fwd, packed = build_fused_forward(
-            state_dict, input_hw=hw, device=dev,
+            state_dict, input_hw=hw, dtype=torch.float32, device=dev,
             head="anchorfree" if anchorfree else "yolo")
         anchors = np.asarray(cfg.anchors, np.float32).reshape(
             cfg.num_scales, cfg.anchor_num, 2)

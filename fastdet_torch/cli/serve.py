@@ -11,7 +11,9 @@ Usage, from the repository root:
 Runs on CUDA unless `--device cpu` is given.  `--pipeline fused` (the
 default, as in the JAX CLI) serves through FusedPipeline: the host packs
 each batch into the s2d(4) layout and the card runs the stem and span
-kernels.  `--pipeline device` serves through DevicePipeline.
+kernels, in bf16 on the card and in f32 with `--device cpu`, as the JAX
+CLI chooses bf16 on its accelerator and f32 elsewhere.  `--pipeline
+device` serves through DevicePipeline.
 `--model anchorfree` serves the anchor-free family through FusedPipeline
 (`family="anchorfree"`); `--pipeline device` takes yolo-fastestv2 only
 and exits with an error for it (the JAX package's DevicePipeline feeds any
@@ -78,9 +80,13 @@ def main(argv=None) -> int:
     cfg = Config.from_file(opt.data)
     sd = load_state_dict(opt.weights)
     if opt.pipeline == "fused":
+        import torch
+        on_card = torch.device(opt.device).type == "cuda"
         pipe = FusedPipeline(sd, cfg, conf_thres=opt.conf,
-                             iou_thres=opt.nms, device=opt.device,
-                             family=family)
+                             iou_thres=opt.nms,
+                             dtype=torch.bfloat16 if on_card
+                             else torch.float32,
+                             device=opt.device, family=family)
     else:
         pipe = DevicePipeline(Detector(cfg.classes, cfg.anchor_num), sd,
                               cfg, conf_thres=opt.conf, iou_thres=opt.nms,

@@ -44,10 +44,14 @@
 // The layout of shared memory is computed by stage_layout on the host and
 // on the card alike; fastdet_span_stage_smem reports its size so that the
 // launch plan (fused_infer.span_stage_plan) can be checked against it.
+//
+// The bf16 forms of both stages (the JAX package's bf16 serving) are the
+// second half of this file; their design is described there.
 
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
@@ -575,6 +579,408 @@ int launch_span(const float* src, float* out, float* tmp, const float* wts,
   return 0;
 }
 
+
+// ====================================================== the bf16 stage
+//
+// The JAX package's bf16 serving runs each stride-1 block as
+//   y = bf16(ReLU(pw1(x_odd) + b1)),  z = bf16(ReLU(Wc . taps(y) + bc)),
+//   out = concat[x_even, z],
+// with Wc (MID, 9*MID) = dw3x3 composed with pw2 and cast to bf16 as one
+// matrix, and the stride-2 block as
+//   y = bf16(ReLU(pw1(x) + b1)) on the input grid,
+//   out = concat[bf16(ReLU(Wp . taps_s2(x) + bp)),
+//                bf16(ReLU(Wc . taps_s2(y) + bc))],
+// every product of bf16 operands accumulated in f32 (fold.py's composed
+// packings; fused_infer.span_reference_bf16, s2span_reference_bf16).
+// bf16(Wc) is not bf16(pw2) . bf16(dw), so the bf16 stage runs the
+// composed product, an implicit GEMM of depth K = 9*MID, on the tensor
+// cores (mma.sync m16n8k16 bf16, f32 accumulate): M = pixels, N = MID
+// output channels.
+//
+// One launch per block: a CTA takes a band of `rows` output rows of one
+// image, stages what the band needs of the block's input pixel-major in
+// shared memory (a pixel's channels contiguous, so that an A register, two
+// channels of one pixel at one tap, is one 4-byte load; the pixel stride
+// is padded so that a warp's A loads meet 32 banks), zero on rows off the
+// image:
+//   stride 1: the odd channels of rows r0-1 .. r0+rv (the depthwise halo);
+//             pw1 + ReLU into Y (rows off the image 0: the conv's zero
+//             pad), then Wc over the 9 taps of Y into channels MID..C-1
+//             of the output band; the even channels are copied across;
+//   stride 2: all CIN channels of input rows 2*r0-1 .. 2*(r0+rv)-1; pw1 +
+//             ReLU into Y on the input grid, then per output pixel Wc over
+//             Y's and Wp over X's stride-2 taps.
+// The B operand (the weights) is read from device memory through L1 in
+// the lanes' fragment order (fold.mma_fragments), one 8-byte load per
+// lane, k-step and n-tile, shared by the MT m-tiles a warp takes at once.
+// Rounding points are the JAX package's: the f32 bias is added to the f32
+// accumulator, then ReLU, then one rounding to bf16.
+
+constexpr int kThreads16 = 256;
+constexpr int kWarps16 = kThreads16 / 32;
+constexpr int kMTiles16 = 2;       // m-tiles of 16 pixels a warp at once
+
+__host__ __device__ constexpr int pad16(int n) { return (n + 15) & ~15; }
+
+// bf16 elements between two pixels of a pixel-major buffer of `mid`
+// channels: 2 * words with words = 4 modulo 8 (8 pixels x 4 pairs of a
+// warp's A load fall in distinct banks)
+__host__ __device__ constexpr int px_stride16(int mid) {
+  return 2 * (mid / 2 + ((12 - (mid / 2) % 8) % 8));
+}
+
+// Shared memory (bytes) of one CTA: X and Y, each `npix` pixels of
+// px_stride16(mid) bf16: rows + 2 rows of w (stride 1) or 2*rows + 1 rows
+// of win (stride 2)
+__host__ __device__ inline size_t span16_smem_bytes(int mid, int rows, int w,
+                                                    int s2, int win) {
+  const size_t npix =
+      s2 ? (size_t)(2 * rows + 1) * win : (size_t)(rows + 2) * w;
+  return 2 * npix * px_stride16(mid) * sizeof(__nv_bfloat16);
+}
+
+__device__ __forceinline__ unsigned char* dyn_smem16() {
+  extern __shared__ uint4 smem_u4[];
+  return reinterpret_cast<unsigned char*>(smem_u4);
+}
+
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
+                                               const uint32_t (&a)[4],
+                                               uint2 b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
+}
+
+// acc[mt][n] += A . B over K = KTOT (padded to 16 with zero A), for the
+// warp's kMTiles16 m-tiles: a_pair(mt, r, k) is the lane's A register of
+// m-tile mt, row g + 8r, columns k and k+1 (two bf16, lo = k); frag is the
+// B operand in fold.mma_fragments order.
+template <int MID, int KTOT, class APair>
+__device__ __forceinline__ void gemm16(float (&acc)[kMTiles16][MID / 8][4],
+                                       const uint2* __restrict__ frag,
+                                       APair a_pair) {
+  constexpr int KS = pad16(KTOT) / 16;
+  constexpr int NT = MID / 8;
+  const int lane = threadIdx.x & 31, tig = lane & 3;
+#pragma unroll 2
+  for (int s = 0; s < KS; ++s) {
+    uint32_t a[kMTiles16][4];
+#pragma unroll
+    for (int mt = 0; mt < kMTiles16; ++mt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int k = 16 * s + 8 * half + 2 * tig;
+        const bool in = (KTOT % 16 == 0) || k < KTOT;
+        a[mt][2 * half] = in ? a_pair(mt, 0, k) : 0u;
+        a[mt][2 * half + 1] = in ? a_pair(mt, 1, k) : 0u;
+      }
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const uint2 b = __ldg(frag + (s * NT + n) * 32 + lane);
+#pragma unroll
+      for (int mt = 0; mt < kMTiles16; ++mt)
+        mma_bf16_16816(acc[mt][n], a[mt], b);
+    }
+  }
+}
+
+template <int MID>
+__device__ __forceinline__ void zero_acc(float (&acc)[kMTiles16][MID / 8][4]) {
+#pragma unroll
+  for (int mt = 0; mt < kMTiles16; ++mt)
+#pragma unroll
+    for (int n = 0; n < MID / 8; ++n)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mt][n][q] = 0.f;
+}
+
+__device__ __forceinline__ uint32_t bf16_pair_bits(__nv_bfloat16 lo,
+                                                   __nv_bfloat16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo)
+         | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+// The epilogue: out(pixel, o) = bf16(ReLU(acc + bias[o])) for the lane's
+// pixels m < npix (channels 8n + 2*tig + {0, 1}), handed to
+// put(pixel, o, pair) with the pair of channels o, o+1.
+template <int MID, class Put>
+__device__ __forceinline__ void epilogue16(
+    const float (&acc)[kMTiles16][MID / 8][4], const float* __restrict__ bias,
+    int m0, int npix, Put put) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int n = 0; n < MID / 8; ++n) {
+    const int o = 8 * n + 2 * tig;
+    const float b0 = __ldg(bias + o), b1 = __ldg(bias + o + 1);
+#pragma unroll
+    for (int mt = 0; mt < kMTiles16; ++mt)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int m = (m0 + mt) * 16 + g + 8 * r;
+        if (m >= npix) continue;
+        put(m, o, __floats2bfloat162_rn(fmaxf(acc[mt][n][2 * r] + b0, 0.f),
+                                        fmaxf(acc[mt][n][2 * r + 1] + b1,
+                                              0.f)));
+      }
+  }
+}
+
+// pw1 + ReLU over `npix` staged pixels: Y[m] = bf16(ReLU(W1 . X[m] + b1)),
+// 0 where !live(m) (rows off the image: the depthwise conv's zero pad).
+template <int MID, int KIN, class Live>
+__device__ __forceinline__ void pw1_16(const __nv_bfloat16* sx,
+                                       __nv_bfloat16* sy, int npix,
+                                       const uint2* __restrict__ w1,
+                                       const float* __restrict__ b1,
+                                       Live live) {
+  constexpr int PS = px_stride16(MID);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int mtiles = (npix + 15) / 16;
+  for (int m0 = warp * kMTiles16; m0 < mtiles; m0 += kWarps16 * kMTiles16) {
+    float acc[kMTiles16][MID / 8][4];
+    zero_acc<MID>(acc);
+    int q[kMTiles16][2];
+#pragma unroll
+    for (int mt = 0; mt < kMTiles16; ++mt)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        q[mt][r] = min((m0 + mt) * 16 + g + 8 * r, npix - 1) * PS;
+    gemm16<MID, KIN>(acc, w1, [&](int mt, int r, int k) {
+      return *reinterpret_cast<const uint32_t*>(sx + q[mt][r] + k);
+    });
+    epilogue16<MID>(acc, b1, m0, npix,
+                    [&](int m, int o, __nv_bfloat162 v) {
+                      if (!live(m)) v = __floats2bfloat162_rn(0.f, 0.f);
+                      *reinterpret_cast<__nv_bfloat162*>(sy + m * PS + o) = v;
+                    });
+  }
+}
+
+// One stride-1 block of the bf16 span: x (B, 2*MID, h, w) bf16 -> y, one
+// CTA per (band of `rows` rows, image).  wts: [pw1 | Wc] fragments, bias
+// [b1 | bc] f32.
+template <int MID>
+__global__ void __launch_bounds__(kThreads16)
+span_bf16_kernel(const __nv_bfloat16* __restrict__ x,
+                 __nv_bfloat16* __restrict__ y, const uint2* __restrict__ wts,
+                 const float* __restrict__ bias, int h, int w, int rows) {
+  constexpr int C = 2 * MID, PS = px_stride16(MID);
+  const int r0 = blockIdx.x * rows, rv = min(rows, h - r0);
+  const int npix = (rv + 2) * w;            // staged rows r0-1 .. r0+rv
+  const size_t plane = (size_t)h * w;
+  const __nv_bfloat16* xb = x + (size_t)blockIdx.y * C * plane;
+  __nv_bfloat16* yb = y + (size_t)blockIdx.y * C * plane;
+  __nv_bfloat16* sx = reinterpret_cast<__nv_bfloat16*>(dyn_smem16());
+  __nv_bfloat16* sy = sx + (size_t)npix * PS;
+  const int tid = threadIdx.x;
+
+  // 1. the odd channels pixel-major (pairs of odd channels 4jp+1, 4jp+3),
+  //    0 off the image; the even channels across (the passthrough)
+  for (int it = tid; it < (MID / 2) * npix; it += kThreads16) {
+    const int jp = it / npix, q = it - jp * npix;
+    const int gy = r0 - 1 + q / w;
+    uint32_t v = 0;
+    if (gy >= 0 && gy < h) {
+      const size_t off = (size_t)gy * w + q % w;
+      v = bf16_pair_bits(xb[(4 * jp + 1) * plane + off],
+                         xb[(4 * jp + 3) * plane + off]);
+    }
+    *reinterpret_cast<uint32_t*>(sx + q * PS + 2 * jp) = v;
+  }
+  const int nout = rv * w;
+  for (int it = tid; it < MID * nout; it += kThreads16) {
+    const int j = it / nout, p = it - j * nout;
+    yb[j * plane + (size_t)r0 * w + p] = xb[2 * j * plane + (size_t)r0 * w + p];
+  }
+  __syncthreads();
+
+  // 2. pw1 + ReLU -> Y
+  pw1_16<MID, MID>(sx, sy, npix, wts, bias, [&](int m) {
+    const int gy = r0 - 1 + m / w;
+    return gy >= 0 && gy < h;
+  });
+  __syncthreads();
+
+  // 3. z = bf16(ReLU(Wc . taps(Y) + bc)) -> channels MID..C-1
+  const uint2* wc = wts + pad16(MID) * MID / 4;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2;
+  const int mtiles = (nout + 15) / 16;
+  for (int m0 = warp * kMTiles16; m0 < mtiles; m0 += kWarps16 * kMTiles16) {
+    float acc[kMTiles16][MID / 8][4];
+    zero_acc<MID>(acc);
+    int base[kMTiles16][2], cl[kMTiles16][2], cr[kMTiles16][2];
+#pragma unroll
+    for (int mt = 0; mt < kMTiles16; ++mt)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int p = min((m0 + mt) * 16 + g + 8 * r, nout - 1);
+        const int col = p % w;
+        base[mt][r] = p + w;                // staged pixel of the centre tap
+        cl[mt][r] = col > 0;
+        cr[mt][r] = col + 1 < w;
+      }
+    gemm16<MID, 9 * MID>(acc, wc, [&](int mt, int r, int k) -> uint32_t {
+      const int t = k / MID, c = k - t * MID;
+      const int dy = t / 3 - 1, dx = t - 3 * (t / 3) - 1;
+      if ((dx < 0 && !cl[mt][r]) || (dx > 0 && !cr[mt][r])) return 0u;
+      return *reinterpret_cast<const uint32_t*>(
+          sy + (base[mt][r] + dy * w + dx) * PS + c);
+    });
+    epilogue16<MID>(acc, bias + MID, m0, nout,
+                    [&](int m, int o, __nv_bfloat162 v) {
+                      __nv_bfloat16* dst =
+                          yb + (size_t)(MID + o) * plane + (size_t)r0 * w + m;
+                      dst[0] = v.x;
+                      dst[plane] = v.y;
+                    });
+  }
+}
+
+// The bf16 stride-2 block: x (B, MID, hin, win) bf16 -> y (B, 2*MID, h, w)
+// = concat[proj, main], one CTA per (band of `rows` output rows, image).
+// wts: [pw1 | Wc | Wp] fragments, bias [b1 | bc | bp] f32.
+template <int MID>
+__global__ void __launch_bounds__(kThreads16)
+s2_bf16_kernel(const __nv_bfloat16* __restrict__ x,
+               __nv_bfloat16* __restrict__ y, const uint2* __restrict__ wts,
+               const float* __restrict__ bias, int hin, int win, int h, int w,
+               int rows) {
+  constexpr int CIN = MID, PS = px_stride16(MID);
+  const int r0 = blockIdx.x * rows, rv = min(rows, h - r0);
+  const int iy0 = 2 * r0 - 1;
+  const int npix = (2 * rv + 1) * win;      // input rows iy0 .. iy0 + 2rv
+  const size_t in_plane = (size_t)hin * win, plane = (size_t)h * w;
+  const __nv_bfloat16* xb = x + (size_t)blockIdx.y * CIN * in_plane;
+  __nv_bfloat16* yb = y + (size_t)blockIdx.y * 2 * MID * plane;
+  __nv_bfloat16* sx = reinterpret_cast<__nv_bfloat16*>(dyn_smem16());
+  __nv_bfloat16* sy = sx + (size_t)npix * PS;
+  const int tid = threadIdx.x;
+
+  // 1. the input rows pixel-major, 0 off the image
+  for (int it = tid; it < (CIN / 2) * npix; it += kThreads16) {
+    const int cp = it / npix, q = it - cp * npix;
+    const int iy = iy0 + q / win;
+    uint32_t v = 0;
+    if (iy >= 0 && iy < hin) {
+      const size_t off = (size_t)iy * win + q % win;
+      v = bf16_pair_bits(xb[2 * cp * in_plane + off],
+                         xb[(2 * cp + 1) * in_plane + off]);
+    }
+    *reinterpret_cast<uint32_t*>(sx + q * PS + 2 * cp) = v;
+  }
+  __syncthreads();
+
+  // 2. pw1 + ReLU on the input grid -> Y
+  pw1_16<MID, CIN>(sx, sy, npix, wts, bias, [&](int m) {
+    const int iy = iy0 + m / win;
+    return iy >= 0 && iy < hin;
+  });
+  __syncthreads();
+
+  // 3. per output pixel: main = Wc over Y's stride-2 taps, projection =
+  //    Wp over X's
+  const uint2* wc = wts + pad16(CIN) * MID / 4;
+  const uint2* wp = wc + pad16(9 * MID) * MID / 4;
+  const int nout = rv * w;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2;
+  const int mtiles = (nout + 15) / 16;
+  for (int m0 = warp * kMTiles16; m0 < mtiles; m0 += kWarps16 * kMTiles16) {
+    int base[kMTiles16][2], cl[kMTiles16][2], cr[kMTiles16][2];
+#pragma unroll
+    for (int mt = 0; mt < kMTiles16; ++mt)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int p = min((m0 + mt) * 16 + g + 8 * r, nout - 1);
+        const int row = p / w, col = p - (p / w) * w;
+        base[mt][r] = (2 * row + 1) * win + 2 * col;   // the centre tap
+        cl[mt][r] = col > 0;
+        cr[mt][r] = 2 * col + 1 < win;
+      }
+    for (int branch = 0; branch < 2; ++branch) {
+      const __nv_bfloat16* src = branch ? sy : sx;
+      float acc[kMTiles16][MID / 8][4];
+      zero_acc<MID>(acc);
+      auto a_pair = [&](int mt, int r, int k) -> uint32_t {
+        const int t = k / MID, c = k - t * MID;
+        const int dy = t / 3 - 1, dx = t - 3 * (t / 3) - 1;
+        if ((dx < 0 && !cl[mt][r]) || (dx > 0 && !cr[mt][r])) return 0u;
+        return *reinterpret_cast<const uint32_t*>(
+            src + (base[mt][r] + dy * win + dx) * PS + c);
+      };
+      gemm16<MID, 9 * MID>(acc, branch ? wc : wp, a_pair);
+      epilogue16<MID>(acc, bias + (branch ? MID : 2 * MID), m0, nout,
+                      [&](int m, int o, __nv_bfloat162 v) {
+                        __nv_bfloat16* dst = yb
+                            + (size_t)(branch * MID + o) * plane
+                            + (size_t)r0 * w + m;
+                        dst[0] = v.x;
+                        dst[plane] = v.y;
+                      });
+    }
+  }
+}
+
+template <class Kernel>
+int set_smem16(Kernel kernel, size_t smem) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  return (int)err;
+}
+
+// nblk bf16 stride-1 blocks from src (B, 2*MID, h, w) to out, one launch a
+// block over bands of `rows` rows, ping-pong through tmp so that the last
+// block writes out; src is never written.  wts: nblk rows of
+// fold.span16_elems(MID) bf16; bias: nblk rows of 2*MID f32.
+template <int MID>
+int launch_span16(const __nv_bfloat16* src, __nv_bfloat16* out,
+                  __nv_bfloat16* tmp, const uint16_t* wts, const float* bias,
+                  int b, int h, int w, int nblk, int rows,
+                  cudaStream_t stream) {
+  if (rows < 1 || nblk < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = span16_smem_bytes(MID, rows, w, 0, 0);
+  int err = set_smem16(span_bf16_kernel<MID>, smem);
+  if (err) return err;
+  constexpr size_t kElems = (size_t)(pad16(MID) + pad16(9 * MID)) * MID;
+  const dim3 grid((h + rows - 1) / rows, b);
+  for (int k = 0; k < nblk; ++k) {
+    __nv_bfloat16* dst = ((nblk - 1 - k) % 2 == 0) ? out : tmp;
+    span_bf16_kernel<MID><<<grid, kThreads16, smem, stream>>>(
+        src, dst, reinterpret_cast<const uint2*>(wts + k * kElems),
+        bias + (size_t)k * 2 * MID, h, w, rows);
+    err = (int)cudaGetLastError();
+    if (err) return err;
+    src = dst;
+  }
+  return 0;
+}
+
+// The bf16 stride-2 block (one launch, bands of rows_s2 rows), then nblk
+// stride-1 blocks (launch_span16); the stride-2 block writes tmp when nblk
+// is odd, so that the last block writes out.
+template <int MID>
+int launch_s2span16(const __nv_bfloat16* x, __nv_bfloat16* out,
+                    __nv_bfloat16* tmp, const uint16_t* w_s2,
+                    const float* b_s2, const uint16_t* w_span,
+                    const float* b_span, int b, int hin, int win, int nblk,
+                    int rows_s2, int rows, cudaStream_t stream) {
+  const int h = (hin + 1) / 2, w = (win + 1) / 2;
+  if (rows_s2 < 1 || nblk < 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = span16_smem_bytes(MID, rows_s2, w, 1, win);
+  int err = set_smem16(s2_bf16_kernel<MID>, smem);
+  if (err) return err;
+  __nv_bfloat16* dst = (nblk % 2 == 1) ? tmp : out;
+  s2_bf16_kernel<MID><<<dim3((h + rows_s2 - 1) / rows_s2, b), kThreads16,
+                        smem, stream>>>(
+      x, dst, reinterpret_cast<const uint2*>(w_s2), b_s2, hin, win, h, w,
+      rows_s2);
+  err = (int)cudaGetLastError();
+  if (err || nblk == 0) return err;
+  return launch_span16<MID>(dst, out, tmp, w_span, b_span, b, h, w, nblk,
+                            rows, stream);
+}
 }  // namespace
 
 extern "C" {
@@ -585,6 +991,13 @@ extern "C" {
 size_t fastdet_span_stage_smem(int mid, int rows, int w, int halo, int s2) {
   return (size_t)stage_layout(mid, rows, w, halo, s2 != 0).floats *
          sizeof(float);
+}
+
+// Shared memory (bytes) of one CTA of the bf16 stage kernels: a band of
+// `rows` output rows of width w at MID channels, s2 for the stride-2 block
+// (input width win).
+size_t fastdet_span16_smem(int mid, int rows, int w, int s2, int win) {
+  return span16_smem_bytes(mid, rows, w, s2, win);
 }
 
 const char* fastdet_cuda_error_string(int code) {

@@ -46,14 +46,27 @@
 //     halo stands in as 0: every pooled window also holds a real ReLU
 //     output, which is >= 0, so a 0 never wins.
 // Halo work: 8/7 of the columns and (2*rows+1)/(2*rows) of the conv rows.
+//
+// The bf16 form (BF16 = true; the JAX package's bf16 serving): the image
+// planes hold bf16 pixels (u8 -> bf16 is exact for 0-255), each weight is
+// the bf16 of the folded weight with /255 in it, as the JAX package casts
+// its phase matrix, so one mma.sync m16n8k16 bf16 term a product, f32
+// accumulate, computes its products exactly; the bias seeds the
+// accumulator, no 2^e scale.  ReLU, the pool on the f32 values and one
+// rounding to bf16 at the store (round-to-nearest is monotone, so pooling
+// before rounding equals pooling the rounded values, as JAX pools them).
+// The output is (B, 24, H/4, W/4) bf16: half the bytes of the f32 map.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 #include <string.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -113,6 +126,21 @@ __device__ __forceinline__ uint32_t u8_pair(uint32_t a, uint32_t b, int l) {
   __half2 h = *reinterpret_cast<__half2*>(&t);
   h = __hsub2(h, __float2half2_rn(1024.f));
   return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// bf16 pair (lo = byte l of a, hi = byte l of b), both exact
+__device__ __forceinline__ uint32_t u8_pair_bf16(uint32_t a, uint32_t b,
+                                                 int l) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(
+      (float)((a >> (8 * l)) & 0xFFu), (float)((b >> (8 * l)) & 0xFFu));
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+template <bool BF16>
+__device__ __forceinline__ uint32_t pixel_pair(uint32_t a, uint32_t b,
+                                               int l) {
+  if constexpr (BF16) return u8_pair_bf16(a, b, l);
+  else return u8_pair(a, b, l);
 }
 
 // A tile's staging geometry: pixel rows [4*i0-4, 4*i0+4*rows) x columns
@@ -194,7 +222,7 @@ __device__ void issue_tile(const uint8_t* __restrict__ xb, uint32_t* raw,
 // Unpack tile g's words into s_img[c][ys][xs] (ys = y - 4*i0 + 4,
 // xs = x - 4*v0 + 8), 4 pixels of a row a store, as exact f16; 0 for the
 // halo above and left of the image.
-template <int K>
+template <int K, bool BF16>
 __device__ void unpack_tile(const uint32_t* raw, int stride, __half* s_img,
                             const TileGeom& g, int wk, int rows, int rs,
                             int ps) {
@@ -217,8 +245,8 @@ __device__ void unpack_tile(const uint32_t* raw, int stride, __half* s_img,
         const int x = x0 + 4 * q;
         if (x < g.x_lo || x >= g.x_hi) continue;
         *reinterpret_cast<uint2*>(s_img + row + x) =
-            make_uint2(u8_pair(p[4 * q], p[4 * q + 1], l),
-                       u8_pair(p[4 * q + 2], p[4 * q + 3], l));
+            make_uint2(pixel_pair<BF16>(p[4 * q], p[4 * q + 1], l),
+                       pixel_pair<BF16>(p[4 * q + 2], p[4 * q + 3], l));
       }
     }
   }
@@ -246,9 +274,21 @@ __device__ __forceinline__ void mma_f16(float (&d)[4], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
+__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
 // One m-tile: conv row of pixel row `yrow` (its ky = 0 row in the tile) at
 // the lane's cell, both column phases, 24 channels, ReLU'd and scaled by
-// 2^e.  acc[n][0..1] = px 0, channels 8n + 2*tig + {0, 1}; [2..3] = px 1.
+// 2^e (bf16: one bf16 term a weight, no scale).  acc[n][0..1] = px 0,
+// channels 8n + 2*tig + {0, 1}; [2..3] = px 1.
+template <bool BF16>
 __device__ __forceinline__ void conv_mtile(
     float (&acc)[3][4], const unsigned short* s, int at, const int (&off)[8],
     const uint32_t (&bf)[kFrag], const float (&seed)[6]) {
@@ -269,10 +309,16 @@ __device__ __forceinline__ void conv_mtile(
     const uint32_t a3 = __byte_perm(p2[2], p3[2], 0x5410);   // px 1, K + 8
 #pragma unroll
     for (int n = 0; n < 3; ++n) {
+      if constexpr (BF16) {
+        mma_bf16(acc[n], a0, a1, a2, a3, bf[(n * 2 + ks) * 2 + 0],
+                 bf[(n * 2 + ks) * 2 + 1]);
+      } else {
 #pragma unroll
-      for (int term = 0; term < 2; ++term)
-        mma_f16(acc[n], a0, a1, a2, a3, bf[((n * 2 + ks) * 2 + 0) * 2 + term],
-                bf[((n * 2 + ks) * 2 + 1) * 2 + term]);
+        for (int term = 0; term < 2; ++term)
+          mma_f16(acc[n], a0, a1, a2, a3,
+                  bf[((n * 2 + ks) * 2 + 0) * 2 + term],
+                  bf[((n * 2 + ks) * 2 + 1) * 2 + term]);
+      }
     }
   }
 #pragma unroll
@@ -282,9 +328,11 @@ __device__ __forceinline__ void conv_mtile(
 }
 
 // One warp's strip of tile (i0, v0) of image b: cells j = v0 - 1 + 7*warp
-// + g, down the tile's pooled rows; stores the pooled cells j >= v0.
+// + g, down the tile's pooled rows; stores the pooled cells j >= v0 as
+// OutT (f32, or bf16 rounded once).
+template <bool BF16, class OutT>
 __device__ __forceinline__ void pool_strip(
-    float* __restrict__ out, const unsigned short* s, int b, int h4, int w4,
+    OutT* __restrict__ out, const unsigned short* s, int b, int h4, int w4,
     int i0, int v0, int i_end, int j_end, int warp, int g, int tig, int rs,
     const int (&off)[8], const uint32_t (&bf)[kFrag], const float (&seed)[6],
     const float (&unscale)[6]) {
@@ -299,19 +347,19 @@ __device__ __forceinline__ void pool_strip(
 #pragma unroll
       for (int q = 0; q < 4; ++q) prev[n][q] = 0.f;
   } else {
-    conv_mtile(prev, s, 1 * rs + col, off, bf, seed);   // pixel row 4i0 - 3
+    conv_mtile<BF16>(prev, s, 1 * rs + col, off, bf, seed);  // row 4i0 - 3
   }
   const bool store = g > 0 && j < j_end;
-  float* ob = out + (size_t)b * kCout * h4 * w4 + j;
+  OutT* ob = out + (size_t)b * kCout * h4 * w4 + j;
   for (int i = i0; i < i_end; ++i) {
     const int yrow = 4 * (i - i0) + 3;    // pixel row 4i - 1 in the tile
     float cm[3][4], cur[3][4];
-    conv_mtile(cur, s, yrow * rs + col, off, bf, seed);
+    conv_mtile<BF16>(cur, s, yrow * rs + col, off, bf, seed);
 #pragma unroll
     for (int n = 0; n < 3; ++n)
 #pragma unroll
       for (int q = 0; q < 4; ++q) cm[n][q] = fmaxf(prev[n][q], cur[n][q]);
-    conv_mtile(prev, s, (yrow + 2) * rs + col, off, bf, seed);
+    conv_mtile<BF16>(prev, s, (yrow + 2) * rs + col, off, bf, seed);
 #pragma unroll
     for (int n = 0; n < 3; ++n)
 #pragma unroll
@@ -323,9 +371,11 @@ __device__ __forceinline__ void pool_strip(
         float left = __shfl_up_sync(0xffffffffu, cm[n][2 + e], 4);
         if (j == 0) left = 0.f;
         const float v = fmaxf(fmaxf(cm[n][e], cm[n][2 + e]), left);
-        if (store)
-          ob[((size_t)(8 * n + 2 * tig + e) * h4 + i) * w4] =
-              v * unscale[2 * n + e];
+        if (store) {
+          OutT* o = ob + ((size_t)(8 * n + 2 * tig + e) * h4 + i) * w4;
+          if constexpr (BF16) *o = __float2bfloat16_rn(v);
+          else *o = v * unscale[2 * n + e];
+        }
       }
   }
 }
@@ -333,10 +383,12 @@ __device__ __forceinline__ void pool_strip(
 // A persistent CTA walks the tiles t = blockIdx.x, + gridDim.x, ...
 // (image-major, then bands, then columns): it unpacks tile t from the raw
 // buffer, starts the copies of its next tile into it, and convolves and
-// pools tile t while they land.
-template <int K>
+// pools tile t while they land.  BF16: bf16 pixels, weights and output.
+template <int K, bool BF16 = false>
 __global__ void __launch_bounds__(32 * kMaxStrips, 2)
-stem_kernel(const uint8_t* __restrict__ x, float* __restrict__ out, int nimg,
+stem_kernel(const uint8_t* __restrict__ x,
+            std::conditional_t<BF16, __nv_bfloat16, float>* __restrict__ out,
+            int nimg,
             int hk, int wk, int npad, int rows, int strips,
             const StemParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -402,7 +454,7 @@ stem_kernel(const uint8_t* __restrict__ x, float* __restrict__ out, int nimg,
     // 2. tile's words landed, the last tile's strips done: unpack
     stem_cp_async_wait_all();
     __syncthreads();
-    unpack_tile<K>(raw, stride, s_img,
+    unpack_tile<K, BF16>(raw, stride, s_img,
                    tile_geom<K>(hk, wk, i0, v0, rows, strips), wk, rows, rs,
                    ps);
     __syncthreads();
@@ -418,7 +470,8 @@ stem_kernel(const uint8_t* __restrict__ x, float* __restrict__ out, int nimg,
     stem_cp_async_commit();
     const int j_end = min(v0 + cols, w4);
     if (v0 + kStripCells * warp < j_end)            // the warp has own cells
-      pool_strip(out, s, b, h4, w4, i0, v0, min(i0 + rows, h4), j_end, warp,
+      pool_strip<BF16>(out, s, b, h4, w4, i0, v0, min(i0 + rows, h4), j_end,
+                 warp,
                  g, tig, rs, off, bf, seed, unscale);
   }
 }
@@ -488,13 +541,37 @@ inline void stem_pack_params(const float* w, const float* bias,
   }
 }
 
+// w_bits (27*24 bf16 bit patterns, HWIO) and bias (24) f32 -> the bf16
+// kernel's parameter block: registers [(n*2 + ks)*2 + half] of each lane
+// (the first 12 of `frag`) hold its bf16 B pairs, the bias seeds, 2^0
+inline void stem_pack_params_bf16(const uint16_t* w_bits, const float* bias,
+                                  StemParams* p) {
+  memset(p, 0, sizeof(*p));
+  for (int lane = 0; lane < 32; ++lane) {
+    const int g = lane >> 2, tig = lane & 3;
+    for (int n = 0; n < 3; ++n)
+      for (int ks = 0; ks < 2; ++ks)
+        for (int half = 0; half < 2; ++half) {
+          const int k = 16 * ks + 8 * half + 2 * tig, co = 8 * n + g;
+          const uint32_t lo = k < kTaps ? w_bits[k * kCout + co] : 0u;
+          const uint32_t hi = k + 1 < kTaps ? w_bits[(k + 1) * kCout + co]
+                                            : 0u;
+          p->frag[(n * 2 + ks) * 2 + half][lane] = lo | (hi << 16);
+        }
+  }
+  for (int o = 0; o < kCout; ++o) {
+    p->seed[o] = bias[o];
+    p->unscale[o] = 1.f;
+  }
+}
+
 // Let the kernel take `smem` bytes of dynamic shared memory.
-template <int K>
+template <int K, bool BF16 = false>
 int stem_set_smem(size_t smem) {
   static size_t smem_set = 48 * 1024;
   if (smem <= smem_set) return 0;
   const cudaError_t err = cudaFuncSetAttribute(
-      stem_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      stem_kernel<K, BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   smem_set = smem;
@@ -532,6 +609,27 @@ int stem_launch(const uint8_t* x, float* out, const float* w_host,
   StemParams p;
   stem_pack_params(w_host, b_host, &p);
   stem_kernel<K><<<ctas, 32 * strips, smem, (cudaStream_t)stream>>>(
+      x, out, b, hk, wk, npad, rows, strips, p);
+  return (int)cudaGetLastError();
+}
+
+// The bf16 stem: out (B, 24, h4, w4) bf16; w_bits the bf16 bit patterns
+// of the /255-folded HWIO weight, on the host.  The same tiles and grid.
+template <int K>
+int stem_launch_bf16(const uint8_t* x, __nv_bfloat16* out,
+                     const uint16_t* w_bits_host, const float* b_host, int b,
+                     int hk, int wk, int npad, int rows, int strips, int ctas,
+                     void* stream) {
+  if (b < 1 || hk < 1 || wk < 1 || npad < hk * wk || npad % 4 || rows < 1
+      || rows > kMaxRows || strips < 1 || strips > kMaxStrips || ctas < 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = stem_smem_bytes(rows, strips, K);
+  if (smem > (size_t)kSmemLimit) return (int)cudaErrorInvalidValue;
+  const int err = stem_set_smem<K, true>(smem);
+  if (err) return err;
+  StemParams p;
+  stem_pack_params_bf16(w_bits_host, b_host, &p);
+  stem_kernel<K, true><<<ctas, 32 * strips, smem, (cudaStream_t)stream>>>(
       x, out, b, hk, wk, npad, rows, strips, p);
   return (int)cudaGetLastError();
 }

@@ -31,6 +31,18 @@ int fastdet_stem_s2d(const uint8_t* x, float* out, const float* w_host,
                         strips, ctas, stream);
 }
 
+// The bf16 form: x as above -> out (B, 24, h4, w4) bf16 on the
+// card; w_bits (27*24 bf16 bit patterns, HWIO, /255 folded in, as the
+// JAX package casts its phase matrix) and bias (24) f32 on the HOST.  The
+// same tiles and grid.  Returns a cudaError_t (0 = launched).
+int fastdet_stem_s2d_bf16(const uint8_t* x, __nv_bfloat16* out,
+                          const uint16_t* w_bits_host, const float* b_host,
+                          int b, int h4, int w4, int npad, int rows,
+                          int strips, int ctas, void* stream) {
+  return stem_launch_bf16<4>(x, out, w_bits_host, b_host, b, h4, w4, npad,
+                             rows, strips, ctas, stream);
+}
+
 // Shared memory (bytes) of one CTA at a tile of `rows` x 7*`strips` cells.
 size_t fastdet_stem_smem(int rows, int strips) {
   return stem_smem_bytes(rows, strips, 4);

@@ -185,3 +185,155 @@ def pack_fused_weights_af(sd) -> Dict[str, np.ndarray]:
         packed[f"{out}_w"] = hc["w"]
         packed[f"{out}_b"] = hc["b"]
     return packed
+
+
+# ------------------------------------------------------------------ bf16
+#
+# The JAX package's bf16 serving casts every packed array with ndim > 1 to
+# bf16 (round to nearest even) and keeps every bias f32.  Its span and
+# stride-2 blocks run in the composed forms below, and bf16 of a composed
+# matrix is not the product of bf16 factors, so the bf16 path packs these
+# forms (the f32 path keeps its split convs above).  Each function is the
+# port's copy of the JAX package's expression, operation for operation,
+# so that the f32 matrices, and with them their bf16 casts, are equal bit
+# for bit.
+
+def _sel_odd(c: int) -> np.ndarray:
+    s = np.zeros((c, c // 2), np.float32)
+    s[np.arange(1, c, 2), np.arange(c // 2)] = 1.0
+    return s
+
+
+def compose_s1_block(blk: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """`pack_s1_block`'s dict → the composed stride-1 block: `wa` (C, C),
+    odd-channel select ∘ pw1 on top and the even passthrough below, `ba`,
+    `wc` (mid, 9·mid) = dw3×3 composed with pw2 (tap-major K,
+    wc[j, t·mid + c] = pw2[c, j]·dw_t[c]) and `bc` (the JAX package's
+    `pack_s1_block`)."""
+    w1, b1, wd, bd, w2, b2 = (blk[k] for k in
+                              ("w1", "b1", "wd", "bd", "w2", "b2"))
+    mid = b1.shape[0]
+    c = 2 * mid
+    w1 = _sel_odd(c) @ w1
+    sel_even = np.zeros((mid, c), np.float32)
+    sel_even[np.arange(mid), np.arange(0, c, 2)] = 1.0
+    wa = np.concatenate([w1.T, sel_even], 0)
+    ba = np.concatenate([b1, np.zeros(mid, np.float32)])
+    wc = np.zeros((mid, 9 * mid), np.float32)
+    for t in range(9):
+        dy, dx = t // 3, t % 3
+        wc[:, t * mid:(t + 1) * mid] = w2.T * wd[dy, dx][None, :]
+    bc = w2.T @ bd + b2
+    return {"wa": wa, "ba": ba, "wc": wc, "bc": bc}
+
+
+def compose_s2_block(blk: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """`pack_s2_block`'s dict → the composed stride-2 block of the JAX
+    package's `pack_s2_block_fused`: `wa` (4·mid, 4·cin) block-diagonal pw1
+    over the four input phases, `ba`, `wc` (mid, 9·mid) = dw3×3 s2 ∘ pw2,
+    `bc`, `wp` (mid, 9·cin) = proj dw3×3 s2 ∘ proj pw, `bp`."""
+    w1, b1, wd, bd, w2, b2, wpd, bpd, wpp, bpp = (blk[k] for k in S2_ROW_KEYS)
+    cin, mid = w1.shape
+    wa_blk = np.zeros((4 * mid, 4 * cin), np.float32)
+    for p in range(4):
+        wa_blk[p * mid:(p + 1) * mid, p * cin:(p + 1) * cin] = w1.T
+    ba_blk = np.tile(b1, 4)
+    wc = np.zeros((mid, 9 * mid), np.float32)
+    wp = np.zeros((mid, 9 * cin), np.float32)
+    for t in range(9):
+        dy, dx = t // 3 - 1, t % 3 - 1
+        wc[:, t * mid:(t + 1) * mid] = w2.T * wd[dy + 1, dx + 1][None, :]
+        wp[:, t * cin:(t + 1) * cin] = wpp.T * wpd[dy + 1, dx + 1][None, :]
+    bc = w2.T @ bd + b2
+    bp = wpp.T @ bpd + bpp
+    return {"wa": wa_blk, "ba": ba_blk, "wc": wc, "bc": bc,
+            "wp": wp, "bp": bp}
+
+
+def to_bf16_bits(a: np.ndarray) -> np.ndarray:
+    """f32 array → its bf16 values as uint16 bit patterns, rounded to
+    nearest even (as `jnp.asarray(a, jnp.bfloat16)` and torch's casts
+    round; no value here is NaN)."""
+    u = np.ascontiguousarray(a, np.float32).view(np.uint32).astype(np.uint64)
+    u = u + 0x7FFF + ((u >> 16) & 1)
+    return (u >> 16).astype(np.uint16)
+
+
+def mma_fragment_index(n: int, k: int) -> np.ndarray:
+    """Where each element of the bf16 stage kernel's B operand comes from:
+    an (N, K) matrix W (rows the output channels) padded with zero columns
+    to Kp = pad16(K), laid out as the lanes of `mma.sync.m16n8k16` take it,
+    [Kp/16][N/8][32 lanes][4]: lane (g, t) = (lane / 4, lane % 4) of k-step
+    s and n-tile j holds W[8j + g, 16s + 2t + (0, 1, 8, 9)], so one 8-byte
+    load gives its two B registers.  → flat indices into the padded
+    (N, Kp) matrix, in that order."""
+    kp = (k + 15) // 16 * 16
+    s, j, lane, e = np.meshgrid(np.arange(kp // 16), np.arange(n // 8),
+                                np.arange(32), np.arange(4), indexing="ij")
+    row = 8 * j + lane // 4
+    col = 16 * s + 2 * (lane % 4) + (e & 1) + 8 * (e >> 1)
+    return (row * kp + col).ravel()
+
+
+def mma_fragments(w_bits: np.ndarray) -> np.ndarray:
+    """(N, K) uint16 bf16 bits → the kernel's flat fragment order of
+    `mma_fragment_index` (zero where K is padded)."""
+    n, k = w_bits.shape
+    kp = (k + 15) // 16 * 16
+    wp = np.zeros((n, kp), np.uint16)
+    wp[:, :k] = w_bits
+    return wp.ravel()[mma_fragment_index(n, k)]
+
+
+def unpack_mma_fragments(frag: np.ndarray, n: int, k: int) -> np.ndarray:
+    """The inverse of `mma_fragments`: → the (N, K) matrix."""
+    kp = (k + 15) // 16 * 16
+    out = np.zeros(n * kp, frag.dtype)
+    out[mma_fragment_index(n, k)] = frag
+    return out.reshape(n, kp)[:, :k]
+
+
+def _pad16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def span16_elems(mid: int) -> int:
+    """bf16 elements of one block of the bf16 span (`pack_span16`)."""
+    return (_pad16(mid) + _pad16(9 * mid)) * mid
+
+
+def s2_16_elems(cin: int, mid: int) -> int:
+    """bf16 elements of a bf16 stride-2 block (`pack_s2_16`)."""
+    return (_pad16(cin) + _pad16(9 * mid) + _pad16(9 * cin)) * mid
+
+
+def pack_span16(blocks) -> Tuple[np.ndarray, np.ndarray]:
+    """`pack_s1_block` dicts of one stage → the bf16 span kernel's weights:
+    (nblk, span16_elems) uint16 bf16 bits, per block pw1 (mid_out × mid_in,
+    bf16 of the odd columns of the composed `wa`'s top half, which are
+    pw1's) then the composed `wc`, each in `mma_fragments` order; and
+    (nblk, 2·mid) f32 biases [ba top half | bc]."""
+    ws, bs = [], []
+    for blk in blocks:
+        comp = compose_s1_block(blk)
+        mid = blk["b1"].shape[0]
+        w1 = comp["wa"][:mid, 1::2]
+        ws.append(np.concatenate([mma_fragments(to_bf16_bits(w1)),
+                                  mma_fragments(to_bf16_bits(comp["wc"]))]))
+        bs.append(np.concatenate([comp["ba"][:mid], comp["bc"]]))
+    return np.stack(ws), np.stack(bs).astype(np.float32)
+
+
+def pack_s2_16(blk) -> Tuple[np.ndarray, np.ndarray]:
+    """`pack_s2_block`'s dict → the bf16 stride-2 block's weights: uint16
+    bf16 bits [pw1 (mid × cin, the composed block-diagonal `wa`'s first
+    block) | `wc` | `wp`], each in `mma_fragments` order, and f32 biases
+    [ba's first block | bc | bp]."""
+    comp = compose_s2_block(blk)
+    cin, mid = blk["w1"].shape
+    w = np.concatenate([
+        mma_fragments(to_bf16_bits(comp["wa"][:mid, :cin])),
+        mma_fragments(to_bf16_bits(comp["wc"])),
+        mma_fragments(to_bf16_bits(comp["wp"]))])
+    b = np.concatenate([comp["ba"][:mid], comp["bc"], comp["bp"]])
+    return w, b.astype(np.float32)

@@ -9,7 +9,8 @@ Input contracts (`input_format`), all uint8:
   * "s2d8_u8": space-to-depth(8), (B, 192, pad128(H/8·W/8)), channel
     yoff·24 + xoff·3 + c, written by `pack_images_s2d8`;
   * "nhwc": (B, H, W, 3).
-Inside, activations are NCHW f32.  The forward:
+Inside, activations are NCHW f32 (bf16 with `dtype=torch.bfloat16`).
+The forward:
 
   1. the stem, conv3×3 s2 (3→24, /255 and BN folded) + ReLU + maxpool
      3×3 s2 → (B, 24, H/4, W/4): `stem_s2d` (kernel B1,
@@ -47,8 +48,18 @@ kernels tile any size with shared memory that does not grow with the
 image, and the stage kernel's launch plan (`span_stage_plan`) holds a
 stage in a thread-block cluster where it fits and runs it one block per
 launch where it does not.  The s2d(8) guard (at most 2048
-lanes) is the JAX package's and is kept.  Not ported yet: bf16 (ROADMAP
-A1).
+lanes) is the JAX package's and is kept.
+
+`dtype=torch.bfloat16` (the JAX package's serving default; this module's
+default stays f32) runs the JAX package's bf16 function: bf16 maps, bf16
+weight matrices cast as the JAX package casts them (the spans' and
+stride-2 blocks' composed matrices, `fold.compose_s1_block` /
+`compose_s2_block`), f32 biases, products accumulated in f32 and rounded
+to bf16 where JAX rounds.  Its kernels are the bf16 forms of the stems
+(`stem_s2d_bf16`, `stem_s2d8_bf16`) and stages (`span_bf16`,
+`s2span_bf16`), each with its plain version; the parts the JAX package
+leaves to XLA follow jnp's promotion rules, written out (`_conv16`).  The
+heads' logits are f32.
 """
 
 from __future__ import annotations
@@ -65,10 +76,12 @@ import torch.nn.functional as F
 from fastdet_torch import resolve_device
 from fastdet_torch.kernels import _build
 from fastdet_torch.kernels.fold import (S2_ROW_KEYS, STAGES,
+                                        mma_fragment_index,
                                         pack_fused_weights,
-                                        pack_fused_weights_af,
-                                        pack_s2span_weights,
-                                        pack_span_weights)
+                                        pack_fused_weights_af, pack_s2_16,
+                                        pack_s2span_weights, pack_span16,
+                                        pack_span_weights, s2_16_elems,
+                                        span16_elems)
 from fastdet_torch.kernels.stem_train import SMS
 
 SPAN_CHANNELS = (48, 96, 192)
@@ -239,6 +252,8 @@ def stem_s2d_reference(x, w, b, h4: int, w4: int):
 _STEM_SIGNATURES = {
     "fastdet_stem_s2d": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                          + [ctypes.c_void_p], ctypes.c_int),
+    "fastdet_stem_s2d_bf16": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                              + [ctypes.c_void_p], ctypes.c_int),
     "fastdet_stem_smem": ([ctypes.c_int] * 2, ctypes.c_size_t),
     "fastdet_stem_ctas_per_sm": ([ctypes.c_int] * 2, ctypes.c_int),
 }
@@ -466,6 +481,9 @@ _SPAN_SIGNATURES = {
     "fastdet_span": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
                      + [ctypes.c_void_p], ctypes.c_int),
     "fastdet_span_stage_smem": ([ctypes.c_int] * 5, ctypes.c_size_t),
+    "fastdet_span_bf16": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                          + [ctypes.c_void_p], ctypes.c_int),
+    "fastdet_span16_smem": ([ctypes.c_int] * 5, ctypes.c_size_t),
 }
 
 
@@ -540,6 +558,8 @@ def stem_s2d8_reference(x, w, b, h8: int, w8: int):
 _STEM8_SIGNATURES = {
     "fastdet_stem_s2d8": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                           + [ctypes.c_void_p], ctypes.c_int),
+    "fastdet_stem_s2d8_bf16": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                               + [ctypes.c_void_p], ctypes.c_int),
     "fastdet_stem_smem": ([ctypes.c_int] * 2, ctypes.c_size_t),
     "fastdet_stem_ctas_per_sm": ([ctypes.c_int] * 2, ctypes.c_int),
 }
@@ -630,6 +650,9 @@ _S2SPAN_SIGNATURES = {
     "fastdet_s2span": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
                        + [ctypes.c_void_p], ctypes.c_int),
     "fastdet_span_stage_smem": ([ctypes.c_int] * 5, ctypes.c_size_t),
+    "fastdet_s2span_bf16": ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+                            + [ctypes.c_void_p], ctypes.c_int),
+    "fastdet_span16_smem": ([ctypes.c_int] * 5, ctypes.c_size_t),
 }
 
 
@@ -674,6 +697,342 @@ def s2span(x, weights, nblk: int):
 
 
 s2span.launches = 0
+
+
+# ------------------------------------------------- the bf16 kernels (A1)
+#
+# The JAX package's default serving runs its Pallas kernels in bf16
+# (`FusedPipeline(dtype=None)`): bf16 activations and weight matrices, f32
+# biases, products accumulated in f32, one rounding to bf16 after the
+# bias and ReLU.  The port's bf16 forms of B1 (B6), B10, B2 and B9 compute
+# that function: the stems on the stem core with one bf16 term a weight
+# (`csrc/stem_core.cuh`), the stages on the bf16 stage kernels of
+# `csrc/span_block.cuh` with the JAX package's composed matrices (fold.py
+# `pack_span16`, `pack_s2_16`).  Beside each, its plain PyTorch version
+# computes from the bf16 values in f32 and rounds where JAX rounds.
+
+BF16 = torch.bfloat16
+DTYPES = (torch.float32, BF16)
+SPAN16_KERNEL = "span_bf16_kernel"
+S2_16_KERNEL = "s2_bf16_kernel"
+SPAN16_SMEM_BUDGET = 113 * 1024   # two CTAs an SM
+
+
+def _pad16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def bf16_from_bits(bits: np.ndarray) -> torch.Tensor:
+    """uint16 bf16 bit patterns → a bf16 tensor of the same values."""
+    return torch.from_numpy(np.ascontiguousarray(bits).view(np.int16)).view(
+        BF16)
+
+
+@functools.lru_cache(maxsize=None)
+def _fragment_index(n: int, k: int) -> torch.Tensor:
+    return torch.from_numpy(mma_fragment_index(n, k))
+
+
+def _frag_matrix(frag: torch.Tensor, n: int, k: int) -> torch.Tensor:
+    """A flat bf16 B operand in `fold.mma_fragments` order → its (n, k)
+    matrix, f32 (the bf16 values, exact)."""
+    kp = _pad16(k)
+    out = torch.zeros(n * kp, dtype=BF16, device=frag.device)
+    out[_fragment_index(n, k).to(frag.device)] = frag
+    return out.reshape(n, kp)[:, :k].float()
+
+
+def _tap_conv_weight(wm: torch.Tensor, cin: int) -> torch.Tensor:
+    """A composed (cout, 9·cin) tap-major matrix (K index t·cin + c, tap t
+    = ky·3 + kx) → the OIHW 3×3 conv weight it is."""
+    return wm.reshape(-1, 9, cin).permute(0, 2, 1).reshape(-1, cin, 3, 3)
+
+
+def _stem_conv_pool_bf16(img, w16, b):
+    """The bf16 stem's function: conv3×3 s2 of the u8 pixels with the bf16
+    weights (/255 folded in), f32 accumulation, + bias, ReLU, one rounding
+    to bf16; the pool on those values (computed before the rounding, which
+    is monotone)."""
+    wt = w16.to(img.device).float().permute(3, 2, 0, 1)
+    y = F.conv2d(img.float(), wt, torch.as_tensor(b, device=img.device),
+                 stride=2, padding=1)
+    return F.max_pool2d(F.relu(y), 3, 2, 1).to(BF16)
+
+
+def stem_s2d_reference_bf16(x, w16, b, h4: int, w4: int):
+    """Plain PyTorch version of the bf16 stem (B1, B6), any device.  x
+    (B,48,npad) uint8, w16 (3,3,3,24) HWIO bf16 with /255 folded in, b (24,)
+    f32 → (B, 24, h4, w4) bf16."""
+    return _stem_conv_pool_bf16(_unpack_space_to_depth(x, 4, h4, w4), w16, b)
+
+
+def stem_s2d8_reference_bf16(x, w16, b, h8: int, w8: int):
+    """Plain PyTorch version of the bf16 s2d(8) stem (B10), any device →
+    (B, 24, 2·h8, 2·w8) bf16."""
+    return _stem_conv_pool_bf16(_unpack_space_to_depth(x, 8, h8, w8), w16, b)
+
+
+def _check_stem16_params(w16, b, what: str) -> None:
+    for t, shape, dt in ((w16, (3, 3, 3, 24), BF16),
+                         (b, (24,), torch.float32)):
+        if (not isinstance(t, torch.Tensor) or t.device.type != "cpu"
+                or t.dtype != dt or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError(
+                f"{what}: the weights are kernel parameters: expected a "
+                f"contiguous {dt} {shape} tensor on the CPU")
+
+
+def _stem16_launch(name, fn, x, w16, b, shape, hk, wk, factor):
+    dev = x.device
+    bsz = x.shape[0]
+    npad = _pad128(hk * wk)
+    if (x.dtype != torch.uint8 or tuple(x.shape) != (bsz, shape, npad)
+            or not x.is_contiguous()):
+        raise ValueError(
+            f"{name}: expected a contiguous uint8 (B, {shape}, {npad}) "
+            f"tensor, got {x.dtype} {tuple(x.shape)}")
+    _check_stem16_params(w16, b, name)
+    if x.data_ptr() % 4:   # the kernel copies 4-byte plane words: an
+        x = x.clone()      # unaligned view goes through an aligned copy
+    h4, w4 = hk * factor // 4, wk * factor // 4
+    plan = stem_plan(bsz, h4, w4, factor)
+    out = torch.empty((bsz, 24, h4, w4), dtype=BF16, device=dev)
+    lib = _build.load(name.replace("_bf16", ""),
+                      _STEM_SIGNATURES if factor == 4 else _STEM8_SIGNATURES)
+    with torch.cuda.device(dev):
+        rc = getattr(lib, fn)(
+            x.data_ptr(), out.data_ptr(), w16.data_ptr(), b.data_ptr(), bsz,
+            hk, wk, npad, plan.rows, plan.strips, plan.grid[0],
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, name)
+    return out, plan
+
+
+def stem_s2d_bf16(x, w16, b, h4: int, w4: int):
+    """→ (B, 24, h4, w4) bf16.  CUDA: the stem kernel's bf16 form through
+    `csrc/stem_s2d.cu` (`fastdet_stem_s2d_bf16`) as `stem_plan(..., 4)`
+    launches it, `w16` bf16 and `b` f32 on the host (its parameter block);
+    CPU: the plain version."""
+    dev = x.device
+    if dev.type == "cpu":
+        return stem_s2d_reference_bf16(x, w16, b, h4, w4)
+    if dev.type != "cuda":
+        raise ValueError(f"stem_s2d_bf16: unsupported device {dev}")
+    out, plan = _stem16_launch("stem_s2d_bf16", "fastdet_stem_s2d_bf16", x,
+                               w16, b, 48, h4, w4, 4)
+    stem_s2d_bf16.launches += plan.launches
+    return out
+
+
+stem_s2d_bf16.launches = 0
+
+
+def stem_s2d8_bf16(x, w16, b, h8: int, w8: int):
+    """→ (B, 24, 2·h8, 2·w8) bf16.  CUDA: the stem kernel's bf16 form
+    through `csrc/stem_s2d8.cu` (`fastdet_stem_s2d8_bf16`) as
+    `stem_plan(..., 8)` launches it; CPU: the plain version."""
+    dev = x.device
+    if dev.type == "cpu":
+        return stem_s2d8_reference_bf16(x, w16, b, h8, w8)
+    if dev.type != "cuda":
+        raise ValueError(f"stem_s2d8_bf16: unsupported device {dev}")
+    out, plan = _stem16_launch("stem_s2d8_bf16", "fastdet_stem_s2d8_bf16",
+                               x, w16, b, 192, h8, w8, 8)
+    stem_s2d8_bf16.launches += plan.launches
+    return out
+
+
+stem_s2d8_bf16.launches = 0
+
+
+def px_stride16(mid: int) -> int:
+    """bf16 elements between two pixels of the bf16 stage kernel's
+    pixel-major buffers (`px_stride16`): mid rounded up so that the stride
+    in 4-byte words is 4 modulo 8."""
+    words = mid // 2
+    return 2 * (words + (12 - words % 8) % 8)
+
+
+def span16_smem(mid: int, rows: int, w: int, stride2: bool = False,
+                win: int = 0) -> int:
+    """Shared memory (bytes) of one CTA of a bf16 stage kernel
+    (`span16_smem_bytes`): the staged input X and pw1's output Y, each
+    rows + 2 rows of w pixels (stride 1) or 2·rows + 1 input rows of win
+    pixels (stride 2), px_stride16(mid) bf16 a pixel."""
+    npix = (2 * rows + 1) * win if stride2 else (rows + 2) * w
+    return 2 * npix * px_stride16(mid) * 2
+
+
+@dataclass(frozen=True)
+class Span16Plan:
+    """How one call of `span_bf16` or `s2span_bf16` runs on the card: one
+    launch a block, each over bands of output rows, one CTA a band and
+    image."""
+    rows: int        # output rows a CTA in the span's launches
+    rows_s2: int     # in the stride-2 block's launch
+    smem_bytes: int  # a CTA of the span's launches
+    smem_s2: int     # a CTA of the stride-2 block's launch (0 without)
+    launches: int    # device launches a call: nblk (+ 1 with stride2)
+
+
+def _rows16(mid: int, h: int, w: int, stride2: bool, win: int) -> int:
+    """Equal bands, as few as keep a CTA within SPAN16_SMEM_BUDGET (two an
+    SM; one band row if even that is over, while it fits a CTA)."""
+    fit = 1
+    for rows in range(h, 0, -1):
+        if span16_smem(mid, rows, w, stride2, win) <= SPAN16_SMEM_BUDGET:
+            fit = rows
+            break
+    if span16_smem(mid, fit, w, stride2, win) > SMEM_PER_CTA:
+        raise ValueError(f"no band of the bf16 stage at mid {mid}, width "
+                         f"{win if stride2 else w} fits a CTA")
+    return -(-h // -(-h // fit))
+
+
+@functools.lru_cache(maxsize=None)
+def span16_plan(b: int, c: int, h: int, w: int, nblk: int,
+                stride2: bool = False, win: int = 0) -> Span16Plan:
+    """The launch plan of the bf16 stage for an output (b, c, h, w) of
+    nblk span blocks, after a stride-2 block from input width `win` when
+    stride2 (B9)."""
+    mid = c // 2
+    rows = _rows16(mid, h, w, False, 0) if nblk else h
+    rows_s2 = _rows16(mid, h, w, True, win) if stride2 else rows
+    return Span16Plan(rows, rows_s2,
+                      span16_smem(mid, rows, w) if nblk else 0,
+                      span16_smem(mid, rows_s2, w, True, win) if stride2
+                      else 0, nblk + int(stride2))
+
+
+def span_reference_bf16(x, weights, bias, nblk: int):
+    """Plain PyTorch version of the bf16 span (B2), any device.  x
+    (B, C, h, w) bf16, weights (nblk, fold.span16_elems(C/2)) bf16 in
+    fragment order, bias (nblk, C) f32 → (B, C, h, w) bf16; per block y =
+    bf16(ReLU(pw1(x_odd) + b1)), z = bf16(ReLU(Wc ⊛ y + bc)), concat
+    [x_even, z]."""
+    mid = x.shape[1] // 2
+    k1 = _pad16(mid) * mid
+    for k in range(nblk):
+        w1 = _frag_matrix(weights[k, :k1], mid, mid)
+        wc = _tap_conv_weight(_frag_matrix(weights[k, k1:], mid, 9 * mid),
+                              mid)
+        y = F.relu(F.conv2d(x[:, 1::2].float(), w1[:, :, None, None],
+                            bias[k, :mid])).to(BF16)
+        z = F.relu(F.conv2d(y.float(), wc, bias[k, mid:], padding=1))
+        x = torch.cat([x[:, 0::2], z.to(BF16)], dim=1)
+    return x
+
+
+def s2span_reference_bf16(x, w_s2, b_s2, w_span, b_span, nblk: int):
+    """Plain PyTorch version of the bf16 stage (B9), any device.  x
+    (B, cin, H, W) bf16, w_s2/b_s2 the stride-2 block's `fold.pack_s2_16`,
+    w_span/b_span the span's → (B, 2·cin, ⌈H/2⌉, ⌈W/2⌉) bf16: y =
+    bf16(ReLU(pw1(x) + b1)), concat[bf16(ReLU(Wp ⊛s2 x + bp)),
+    bf16(ReLU(Wc ⊛s2 y + bc))], then `nblk` span blocks."""
+    m = x.shape[1]
+    k1, kc = _pad16(m) * m, _pad16(9 * m) * m
+    w1 = _frag_matrix(w_s2[:k1], m, m)
+    wc = _tap_conv_weight(_frag_matrix(w_s2[k1:k1 + kc], m, 9 * m), m)
+    wp = _tap_conv_weight(_frag_matrix(w_s2[k1 + kc:], m, 9 * m), m)
+    y = F.relu(F.conv2d(x.float(), w1[:, :, None, None], b_s2[:m])).to(BF16)
+    z = F.relu(F.conv2d(y.float(), wc, b_s2[m:2 * m], stride=2, padding=1))
+    pr = F.relu(F.conv2d(x.float(), wp, b_s2[2 * m:], stride=2, padding=1))
+    out = torch.cat([pr.to(BF16), z.to(BF16)], dim=1)
+    if nblk == 0:
+        return out
+    return span_reference_bf16(out, w_span, b_span, nblk)
+
+
+def _check16(t, what, name, dev, dtype, shape, align):
+    if (t.device != dev or t.dtype != dtype or tuple(t.shape) != shape
+            or not t.is_contiguous() or t.data_ptr() % align):
+        raise ValueError(
+            f"{what}: expected contiguous {align}-byte-aligned {dtype} {name} "
+            f"{shape} on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def span_bf16(x, weights, bias, nblk: int):
+    """→ (B,C,h,w) bf16 after `nblk` bf16 stride-1 blocks.  CUDA: the bf16
+    stage kernel of `csrc/span.cu` (`fastdet_span_bf16`) as `span16_plan`
+    launches it (its launches counted); CPU: the plain version."""
+    dev = x.device
+    if dev.type == "cpu":
+        return span_reference_bf16(x, weights, bias, nblk)
+    if dev.type != "cuda":
+        raise ValueError(f"span_bf16: unsupported device {dev}")
+    if (x.dim() != 4 or x.shape[1] not in SPAN_CHANNELS or x.dtype != BF16
+            or not x.is_contiguous()):
+        raise ValueError(
+            f"span_bf16: expected a contiguous bf16 (B, C, h, w) tensor with "
+            f"C in {SPAN_CHANNELS}, got {x.dtype} {tuple(x.shape)}")
+    bsz, c, h, w = x.shape
+    mid = c // 2
+    _check16(weights, "span_bf16", "weights", dev, BF16,
+             (nblk, span16_elems(mid)), 8)
+    _check16(bias, "span_bf16", "biases", dev, torch.float32,
+             (nblk, 2 * mid), 4)
+    plan = span16_plan(bsz, c, h, w, nblk)
+    out = torch.empty_like(x)
+    tmp = torch.empty_like(x) if nblk > 1 else out
+    lib = _build.load("span", _SPAN_SIGNATURES)
+    with torch.cuda.device(dev):
+        rc = lib.fastdet_span_bf16(
+            x.data_ptr(), out.data_ptr(), tmp.data_ptr(), weights.data_ptr(),
+            bias.data_ptr(), bsz, c, h, w, nblk, plan.rows,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, "span_bf16")
+    span_bf16.launches += plan.launches
+    return out
+
+
+span_bf16.launches = 0
+
+
+def s2span_bf16(x, w_s2, b_s2, w_span, b_span, nblk: int):
+    """→ (B, 2·cin, ⌈H/2⌉, ⌈W/2⌉) bf16 after the bf16 stride-2 block and
+    `nblk` bf16 span blocks.  CUDA: the bf16 stage kernels of
+    `csrc/s2span.cu` (`fastdet_s2span_bf16`) as `span16_plan(...,
+    stride2=True)` launches them (their launches counted); CPU: the plain
+    version."""
+    dev = x.device
+    if dev.type == "cpu":
+        return s2span_reference_bf16(x, w_s2, b_s2, w_span, b_span, nblk)
+    if dev.type != "cuda":
+        raise ValueError(f"s2span_bf16: unsupported device {dev}")
+    if (x.dim() != 4 or x.shape[1] not in S2SPAN_CHANNELS or x.dtype != BF16
+            or not x.is_contiguous()):
+        raise ValueError(
+            f"s2span_bf16: expected a contiguous bf16 (B, cin, H, W) tensor "
+            f"with cin in {S2SPAN_CHANNELS}, got {x.dtype} {tuple(x.shape)}")
+    bsz, cin, hin, win = x.shape
+    _check16(w_s2, "s2span_bf16", "stride-2 weights", dev, BF16,
+             (s2_16_elems(cin, cin),), 8)
+    _check16(b_s2, "s2span_bf16", "stride-2 biases", dev, torch.float32,
+             (3 * cin,), 4)
+    if nblk:
+        _check16(w_span, "s2span_bf16", "span weights", dev, BF16,
+                 (nblk, span16_elems(cin)), 8)
+        _check16(b_span, "s2span_bf16", "span biases", dev, torch.float32,
+                 (nblk, 2 * cin), 4)
+    shape = (bsz, 2 * cin, (hin + 1) // 2, (win + 1) // 2)
+    plan = span16_plan(bsz, 2 * cin, shape[2], shape[3], nblk, True, win)
+    out = torch.empty(shape, dtype=BF16, device=dev)
+    tmp = torch.empty_like(out) if nblk > 0 else out
+    lib = _build.load("s2span", _S2SPAN_SIGNATURES)
+    with torch.cuda.device(dev):
+        rc = lib.fastdet_s2span_bf16(
+            x.data_ptr(), out.data_ptr(), tmp.data_ptr(), w_s2.data_ptr(),
+            b_s2.data_ptr(), w_span.data_ptr() if nblk else None,
+            b_span.data_ptr() if nblk else None, bsz, cin, hin, win, nblk,
+            plan.rows_s2, plan.rows,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, "s2span_bf16")
+    s2span_bf16.launches += plan.launches
+    return out
+
+
+s2span_bf16.launches = 0
 
 
 # ------------------------------------------------------ the PyTorch pieces
@@ -738,13 +1097,20 @@ HEADS = {"yolo": (pack_fused_weights, _fpn),
          "anchorfree": (pack_fused_weights_af, _af_neck)}
 
 
-def _device_weights(pk: Dict[str, np.ndarray],
-                    device) -> Dict[str, torch.Tensor]:
+def _device_weights(pk: Dict[str, np.ndarray], device,
+                    dtype=torch.float32) -> Dict[str, torch.Tensor]:
     """Folded numpy weights (JAX layouts) → the forward's tensors: conv
     weights as OIHW on `device` (the nhwc stem's as `stem_conv_w`/`_b`),
     each stage's span and its whole stage as one packed tensor each on
     `device`, the stem's scaled weight and bias on the host (B1's and
-    B10's kernel parameters)."""
+    B10's kernel parameters).
+
+    dtype bf16: every weight of ndim > 1 is cast to bf16 as the JAX
+    package casts its packed arrays (every bias stays f32), and each
+    stage's span and stride-2 block are the bf16 kernels' composed
+    `s{stage}_span16`/`_b` and `s{stage}_s2_16`/`_b` (fold.py
+    `pack_span16`, `pack_s2_16`), in place of `s{stage}_span` and
+    `s{stage}_s2span`."""
     p: Dict[str, torch.Tensor] = {}
     blocks = {}                  # stage → block index → folded arrays
     for k, v in pk.items():
@@ -760,20 +1126,123 @@ def _device_weights(pk: Dict[str, np.ndarray],
             v = v.transpose(2, 0, 1)[:, None]
         elif v.ndim == 2:                               # pointwise (Cin,Cout)
             v = v.T[:, :, None, None]
-        p[k] = torch.from_numpy(np.ascontiguousarray(v)).to(device)
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        p[k] = (t.to(dtype) if v.ndim > 1 else t).to(device)
     for stage, blk in blocks.items():
         s1 = [blk[i] for i in sorted(blk) if i > 0]
+        if dtype == BF16:
+            for name, (w, b) in (("span16", pack_span16(s1)),
+                                 ("s2_16", pack_s2_16(blk[0]))):
+                p[f"s{stage}_{name}"] = bf16_from_bits(w).to(device)
+                p[f"s{stage}_{name}_b"] = torch.from_numpy(b).to(device)
+            continue
         p[f"s{stage}_span"] = torch.from_numpy(
             pack_span_weights(s1)).to(device)
         p[f"s{stage}_s2span"] = torch.from_numpy(
             pack_s2span_weights(blk[0], s1)).to(device)
     w, b = pack_stem_s2d(pk["stem_w"], pk["stem_b"])
-    p["stem_w"] = torch.from_numpy(np.ascontiguousarray(w))
+    p["stem_w"] = torch.from_numpy(np.ascontiguousarray(w)).to(dtype)
     p["stem_b"] = torch.from_numpy(b)
     p["stem_conv_w"] = torch.from_numpy(np.ascontiguousarray(
-        pk["stem_w"].transpose(3, 2, 0, 1))).to(device)
+        pk["stem_w"].transpose(3, 2, 0, 1))).to(dtype).to(device)
     p["stem_conv_b"] = torch.from_numpy(pk["stem_b"]).to(device)
     return p
+
+
+# ------------------------------------------------- the bf16 PyTorch pieces
+#
+# The parts the JAX package leaves to XLA, in bf16 under jnp's promotion
+# rules, each rounding point written out (torch refuses mixed-dtype
+# products): bf16 ⊛ bf16 gives bf16, one rounding after the f32
+# accumulation and before the f32 bias, which promotes the sum to f32;
+# f32 ⊛ bf16 gives f32 (TF32 off on the card); an activation cast back to
+# bf16 is one rounding.
+
+def _conv16(x, w, stride: int = 1, padding: int = 0, groups: int = 1):
+    """bf16 x ⊛ bf16 w → bf16: f32 accumulation, one rounding.  On the
+    card cuDNN's bf16 convolution computes just that; on the CPU the
+    products run in f32 from the bf16 values and are rounded after."""
+    if x.device.type == "cuda":
+        return F.conv2d(x, w, None, stride, padding, 1, groups)
+    return F.conv2d(x.float(), w.float(), None, stride, padding, 1,
+                    groups).to(BF16)
+
+
+def _bias(x, b):
+    """bf16 (or f32) x + the f32 bias → f32 (one kernel: the sum
+    promotes)."""
+    return x + b[:, None, None]
+
+
+def _s2_block_bf16(x, p, prefix: str):
+    """The stride-2 block as `_s2_block_xla` computes it in bf16: x bf16 →
+    concat[proj, main] bf16."""
+    mid = p[f"{prefix}_bd"].shape[0]
+    cin = x.shape[1]
+    y = F.relu(_bias(_conv16(x, p[f"{prefix}_w1"]), p[f"{prefix}_b1"]))
+    y = _bias(_conv16(y.to(BF16), p[f"{prefix}_wd"], 2, 1, mid),
+              p[f"{prefix}_bd"])
+    y = F.relu(F.conv2d(y, p[f"{prefix}_w2"].float(), p[f"{prefix}_b2"]))
+    pr = _bias(_conv16(x, p[f"{prefix}_wpd"], 2, 1, cin), p[f"{prefix}_bpd"])
+    pr = F.relu(F.conv2d(pr, p[f"{prefix}_wpp"].float(), p[f"{prefix}_bpp"]))
+    return torch.cat([pr, y], dim=1).to(BF16)
+
+
+def _dwcb_bf16(x, p, head: str):
+    """The head DWConvBlock as `_dwcb_xla` computes it in bf16."""
+    for dw, pw in ((f"{head}_dw1", f"{head}_pw1"),
+                   (f"{head}_dw2", f"{head}_pw2")):
+        x = F.relu(_bias(_conv16(x, p[dw + "_w"], 1, 2, x.shape[1]),
+                         p[dw + "_b"])).to(BF16)
+        x = _bias(_conv16(x, p[pw + "_w"]), p[pw + "_b"]).to(BF16)
+    return x
+
+
+def _up2(x):
+    return x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+
+
+def _fpn_bf16(c2, c3, p):
+    """LightFPN + shared heads as `_fpn_xla` computes them in bf16 → the
+    raw NHWC 6-tuple, f32."""
+    s3 = F.relu(_bias(_conv16(c3, p["conv1x1_3_w"]),
+                      p["conv1x1_3_b"])).to(BF16)
+    s2 = F.relu(_bias(_conv16(torch.cat([_up2(c3), c2], dim=1),
+                              p["conv1x1_2_w"]), p["conv1x1_2_b"])).to(BF16)
+    outs = []
+    for s, tag in ((s2, 2), (s3, 3)):
+        cls_f = _dwcb_bf16(s, p, f"cls_head_{tag}")
+        reg_f = _dwcb_bf16(s, p, f"reg_head_{tag}")
+        outs += [_bias(_conv16(reg_f, p["output_reg_w"]), p["output_reg_b"]),
+                 _bias(_conv16(cls_f, p["output_obj_w"]), p["output_obj_b"]),
+                 _bias(_conv16(cls_f, p["output_cls_w"]), p["output_cls_b"])]
+    return tuple(o.permute(0, 2, 3, 1) for o in outs)
+
+
+def _af_neck_bf16(c2, c3, p):
+    """The anchor-free neck and heads as `_af_neck_xla` computes them in
+    bf16 → the raw NHWC (obj, cls, reg), f32."""
+    s = F.relu(_bias(_conv16(torch.cat([c2, _up2(c3)], dim=1), p["fuse_w"]),
+                     p["fuse_b"])).to(BF16)
+    cls_f = _dwcb_bf16(s, p, "head_cls")
+    reg_f = _dwcb_bf16(s, p, "head_reg")
+    outs = (_bias(_conv16(cls_f, p["out_obj_w"]), p["out_obj_b"]),
+            _bias(_conv16(cls_f, p["out_cls_w"]), p["out_cls_b"]),
+            _bias(_conv16(reg_f, p["out_reg_w"]), p["out_reg_b"]))
+    return tuple(o.permute(0, 2, 3, 1) for o in outs)
+
+
+def _stem_nhwc_bf16(images, p):
+    """The NHWC stem as the JAX package's XLA stem computes it in bf16:
+    bf16(u8) / bf16(255) (a bf16 division), bf16 ⊛ bf16(stem_w) → bf16, +
+    the f32 bias, ReLU, bf16, max pool."""
+    x = (images.permute(0, 3, 1, 2).contiguous().float() / 255.0).to(BF16)
+    y = F.relu(_bias(_conv16(x, p["stem_conv_w"], 2, 1),
+                     p["stem_conv_b"])).to(BF16)
+    return F.max_pool2d(y.float(), 3, 2, 1).to(BF16)
+
+
+HEADS_BF16 = {"yolo": _fpn_bf16, "anchorfree": _af_neck_bf16}
 
 
 def build_fused_forward(state_dict, input_hw: Tuple[int, int] = (352, 352),
@@ -809,10 +1278,11 @@ def build_fused_forward(state_dict, input_hw: Tuple[int, int] = (352, 352),
         raise ValueError(f"unknown input_format {input_format!r}")
     if head not in HEADS:
         raise ValueError(f"unknown head {head!r}")
-    if dtype != torch.float32:
+    if dtype not in DTYPES:
         raise NotImplementedError(
-            f"fastdet_torch: dtype={dtype} is not ported; the fused forward "
-            "computes f32 (bf16 is ROADMAP A1)")
+            f"fastdet_torch: the fused forward computes torch.float32 or "
+            f"torch.bfloat16 (the JAX package's serving dtypes), not "
+            f"dtype={dtype}")
     if upto not in (None, "stem", "s2", "s3", "s4"):
         raise ValueError(f"unknown upto {upto!r}")
     ih, iw = input_hw
@@ -826,10 +1296,21 @@ def build_fused_forward(state_dict, input_hw: Tuple[int, int] = (352, 352),
              "nhwc": (ih, iw, 3)}[input_format]
     dev = resolve_device(device)
     pack, neck = HEADS[head]
-    packed = _device_weights(pack(state_dict), dev)
 
     def nhwc(x):
         return x.permute(0, 2, 3, 1)
+
+    def check_input(images):
+        if (tuple(images.shape[1:]) != shape
+                or images.dtype != torch.uint8):
+            raise ValueError(f"expected (B, {', '.join(map(str, shape))}) "
+                             f"uint8 {input_format} input, got "
+                             f"{images.dtype} {tuple(images.shape)}")
+
+    packed = _device_weights(pack(state_dict), dev, dtype)
+    if dtype == BF16:
+        return _bf16_forward(check_input, input_format, fuse_s2, upto, head,
+                             h4, w4), packed
 
     def stem(images, p):
         if input_format == "s2d_u8":
@@ -845,11 +1326,7 @@ def build_fused_forward(state_dict, input_hw: Tuple[int, int] = (352, 352),
         return F.max_pool2d(x, 3, 2, 1)
 
     def forward(images, p):
-        if (tuple(images.shape[1:]) != shape
-                or images.dtype != torch.uint8):
-            raise ValueError(f"expected (B, {', '.join(map(str, shape))}) "
-                             f"uint8 {input_format} input, got "
-                             f"{images.dtype} {tuple(images.shape)}")
+        check_input(images)
         x = stem(images, p)
         if upto == "stem":
             return nhwc(x)
@@ -866,3 +1343,41 @@ def build_fused_forward(state_dict, input_hw: Tuple[int, int] = (352, 352),
         return neck(feats[3], feats[4], p)
 
     return forward, packed
+
+
+def _bf16_forward(check_input, input_format: str, fuse_s2: bool, upto,
+                  head: str, h4: int, w4: int) -> Callable:
+    """The bf16 forward of `build_fused_forward(dtype=torch.bfloat16)`:
+    the JAX package's bf16 function, stage by stage (bf16 maps; the heads'
+    logits f32)."""
+    neck = HEADS_BF16[head]
+
+    def stem(images, p):
+        if input_format == "s2d_u8":
+            return stem_s2d_bf16(images, p["stem_w"], p["stem_b"], h4, w4)
+        if input_format == "s2d8_u8":
+            return stem_s2d8_bf16(images, p["stem_w"], p["stem_b"], h4 // 2,
+                                  w4 // 2)
+        return _stem_nhwc_bf16(images, p)
+
+    def forward(images, p):
+        check_input(images)
+        x = stem(images, p)
+        if upto == "stem":
+            return x.permute(0, 2, 3, 1)
+        feats = {}
+        for sid, reps, _ in STAGES:
+            if fuse_s2 or (sid == 2 and input_format == "s2d8_u8"):
+                x = s2span_bf16(x, p[f"s{sid}_s2_16"], p[f"s{sid}_s2_16_b"],
+                                p[f"s{sid}_span16"], p[f"s{sid}_span16_b"],
+                                reps - 1)
+            else:
+                x = _s2_block_bf16(x, p, f"s{sid}_0")
+                x = span_bf16(x, p[f"s{sid}_span16"], p[f"s{sid}_span16_b"],
+                              reps - 1)
+            feats[sid] = x
+            if upto == f"s{sid}":
+                return x.permute(0, 2, 3, 1)
+        return neck(feats[3], feats[4], p)
+
+    return forward

@@ -146,8 +146,8 @@ def build_anchorfree_fused_detect(state_dict, input_hw=(352, 352),
     """The fused serving path of the family → (detect(packed, images) →
     (dets, counts), packed): the backbone's stem and span kernels
     (`build_fused_forward(head="anchorfree")`) on the s2d(4) uint8 batch
-    of `pack_images_s2d`, then the decode and `batched_nms`.  f32 only
-    (the JAX package's bf16 default is ROADMAP A1)."""
+    of `pack_images_s2d`, then the decode and `batched_nms`, in `dtype`
+    (torch.float32 or torch.bfloat16; the logits are f32 in both)."""
     from fastdet_torch.kernels.fused_infer import build_fused_forward
 
     fwd, packed = build_fused_forward(

@@ -9,8 +9,9 @@ conf_thres 0.3, iou_thres 0.45, max_det 300 and a pre-NMS window of
 `FusedPipeline` runs the same chain on the fused forward
 (fastdet_torch/kernels/fused_infer.py): the host packs uint8 NHWC into the
 s2d(4) layout, and the card runs the stem and span kernels, the PyTorch
-stride-2 blocks and FPN, then the same postprocess.  With
-`family="anchorfree"` it runs the anchor-free family
+stride-2 blocks and FPN, then the same postprocess.  Its default dtype is
+the JAX package's, bf16 (`dtype=None`); `dtype=torch.float32` serves f32.
+With `family="anchorfree"` it runs the anchor-free family
 (`models/anchorfree.py`) on the same backbone kernels, then its decode and
 `batched_nms`.
 
@@ -71,37 +72,45 @@ class FusedPipeline:
 
     state_dict: the port's (e.g. from `fastdet_torch.io.load_state_dict`),
     the same weights `DevicePipeline` takes, or an `AnchorFreeDetector`'s
-    with `family="anchorfree"` ("fastestdet" too).  The forward computes
-    f32.
+    with `family="anchorfree"` ("fastestdet" too).
 
-    Not ported yet, each raising `NotImplementedError`: `dtype=bfloat16`
-    (ROADMAP A1), `mesh` (A12), and `from_files`/`preprocess_files`,
-    which need a host image decoder."""
+    dtype: None (the JAX package's default) or torch.bfloat16 runs the
+    bf16 forward, the JAX package's bf16 function (bf16 kernels B1, B2);
+    torch.float32 the f32 forward.  Any other dtype raises
+    `NotImplementedError`.  The logits reach the postprocess as f32 in
+    both.
+
+    Not ported yet, each raising `NotImplementedError`: `mesh` (ROADMAP
+    A12), and `from_files`/`preprocess_files`, which need a host image
+    decoder."""
 
     def __init__(self, state_dict, cfg: Config, conf_thres=0.3,
                  iou_thres=0.45, max_det=300, max_nms=128,
-                 dtype=torch.float32, device=None, mesh=None,
+                 dtype=None, device=None, mesh=None,
                  family: str = "yolo-fastestv2"):
-        if dtype != torch.float32:
+        if dtype is None:
+            dtype = torch.bfloat16
+        if dtype not in (torch.float32, torch.bfloat16):
             raise NotImplementedError(
                 f"fastdet_torch: FusedPipeline(dtype={dtype}) is not ported; "
-                "the fused path computes f32 (bf16 is ROADMAP A1)")
+                "it serves torch.bfloat16 (the default) or torch.float32")
         if mesh is not None:
             raise NotImplementedError(
                 "fastdet_torch: data-parallel serving (mesh) is ROADMAP A12, "
                 "not ported yet")
         self.device = resolve_device(device)
+        self.dtype = dtype
         disable_tf32(self.device)
         hw = (cfg.height, cfg.width)
         nms = dict(conf_thres=conf_thres, iou_thres=iou_thres,
                    max_det=max_det, max_nms=max_nms)
         if family_name(family) == "anchorfree":
             fused, packed = build_anchorfree_fused_detect(
-                state_dict, hw, device=self.device, **nms)
+                state_dict, hw, dtype=dtype, device=self.device, **nms)
             self._detect = functools.partial(fused, packed)
         else:
             fwd, packed = build_fused_forward(state_dict, input_hw=hw,
-                                              device=self.device)
+                                              dtype=dtype, device=self.device)
             anchors = np.asarray(cfg.anchors, np.float32).reshape(
                 cfg.num_scales, cfg.anchor_num, 2)
 

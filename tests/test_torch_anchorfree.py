@@ -407,8 +407,8 @@ def test_fused_pipeline_matches_jax(size):
                             iou_thres=0.45, dtype=jnp.float32,
                             interpret=True, family="anchorfree")(img)
     pipe = FusedPipeline(_state_dict("synth"), Config.from_dict(_cfg(size)),
-                         conf_thres=0.3, iou_thres=0.45, device="cpu",
-                         family="anchorfree")
+                         conf_thres=0.3, iou_thres=0.45, dtype=torch.float32,
+                         device="cpu", family="anchorfree")
     got = pipe(img)
     _assert_same_detections(got, want)
     assert sum(len(g) for g in got) > 0

@@ -562,7 +562,7 @@ def test_fused_pipeline_card_matches_device_pipeline(card):
     sd = load_state_dict(REF_NPZ)
     imgs = np.random.default_rng(5).integers(0, 256, (4, 352, 352, 3),
                                              dtype=np.uint8)
-    fused = FusedPipeline(sd, cfg, device=card)(imgs)
+    fused = FusedPipeline(sd, cfg, dtype=torch.float32, device=card)(imgs)
     device = DevicePipeline(Detector(), sd, cfg, device=card)(imgs)
     for a, b in zip(fused, device):
         assert a.shape == b.shape
@@ -766,8 +766,8 @@ def test_anchorfree_golden_on_the_card(card):
     kw = dict(conf_thres=golden["conf_thres"], iou_thres=golden["iou_thres"],
               max_nms=golden["max_nms"])
     before = fused_infer.stem_s2d.launches, fused_infer.span.launches
-    fused = FusedPipeline(sd, cfg, device=card, family="anchorfree",
-                          **kw)(img)[0]
+    fused = FusedPipeline(sd, cfg, dtype=torch.float32, device=card,
+                          family="anchorfree", **kw)(img)[0]
     h4 = size // 4
     plans = [fused_infer.span_stage_plan(1, c, h4 >> i, h4 >> i, reps - 1)
              for i, (_, reps, c) in enumerate(fold.STAGES, 1)]
@@ -783,3 +783,173 @@ def test_anchorfree_golden_on_the_card(card):
     plain = dets[0, :int(counts[0])].cpu().numpy()
     for got in (fused, plain):
         assert golden_mismatches(got, golden) == []
+
+
+# ------------------------------------------------- the bf16 kernels (A1)
+#
+# The bf16 stems against their plain versions: each element within one
+# bf16 ULP, ≥ 99% equal (one rounding after f32 sums of other orders);
+# the bf16 stages within 2⁻⁶ of the output's max |value| (they round
+# after every block, and a flip moves what follows).
+
+BF16_STAGE_RTOL = 2.0 ** -6
+
+
+@pytest.fixture(scope="module")
+def packed16():
+    """The bf16 forward's weights: the stem's bf16 weight on the host, each
+    stage's bf16 span and stride-2 block in fragment order on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (the CUDA kernels have no CPU "
+                    "mode)")
+    return fused_infer.build_fused_forward(load_state_dict(REF_NPZ),
+                                           dtype=torch.bfloat16)[1]
+
+
+def _bf16_ulps(got, want):
+    """Largest |Δ| in bf16 ULPs of each element's magnitude, taken at no
+    less than 2⁻¹⁰: below it the f32 sums' own rounding (~1e-7 where a sum
+    cancels) is many bf16 ULPs."""
+    g, w = got.float(), want.float()
+    e = torch.floor(torch.log2(torch.maximum(g.abs(), w.abs()).clamp_min(
+        2.0 ** -10)))
+    return float(((g - w).abs() / torch.exp2(e - 7)).max())
+
+
+@pytest.mark.parametrize("factor", [4, 8])
+@pytest.mark.parametrize("case", [(1, 352, 352), (128, 352, 352),
+                                  (2, 160, 96), (3, 72, 104)],
+                         ids=lambda c: "b%d-%dx%d" % c)
+def test_stem_bf16_kernels_match_plain(card, packed16, factor, case):
+    bsz, ih, iw = case
+    make, fn, ref = ((stem_case, fused_infer.stem_s2d_bf16,
+                      fused_infer.stem_s2d_reference_bf16) if factor == 4
+                     else (stem8_case, fused_infer.stem_s2d8_bf16,
+                           fused_infer.stem_s2d8_reference_bf16))
+    x = make(bsz + ih, bsz, ih, iw, str(card))
+    args = (packed16["stem_w"], packed16["stem_b"], ih // factor,
+            iw // factor)
+    before = fn.launches
+    got = fn(x, *args)
+    assert fn.launches == before + 1
+    want = ref(x, *args)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert _bf16_ulps(got, want) <= 1
+    assert float((got == want).float().mean()) >= 0.99
+
+
+@pytest.mark.parametrize("case", [(128, 2, 44, 44), (128, 3, 22, 22),
+                                  (128, 4, 11, 11), (1, 2, 80, 80),
+                                  (3, 4, 5, 3)],
+                         ids=lambda c: "b%d-s%d-%dx%d" % c)
+def test_span_bf16_kernel_matches_plain(card, packed16, case):
+    bsz, stage, h, w = case
+    reps, c = {s: (r, ch) for s, r, ch in fold.STAGES}[stage]
+    x = s2span_case(stage + h, bsz, c, h, w, str(card)).to(torch.bfloat16)
+    wts, bias = packed16[f"s{stage}_span16"], packed16[f"s{stage}_span16_b"]
+    plan = fused_infer.span16_plan(bsz, c, h, w, reps - 1)
+    before = fused_infer.span_bf16.launches
+    got = fused_infer.span_bf16(x, wts, bias, reps - 1)
+    assert fused_infer.span_bf16.launches == before + plan.launches
+    want = fused_infer.span_reference_bf16(x, wts, bias, reps - 1)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= BF16_STAGE_RTOL * float(want.float().abs().max())
+
+
+@pytest.mark.parametrize("case", [(128, 2, 88, 88), (128, 4, 22, 22),
+                                  (2, 3, 30, 26), (3, 4, 9, 13)],
+                         ids=lambda c: "b%d-s%d-%dx%d" % c)
+@pytest.mark.parametrize("span_blocks", [False, True])
+def test_s2span_bf16_kernel_matches_plain(card, packed16, case, span_blocks):
+    bsz, stage, hin, win = case
+    reps, c = {s: (r, ch) for s, r, ch in fold.STAGES}[stage]
+    nblk = reps - 1 if span_blocks else 0
+    x = s2span_case(stage * 3 + hin, bsz, c // 2, hin, win,
+                    str(card)).to(torch.bfloat16)
+    args = (packed16[f"s{stage}_s2_16"], packed16[f"s{stage}_s2_16_b"],
+            packed16[f"s{stage}_span16"][:nblk],
+            packed16[f"s{stage}_span16_b"][:nblk])
+    plan = fused_infer.span16_plan(bsz, c, (hin + 1) // 2, (win + 1) // 2,
+                                   nblk, True, win)
+    before = fused_infer.s2span_bf16.launches
+    got = fused_infer.s2span_bf16(x, *args, nblk)
+    assert fused_infer.s2span_bf16.launches == before + plan.launches
+    want = fused_infer.s2span_reference_bf16(x, *args, nblk)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= BF16_STAGE_RTOL * float(want.float().abs().max())
+
+
+def test_span16_plan_smem_matches_the_kernels(card):
+    from fastdet_torch.kernels import _build
+    lib = _build.load("span", fused_infer._SPAN_SIGNATURES)
+    for bsz, stage, h, w in SPAN_CASES:
+        c = {s: ch for s, _, ch in fold.STAGES}[stage]
+        plan = fused_infer.span16_plan(bsz, c, h, w, 3, True, 2 * w)
+        assert plan.smem_bytes == lib.fastdet_span16_smem(
+            c // 2, plan.rows, w, 0, 0)
+        assert plan.smem_s2 == lib.fastdet_span16_smem(
+            c // 2, plan.rows_s2, w, 1, 2 * w)
+        assert max(plan.smem_bytes, plan.smem_s2) <= \
+            fused_infer.SPAN16_SMEM_BUDGET
+
+
+def test_bf16_wrappers_check_their_inputs(card, packed16):
+    x = stem_case(0, 2, 160, 96, str(card))
+    with pytest.raises(ValueError, match="kernel parameters"):
+        fused_infer.stem_s2d_bf16(x, packed16["stem_w"].float(),
+                                  packed16["stem_b"], 40, 24)
+    xs = torch.zeros(2, 48, 10, 6, dtype=torch.float32, device=card)
+    with pytest.raises(ValueError, match="bf16"):
+        fused_infer.span_bf16(xs, packed16["s2_span16"],
+                              packed16["s2_span16_b"], 3)
+    with pytest.raises(ValueError, match="weights"):
+        fused_infer.span_bf16(xs.to(torch.bfloat16),
+                              packed16["s2_span16"].cpu(),
+                              packed16["s2_span16_b"], 3)
+
+
+@pytest.mark.parametrize("family", ["yolo-fastestv2", "anchorfree"])
+def test_fused_pipeline_bf16_default_on_the_card(card, family):
+    """FusedPipeline(dtype=None) serves bf16 through the bf16 kernels (one
+    stem and 13 span launches a batch) and holds the JAX package's bf16
+    serving contract against the f32 pipeline: the same count and classes,
+    boxes within 4 px (or 2⁻⁵ of the box's larger side, the smoke's rule
+    for large boxes), scores within 0.05.  Yolo-FastestV2 on seeded noise
+    at conf 0.05, the anchor-free family on its golden image with its
+    trained 3-class weights (real detections)."""
+    if family == "anchorfree":
+        with open(AF_GOLDEN) as f:
+            golden = json.load(f)
+        imgs = golden_image(golden)[0][None]
+        size = golden["size"]
+        cfg = Config.from_dict({"classes": 3, "width": size, "height": size,
+                                "anchor_num": 3})
+        sd = load_state_dict(golden["weights"])
+        kw = dict(conf_thres=golden["conf_thres"],
+                  iou_thres=golden["iou_thres"], max_nms=golden["max_nms"])
+    else:
+        cfg = Config.from_file("data/coco.data")
+        sd = load_state_dict(REF_NPZ)
+        imgs = np.random.default_rng(5).integers(0, 256, (4, 352, 352, 3),
+                                                 dtype=np.uint8)
+        kw = dict(conf_thres=0.05)
+    before = fused_infer.stem_s2d_bf16.launches, fused_infer.span_bf16.launches
+    pipe = FusedPipeline(sd, cfg, device=card, family=family, **kw)
+    assert pipe.dtype == torch.bfloat16
+    got = pipe(imgs)
+    assert fused_infer.stem_s2d_bf16.launches == before[0] + 1
+    assert fused_infer.span_bf16.launches == before[1] + 13
+    want = FusedPipeline(sd, cfg, dtype=torch.float32, device=card,
+                         family=family, **kw)(imgs)
+    if family == "anchorfree":
+        assert sum(len(g) for g in got) > 0
+    for d, j in zip(got, want):
+        assert d.shape == j.shape
+        free = list(range(len(j)))
+        for row in d:
+            tol = max(4.0, 2.0 ** -5 * max(row[2] - row[0], row[3] - row[1]))
+            hit = [i for i in free if j[i, 5] == row[5]
+                   and np.abs(j[i, :4] - row[:4]).max() <= tol
+                   and abs(j[i, 4] - row[4]) <= 0.05]
+            assert hit
+            free.remove(hit[0])

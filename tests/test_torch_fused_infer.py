@@ -280,7 +280,7 @@ def test_fused_forward_matches_detector():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    ({"dtype": torch.bfloat16}, "A1"),
+    ({"dtype": torch.float16}, "float16"),
 ])
 def test_unported_options_raise(kwargs, match):
     with pytest.raises(NotImplementedError, match=match):

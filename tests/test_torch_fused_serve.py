@@ -64,13 +64,14 @@ def test_fused_pipeline_matches_jax(images, sd, conf):
                                 dtype=jnp.float32, interpret=True)
     want = jax_pipe(np.asarray(jax_pack(images)))       # pre-packed
     got = FusedPipeline(sd, Config.from_file(DATA), conf_thres=conf,
+                        dtype=torch.float32,
                         device="cpu")(images)            # NHWC, host-packed
     _assert_same_detections(got, want)
 
 
 def test_fused_pipeline_matches_device_pipeline(images, sd):
     cfg = Config.from_file(DATA)
-    fused = FusedPipeline(sd, cfg, device="cpu")
+    fused = FusedPipeline(sd, cfg, dtype=torch.float32, device="cpu")
     device = DevicePipeline(Detector(80, 3), sd, cfg, device="cpu")
     _assert_same_detections(fused(images), device(images))
 
@@ -78,7 +79,8 @@ def test_fused_pipeline_matches_device_pipeline(images, sd):
 def test_fused_pipeline_input_forms(images, sd):
     """NHWC and pre-packed input give the same rows; `detect` takes the
     packed tensor and returns padded device tensors."""
-    pipe = FusedPipeline(sd, Config.from_file(DATA), device="cpu")
+    pipe = FusedPipeline(sd, Config.from_file(DATA), dtype=torch.float32,
+                         device="cpu")
     packed = pack_images_s2d(images)
     a, b = pipe(images), pipe(packed)
     for x, y in zip(a, b):
@@ -89,7 +91,7 @@ def test_fused_pipeline_input_forms(images, sd):
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    ({"dtype": torch.bfloat16}, "A1"),
+    ({"dtype": torch.float16}, "float16"),
     ({"mesh": object()}, "A12"),
 ])
 def test_fused_pipeline_unported_options_raise(sd, kwargs, match):
@@ -98,7 +100,8 @@ def test_fused_pipeline_unported_options_raise(sd, kwargs, match):
 
 
 def test_fused_pipeline_from_files_raises(sd):
-    pipe = FusedPipeline(sd, Config.from_file(DATA), device="cpu")
+    pipe = FusedPipeline(sd, Config.from_file(DATA), dtype=torch.float32,
+                         device="cpu")
     with pytest.raises(NotImplementedError, match="decoder"):
         pipe.from_files([os.path.join(REPO, "test_result.png")])
 
