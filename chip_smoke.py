@@ -161,14 +161,35 @@ Phases:
      bf16 (forward times, detections against f32); `FusedPipeline` at 640²
      in bf16 (B6); the anchor-free family in bf16 at b128 352² (phase 8d's
      model);
+  10. bf16 training, the JAX package's training headline: the bf16 forms
+     of B8 (the three stages at b128 352², real weights, the JAX
+     package's groups; stage 3 with seeded weights; two small shapes) and
+     B7 (b128 352² photo variants at group 1 and 16, two tie images)
+     against their plain bf16 versions (B8's outputs and gradients within
+     2⁻⁶ of max |value|, the seeded stage 3's gradients within twice the
+     plain version's own distance from its f64 sums where that is larger,
+     the stats within 5e-5; B7's y within one bf16 ULP and y, z bit for
+     bit the plain rounded chain with the kernel's stats, its gradients
+     within 2⁻⁶), each call's launches held to the plans, times beside the bounds,
+     the plain versions' and cuDNN bf16's; the Trainer in bf16 (default,
+     --fused-backbone, fused s2d at group 1 and 16) at b128 352² from the
+     reference weights with the bf16 kernels' counts from 0 (the f32
+     kernels must stay at 0), f32 parameters and momentum and bf16
+     outputs, each fused mode's step against the same step on the plain
+     bf16 versions (step 1's kernel backward calls against the plain
+     versions on the same inputs within 2⁻⁶, step 1's gradients within
+     relative L2 0.5 by group of leaves, the loss and the parameters after
+     2 steps within 2⁻⁵), ms/step, img/s and the device busy share beside
+     8b's f32 step (`bf16_train_phase.py` runs it alone);
   6. the kernel summary (a JSON line: launches of stem_s2d, span and
      rank_decode_nms from the fused serving path (rank_decode_nms's ms
      its device time on the served window, phase 4), of nms_keep from the
      eval path, of stem_s2d at 640² from FusedPipeline there, of
      span_train_fwd/bwd from the fused training run, of stem_train_fwd/bwd
      from the s2d training runs at group 1 and 16, of stem_s2d8 and
-     s2span from the flag paths of 4c, and phase 9's bf16 entries; the
-     phase line adds stem_s2d's and span's launches on the anchor-free
+     s2span from the flag paths of 4c, phase 9's bf16 entries and phase
+     10's bf16 training entries; the phase line adds stem_s2d's and
+     span's launches on the anchor-free
      path of 8d), the card line, and
      the host time of each phase, and the last line {"ok": true,
      "device": {...}}.
@@ -984,6 +1005,47 @@ def device_busy_ms(fn) -> float:
     check(split is not None, "device_busy_ms: the profiler saw no device "
           "time")
     return sum(ms for ms, _ in split.values())
+
+
+def counted_split(fn, wrapper, what: str, want: int, names=None,
+                  tries: int = 5):
+    """One call of a kernel wrapper that counts one launch a call, its
+    device launches (torch.profiler) held to the plan: `want` per call,
+    of the kernels `names` where given.  A profile that disagrees is
+    taken again, up to `tries` times; if none agrees but every one saw
+    only planned kernels and fewer launches than planned, the profiler
+    dropped records (it has, in spells of five tries at one call), which
+    is reported beside the wrapper's count, as `kernel_launch_split`
+    does; anything else fails.  → (split, launches per call, note), or
+    (None, None, "") where no try saw device time."""
+    before = wrapper.launches
+    fn()
+    counted = wrapper.launches - before
+    check(counted == 1, f"{what}: the wrapper counts {counted} launches "
+          f"per call, not 1")
+    seen = []
+    for i in range(tries):
+        retake(i)
+        got = kernel_split(fn)
+        if got is None:
+            continue
+        n = sum(v[1] for v in got.values())
+        if n == want and (names is None or sorted(got) == sorted(names)):
+            return got, n, ""
+        seen.append((got, n))
+        log(f"  (profile {i + 1} of {tries} saw {n:g} device launches per "
+            f"call, {want} planned)")
+    if not seen:
+        return None, None, ""
+    check(all(n < want and (names is None or set(got) <= set(names))
+              for got, n in seen),
+          f"{what}: device launches per call {[n for _, n in seen]} of "
+          f"{[sorted(got) for got, _ in seen]}, the plan says {want}"
+          + (f" of {sorted(names)}" if names else ""))
+    split, n = max(seen, key=lambda gn: gn[1])
+    return split, n, (f" (the profiler dropped records in all {len(seen)} "
+                      f"tries: {', '.join(f'{k:g}' for _, k in seen)} per "
+                      f"call; the wrapper counts one call)")
 
 
 def split_text(split) -> str:
@@ -2310,18 +2372,22 @@ def running_stats_diff(a, b):
     return worst
 
 
-def make_trainer(sd, cfg, mode, group=None):
+def make_trainer(sd, cfg, mode, group=None, dtype=None):
     """A Trainer from the reference weights, built as the JAX package's
     bench builds it, for mode "default", "fused" (--fused-backbone) or
-    "fused_s2d" (`fused_input_format="s2d_u8"`, the stem's ghost group 1).
-    With `group`, the s2d Trainer's apply is replaced by
+    "fused_s2d" (`fused_input_format="s2d_u8"`, the stem's ghost group 1),
+    computing in f32, or in bf16 for `dtype=torch.bfloat16` (the bench's
+    `Detector(dtype=bf16)`, whose Trainer computes in bf16).  With
+    `group`, the s2d Trainer's apply is replaced by
     `build_fused_train_apply(..., input_format="s2d_u8",
     stem_group=group)`: the Trainer, as the JAX one, has no stem group of
     its own."""
+    import torch
     from fastdet_torch.models import Detector
     from fastdet_torch.train.fused_forward import build_fused_train_apply
     from fastdet_torch.train.trainer import Trainer
-    model = Detector(80, 3)
+    dtype = dtype or torch.float32
+    model = Detector(80, 3, dtype=dtype)
     model.load_state_dict(sd)
     tr = Trainer(model, cfg, 1, fused_backbone=mode != "default",
                  fused_input_format="s2d_u8" if mode == "fused_s2d"
@@ -2356,7 +2422,8 @@ def phase_training(sd, photo, dev_pipe, card, b8, b7):
     otherwise).  Then ms per step and img/s of the three modes (CUDA
     events, median of 5 steps after 2 of warm-up), a profile of each, and
     B8's and B7's shares of their steps.  → ({kernel: launches} over the
-    fused run (B8) and the s2d runs (B7 at group 1 and grouped))."""
+    fused run (B8) and the s2d runs (B7 at group 1 and grouped), {mode:
+    median ms/step})."""
     import torch
     from fastdet_torch.cli.train import run_training
     from fastdet_torch.config import Config
@@ -2571,7 +2638,7 @@ def phase_training(sd, photo, dev_pipe, card, b8, b7):
         + ("not measured" if b7_prof is None else
            f"{b7_prof:.3f} ms = {100 * b7_prof / times['fused_s2d']:.1f}%")
         + f" ({card})")
-    return launches
+    return launches, times
 
 
 # ------------------------------------------ the anchor-free family (8d)
@@ -3686,6 +3753,600 @@ def phase_bf16(sd, photo, card, images, big, fused_pipe, af_sd):
     return launches, out
 
 
+# ------------------------------------------------ bf16 training (phase 10)
+
+BF16_TRAIN_RTOL = 2.0 ** -6   # B8 bf16 outputs and every bf16 gradient
+                              # against the plain versions, of max |value|
+BF16_STEP_RTOL = 2.0 ** -5    # a bf16 step with the kernels against the
+                              # same step on the plain versions
+STATS_RTOL = 5e-5             # ghost statistics, per kind, of the largest
+# step 1's gradients with the kernels against those on the plain versions,
+# relative L2 over a group of leaves: a rounding or ReLU mask flipped in
+# one layer spreads through the whole bf16 backward, so two correct paths
+# stand far apart here (phase 10 prints it); a kernel that returned no
+# gradient reads 1.  The kernels' own gradients are held on step 1's
+# cotangents at BF16_TRAIN_RTOL.
+STEP_GRAD_RL2 = 0.5
+
+
+def span16_train_bound(b, c, h, w, nblk, g):
+    """B8's bf16 form at one stage → ((ms, by), (ms, by)): the bytes of
+    `span_train_bound` with the activations (x, out, the saved block
+    inputs; dy and dx) at 2 bytes, the operations (the same MACs) at the
+    bf16 tensor-core rate, since every product is bf16 × bf16."""
+    mid = c // 2
+    act = b * c * h * w
+    nstats = nblk * 3 * (b // g) * 3 * mid
+    nw = nblk * (2 * mid * mid + 15 * mid)
+    ops = nblk * b * h * w * 2 * (2 * mid * mid + 9 * mid)
+    return (bound(2 * (2 * act + nblk * act) + 4 * (nstats + nw), ops,
+                  PEAK_BF16_TC_OPS_S),
+            bound(2 * (2 * act + nblk * act) + 4 * (nstats + 2 * nw),
+                  3 * ops, PEAK_BF16_TC_OPS_S))
+
+
+def stem16_train_bound(b, h4, w4, g):
+    """B7's bf16 form → ((ms, by), (ms, by)): the bytes of
+    `stem_train_bound` with y (and dy) at 2 bytes, the operations at the
+    bf16 tensor-core rate (bf16 weights times u8 pixels)."""
+    npad = (h4 * w4 + 127) // 128 * 128
+    ops = b * 24 * 4 * h4 * w4 * 27 * 2
+    nbytes = (b * 48 * npad + 2 * b * 24 * h4 * w4
+              + 4 * (648 + 48 + (b // g) * 24 * 3))
+    return (bound(nbytes, ops, PEAK_BF16_TC_OPS_S),
+            bound(nbytes, 2 * ops, PEAK_BF16_TC_OPS_S))
+
+
+def median_step_ms(tr, batch, labels, mask) -> list:
+    """5 training steps after 2 of warm-up, each by a CUDA-event pair →
+    their ms, sorted."""
+    import torch
+    for _ in range(2):
+        tr.step(batch, labels, mask)
+    evs = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    evs[0].record()
+    for i in range(5):
+        tr.step(batch, labels, mask)
+        evs[i + 1].record()
+    torch.cuda.synchronize()
+    return sorted(evs[i].elapsed_time(evs[i + 1]) for i in range(5))
+
+
+def rel_err(got, want) -> float:
+    """max |Δ| over max |want|."""
+    w = want.float()
+    return float((got.float() - w).abs().max() / w.abs().max().clamp_min(
+        1e-30))
+
+
+def phase_bf16_train(sd, photo, dev_pipe, card, f32_times):
+    """10. bf16 training, the JAX package's training headline
+    (`Trainer(Detector(dtype=bf16), compute_dtype=bf16, fused_backbone=
+    True, fused_input_format="s2d_u8")`).  The bf16 forms of B8 and B7
+    against their plain bf16 versions on the card: B8 at the three stages
+    at b128 352² (the span blocks' real weights, `pick_train_group`'s
+    groups), at stage 3 with the card tests' seeded weights (its backward
+    held with the plain version's own spread, which the phase prints:
+    `span16_backward_errs`) and two small shapes; B7 at b128 352² photo
+    variants with the real stem weights at ghost group 1 and
+    STEM_GROUPED, and two tie images (one with γ of both signs and 0).
+    Bounds: B8's out, saved
+    inputs, dx and weight gradients within BF16_TRAIN_RTOL of max |value|
+    (the backward given the same dy, saved inputs and stats; the seeded
+    stage 3's within twice the plain version's distance from its f64 sums
+    where larger), the stats within STATS_RTOL; B7's y within one bf16
+    ULP, and y and z bit for bit the plain conv, rounded BN + ReLU and
+    pool with the kernel's stats, dW, dγ, dβ within BF16_TRAIN_RTOL; a
+    second backward gives the same bits; each call's device launches are
+    the plan's (`counted_split`: a profiler that drops records in every
+    try is reported beside the wrapper's count).  Times at b128 (CUDA events): kernels, plain versions, the
+    bounds, and cuDNN in bf16 for the same stride-1 blocks and stem
+    (`Detector(dtype=bf16)`'s own modules), forward and backward.  Then
+    the three Trainer modes in bf16 at b128 352² from the reference
+    weights (default and --fused-backbone through `run_training(dtype=
+    bf16)`, fused s2d through the Trainer; the s2d mode at STEM_GROUPED
+    too): the bf16 kernels' counts go to 0 just before and are read just
+    after (the f32 kernels must stay at 0); each fused bf16 step with the
+    kernels against the same step on the plain versions: step 1's B8 and
+    B7 backward calls, on the main path's own cotangents, against the
+    plain versions on the same inputs within BF16_TRAIN_RTOL; step 1's
+    gradients (the momentum buffers at LR 0) within STEP_GRAD_RL2 by
+    group of leaves; after 2 steps the loss within BF16_STEP_RTOL
+    relative, the parameters within BF16_STEP_RTOL of max |value|;
+    ms/step, img/s and the device's busy share (torch.profiler), with
+    phase 8b's f32 step beside (`f32_times`; None: the f32 Trainers are
+    timed here, as `bf16_train_phase.py` runs it).
+    → ({entry:
+    launches}, {entry: (ms, plain_ms, bound_ms, bound_by, max |Δ|,
+    library_ms)}) with entries span_train_fwd/bwd_bf16 and
+    stem_train_fwd/bwd_bf16 (g1 and grouped)."""
+    import torch
+    import torch.nn.functional as F
+    from torch_cases import (SPAN_TRAIN_FULL, STEM_TRAIN_CASES,
+                             span16_backward_errs, span_train_case,
+                             span_train_rel_errs, stem_train_case)
+    from fastdet_torch.cli.train import run_training
+    from fastdet_torch.config import Config
+    from fastdet_torch.kernels import fused_train as ft
+    from fastdet_torch.kernels import stem_train as stt
+    from fastdet_torch.kernels.fold import STAGES
+    from fastdet_torch.kernels.fused_infer import pack_images_s2d
+    from fastdet_torch.models import Detector
+    b16 = torch.bfloat16
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    det = Detector(80, 3, dtype=b16)
+    det.load_state_dict(sd)
+    det = det.cuda().train()
+    reps = {c: (stage, r) for stage, r, c in STAGES}
+    out = {}
+
+    # ---- B8 bf16
+    tot = {k: [0.0] * 6 for k in ("fwd", "bwd")}
+    by_bytes = {"fwd": [0.0, 0.0], "bwd": [0.0, 0.0]}
+    launches = {"fwd": [], "bwd": []}
+    # the three stages with their real weights (timed), stage 3 with the
+    # seeded weights of the card tests (ill-conditioned: its backward is
+    # held with the plain version's own spread, `span16_backward_errs`),
+    # two small shapes
+    span_cases = ([(c, True) for c in SPAN_TRAIN_FULL]
+                  + [(SPAN_TRAIN_FULL[1], False), ((4, 48, 6, 7, 2, 2), False),
+                     ((3, 96, 9, 7, 2, 3), False)])
+    for case, full in span_cases:
+        b, c, h, w, nblk, g = case
+        x32, rows, dy32 = span_train_case(sum(case) + 1, b, c, h, w, nblk,
+                                          "cuda")
+        x, dy = x32.to(b16), dy32.to(b16)
+        witness = b == 128 and not full
+        if full:
+            stage, r = reps[c]
+            blocks = [getattr(det.backbone, f"stage{stage}_{i}")
+                      for i in range(1, r)]
+            rows = ft.pack_span_train_weights(blocks).detach().contiguous()
+            check(ft.pick_train_group(b, (h * w + 127) // 128 * 128, c) == g,
+                  f"ghost group of {case}")
+        fo, xsave, stats = ft.span_train_forward_bf16(x, rows, g)
+        ro, rxsave, rstats = ft.span_train_forward_reference(x, rows, g)
+        torch.cuda.synchronize()
+        check(fo.dtype == xsave.dtype == b16 and stats.dtype == torch.float32,
+              f"B8 bf16 dtypes at {case}")
+        f_err = max(rel_err(fo, ro), rel_err(xsave, rxsave))
+        check(f_err <= BF16_TRAIN_RTOL, f"B8 bf16 forward {f_err:.3g} of "
+              f"max |value| off at {case}")
+        # the first block's stats within STATS_RTOL; later blocks' inputs
+        # carry the roundings the two sides flipped before them
+        s_err = max(rel_err(stats[0, :, :, j], rstats[0, :, :, j])
+                    for j in range(3))
+        s_all = max(rel_err(stats[:, :, :, j], rstats[:, :, :, j])
+                    for j in range(3))
+        check(s_err <= STATS_RTOL and s_all <= BF16_TRAIN_RTOL,
+              f"B8 bf16 stats {s_err:.3g} (block 0), {s_all:.3g} (all) off "
+              f"at {case}")
+        dx, drows = ft.span_train_backward_bf16(dy, xsave, stats, rows, g)
+        torch.cuda.synchronize()
+        check(dx.dtype == b16 and drows.dtype == torch.float32,
+              f"B8 bf16 backward dtypes at {case}")
+        held, (rdx, rdrows) = span16_backward_errs(
+            (dx, drows), dy, xsave, stats, rows, g, witness)
+        errs = [(k, e) for k, (e, _) in held.items()]
+        off = {k: v for k, v in held.items() if v[0] > v[1]}
+        b_err = max(e for _, e in errs)
+        check(not off, f"B8 bf16 backward off at {case} (leaf: (err, "
+              f"bound)): {off}")
+        dx2, drows2 = ft.span_train_backward_bf16(dy, xsave, stats, rows, g)
+        check(torch.equal(dx, dx2) and torch.equal(drows, drows2),
+              f"B8 bf16 backward not deterministic at {case}")
+        eq = float((fo == ro).float().mean())
+        msg = (f"  span_train bf16 b={b} C={c} {h}x{w} nblk={nblk} g={g}: "
+               f"out {rel_err(fo, ro):.3g} of max |out| ({eq:.5f} equal), "
+               f"stats {s_err:.3g} (block 0; all {s_all:.3g}), backward "
+               f"{b_err:.3g} (worst "
+               f"{max(errs, key=lambda e: e[1])[0]})")
+        tot["fwd"][4] = max(tot["fwd"][4], float((fo.float() - ro.float())
+                                                 .abs().max()))
+        tot["bwd"][4] = max(tot["bwd"][4], float((dx.float() - rdx.float())
+                                                 .abs().max()),
+                            float((drows - rdrows).abs().max()))
+        if witness:
+            # the witness: the plain version against itself, in f64 sums
+            # on the card and in f32 sums on the CPU
+            p64 = ft.span_train_backward_reference(dy, xsave, stats, rows,
+                                                   g, torch.float64)
+            cpu = ft.span_train_backward_reference(
+                dy.cpu(), xsave.cpu(), stats.cpu(), rows.cpu(), g)
+            ours = dict(errs)
+            spread = span_train_rel_errs(rdx, rdrows, *p64)
+            cpu_card = span_train_rel_errs(*cpu, rdx.cpu(), rdrows.cpu())
+            msg += "; seeded weights, of max |value|, " + ", ".join(
+                f"{k}: kernel {ours[k]:.4g}, plain f32 vs f64 sums "
+                f"{spread[k]:.4g}, plain CPU vs card {cpu_card[k]:.4g}"
+                for k in sorted(ours, key=lambda k: -ours[k])[:3])
+            del p64, cpu
+        if not full:
+            log(msg)
+            continue
+        ms_f = cuda_ms(lambda: ft.span_train_forward_bf16(x, rows, g), 10)
+        ms_b = cuda_ms(lambda: ft.span_train_backward_bf16(
+            dy, xsave, stats, rows, g), 10)
+        pl_f = cuda_ms(lambda: ft.span_train_forward_reference(x, rows, g),
+                       2, 1)
+        pl_b = cuda_ms(lambda: ft.span_train_backward_reference(
+            dy, xsave, stats, rows, g), 2, 1)
+        seq = torch.nn.Sequential(*blocks)
+        xg = x.clone().requires_grad_()
+        lib_f = cuda_ms(lambda: seq(xg), 10)
+        lib_fb = cuda_ms(lambda: seq(xg).backward(dy), 10)
+        (bf, byf), (bb, byb) = span16_train_bound(b, c, h, w, nblk, g)
+        for k, vals in (("fwd", (ms_f, pl_f, bf, lib_f)),
+                        ("bwd", (ms_b, pl_b, bb, lib_fb - lib_f))):
+            t = tot[k]
+            t[0] += vals[0]
+            t[1] += vals[1]
+            t[2] += vals[2]
+            t[5] += vals[3]
+        by_bytes["fwd"][0 if byf == "bytes" else 1] += bf
+        by_bytes["bwd"][0 if byb == "bytes" else 1] += bb
+        log(msg + f"; kernels fwd {ms_f:.4f} ms, bwd {ms_b:.4f} ms; plain "
+            f"fwd {pl_f:.3f} ms, bwd {pl_b:.3f} ms; bound fwd {bf:.4f} ms "
+            f"({byf}), bwd {bb:.4f} ms ({byb}); cuDNN bf16 blocks (training "
+            f"mode) fwd {lib_f:.4f} ms, fwd+bwd {lib_fb:.4f} ms")
+        plan = ft.span_train_plan(b, c, h, w, nblk, g)
+        for k, fn, wrapper, want in (
+                ("fwd", lambda: ft.span_train_forward_bf16(x, rows, g),
+                 ft.span_train_forward_bf16, plan.launches_fwd),
+                ("bwd", lambda: ft.span_train_backward_bf16(
+                    dy, xsave, stats, rows, g), ft.span_train_backward_bf16,
+                 plan.launches_bwd)):
+            split, n, note = counted_split(fn, wrapper, f"B8 bf16 {k} at "
+                                           f"{case}", want)
+            if split is None:
+                launches[k].append("not measured")
+                continue
+            launches[k].append(f"{n:g}")
+            log(f"  B8 bf16 {k} split at C={c} (torch.profiler, ms per "
+                f"call): " + split_text(split) + note)
+        del xsave, rxsave, dx, rdx
+    for k in ("fwd", "bwd"):
+        t = tot[k]
+        out[f"span_train_{k}_bf16"] = (
+            t[0], t[1], t[2], "bytes" if by_bytes[k][0] >= by_bytes[k][1]
+            else "operations", t[4], t[5])
+    log(f"  B8 bf16 device launches per stage call forward "
+        f"{' / '.join(launches['fwd'])}, backward "
+        f"{' / '.join(launches['bwd'])} (the plan's)")
+
+    # ---- B7 bf16
+    fc = det.backbone.first_conv
+    w_real = (fc.conv.weight * (1.0 / 255.0)).detach().contiguous()
+    g_real, b_real = fc.bn.weight.detach(), fc.bn.bias.detach()
+    photos = photo_variants(photo, 128, seed=31)
+    bsz = len(photos)
+    x_main = torch.from_numpy(pack_images_s2d(photos)).cuda()
+    dy_main = torch.from_numpy(np.random.default_rng(32).normal(
+        0.0, 1.0, (bsz, 24, 88, 88)).astype(np.float32)).cuda().to(b16)
+    cases = [(f"b{bsz} 352² photos g={g}", x_main, w_real, g_real, b_real,
+              dy_main, 88, 88, g) for g in (1, STEM_GROUPED)]
+    for case in (STEM_TRAIN_CASES[3], STEM_TRAIN_CASES[6]):
+        b, hgt, wid, g, tie, signed = case
+        x, w_raw, gamma, beta, dy = stem_train_case(sum(case) + 1, b, hgt,
+                                                    wid, tie, "cuda", signed)
+        cases.append((f"b{b} {hgt}x{wid} g={g} ties"
+                      f"{' γ±,0' if signed else ''}", x,
+                      (w_raw * (1.0 / 255.0)).contiguous(), gamma, beta,
+                      dy.to(b16), hgt // 4, wid // 4, g))
+    img16 = (torch.from_numpy(photos).cuda().permute(0, 3, 1, 2).to(b16)
+             / 255.0)
+
+    def lib_stem():
+        return F.max_pool2d(fc(img16), 3, 2, 1)
+
+    lib_f = cuda_ms(lib_stem, 10)
+    lib_fb = cuda_ms(lambda: lib_stem().backward(dy_main), 10)
+    fc.zero_grad(set_to_none=True)
+    errs7 = [0.0, 0.0]
+    for name, x, w, gamma, beta, dy, h4, w4, g in cases:
+        y, stats, z = stt.stem_train_forward_bf16(x, w, gamma, beta, h4, w4,
+                                                  g)
+        ry, rstats = stt.stem_train_forward_reference(x, w, gamma, beta, h4,
+                                                      w4, g, True)
+        torch.cuda.synchronize()
+        ulps = bf16_ulps(y, ry)
+        eq = float((y == ry).float().mean())
+        s_err = max(rel_err(stats[..., k], rstats[..., k]) for k in range(3))
+        check(y.dtype == b16 and ulps <= 1 and eq >= 0.99
+              and s_err <= STATS_RTOL, f"B7 bf16 forward at {name}: y "
+              f"{ulps:.3g} ULPs, {eq:.5f} equal, stats {s_err:.3g}")
+        u = stt._conv(stt._image(x, h4, w4, w.dtype), stt._rounded(w, True))
+        bn, _ = stt._bn_parts(u, stats, gamma, beta, g)
+        check(torch.equal(y, F.max_pool2d(torch.relu(bn).to(b16), 3, 2, 1)),
+              f"B7 bf16 y is not the plain rounded BN + ReLU + pool with the "
+              f"kernel's stats at {name}")
+        check(torch.equal(z, stt.pooled_extreme(u, gamma)),
+              f"B7 bf16 z is not the plain pooled conv at {name}")
+        del u, bn
+        grads = stt.stem_train_backward_bf16(dy, x, stats, w, gamma, beta,
+                                             h4, w4, g, z)
+        refs = stt.stem_train_backward_reference(dy, x, stats, w, gamma,
+                                                 beta, h4, w4, g, True)
+        torch.cuda.synchronize()
+        b_rel = {leaf: rel_err(got, want) for leaf, got, want in
+                 zip(("dW", "dgamma", "dbeta"), grads, refs)}
+        check(max(b_rel.values()) <= BF16_TRAIN_RTOL,
+              f"B7 bf16 backward at {name}: {b_rel}")
+        again = stt.stem_train_backward_bf16(dy, x, stats, w, gamma, beta,
+                                             h4, w4, g, z)
+        check(all(torch.equal(a, c) for a, c in zip(grads, again)),
+              f"B7 bf16 backward not deterministic at {name}")
+        errs7 = [max(errs7[0], float((y.float() - ry.float()).abs().max())),
+                 max([errs7[1]] + [float((a - c).abs().max())
+                                   for a, c in zip(grads, refs)])]
+        msg = (f"  stem_train bf16 {name}: y {ulps:.3g} bf16 ULPs "
+               f"({eq:.5f} equal; y, z bit for bit the plain rounded chain "
+               f"with the kernel's stats), stats {s_err:.3g}; backward of "
+               f"max |value|: " + ", ".join(f"{k} {v:.3g}"
+                                            for k, v in b_rel.items()))
+        if x is not x_main:
+            log(msg)
+            continue
+        ms_f = cuda_ms(lambda: stt.stem_train_forward_bf16(
+            x, w, gamma, beta, h4, w4, g), 10)
+        ms_b = cuda_ms(lambda: stt.stem_train_backward_bf16(
+            dy, x, stats, w, gamma, beta, h4, w4, g, z), 10)
+        pl_f = cuda_ms(lambda: stt.stem_train_forward_reference(
+            x, w, gamma, beta, h4, w4, g, True), 2, 1)
+        pl_b = cuda_ms(lambda: stt.stem_train_backward_reference(
+            dy, x, stats, w, gamma, beta, h4, w4, g, True), 2, 1)
+        (bf, byf), (bb, byb) = stem16_train_bound(bsz, h4, w4, g)
+        key = "g1" if g == 1 else "grouped"
+        out[f"stem_train_fwd_bf16_{key}"] = (ms_f, pl_f, bf, byf, 0.0,
+                                             lib_f)
+        out[f"stem_train_bwd_bf16_{key}"] = (ms_b, pl_b, bb, byb, 0.0,
+                                             lib_fb - lib_f)
+        log(msg + f"; kernels fwd {ms_f:.4f} ms, bwd {ms_b:.4f} ms; plain "
+            f"fwd {pl_f:.3f} ms, bwd {pl_b:.3f} ms; bound fwd {bf:.4f} ms "
+            f"({byf}), bwd {bb:.4f} ms ({byb}); cuDNN bf16 stem (conv, "
+            f"training BN, ReLU, max_pool2d) fwd {lib_f:.4f} ms, fwd+bwd "
+            f"{lib_fb:.4f} ms")
+        plan = stt.stem_train_plan(bsz, h4, w4, g)
+        for k, fn, wrapper, names in (
+                ("fwd", lambda: stt.stem_train_forward_bf16(
+                    x, w, gamma, beta, h4, w4, g),
+                 stt.stem_train_forward_bf16, plan.kernels_fwd),
+                ("bwd", lambda: stt.stem_train_backward_bf16(
+                    dy, x, stats, w, gamma, beta, h4, w4, g, z),
+                 stt.stem_train_backward_bf16, plan.kernels_bwd)):
+            split, n, note = counted_split(fn, wrapper, f"B7 bf16 {k} at "
+                                           f"{name}", len(names), names)
+            if split is None:
+                log(f"  B7 bf16 {k} split at g={g}: not measured")
+                continue
+            log(f"  B7 bf16 {k} split at g={g} (torch.profiler, ms per "
+                f"call): " + split_text(split) + note)
+    for key in list(out):
+        if key.startswith("stem_train_"):
+            e = errs7[0] if "_fwd_" in key else errs7[1]
+            out[key] = out[key][:4] + (e,) + out[key][5:]
+
+    # ---- the Trainer in bf16, three modes, b128 352²
+    cfg = Config.from_file(DATA)
+    bsz, steps = cfg.batch_size, 3
+    images = photo_variants(photo, bsz, seed=21)
+    labels, mask = eval_labels(dev_pipe(images), seed=21)
+    images_s2d = pack_images_s2d(images)
+    inputs = {"default": images, "fused": images, "fused_s2d": images_s2d}
+    k16 = (ft.span_train_forward_bf16, ft.span_train_backward_bf16,
+           stt.stem_train_forward_bf16, stt.stem_train_backward_bf16)
+    k32 = (ft.span_train_forward, ft.span_train_backward,
+           stt.stem_train_forward, stt.stem_train_backward)
+
+    def batches(epoch):
+        return [(images, labels, mask)] * steps
+
+    trainers, step_launches = {}, {}
+    for mode in ("default", "fused", "fused_s2d", "fused_s2d_grouped"):
+        n = 2 if mode == "fused_s2d_grouped" else steps
+        for k in k16 + k32:
+            k.launches = 0
+        if mode.startswith("fused_s2d"):
+            tr = make_trainer(sd, cfg, "fused_s2d",
+                              STEM_GROUPED if mode.endswith("grouped")
+                              else None, dtype=b16)
+            for _ in range(n):
+                tr.step(images_s2d, labels, mask)
+        else:
+            tr = run_training(cfg, sd, batches,
+                              fused_backbone=mode == "fused", device="cuda",
+                              steps=n, steps_per_epoch=1, dtype=b16)
+        torch.cuda.synchronize()
+        c16 = [k.launches for k in k16]
+        c32 = [k.launches for k in k32]
+        want = ([0, 0] if mode == "default" else [3 * n] * 2) + (
+            [n, n] if mode.startswith("fused_s2d") else [0, 0])
+        check(c16 == want and c32 == [0] * 4, f"bf16 {mode}: bf16 launches "
+              f"{c16}, want {want}; f32 kernel launches {c32}, want none")
+        step_launches[mode] = c16
+        params = list(tr.model.parameters())
+        bufs = [tr.optimizer.state[p]["momentum_buffer"] for p in params]
+        check(all(p.dtype == torch.float32 for p in params)
+              and all(b.dtype == torch.float32 and bool(torch.isfinite(b)
+                                                        .all())
+                      for b in bufs)
+              and max(float(b.abs().max()) for b in bufs) > 0,
+              f"bf16 {mode}: parameters or momentum buffers not f32, "
+              f"finite and filled")
+        with torch.no_grad():                # 16 images: the stem group
+            outs = tr._forward(inputs.get(mode, images_s2d)[:STEM_GROUPED])
+        check(all(o.dtype == b16 for o in outs), f"bf16 {mode}: outputs "
+              f"{[o.dtype for o in outs]}")
+        m = {k: float(v) for k, v in tr.step(inputs.get(mode, images_s2d),
+                                             labels, mask).items()}
+        check(all(np.isfinite(v) for v in m.values()),
+              f"bf16 {mode}: non-finite loss {m}")
+        if mode != "fused_s2d_grouped":
+            trainers[mode] = tr
+        log(f"phase 10 train bf16 {mode}: {n} steps at b{bsz} 352²; bf16 "
+            f"kernel launches (B8 fwd, bwd, B7 fwd, bwd) {c16}, f32 kernels "
+            f"none; parameters and momentum f32, outputs bf16; step {n}: "
+            f"LR:{m['lr']:f} CIou:{m['box']:f} Obj:{m['obj']:f} "
+            f"Cls:{m['cls']:f} Total:{m['total']:f}")
+
+    def plain_stem_forward(x, w, gamma, beta, h4, w4, g):
+        return (*stt.stem_train_forward_reference(x, w, gamma, beta, h4, w4,
+                                                  g, True),
+                stt.stem_train_pooled_reference(
+                    x, stt._rounded(w, True), gamma, h4, w4))
+
+    def plain_stem_backward(dy, x, stats, w, gamma, beta, h4, w4, g, z):
+        return stt.stem_train_backward_reference(dy, x, stats, w, gamma,
+                                                 beta, h4, w4, g, True)
+
+    def recording(fn, calls):
+        """fn, keeping each call's arguments and results (the wrapper
+        takes the call's count: the wrappers count on their own name)."""
+        def rec(*args):
+            res = fn(*args)
+            calls.append((args, res))
+            return res
+        rec.launches = 0
+        return rec
+
+    def grad_groups(got, want):
+        """Relative L2 distance of two steps' momentum buffers (after
+        step 1 at LR 0: that step's gradient plus the decay), over the
+        span blocks' leaves (β2 apart: 0 in exact arithmetic), the stem's,
+        the rest and all."""
+        span = [f"backbone.stage{st}_{i}." for st, r, _ in STAGES
+                for i in range(1, r)]
+        sums = {k: [0.0, 0.0] for k in ("span", "stem", "other", "all")}
+        for k, v in want.items():
+            if "main_dw.bn.bias" in k or "proj_dw.bn.bias" in k:
+                key = None
+            elif any(k.startswith(p) for p in span):
+                key = "span"
+            else:
+                key = "stem" if "first_conv" in k else "other"
+            for kk in ((key, "all") if key else ("all",)):
+                sums[kk][0] += float(((got[k] - v) ** 2).sum())
+                sums[kk][1] += float((v ** 2).sum())
+        return {k: (n / d) ** 0.5 for k, (n, d) in sums.items()}
+
+    def run(mode, plain):
+        """Two bf16 steps → (losses, momentum buffers after step 1, the
+        parameters after step 2, the bf16 backward calls of step 1 with
+        the kernels: ([B8 (args, results)], [B7 ...]))."""
+        tr = make_trainer(sd, cfg, mode, dtype=b16)
+        calls = ([], [])
+        if plain:
+            ft.span_train_forward_bf16 = ft.span_train_forward_reference
+            ft.span_train_backward_bf16 = ft.span_train_backward_reference
+            stt.stem_train_forward_bf16 = plain_stem_forward
+            stt.stem_train_backward_bf16 = plain_stem_backward
+        else:
+            ft.span_train_backward_bf16 = recording(k16[1], calls[0])
+            stt.stem_train_backward_bf16 = recording(k16[3], calls[1])
+        try:
+            losses = [float(tr.step(inputs[mode], labels, mask)["total"])]
+            grads = {k: tr.optimizer.state[p]["momentum_buffer"].clone()
+                     for k, p in tr.model.named_parameters()}
+            if not plain:
+                ft.span_train_backward_bf16 = k16[1]
+                stt.stem_train_backward_bf16 = k16[3]
+            losses.append(float(tr.step(inputs[mode], labels, mask)["total"]))
+        finally:
+            (ft.span_train_forward_bf16, ft.span_train_backward_bf16,
+             stt.stem_train_forward_bf16, stt.stem_train_backward_bf16) = k16
+        return losses, grads, {k: v.clone() for k, v in
+                               tr.model.state_dict().items()
+                               if "running" not in k}, calls
+
+    for mode in ("fused", "fused_s2d"):
+        la, ga, sa, calls = run(mode, False)
+        lb, gb, sb, _ = run(mode, True)
+        check(len(calls[0]) == 3 and len(calls[1]) == (mode == "fused_s2d"),
+              f"bf16 {mode}: step 1 made {len(calls[0])} B8 and "
+              f"{len(calls[1])} B7 backward calls")
+        # step 1's kernel calls on the main path's own cotangents against
+        # the plain versions on the same inputs, at the kernels' bounds
+        held = []
+        for args, res in calls[0]:
+            errs, _ = span16_backward_errs(res, *args)
+            worst = max(errs, key=lambda k: errs[k][0])
+            held.append(f"B8 C={args[0].shape[1]} {errs[worst][0]:.3g} "
+                        f"({worst})")
+            check(all(e <= bound for e, bound in errs.values()),
+                  f"bf16 {mode}: step 1's B8 backward at C="
+                  f"{args[0].shape[1]} off its plain version: "
+                  f"{ {k: v for k, v in errs.items() if v[0] > v[1]} }")
+        for args, res in calls[1]:
+            ref = stt.stem_train_backward_reference(*args[:9], True)
+            rel = [rel_err(a, r) for a, r in zip(res, ref)]
+            held.append("B7 dW, dγ, dβ "
+                        + ", ".join(f"{e:.3g}" for e in rel))
+            check(max(rel) <= BF16_TRAIN_RTOL, f"bf16 {mode}: step 1's B7 "
+                  f"backward off its plain version: {rel}")
+        del calls
+        grel = grad_groups(ga, gb)
+        loss_rel = max(abs(x - y) / abs(y) for x, y in zip(la, lb))
+        p_rel = max(float((v - sb[k]).abs().max())
+                    / max(float(sb[k].abs().max()), 1e-2)
+                    for k, v in sa.items())
+        log(f"  bf16 {mode} b{bsz}: step 1's backward calls against the "
+            f"plain versions on the same inputs (of max |value|, each ≤ "
+            f"2^-6): {'; '.join(held)}; 2 steps with the kernels against "
+            f"the plain versions: loss rel {loss_rel:.3g}, parameters "
+            f"{p_rel:.3g} of max |value| (each ≤ 2^-5); step 1's gradients "
+            f"(momentum buffers), relative L2: "
+            + ", ".join(f"{k} {v:.3g}" for k, v in grel.items())
+            + f" (each ≤ {STEP_GRAD_RL2})")
+        check(loss_rel <= BF16_STEP_RTOL and p_rel <= BF16_STEP_RTOL,
+              f"bf16 {mode}: kernels against plain, losses {la} vs {lb}, "
+              f"parameters {p_rel:.3g}")
+        check(max(grel.values()) <= STEP_GRAD_RL2, f"bf16 {mode}: step 1's "
+              f"gradients with the kernels against the plain versions: "
+              f"{grel}")
+
+    if f32_times is None:
+        f32_times = {mode: median_step_ms(make_trainer(sd, cfg, mode),
+                                          inputs[mode], labels, mask)[2]
+                     for mode in inputs}
+    times16 = {}
+    for mode, tr in trainers.items():
+        batch = inputs[mode]
+        per = median_step_ms(tr, batch, labels, mask)
+        prof = profile_device(lambda: tr.step(batch, labels, mask),
+                              f"bf16 {mode} b{bsz} train steps", calls=3,
+                              top=10)
+        busy = None if prof is None else sum(prof.values())
+        times16[mode] = per[2]
+        f32 = f32_times[mode]
+        log(f"  train step bf16 {mode} b{bsz} 352² ({card}): median "
+            f"{per[2]:.3f} ms of 5 (CUDA events, spread {per[0]:.3f}-"
+            f"{per[4]:.3f}), {bsz * 1e3 / per[2]:.1f} img/s; device busy "
+            + ("not measured" if busy is None else
+               f"{busy:.3f} ms, {busy / per[2]:.3f} of the step")
+            + f"; f32 in the same run {f32:.3f} ms, "
+            f"{bsz * 1e3 / f32:.1f} img/s")
+    rates = " / ".join(f"{bsz * 1e3 / t:.1f}" for t in times16.values())
+    log(f"phase 10 bf16 training: default {times16['default']:.3f} / fused "
+        f"{times16['fused']:.3f} / fused s2d {times16['fused_s2d']:.3f} "
+        f"ms/step ({rates} img/s), f32 {f32_times['default']:.3f} / "
+        f"{f32_times['fused']:.3f} "
+        f"/ {f32_times['fused_s2d']:.3f}; B8 bf16 fwd "
+        f"{out['span_train_fwd_bf16'][0]:.4f} ms, bwd "
+        f"{out['span_train_bwd_bf16'][0]:.4f} ms (3 stages); B7 bf16 g1 fwd "
+        f"{out['stem_train_fwd_bf16_g1'][0]:.4f} ms, bwd "
+        f"{out['stem_train_bwd_bf16_g1'][0]:.4f} ms ({card})")
+    launches = {"span_train_fwd_bf16": step_launches["fused"][0],
+                "span_train_bwd_bf16": step_launches["fused"][1],
+                "stem_train_fwd_bf16_g1": step_launches["fused_s2d"][2],
+                "stem_train_bwd_bf16_g1": step_launches["fused_s2d"][3],
+                "stem_train_fwd_bf16_grouped":
+                    step_launches["fused_s2d_grouped"][2],
+                "stem_train_bwd_bf16_grouped":
+                    step_launches["fused_s2d_grouped"][3]}
+    return launches, out
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import torch
@@ -3744,13 +4405,17 @@ def main() -> int:
     lap("8a")
     b7 = phase_stem_train(sd, photo, card)
     lap("8c")
-    train_launches = phase_training(sd, photo, dev_pipe, card, b8, b7)
+    train_launches, train_times = phase_training(sd, photo, dev_pipe, card,
+                                                 b8, b7)
     lap("8b")
     af_launches, af_sd = phase_anchorfree(photo, card, eval_images)
     lap("8d")
     bf16_launches, bf16_main = phase_bf16(sd, photo, card, images, big,
                                           fused_pipe, af_sd)
     lap("9")
+    train16_launches, train16 = phase_bf16_train(sd, photo, dev_pipe, card,
+                                                 train_times)
+    lap("10")
     log('phase 6 kernels: ["stem_s2d", "span", "rank_decode_nms", '
         '"nms_keep", "span_train", "stem_train", "stem_s2d8", "s2span"] '
         f'(rank_decode_nms launches on the device path: {launches}; '
@@ -3760,7 +4425,8 @@ def main() -> int:
         f'path: {af_launches["stem_s2d"]}, {af_launches["span"]}); the bf16 '
         f'kernels stem_s2d_bf16 and span_bf16 on the bf16 serving path, '
         f'stem_s2d8_bf16 and s2span_bf16 on its flag paths, stem_s2d_bf16 '
-        f'at 640²: {bf16_launches}')
+        f'at 640²: {bf16_launches}; the bf16 training kernels on the bf16 '
+        f'training paths: {train16_launches}')
     log("phase times (host clock, s): " + ", ".join(
         f"{name} {t - laps[i][1]:.1f}"
         for i, (name, t) in enumerate(laps[1:]))
@@ -3873,6 +4539,30 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"fastdet_torch/csrc/{source}.cu",
             "replaces": replaces, "launches": bf16_launches[key],
+            "max_abs_err": k_err, "ms": k_ms, "plain_ms": k_plain,
+            "bound_ms": k_bound, "bound_by": k_by, "library_ms": k_lib})
+    # the bf16 training forms (phase 10): launches from the bf16 fused run
+    # (B8) and the bf16 s2d runs at group 1 and STEM_GROUPED (B7); b128
+    # 352² times, B8's summed over the three stages; library_ms is cuDNN
+    # in bf16 on the same inputs
+    for name, key, source, replaces in (
+            ("span_train_fwd_bf16", "span_train_fwd_bf16", "span_train",
+             "fastdet/kernels/fused_train.py:329"),
+            ("span_train_bwd_bf16", "span_train_bwd_bf16", "span_train",
+             "fastdet/kernels/fused_train.py:362"),
+            ("stem_train_fwd_bf16", "stem_train_fwd_bf16_g1", "stem_train",
+             "fastdet/kernels/stem_train.py:462"),
+            ("stem_train_bwd_bf16", "stem_train_bwd_bf16_g1", "stem_train",
+             "fastdet/kernels/stem_train.py:490"),
+            ("stem_train_fwd_bf16", "stem_train_fwd_bf16_grouped",
+             "stem_train", "fastdet/kernels/stem_train.py:519"),
+            ("stem_train_bwd_bf16", "stem_train_bwd_bf16_grouped",
+             "stem_train", "fastdet/kernels/stem_train.py:549")):
+        k_ms, k_plain, k_bound, k_by, k_err, k_lib = train16[key]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"fastdet_torch/csrc/{source}.cu",
+            "replaces": replaces, "launches": train16_launches[key],
             "max_abs_err": k_err, "ms": k_ms, "plain_ms": k_plain,
             "bound_ms": k_bound, "bound_by": k_by, "library_ms": k_lib})
     log(json.dumps({"kernels": kernels}))

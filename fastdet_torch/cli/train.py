@@ -2,7 +2,7 @@
 
 Usage, from the repository root:
   python -m fastdet_torch.cli.train --data data/coco.data \\
-      [--fused-backbone] [--eval_every 10] [--device cpu]
+      [--bf16] [--fused-backbone] [--eval_every 10] [--device cpu]
 
 Finetunes from the `.data` file's `pre_weights` when that path exists
 (tensors of matching name and shape load, the rest keep the seeded
@@ -20,10 +20,13 @@ Runs on CUDA unless `--device cpu` is given.  `--fused-backbone` runs the
 backbone's stride-1 spans through the training span kernel B8 (ghost
 BN); it takes the yolo-fastestv2 family only, as in the JAX CLI.
 `--model anchorfree` trains the anchor-free family with its loss and
-evaluates it with its detect builder (`models/registry.py`).  Not
-ported, each raises naming its ROADMAP item: `--bf16` (A1), multi-process
-jobs through the FASTDET_* environment variables (A12), `--backbone
-*.pth` (A13).
+evaluates it with its detect builder (`models/registry.py`).  `--bf16`
+trains in bfloat16 as the JAX CLI does: the family's model computes in
+bf16 (parameters, gradients and momentum f32; with `--fused-backbone` the
+bf16 forms of the span kernel), while the evaluation at eval epochs and
+the saved weights stay f32.  Not ported, each raises naming its ROADMAP
+item: multi-process jobs through the FASTDET_* environment variables
+(A12), `--backbone *.pth` (A13).
 
 The data loader reads images with cv2, which the card's machine lacks;
 `run_training` takes the batches from its caller, so that
@@ -59,17 +62,19 @@ def run_training(cfg: Config, state_dict, batches: Callable[[int], Iterable],
                  eval_every: int = 10, weights_dir: Optional[str] = None,
                  ckpt_dir: Optional[str] = None, resume: bool = False,
                  profile: str = "", mlog: Optional[MetricsLogger] = None,
-                 family: str = "yolo-fastestv2") -> Trainer:
+                 family: str = "yolo-fastestv2",
+                 dtype: torch.dtype = torch.float32) -> Trainer:
     """The train CLI after data loading.  `batches(epoch)` yields
     (images_u8 (B,H,W,3), labels (B,M,5) normalized [cls,cx,cy,w,h],
     label_mask (B,M)) for one epoch; `steps_per_epoch` (the schedule's)
     defaults to `len(batches(0))`.  Trains `cfg.epochs` epochs, or stops
     after `steps` micro-steps.  `val_batches(batch)` (optional) feeds the
     periodic evaluation.  `family` names the model family
-    (`models/registry.py`) whose weights `state_dict` holds.  → the
-    Trainer."""
+    (`models/registry.py`) whose weights `state_dict` holds; `dtype`
+    its compute dtype (bfloat16 for `--bf16`; the evaluation stays f32).
+    → the Trainer."""
     dev = resolve_device(device)
-    fam = get_family(family, cfg)
+    fam = get_family(family, cfg, dtype=dtype)
     fam.model.load_state_dict(state_dict)
     spe = steps_per_epoch or len(batches(0))
     trainer = Trainer(fam.model, cfg, spe, fused_backbone=fused_backbone,
@@ -160,7 +165,8 @@ def main(argv=None) -> int:
                         help="train the backbone's stride-1 spans through "
                              "the training span kernel (ghost BN)")
     parser.add_argument("--bf16", action="store_true",
-                        help="bfloat16 compute (not ported: ROADMAP A1)")
+                        help="bfloat16 compute (f32 parameters; the "
+                             "evaluation stays f32)")
     parser.add_argument("--chain", type=int, default=1,
                         help="accepted for parity with the JAX CLI: the "
                              "port runs the K steps of a chain one after "
@@ -188,9 +194,6 @@ def main(argv=None) -> int:
     if opt.fused_backbone and family != "yolo-fastestv2":
         raise SystemExit("--fused-backbone supports the yolo-fastestv2 "
                          "family only")
-    if opt.bf16:
-        raise NotImplementedError(
-            "fastdet_torch: bf16 training is ROADMAP A1, not ported yet")
     if any(os.environ.get(v) for v in ("FASTDET_COORDINATOR",
                                        "FASTDET_NUM_PROCESSES",
                                        "FASTDET_PROCESS_ID")):
@@ -262,7 +265,8 @@ def main(argv=None) -> int:
                      steps_per_epoch=len(train_loader),
                      val_batches=val_batches, eval_every=opt.eval_every,
                      weights_dir=opt.weights_dir, ckpt_dir=opt.ckpt_dir,
-                     resume=opt.resume, profile=opt.profile, mlog=mlog)
+                     resume=opt.resume, profile=opt.profile, mlog=mlog,
+                     dtype=torch.bfloat16 if opt.bf16 else torch.float32)
     finally:
         mlog.close()
         train_loader.close()

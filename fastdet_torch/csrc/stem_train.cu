@@ -83,7 +83,25 @@
 // its four input bytes: at a thread per output and 24 channels the
 // broadcast weight reads held the shared-memory pipe, not the FP32 units
 // (chip runs of this design, PERF.md section 6).
+//
+// The bf16 form (fastdet_stem_train_fwd_bf16 / _bwd_bf16; the Pallas
+// kernels at dtype=bfloat16) is the same kernels with the JAX kernel's
+// rounding points: the weight as bf16(w) (the caller's w is already
+// w*(1/255) in f32; u8 pixels are exact in bf16, so every product is
+// exact in f32 and the conv sums stay f32); y = bf16(ReLU(bn)) pooled in
+// bf16 and stored bf16 (identity 1 still holds: rounding to bf16 is
+// monotone, so the pool of the rounded values is the rounded emit of z);
+// the statistics f32; the backward routes dy (bf16) by the JAX
+// precedence among the ROUNDED values yb = bf16(ReLU(bn(u))), recomputed
+// as the forward rounds them, and rounds du to bf16 before the dW
+// product.  Two approximations of the bf16 function, both below its
+// tolerance: Sgx from (dy, z) takes z's xhat where bf16 ties let another
+// window member win (identity 2's rounding noise, more frequent after a
+// bf16 rounding), and a conv output under windows of two tiles rounds
+// its two du parts separately.  The plain version
+// (stem_train_backward_reference) routes the sums and rounds whole du.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -97,6 +115,19 @@ constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
 
+typedef __nv_bfloat16 bf16;
+
+// v rounded to bf16 (to nearest even) where B, else v
+template <bool B>
+__device__ __forceinline__ float rnd(float v) {
+  if constexpr (B) return __bfloat162float(__float2bfloat16_rn(v));
+  return v;
+}
+__device__ __forceinline__ float ldf(const float* p) { return *p; }
+__device__ __forceinline__ float ldf(const bf16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ void stf(float* p, float v) { *p = v; }
+__device__ __forceinline__ void stf(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+
 // lane 0 gets the warp's sum (a fixed tree)
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v = v + __shfl_down_sync(kFull, v, o);
@@ -104,7 +135,9 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // OIHW (24, 3, 3, 3) -> s_w[((ky*3 + kx)*3 + c)*24 + co], each channel's
-// weights times sgn[co] (+1 or -1: exact); one division per thread
+// weights (rounded to bf16 where B) times sgn[co] (+1 or -1: exact); one
+// division per thread
+template <bool B>
 __device__ __forceinline__ void load_weights(const float* __restrict__ w,
                                              float* s_w, const float* sgn) {
   for (int t = threadIdx.x; t < 9 * kCout; t += blockDim.x) {
@@ -112,7 +145,7 @@ __device__ __forceinline__ void load_weights(const float* __restrict__ w,
     const float s = sgn ? sgn[co] : 1.f;
 #pragma unroll
     for (int c = 0; c < 3; ++c)
-      s_w[(kk * 3 + c) * kCout + co] = s * w[co * kTaps + c * 9 + kk];
+      s_w[(kk * 3 + c) * kCout + co] = s * rnd<B>(w[co * kTaps + c * 9 + kk]);
   }
 }
 
@@ -243,7 +276,8 @@ struct FwdGeo {
 
 // Per tile (band, chunk) and channel: the mean and M2 of its conv outputs
 // -> part[(b*ntiles + tile)*48 + co*2 + {0: mean, 1: M2}]; the pooled raw
-// extreme -> z (B, 24, h4, w4).
+// extreme -> z (B, 24, h4, w4).  B: the weights rounded to bf16.
+template <bool B>
 __global__ void __launch_bounds__(kFMaxThreads, 2)
 stem_fwd_sweep_kernel(const uint8_t* __restrict__ x,
                       const float* __restrict__ w,
@@ -265,7 +299,7 @@ stem_fwd_sweep_kernel(const uint8_t* __restrict__ x,
 
   if (tid < kCout) s_sgn[tid] = gamma[tid] < 0.f ? -1.f : 1.f;
   __syncthreads();
-  load_weights(w, s_w, s_sgn);
+  load_weights<B>(w, s_w, s_sgn);
   // input rows i0-1 .. i0+rows-1 (0 outside the image), a warp per (plane,
   // row): 4-byte cp.async words where the caller found them aligned, all
   // in flight at once; else bytes
@@ -423,20 +457,24 @@ stem_stats_combine_kernel(const float* __restrict__ part,
 }
 
 // y = max((z - mu)*(sinv*gamma) + beta, 0), one CTA per (image, channel)
-// plane; the pool already happened on z (identity 1).
+// plane; the pool already happened on z (identity 1).  Y bf16: rounded.
+template <typename Y>
 __global__ void __launch_bounds__(256)
 stem_fwd_emit_kernel(const float* __restrict__ z,
                      const float* __restrict__ gamma,
                      const float* __restrict__ beta,
-                     const float* __restrict__ stats, float* __restrict__ y,
+                     const float* __restrict__ stats, Y* __restrict__ y,
                      int hw, int g) {
   const int plane = blockIdx.x;
   const int b = plane / kCout, o = plane - b * kCout;
   const float* st = stats + (size_t)((b / g) * kCout + o) * 3;
   const float mu = st[0], sg = st[1] * gamma[o], bt = beta[o];
   const float* zp = z + (size_t)plane * hw;
-  float* yp = y + (size_t)plane * hw;
-  if ((hw & 3) == 0) {
+  Y* yp = y + (size_t)plane * hw;
+  if constexpr (sizeof(Y) == 2) {
+    for (int k = threadIdx.x; k < hw; k += blockDim.x)
+      stf(yp + k, fmaxf((zp[k] - mu) * sg + bt, 0.f));
+  } else if ((hw & 3) == 0) {
     const float4* z4 = reinterpret_cast<const float4*>(zp);
     float4* y4 = reinterpret_cast<float4*>(yp);
     for (int k = threadIdx.x; k < hw / 4; k += blockDim.x) {
@@ -456,8 +494,9 @@ stem_fwd_emit_kernel(const float* __restrict__ z,
 
 // Sg and Sgx of one (image, channel) plane from dy and z (identity 2):
 // gpart[plane*2 + {0: Sg, 1: Sgx}], a fixed reduction order.
+template <typename D>
 __global__ void __launch_bounds__(256)
-stem_bwd_sums_kernel(const float* __restrict__ dy,
+stem_bwd_sums_kernel(const D* __restrict__ dy,
                      const float* __restrict__ z,
                      const float* __restrict__ stats,
                      const float* __restrict__ gamma,
@@ -469,12 +508,12 @@ stem_bwd_sums_kernel(const float* __restrict__ dy,
   const float* st = stats + (size_t)((b / g) * kCout + o) * 3;
   const float mu = st[0], sinv = st[1], sg = st[1] * gamma[o], bt = beta[o];
   const float* zp = z + (size_t)plane * hw;
-  const float* dp = dy + (size_t)plane * hw;
+  const D* dp = dy + (size_t)plane * hw;
   float a = 0.f, c = 0.f;
   for (int k = threadIdx.x; k < hw; k += blockDim.x) {
     const float d = zp[k] - mu;
     if (d * sg + bt > 0.f) {
-      const float gv = dp[k];
+      const float gv = ldf(dp + k);
       a = a + gv;
       c = __fmaf_rn(gv, d * sinv, c);
     }
@@ -575,9 +614,9 @@ __device__ __forceinline__ void conv_phase(const uint8_t* in, const float* wt,
   }
 }
 
-// ReLU(bn) of NCH conv outputs (channels o0 ..) of a region cell into yb,
-// -inf outside the image
-template <int NCH>
+// ReLU(bn) of NCH conv outputs (channels o0 ..) of a region cell into yb
+// (rounded to bf16 where B), -inf outside the image
+template <int NCH, bool B>
 __device__ __forceinline__ void store_yb(float* yb, const float* mu,
                                          const float* sg, const float* beta,
                                          const float (&u)[NCH], int ph,
@@ -586,17 +625,18 @@ __device__ __forceinline__ void store_yb(float* yb, const float* mu,
 #pragma unroll
   for (int o = 0; o < NCH; ++o) {
     const float bn = (u[o] - mu[o0 + o]) * sg[o0 + o] + beta[o0 + o];
-    ybp[o * kRC] = valid ? fmaxf(bn, 0.f) : neg_inf();
+    ybp[o * kRC] = valid ? rnd<B>(fmaxf(bn, 0.f)) : neg_inf();
   }
 }
 
 // Tile (i0, j0)'s input cells and the dy of its windows into `in` and
 // `dz` (interior of the bordered array), as cp.async (4-byte words of the
 // input where `words`, else bytes by plain loads), committed as one
-// group; 0 outside the image.
+// group; 0 outside the image.  A bf16 dy comes by plain loads (exact).
+template <typename D>
 __device__ __forceinline__ void load_tile(uint8_t* in, float (*dz)[kWC],
                                           const uint8_t* __restrict__ xb,
-                                          const float* __restrict__ dyb,
+                                          const D* __restrict__ dyb,
                                           int i0, int j0, int h4, int w4,
                                           int npad, bool words) {
   const int tid = threadIdx.x;
@@ -623,8 +663,12 @@ __device__ __forceinline__ void load_tile(uint8_t* in, float (*dz)[kWC],
     const int o = k >> 6, r = (k >> 3) & 7, c = k & 7;
     const int i = i0 + r, j = j0 + c;
     const bool ok = i < h4 && j < w4;
-    cp_async4(&dz[o][(r + 1) * kWN + c + 1],
-              ok ? dyb + ((size_t)o * h4 + i) * w4 + j : dyb, ok);
+    if constexpr (sizeof(D) == 2)
+      dz[o][(r + 1) * kWN + c + 1] =
+          ok ? ldf(dyb + ((size_t)o * h4 + i) * w4 + j) : 0.f;
+    else
+      cp_async4(&dz[o][(r + 1) * kWN + c + 1],
+                ok ? dyb + ((size_t)o * h4 + i) * w4 + j : dyb, ok);
   }
   cp_async_commit();
 }
@@ -634,8 +678,10 @@ __device__ __forceinline__ void load_tile(uint8_t* in, float (*dz)[kWC],
 // recompute, route, du, and the dW product; the band's partials
 // wpart[(b*nband + band)*648 + OIHW index] and spart[(b*nband + band)*48 +
 // co*2 + {0: Sg, 1: Sgx}] (routed).  gpart: the sums kernel's output.
+// D bf16: the bf16 form (weights, yb and du rounded).
+template <typename D>
 __global__ void __launch_bounds__(kBThreads, 2)
-stem_bwd_sweep_kernel(const float* __restrict__ dy,
+stem_bwd_sweep_kernel(const D* __restrict__ dy,
                       const uint8_t* __restrict__ x,
                       const float* __restrict__ stats,
                       const float* __restrict__ gpart,
@@ -652,7 +698,8 @@ stem_bwd_sweep_kernel(const float* __restrict__ dy,
   const int gi = b / g;
   const int i0 = band * kBT;
   const uint8_t* xb = x + (size_t)b * 48 * npad;
-  const float* dyb = dy + (size_t)b * kCout * h4 * w4;
+  constexpr bool B = sizeof(D) == 2;
+  const D* dyb = dy + (size_t)b * kCout * h4 * w4;
   const int ntx = (w4 + kBT - 1) / kBT;
   // the window arrays' border: never a winner, no dy
   for (int k = tid; k < kCout * kWC; k += kBThreads) {
@@ -664,7 +711,7 @@ stem_bwd_sweep_kernel(const float* __restrict__ dy,
     }
   }
   load_tile(S.in[0], S.dz[0], xb, dyb, i0, 0, h4, w4, npad, words);
-  load_weights(w, S.w, nullptr);
+  load_weights<B>(w, S.w, nullptr);
   if (tid < kCout) {
     const float* st = stats + (size_t)(gi * kCout + tid) * 3;
     S.mu[tid] = st[0];
@@ -741,16 +788,16 @@ stem_bwd_sweep_kernel(const float* __restrict__ dy,
 #pragma unroll
         for (int k = 0; k < Q / 2; ++k)
           ut[k] = make_float2(u[ph][2 * k], u[ph][2 * k + 1]);
-        store_yb<Q>(S.yb, S.mu, S.sg, S.beta, u[ph], ph, q0, rr * kRN + cc,
-                    valid);
+        store_yb<Q, B>(S.yb, S.mu, S.sg, S.beta, u[ph], ph, q0, rr * kRN + cc,
+                       valid);
       }
     }
     if (h_on) {
       float u[4];
       conv_phase<4>(in + h_rr * kIRS + h_cc, S.w + 4 * h_q, h_ph, u);
       const int i = i0 - 1 + h_rr, j = j0 - 1 + h_cc;
-      store_yb<4>(S.yb, S.mu, S.sg, S.beta, u, h_ph, 4 * h_q,
-                  h_rr * kRN + h_cc, i >= 0 && i < h4 && j >= 0 && j < w4);
+      store_yb<4, B>(S.yb, S.mu, S.sg, S.beta, u, h_ph, 4 * h_q,
+                     h_rr * kRN + h_cc, i >= 0 && i < h4 && j >= 0 && j < w4);
       *reinterpret_cast<float4*>(S.ut[kOwn + h_idx] + 4 * h_q) =
           make_float4(u[0], u[1], u[2], u[3]);
     }
@@ -833,7 +880,7 @@ stem_bwd_sweep_kernel(const float* __restrict__ dy,
         float du = c_a * gy;                     // the halo's part
         if (k < kOwn)
           du = inside ? c_a * ((gy - c_sgm) - xh * c_sgxm) : 0.f;
-        S.ut[k][o] = du;
+        S.ut[k][o] = rnd<B>(du);
         rs1 = rs1 + gy;
         rs2 = __fmaf_rn(gy, xh, rs2);
       }
@@ -980,6 +1027,75 @@ FwdGeo make_fwd_geo(int h4, int w4, int npad, int g, int tr, int ncw) {
                 (h4 + tr - 1) / tr};
 }
 
+// The forward's three launches; Y the type of y (float, or bf16: the
+// bf16 form).
+template <typename Y>
+int stem_fwd(const uint8_t* x, const float* w, const float* gamma,
+             const float* beta, Y* y, float* z, float* stats, float* scratch,
+             int b, int h4, int w4, int npad, int g, int tr, int ncw,
+             void* stream) {
+  if (!geo_ok(b, h4, w4, npad, g) || !fwd_tile_ok(tr, ncw))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const FwdGeo geo = make_fwd_geo(h4, w4, npad, g, tr, ncw);
+  const int ngroups = b / g;
+  const auto sweep = stem_fwd_sweep_kernel<sizeof(Y) == 2>;
+  cudaError_t e = cudaFuncSetAttribute(
+      sweep, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kFwdSmem);
+  if (e != cudaSuccess) return (int)e;
+  // 4-byte input loads need every row start aligned, and one chunk (the
+  // run then starts at column 0)
+  const int words = w4 % 4 == 0 && npad % 4 == 0 && geo.nchunk == 1 &&
+                    ((uintptr_t)x & 3) == 0;
+  sweep<<<dim3(geo.nband * geo.nchunk, b), 32 * kFGroups * ncw, kFwdSmem,
+          st>>>(x, w, gamma, z, scratch, geo, words);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  stem_stats_combine_kernel<<<(ngroups * kCout * 32 + 255) / 256, 256, 0,
+                              st>>>(scratch, stats, geo, ngroups);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const auto emit = stem_fwd_emit_kernel<Y>;
+  emit<<<b * kCout, 256, 0, st>>>(z, gamma, beta, stats, y, h4 * w4, g);
+  return (int)cudaGetLastError();
+}
+
+// The backward's three launches; D the type of dy.
+template <typename D>
+int stem_bwd(const D* dy, const uint8_t* x, const float* z,
+             const float* stats, const float* w, const float* gamma,
+             const float* beta, float* dw, float* dgamma, float* dbeta,
+             float* scratch, int b, int h4, int w4, int npad, int g,
+             void* stream) {
+  if (!geo_ok(b, h4, w4, npad, g)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int nband = (h4 + kBT - 1) / kBT;
+  float* gpart = scratch;
+  float* wpart = gpart + (size_t)b * 2 * kCout;
+  float* spart = wpart + (size_t)b * nband * kNW;
+  const int smem = (int)sizeof(BwdSmem);
+  const auto sweep = stem_bwd_sweep_kernel<D>;
+  cudaError_t e = cudaFuncSetAttribute(
+      sweep, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const auto sums = stem_bwd_sums_kernel<D>;
+  sums<<<b * kCout, 256, 0, st>>>(dy, z, stats, gamma, beta, gpart, h4 * w4,
+                                  g);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const float inv_m = (float)(1.0 / ((double)g * 4.0 * h4 * w4));
+  // 4-byte input words need aligned rows (tiles start at multiples of 8)
+  const int words = w4 % 4 == 0 && npad % 4 == 0 && ((uintptr_t)x & 3) == 0;
+  sweep<<<dim3(nband, b), kBThreads, smem, st>>>(
+      dy, x, stats, gpart, w, gamma, beta, wpart, spart, h4, w4, npad, g,
+      inv_m, words);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  stem_bwd_reduce_kernel<<<kNW + 2 * kCout, 256, 0, st>>>(
+      wpart, spart, b * nband, dw, dgamma, dbeta);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1007,35 +1123,23 @@ int fastdet_stem_train_fwd(const uint8_t* x, const float* w,
                            float* z, float* stats, float* scratch, int b,
                            int h4, int w4, int npad, int g, int tr, int ncw,
                            void* stream) {
-  if (!geo_ok(b, h4, w4, npad, g) || !fwd_tile_ok(tr, ncw))
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  const FwdGeo geo = make_fwd_geo(h4, w4, npad, g, tr, ncw);
-  const int ngroups = b / g;
-  cudaError_t e = cudaFuncSetAttribute(
-      stem_fwd_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kFwdSmem);
-  if (e != cudaSuccess) return (int)e;
-  // 4-byte input loads need every row start aligned, and one chunk (the
-  // run then starts at column 0)
-  const int words = w4 % 4 == 0 && npad % 4 == 0 && geo.nchunk == 1 &&
-                    ((uintptr_t)x & 3) == 0;
-  stem_fwd_sweep_kernel<<<dim3(geo.nband * geo.nchunk, b), 32 * kFGroups * ncw,
-                          kFwdSmem, st>>>(x, w, gamma, z, scratch, geo,
-                                          words);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  stem_stats_combine_kernel<<<(ngroups * kCout * 32 + 255) / 256, 256, 0,
-                              st>>>(scratch, stats, geo, ngroups);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  stem_fwd_emit_kernel<<<b * kCout, 256, 0, st>>>(z, gamma, beta, stats, y,
-                                                 h4 * w4, g);
-  return (int)cudaGetLastError();
+  return stem_fwd<float>(x, w, gamma, beta, y, z, stats, scratch, b, h4, w4,
+                         npad, g, tr, ncw, stream);
 }
 
-// floats of scratch for the backward: per-plane sums, the bands' dW and
-// routed-sum partials
+// The bf16 form: y bf16, the rest (z, stats, scratch) as the f32 form's.
+int fastdet_stem_train_fwd_bf16(const uint8_t* x, const float* w,
+                                const float* gamma, const float* beta,
+                                bf16* y, float* z, float* stats,
+                                float* scratch, int b, int h4, int w4,
+                                int npad, int g, int tr, int ncw,
+                                void* stream) {
+  return stem_fwd<bf16>(x, w, gamma, beta, y, z, stats, scratch, b, h4, w4,
+                        npad, g, tr, ncw, stream);
+}
+
+// floats of scratch for the backward (both forms): per-plane sums, the
+// bands' dW and routed-sum partials
 size_t fastdet_stem_train_bwd_scratch(int b, int h4) {
   const size_t parts = (size_t)b * ((h4 + kBT - 1) / kBT);
   return (size_t)b * 2 * kCout + parts * (kNW + 2 * kCout);
@@ -1050,32 +1154,19 @@ int fastdet_stem_train_bwd(const float* dy, const uint8_t* x, const float* z,
                            float* dgamma, float* dbeta, float* scratch,
                            int b, int h4, int w4, int npad, int g,
                            void* stream) {
-  if (!geo_ok(b, h4, w4, npad, g)) return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  const int nband = (h4 + kBT - 1) / kBT;
-  float* gpart = scratch;
-  float* wpart = gpart + (size_t)b * 2 * kCout;
-  float* spart = wpart + (size_t)b * nband * kNW;
-  const int smem = (int)sizeof(BwdSmem);
-  cudaError_t e = cudaFuncSetAttribute(
-      stem_bwd_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (e != cudaSuccess) return (int)e;
-  stem_bwd_sums_kernel<<<b * kCout, 256, 0, st>>>(dy, z, stats, gamma, beta,
-                                                 gpart, h4 * w4, g);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const float inv_m = (float)(1.0 / ((double)g * 4.0 * h4 * w4));
-  // 4-byte input words need aligned rows (tiles start at multiples of 8)
-  const int words = w4 % 4 == 0 && npad % 4 == 0 && ((uintptr_t)x & 3) == 0;
-  stem_bwd_sweep_kernel<<<dim3(nband, b), kBThreads, smem, st>>>(
-      dy, x, stats, gpart, w, gamma, beta, wpart, spart, h4, w4, npad, g,
-      inv_m, words);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  stem_bwd_reduce_kernel<<<kNW + 2 * kCout, 256, 0, st>>>(
-      wpart, spart, b * nband, dw, dgamma, dbeta);
-  return (int)cudaGetLastError();
+  return stem_bwd<float>(dy, x, z, stats, w, gamma, beta, dw, dgamma, dbeta,
+                         scratch, b, h4, w4, npad, g, stream);
+}
+
+// The bf16 form: dy bf16, the rest as the f32 form's.
+int fastdet_stem_train_bwd_bf16(const bf16* dy, const uint8_t* x,
+                                const float* z, const float* stats,
+                                const float* w, const float* gamma,
+                                const float* beta, float* dw, float* dgamma,
+                                float* dbeta, float* scratch, int b, int h4,
+                                int w4, int npad, int g, void* stream) {
+  return stem_bwd<bf16>(dy, x, z, stats, w, gamma, beta, dw, dgamma, dbeta,
+                        scratch, b, h4, w4, npad, g, stream);
 }
 
 const char* fastdet_cuda_error_string(int code) {

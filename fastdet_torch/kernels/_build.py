@@ -16,7 +16,8 @@ stage kernel `s2span`) are held to 2e-4, not bitwise, and contract to
 FMA.  The training kernels `span_train` and `stem_train`
 are built without FMA so that their plain versions recompute their
 forwards bit for bit (their backward's ReLU masks and pool routing then
-agree).
+agree); their bf16 forms, C entries of the same sources, keep that
+(their products are bf16 × bf16, exact in f32 with or without FMA).
 `build_all` starts one `nvcc` per source, all at once.
 
 A failed build raises; nothing falls back to a plain version.

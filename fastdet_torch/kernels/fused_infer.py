@@ -83,6 +83,8 @@ from fastdet_torch.kernels.fold import (S2_ROW_KEYS, STAGES,
                                         pack_span_weights, s2_16_elems,
                                         span16_elems)
 from fastdet_torch.kernels.stem_train import SMS
+from fastdet_torch.models.layers import add_bias as _bias
+from fastdet_torch.models.layers import conv16 as _conv16
 
 SPAN_CHANNELS = (48, 96, 192)
 S2SPAN_CHANNELS = (24, 48, 96)           # stage inputs, = each stage's MID
@@ -1157,22 +1159,6 @@ def _device_weights(pk: Dict[str, np.ndarray], device,
 # accumulation and before the f32 bias, which promotes the sum to f32;
 # f32 ⊛ bf16 gives f32 (TF32 off on the card); an activation cast back to
 # bf16 is one rounding.
-
-def _conv16(x, w, stride: int = 1, padding: int = 0, groups: int = 1):
-    """bf16 x ⊛ bf16 w → bf16: f32 accumulation, one rounding.  On the
-    card cuDNN's bf16 convolution computes just that; on the CPU the
-    products run in f32 from the bf16 values and are rounded after."""
-    if x.device.type == "cuda":
-        return F.conv2d(x, w, None, stride, padding, 1, groups)
-    return F.conv2d(x.float(), w.float(), None, stride, padding, 1,
-                    groups).to(BF16)
-
-
-def _bias(x, b):
-    """bf16 (or f32) x + the f32 bias → f32 (one kernel: the sum
-    promotes)."""
-    return x + b[:, None, None]
-
 
 def _s2_block_bf16(x, p, prefix: str):
     """The stride-2 block as `_s2_block_xla` computes it in bf16: x bf16 →

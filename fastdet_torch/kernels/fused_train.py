@@ -47,6 +47,22 @@ is built with `--fmad=false`.  So from the same saved inputs and stats
 the backward's recomputed ReLU masks are the same bit for bit on both
 sides, and the kernels agree with the plain versions up to the order of
 their sums.
+
+bf16 (the JAX kernels at `dtype=bfloat16`, the JAX package's bf16
+training): a bf16 x gives the bf16 function, which rounds inside the
+block, not around it.  The weights are rounded per matrix (bf16(w1),
+bf16(wd), bf16(w2)); y, v and z round to bf16; u1, u2, u3 and every
+statistic stay f32; the saved block inputs and the span's output are
+bf16.  The backward rounds du3 before dv = w2·du3, du2 before the
+depthwise products, and du1 and the passthrough gradient before dx; dW2
+= v ⊗ du3 and dW1 = x ⊗ du1 are f32 products of the upcast bf16 v and x;
+the gradient between blocks stays f32 and dx leaves the span as bf16.
+The plain versions compute it in f32 from the bf16-rounded operands (a
+bf16 × bf16 product is exact in f32), not by torch's bf16 ops, which
+round their outputs.  `span_train_forward_bf16` /
+`span_train_backward_bf16` launch the bf16 C entries of
+`csrc/span_train.cu` (the same kernels on bf16 activations; the plan is
+the f32 form's), with launch counts of their own.
 """
 
 from __future__ import annotations
@@ -60,8 +76,10 @@ import torch.nn.functional as F
 
 from fastdet_torch.kernels import _build
 from fastdet_torch.kernels.fused_infer import SPAN_CHANNELS
+from fastdet_torch.models.layers import round16
 
 EPS = 1e-5
+BF16 = torch.bfloat16
 
 # lanes per training-span program on the TPU (the JAX package's
 # _TRAIN_LANE_BUDGET): it fixes the ghost group, so it is kept as is
@@ -167,41 +185,54 @@ def _dw(x: torch.Tensor, wd: torch.Tensor, flip: bool = False):
     return acc
 
 
-def _block_forward(x, row, st, g):
+def _rounding(bf16: bool):
+    """bf16's rounding points (`round16`), or the identity."""
+    return round16 if bf16 else (lambda t: t)
+
+
+def _block_forward(x, row, st, g, rnd=_rounding(False)):
     """One block from x with stats `st` (3, 3, G, mid) → (u1, y, u2, v,
-    u3, out)."""
+    u3, out); `rnd` rounds at bf16's points."""
     mid = x.shape[1] // 2
     w1, wd, w2, gb = _unpack(row, mid)
-    u1 = _pw(x[:, 1::2], w1)
-    y = torch.relu(_bn(u1, st[0], gb[0], gb[1], g))
-    u2 = _dw(y, wd)
-    v = _bn(u2, st[1], gb[2], gb[3], g)
-    u3 = _pw(v, w2)
-    z = torch.relu(_bn(u3, st[2], gb[4], gb[5], g))
+    u1 = _pw(x[:, 1::2], rnd(w1))
+    y = rnd(torch.relu(_bn(u1, st[0], gb[0], gb[1], g)))
+    u2 = _dw(y, rnd(wd))
+    v = rnd(_bn(u2, st[1], gb[2], gb[3], g))
+    u3 = _pw(v, rnd(w2))
+    z = rnd(torch.relu(_bn(u3, st[2], gb[4], gb[5], g)))
     return u1, y, u2, v, u3, torch.cat([x[:, 0::2], z], 1)
 
 
 def span_train_forward_reference(x: torch.Tensor, blocks: torch.Tensor,
                                  g: int):
-    """Plain version of the forward kernel, any device and float dtype.
-    x (B, C, h, w), blocks (nblk, row) → (out (B, C, h, w), xsave (nblk,
-    B, C, h, w), stats (nblk, 3, G, 3, mid))."""
+    """Plain version of the forward kernel, any device and float dtype
+    (bf16 x: the bf16 function, computed in f32).  x (B, C, h, w), blocks
+    (nblk, row) → (out (B, C, h, w), xsave (nblk, B, C, h, w), stats
+    (nblk, 3, G, 3, mid)); out and xsave in x's dtype, stats f32 for
+    bf16."""
+    bf16 = x.dtype == BF16
+    rnd = _rounding(bf16)
+    x = x.float() if bf16 else x
     mid = x.shape[1] // 2
     xsave, stats = [], []
     for row in blocks:
         xsave.append(x)
         w1, wd, w2, gb = _unpack(row, mid)
-        u1 = _pw(x[:, 1::2], w1)
+        u1 = _pw(x[:, 1::2], rnd(w1))
         st1 = _group_stats(u1, g)
-        y = torch.relu(_bn(u1, st1, gb[0], gb[1], g))
-        u2 = _dw(y, wd)
+        y = rnd(torch.relu(_bn(u1, st1, gb[0], gb[1], g)))
+        u2 = _dw(y, rnd(wd))
         st2 = _group_stats(u2, g)
-        u3 = _pw(_bn(u2, st2, gb[2], gb[3], g), w2)
+        u3 = _pw(rnd(_bn(u2, st2, gb[2], gb[3], g)), rnd(w2))
         st3 = _group_stats(u3, g)
-        z = torch.relu(_bn(u3, st3, gb[4], gb[5], g))
+        z = rnd(torch.relu(_bn(u3, st3, gb[4], gb[5], g)))
         x = torch.cat([x[:, 0::2], z], 1)
         stats.append(torch.stack([st1, st2, st3]).transpose(1, 2))
-    return x, torch.stack(xsave), torch.stack(stats)
+    xsave = torch.stack(xsave)
+    if bf16:
+        x, xsave = x.to(BF16), xsave.to(BF16)
+    return x, xsave, torch.stack(stats)
 
 
 def _bn_backward(gr, xhat, gamma, sinv, g):
@@ -218,43 +249,53 @@ def _bn_backward(gr, xhat, gamma, sinv, g):
 
 def span_train_backward_reference(dy: torch.Tensor, xsave: torch.Tensor,
                                   stats: torch.Tensor, blocks: torch.Tensor,
-                                  g: int):
+                                  g: int, acc: torch.dtype = torch.float32):
     """Plain version of the backward kernel (an explicit backward, not
     autograd): recompute each block from its saved input and the saved
-    stats, then backprop.  → (dx (B, C, h, w), dblocks (nblk, row))."""
+    stats, then backprop.  → (dx (B, C, h, w), dblocks (nblk, row)); a
+    bf16 dy gives the bf16 function (dx bf16, dblocks f32), computed in
+    `acc` (float64: the same rounding points with every sum in f64, the
+    yardstick of how far two f32 sum orders of the function stand apart;
+    dblocks then f64)."""
+    bf16 = dy.dtype == BF16
+    rnd = _rounding(bf16)
+    if bf16:
+        dy, stats, blocks = dy.to(acc), stats.to(acc), blocks.to(acc)
     b, c, h, w = dy.shape
     mid = c // 2
     dblocks = []
     for i in range(blocks.shape[0] - 1, -1, -1):
         x, row = xsave[i], blocks[i]
+        x = x.to(acc) if bf16 else x
         st = stats[i].transpose(1, 2)                     # (3, 3, G, mid)
         w1, wd, w2, gb = _unpack(row, mid)
-        u1, y, u2, v, u3, _ = _block_forward(x, row, st, g)
+        u1, y, u2, v, u3, _ = _block_forward(x, row, st, g, rnd)
         dz = dy[:, mid:]
         gz = torch.where(_bn(u3, st[2], gb[4], gb[5], g) > 0, dz,
                          torch.zeros_like(dz))
         du3, dg3, db3 = _bn_backward(gz, _xhat(u3, st[2], g), gb[4],
                                      st[2][1], g)
         dw2 = torch.einsum("bihw,bohw->io", v, du3)
-        dv = _pw(du3, w2.t())
+        dv = _pw(rnd(du3), rnd(w2).t())
         du2, dg2, db2 = _bn_backward(dv, _xhat(u2, st[1], g), gb[2],
                                      st[1][1], g)
+        du2 = rnd(du2)
         yp = F.pad(y, (1, 1, 1, 1))
         dwd = torch.stack([
             (du2 * yp[:, :, t // 3:t // 3 + h, t % 3:t % 3 + w]).sum(
                 (0, 2, 3)) for t in range(9)])
-        dyy = _dw(du2, wd, flip=True)
+        dyy = _dw(du2, rnd(wd), flip=True)
         gy = torch.where(_bn(u1, st[0], gb[0], gb[1], g) > 0, dyy,
                          torch.zeros_like(dyy))
         du1, dg1, db1 = _bn_backward(gy, _xhat(u1, st[0], g), gb[0],
                                      st[0][1], g)
         dw1 = torch.einsum("bihw,bohw->io", x[:, 1::2], du1)
-        dxo = _pw(du1, w1.t())
-        dy = torch.stack([dy[:, :mid], dxo], 2).reshape(b, c, h, w)
+        dxo = _pw(rnd(du1), rnd(w1).t())
+        dy = torch.stack([rnd(dy[:, :mid]), dxo], 2).reshape(b, c, h, w)
         dblocks.append(torch.cat([dw1.reshape(-1), dwd.reshape(-1),
                                   dw2.reshape(-1), dg1, db1, dg2, db2, dg3,
                                   db3]))
-    return dy, torch.stack(dblocks[::-1])
+    return (dy.to(BF16) if bf16 else dy), torch.stack(dblocks[::-1])
 
 
 def combine_ghost_stats(stats: torch.Tensor):
@@ -378,19 +419,22 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "fastdet_span_train_fwd": ([_P] * 6 + [_I] * 8 + [_P], _I),
+    "fastdet_span_train_fwd_bf16": ([_P] * 6 + [_I] * 8 + [_P], _I),
     "fastdet_span_train_fwd_scratch": ([_I] * 8, ctypes.c_size_t),
     "fastdet_span_train_bwd": ([_P] * 7 + [_I] * 8 + [_P], _I),
+    "fastdet_span_train_bwd_bf16": ([_P] * 7 + [_I] * 8 + [_P], _I),
     "fastdet_span_train_bwd_scratch": ([_I] * 8, ctypes.c_size_t),
+    "fastdet_span_train_bwd_scratch_bf16": ([_I] * 8, ctypes.c_size_t),
     "fastdet_span_train_smem": ([_I] * 6, ctypes.c_size_t),
 }
 
 
-def _check_inputs(what, x, blocks, g):
+def _check_inputs(what, x, blocks, g, dtype):
     if (x.dim() != 4 or x.shape[1] not in SPAN_CHANNELS
-            or x.dtype != torch.float32 or not x.is_contiguous()):
+            or x.dtype != dtype or not x.is_contiguous()):
         raise ValueError(
-            f"{what}: expected a contiguous f32 (B, C, h, w) tensor with C "
-            f"in {SPAN_CHANNELS}, got {x.dtype} {tuple(x.shape)}")
+            f"{what}: expected a contiguous {dtype} (B, C, h, w) tensor with "
+            f"C in {SPAN_CHANNELS}, got {x.dtype} {tuple(x.shape)}")
     b, c = x.shape[:2]
     mid = c // 2
     if (blocks.device != x.device or blocks.dtype != torch.float32
@@ -403,38 +447,94 @@ def _check_inputs(what, x, blocks, g):
         raise ValueError(f"{what}: group {g} does not divide batch {b}")
 
 
-def span_train_forward(x: torch.Tensor, blocks: torch.Tensor, g: int):
-    """→ (out, xsave, stats) as `span_train_forward_reference`.  CUDA: the
-    forward kernels of `csrc/span_train.cu` (one counted call); CPU: the
-    plain version."""
+def _forward(counter, bf16: bool, x, blocks, g):
+    """The forward of either form: CPU → the plain version; CUDA → the C
+    entry of `csrc/span_train.cu` (one counted call on `counter`)."""
     dev = x.device
     if dev.type == "cpu":
         return span_train_forward_reference(x, blocks, g)
+    what = counter.__name__
     if dev.type != "cuda":
-        raise ValueError(f"span_train_forward: unsupported device {dev}")
-    _check_inputs("span_train_forward", x, blocks, g)
+        raise ValueError(f"{what}: unsupported device {dev}")
+    _check_inputs(what, x, blocks, g, BF16 if bf16 else torch.float32)
     b, c, h, w = x.shape
     nblk, mid = blocks.shape[0], c // 2
     tr, tc = span_train_plan(b, c, h, w, nblk, g).tile_fwd
     out = torch.empty_like(x)
     xsave = torch.empty((nblk,) + tuple(x.shape), dtype=x.dtype, device=dev)
-    stats = torch.empty((nblk, 3, b // g, 3, mid), dtype=x.dtype,
+    stats = torch.empty((nblk, 3, b // g, 3, mid), dtype=torch.float32,
                         device=dev)
     lib = _build.load("span_train", _SIGNATURES)
     scratch = torch.empty(
         lib.fastdet_span_train_fwd_scratch(b, c, h, w, nblk, g, tr, tc),
-        dtype=x.dtype, device=dev)
+        dtype=torch.float32, device=dev)
+    fn = (lib.fastdet_span_train_fwd_bf16 if bf16
+          else lib.fastdet_span_train_fwd)
     with torch.cuda.device(dev):
-        rc = lib.fastdet_span_train_fwd(
-            x.data_ptr(), blocks.data_ptr(), out.data_ptr(),
-            xsave.data_ptr(), stats.data_ptr(), scratch.data_ptr(), b, c, h,
-            w, nblk, g, tr, tc, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, rc, "span_train_forward")
-    span_train_forward.launches += 1
+        rc = fn(x.data_ptr(), blocks.data_ptr(), out.data_ptr(),
+                xsave.data_ptr(), stats.data_ptr(), scratch.data_ptr(), b, c,
+                h, w, nblk, g, tr, tc,
+                torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, what)
+    counter.launches += 1
     return out, xsave, stats
 
 
+def span_train_forward(x: torch.Tensor, blocks: torch.Tensor, g: int):
+    """→ (out, xsave, stats) as `span_train_forward_reference`.  CUDA: the
+    forward kernels of `csrc/span_train.cu` (one counted call); CPU: the
+    plain version."""
+    return _forward(span_train_forward, False, x, blocks, g)
+
+
+def span_train_forward_bf16(x: torch.Tensor, blocks: torch.Tensor, g: int):
+    """The bf16 form of `span_train_forward`: x, out and xsave bf16, stats
+    f32."""
+    return _forward(span_train_forward_bf16, True, x, blocks, g)
+
+
 span_train_forward.launches = 0
+span_train_forward_bf16.launches = 0
+
+
+def _backward(counter, bf16: bool, dy, xsave, stats, blocks, g):
+    """The backward of either form: CPU → the plain version; CUDA → the C
+    entry (one counted call on `counter`)."""
+    dev = dy.device
+    if dev.type == "cpu":
+        return span_train_backward_reference(dy, xsave, stats, blocks, g)
+    what = counter.__name__
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {dev}")
+    dt = BF16 if bf16 else torch.float32
+    _check_inputs(what, dy, blocks, g, dt)
+    b, c, h, w = dy.shape
+    nblk, mid = blocks.shape[0], c // 2
+    for t, shape, tdt in ((xsave, (nblk, b, c, h, w), dt),
+                          (stats, (nblk, 3, b // g, 3, mid), torch.float32)):
+        if (t.device != dev or t.dtype != tdt
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(
+                f"{what}: expected a contiguous {tdt} {shape} tensor on "
+                f"{dev}, got {t.dtype} {tuple(t.shape)}")
+    tr, tc = span_train_plan(b, c, h, w, nblk, g).tile_bwd
+    lib = _build.load("span_train", _SIGNATURES)
+    dx = torch.empty_like(dy)
+    dblocks = torch.empty_like(blocks)
+    nscratch = (lib.fastdet_span_train_bwd_scratch_bf16 if bf16
+                else lib.fastdet_span_train_bwd_scratch)
+    scratch = torch.empty(nscratch(b, c, h, w, nblk, g, tr, tc),
+                          dtype=torch.float32, device=dev)
+    fn = (lib.fastdet_span_train_bwd_bf16 if bf16
+          else lib.fastdet_span_train_bwd)
+    with torch.cuda.device(dev):
+        rc = fn(dy.data_ptr(), xsave.data_ptr(), stats.data_ptr(),
+                blocks.data_ptr(), dx.data_ptr(), dblocks.data_ptr(),
+                scratch.data_ptr(), b, c, h, w, nblk, g, tr, tc,
+                torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, what)
+    counter.launches += 1
+    return dx, dblocks
 
 
 def span_train_backward(dy: torch.Tensor, xsave: torch.Tensor,
@@ -443,50 +543,32 @@ def span_train_backward(dy: torch.Tensor, xsave: torch.Tensor,
     backward kernels of `csrc/span_train.cu` (one counted call); the
     weight gradients are per-tile partial sums reduced in a fixed order,
     so two runs give the same bits.  CPU: the plain version."""
-    dev = dy.device
-    if dev.type == "cpu":
-        return span_train_backward_reference(dy, xsave, stats, blocks, g)
-    if dev.type != "cuda":
-        raise ValueError(f"span_train_backward: unsupported device {dev}")
-    _check_inputs("span_train_backward", dy, blocks, g)
-    b, c, h, w = dy.shape
-    nblk, mid = blocks.shape[0], c // 2
-    for t, shape in ((xsave, (nblk, b, c, h, w)),
-                     (stats, (nblk, 3, b // g, 3, mid))):
-        if (t.device != dev or t.dtype != torch.float32
-                or tuple(t.shape) != shape or not t.is_contiguous()):
-            raise ValueError(
-                f"span_train_backward: expected a contiguous f32 {shape} "
-                f"tensor on {dev}, got {t.dtype} {tuple(t.shape)}")
-    tr, tc = span_train_plan(b, c, h, w, nblk, g).tile_bwd
-    lib = _build.load("span_train", _SIGNATURES)
-    dx = torch.empty_like(dy)
-    dblocks = torch.empty_like(blocks)
-    scratch = torch.empty(
-        lib.fastdet_span_train_bwd_scratch(b, c, h, w, nblk, g, tr, tc),
-        dtype=dy.dtype, device=dev)
-    with torch.cuda.device(dev):
-        rc = lib.fastdet_span_train_bwd(
-            dy.data_ptr(), xsave.data_ptr(), stats.data_ptr(),
-            blocks.data_ptr(), dx.data_ptr(), dblocks.data_ptr(),
-            scratch.data_ptr(), b, c, h, w, nblk, g, tr, tc,
-            torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, rc, "span_train_backward")
-    span_train_backward.launches += 1
-    return dx, dblocks
+    return _backward(span_train_backward, False, dy, xsave, stats, blocks, g)
+
+
+def span_train_backward_bf16(dy: torch.Tensor, xsave: torch.Tensor,
+                             stats: torch.Tensor, blocks: torch.Tensor,
+                             g: int):
+    """The bf16 form of `span_train_backward`: dy, xsave and dx bf16,
+    dblocks f32."""
+    return _backward(span_train_backward_bf16, True, dy, xsave, stats,
+                     blocks, g)
 
 
 span_train_backward.launches = 0
+span_train_backward_bf16.launches = 0
 
 
 class SpanTrain(torch.autograd.Function):
     """The differentiable training span: `SpanTrain.apply(x, blocks, g)
-    -> (out, stats)`; stats carry no gradient (they feed the running
-    statistics)."""
+    -> (out, stats)`, the bf16 form for a bf16 x (out and dx bf16);
+    stats carry no gradient (they feed the running statistics)."""
 
     @staticmethod
     def forward(ctx, x, blocks, g):
-        out, xsave, stats = span_train_forward(x, blocks, g)
+        fwd = span_train_forward_bf16 if x.dtype == BF16 else \
+            span_train_forward
+        out, xsave, stats = fwd(x, blocks, g)
         ctx.save_for_backward(xsave, stats, blocks)
         ctx.g = g
         ctx.mark_non_differentiable(stats)
@@ -495,6 +577,7 @@ class SpanTrain(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout, _dstats):
         xsave, stats, blocks = ctx.saved_tensors
-        dx, dblocks = span_train_backward(dout.contiguous(), xsave, stats,
-                                          blocks, ctx.g)
+        bwd = span_train_backward_bf16 if xsave.dtype == BF16 else \
+            span_train_backward
+        dx, dblocks = bwd(dout.contiguous(), xsave, stats, blocks, ctx.g)
         return dx, dblocks, None

@@ -49,6 +49,17 @@ and z, and its backward recomputes the conv from them.  The plain versions
 do the kernels' operations in the kernels' order (the CUDA source is built
 with `--fmad=false`), so from the same saved stats both recompute the same
 conv outputs, ReLU masks and pool routing bit for bit.
+
+bf16 (`bf16=True`, the JAX kernels at `dtype=bfloat16`): the weight is
+bf16(w) (w already scaled by 1/255 in f32), the u8 pixels are exact, so
+the conv sums stay f32; yb = bf16(ReLU(bn)) is pooled, y is bf16; the
+statistics are f32; the backward routes dy by the JAX precedence among
+the rounded yb, recomputed as the forward rounds them, and rounds du to
+bf16 before the dW product.  The statistics keep the port's two-pass
+variance; JAX's stem takes max(E[u²] − μ², 0) (ROADMAP §C).  The kernels
+are `stem_train_forward_bf16` / `stem_train_backward_bf16` (the same
+kernels with bf16's rounding points, counts of their own); their two
+approximations of the bf16 function are stated in `csrc/stem_train.cu`.
 """
 
 from __future__ import annotations
@@ -62,9 +73,16 @@ import torch
 import torch.nn.functional as F
 
 from fastdet_torch.kernels import _build
+from fastdet_torch.models.layers import round16
 
 EPS = 1e-5
 COUT = 24
+BF16 = torch.bfloat16
+
+
+def _rounded(t: torch.Tensor, bf16: bool) -> torch.Tensor:
+    """t at a bf16 rounding point (`round16`) where bf16, else t."""
+    return round16(t) if bf16 else t
 
 
 def _pad128(n: int) -> int:
@@ -128,12 +146,15 @@ def _bn_parts(u, stats, gamma, beta, g):
 
 
 def stem_train_forward_reference(x, w, gamma, beta, h4: int, w4: int,
-                                 g: int):
+                                 g: int, bf16: bool = False):
     """Plain version of the forward kernels, any device and float dtype
-    (that of w).  → (y (B, 24, h4, w4), stats (B/g, 24, 3))."""
-    u = _conv(_image(x, h4, w4, w.dtype), w)
+    (that of w), or with `bf16` the bf16 function from an f32 w.  → (y
+    (B, 24, h4, w4) (bf16 for bf16), stats (B/g, 24, 3))."""
+    u = _conv(_image(x, h4, w4, w.dtype), _rounded(w, bf16))
     stats = _group_stats(u, g)
     bn, _ = _bn_parts(u, stats, gamma, beta, g)
+    if bf16:
+        return F.max_pool2d(torch.relu(bn).to(BF16), 3, 2, 1), stats
     return F.max_pool2d(torch.relu(bn), 3, 2, 1), stats
 
 
@@ -184,16 +205,19 @@ def _route(yb: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
 
 
 def stem_train_backward_reference(dy, x, stats, w, gamma, beta, h4: int,
-                                  w4: int, g: int):
+                                  w4: int, g: int, bf16: bool = False):
     """Plain version of the backward kernels (an explicit backward, not
     autograd): recompute the conv from x, BN from the saved stats, route
     dy through the pool and the ReLU, then BN's backward within each group
-    and the weight gradient.  → (dW (24, 3, 3, 3), dγ (24,), dβ (24,))."""
+    and the weight gradient.  With `bf16`, the bf16 function: the route
+    among the rounded yb, du rounded before dW.  → (dW (24, 3, 3, 3), dγ
+    (24,), dβ (24,))."""
     b = x.shape[0]
     imgp = _image(x, h4, w4, w.dtype)
-    u = _conv(imgp, w)
+    u = _conv(imgp, _rounded(w, bf16))
     bn, xhat = _bn_parts(u, stats, gamma, beta, g)
-    gy = _route(torch.relu(bn), dy)
+    yb = _rounded(torch.relu(bn), bf16)
+    gy = _route(yb, dy.float() if bf16 else dy)
     gy = torch.where(bn > 0, gy, torch.zeros_like(gy))
     sg = gy.reshape(b // g, g, COUT, -1).sum((1, 3))
     sgx = (gy * xhat).reshape(b // g, g, COUT, -1).sum((1, 3))
@@ -201,6 +225,7 @@ def stem_train_backward_reference(dy, x, stats, w, gamma, beta, h4: int,
     du = (_per_image(gamma * stats[:, :, 1], g)
           * ((gy - _per_image(sg * inv_m, g))
              - xhat * _per_image(sgx * inv_m, g)))
+    du = _rounded(du, bf16)
     dw = torch.empty_like(w)
     for ky in range(3):
         for kx in range(3):
@@ -401,7 +426,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "fastdet_stem_train_fwd": ([_P] * 8 + [_I] * 7 + [_P], _I),
+    "fastdet_stem_train_fwd_bf16": ([_P] * 8 + [_I] * 7 + [_P], _I),
     "fastdet_stem_train_bwd": ([_P] * 11 + [_I] * 5 + [_P], _I),
+    "fastdet_stem_train_bwd_bf16": ([_P] * 11 + [_I] * 5 + [_P], _I),
     "fastdet_stem_train_fwd_scratch": ([_I] * 5, ctypes.c_size_t),
     "fastdet_stem_train_bwd_scratch": ([_I] * 2, ctypes.c_size_t),
     "fastdet_stem_train_smem": ([_I], ctypes.c_size_t),
@@ -429,39 +456,99 @@ def _check(what: str, x, w, gamma, beta, h4: int, w4: int, g: int):
     return b, npad
 
 
-def stem_train_forward(x, w, gamma, beta, h4: int, w4: int, g: int):
-    """→ (y (B, 24, h4, w4), stats (B/g, 24, 3)) as
-    `stem_train_forward_reference`, and z (B, 24, h4, w4), the pooled raw
-    conv that the backward takes.  CUDA: the forward kernels of
-    `csrc/stem_train.cu` (one counted call); CPU: the plain versions."""
+def _forward(counter, bf16: bool, x, w, gamma, beta, h4: int, w4: int,
+             g: int):
+    """The forward of either form: CPU → the plain versions; CUDA → the C
+    entry of `csrc/stem_train.cu` (one counted call on `counter`)."""
     dev = x.device
     if dev.type == "cpu":
-        return (*stem_train_forward_reference(x, w, gamma, beta, h4, w4, g),
-                stem_train_pooled_reference(x, w, gamma, h4, w4))
+        return (*stem_train_forward_reference(x, w, gamma, beta, h4, w4, g,
+                                              bf16),
+                stem_train_pooled_reference(x, _rounded(w, bf16), gamma, h4,
+                                            w4))
+    what = counter.__name__
     if dev.type != "cuda":
-        raise ValueError(f"stem_train_forward: unsupported device {dev}")
-    b, npad = _check("stem_train_forward", x, w, gamma, beta, h4, w4, g)
+        raise ValueError(f"{what}: unsupported device {dev}")
+    b, npad = _check(what, x, w, gamma, beta, h4, w4, g)
     plan = stem_train_plan(b, h4, w4, g)
     lib = _build.load("stem_train", _SIGNATURES)
-    y = torch.empty((b, COUT, h4, w4), dtype=torch.float32, device=dev)
-    z = torch.empty_like(y)
+    y = torch.empty((b, COUT, h4, w4),
+                    dtype=BF16 if bf16 else torch.float32, device=dev)
+    z = torch.empty((b, COUT, h4, w4), dtype=torch.float32, device=dev)
     stats = torch.empty((b // g, COUT, 3), dtype=torch.float32, device=dev)
     tr, ncw = plan.tile_fwd[0], plan.ncw
     scratch = torch.empty(
         lib.fastdet_stem_train_fwd_scratch(b, h4, w4, tr, ncw),
         dtype=torch.float32, device=dev)
+    fn = (lib.fastdet_stem_train_fwd_bf16 if bf16
+          else lib.fastdet_stem_train_fwd)
     with torch.cuda.device(dev):
-        rc = lib.fastdet_stem_train_fwd(
-            x.data_ptr(), w.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-            y.data_ptr(), z.data_ptr(), stats.data_ptr(), scratch.data_ptr(),
-            b, h4, w4, npad, g, tr, ncw,
-            torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, rc, "stem_train_forward")
-    stem_train_forward.launches += 1
+        rc = fn(x.data_ptr(), w.data_ptr(), gamma.data_ptr(),
+                beta.data_ptr(), y.data_ptr(), z.data_ptr(),
+                stats.data_ptr(), scratch.data_ptr(), b, h4, w4, npad, g, tr,
+                ncw, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, what)
+    counter.launches += 1
     return y, stats, z
 
 
+def stem_train_forward(x, w, gamma, beta, h4: int, w4: int, g: int):
+    """→ (y (B, 24, h4, w4), stats (B/g, 24, 3)) as
+    `stem_train_forward_reference`, and z (B, 24, h4, w4), the pooled raw
+    conv that the backward takes.  CUDA: the forward kernels of
+    `csrc/stem_train.cu` (one counted call); CPU: the plain versions."""
+    return _forward(stem_train_forward, False, x, w, gamma, beta, h4, w4, g)
+
+
+def stem_train_forward_bf16(x, w, gamma, beta, h4: int, w4: int, g: int):
+    """The bf16 form of `stem_train_forward`: y bf16 (stats and z f32)."""
+    return _forward(stem_train_forward_bf16, True, x, w, gamma, beta, h4,
+                    w4, g)
+
+
 stem_train_forward.launches = 0
+stem_train_forward_bf16.launches = 0
+
+
+def _backward(counter, bf16: bool, dy, x, stats, w, gamma, beta, h4: int,
+              w4: int, g: int, z):
+    """The backward of either form: CPU → the plain version; CUDA → the C
+    entry (one counted call on `counter`)."""
+    dev = x.device
+    if dev.type == "cpu":
+        return stem_train_backward_reference(dy, x, stats, w, gamma, beta,
+                                             h4, w4, g, bf16)
+    what = counter.__name__
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {dev}")
+    b, npad = _check(what, x, w, gamma, beta, h4, w4, g)
+    for name, t, shape, dt in (
+            ("dy", dy, (b, COUT, h4, w4), BF16 if bf16 else torch.float32),
+            ("z", z, (b, COUT, h4, w4), torch.float32),
+            ("stats", stats, (b // g, COUT, 3), torch.float32)):
+        if (t.device != dev or t.dtype != dt or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError(
+                f"{what}: expected {name} as a contiguous {dt} {shape} "
+                f"tensor on {dev}, got {t.dtype} {tuple(t.shape)} on "
+                f"{t.device}")
+    lib = _build.load("stem_train", _SIGNATURES)
+    dw = torch.empty_like(w)
+    dgamma = torch.empty_like(gamma)
+    dbeta = torch.empty_like(beta)
+    scratch = torch.empty(lib.fastdet_stem_train_bwd_scratch(b, h4),
+                          dtype=torch.float32, device=dev)
+    fn = (lib.fastdet_stem_train_bwd_bf16 if bf16
+          else lib.fastdet_stem_train_bwd)
+    with torch.cuda.device(dev):
+        rc = fn(dy.data_ptr(), x.data_ptr(), z.data_ptr(), stats.data_ptr(),
+                w.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                dw.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(),
+                scratch.data_ptr(), b, h4, w4, npad, g,
+                torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, what)
+    counter.launches += 1
+    return dw, dgamma, dbeta
 
 
 def stem_train_backward(dy, x, stats, w, gamma, beta, h4: int, w4: int,
@@ -472,60 +559,44 @@ def stem_train_backward(dy, x, stats, w, gamma, beta, h4: int, w4: int,
     reduced in a fixed order, so two runs give the same bits.  CPU: the
     plain version, which recomputes everything from x and does not read
     z."""
-    dev = x.device
-    if dev.type == "cpu":
-        return stem_train_backward_reference(dy, x, stats, w, gamma, beta,
-                                             h4, w4, g)
-    if dev.type != "cuda":
-        raise ValueError(f"stem_train_backward: unsupported device {dev}")
-    b, npad = _check("stem_train_backward", x, w, gamma, beta, h4, w4, g)
-    for name, t, shape in (("dy", dy, (b, COUT, h4, w4)),
-                           ("z", z, (b, COUT, h4, w4)),
-                           ("stats", stats, (b // g, COUT, 3))):
-        if (t.device != dev or t.dtype != torch.float32
-                or tuple(t.shape) != shape or not t.is_contiguous()):
-            raise ValueError(
-                f"stem_train_backward: expected {name} as a contiguous f32 "
-                f"{shape} tensor on {dev}, got {t.dtype} {tuple(t.shape)} "
-                f"on {t.device}")
-    lib = _build.load("stem_train", _SIGNATURES)
-    dw = torch.empty_like(w)
-    dgamma = torch.empty_like(gamma)
-    dbeta = torch.empty_like(beta)
-    scratch = torch.empty(lib.fastdet_stem_train_bwd_scratch(b, h4),
-                          dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        rc = lib.fastdet_stem_train_bwd(
-            dy.data_ptr(), x.data_ptr(), z.data_ptr(), stats.data_ptr(),
-            w.data_ptr(), gamma.data_ptr(), beta.data_ptr(), dw.data_ptr(),
-            dgamma.data_ptr(), dbeta.data_ptr(), scratch.data_ptr(), b, h4,
-            w4, npad, g, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, rc, "stem_train_backward")
-    stem_train_backward.launches += 1
-    return dw, dgamma, dbeta
+    return _backward(stem_train_backward, False, dy, x, stats, w, gamma,
+                     beta, h4, w4, g, z)
+
+
+def stem_train_backward_bf16(dy, x, stats, w, gamma, beta, h4: int, w4: int,
+                             g: int, z):
+    """The bf16 form of `stem_train_backward`: dy bf16, the gradients
+    f32."""
+    return _backward(stem_train_backward_bf16, True, dy, x, stats, w, gamma,
+                     beta, h4, w4, g, z)
 
 
 stem_train_backward.launches = 0
+stem_train_backward_bf16.launches = 0
 
 
 class StemTrain(torch.autograd.Function):
     """The differentiable training stem: `StemTrain.apply(x_u8, w, gamma,
-    beta, h4, w4, g) -> (y, stats)`; w is the scaled OIHW weight; stats
+    beta, h4, w4, g, bf16=False) -> (y, stats)`; w is the scaled OIHW
+    weight (f32 in both forms); with `bf16` the bf16 form (y bf16); stats
     carry no gradient (they feed the running statistics), x gets none.
     It saves z, the pooled raw conv, for the backward's BN sums
-    ((B, 24, h4, w4) f32, as large as y)."""
+    ((B, 24, h4, w4) f32)."""
 
     @staticmethod
-    def forward(ctx, x, w, gamma, beta, h4, w4, g):
-        y, stats, z = stem_train_forward(x, w, gamma, beta, h4, w4, g)
+    def forward(ctx, x, w, gamma, beta, h4, w4, g, bf16=False):
+        fwd = stem_train_forward_bf16 if bf16 else stem_train_forward
+        y, stats, z = fwd(x, w, gamma, beta, h4, w4, g)
         ctx.save_for_backward(x, stats, w, gamma, beta, z)
         ctx.geom = (h4, w4, g)
+        ctx.bf16 = bf16
         ctx.mark_non_differentiable(stats)
         return y, stats
 
     @staticmethod
     def backward(ctx, dy, _dstats):
         x, stats, w, gamma, beta, z = ctx.saved_tensors
-        dw, dgamma, dbeta = stem_train_backward(dy.contiguous(), x, stats, w,
-                                                gamma, beta, *ctx.geom, z)
-        return None, dw, dgamma, dbeta, None, None, None
+        bwd = stem_train_backward_bf16 if ctx.bf16 else stem_train_backward
+        dw, dgamma, dbeta = bwd(dy.contiguous(), x, stats, w, gamma, beta,
+                                *ctx.geom, z)
+        return None, dw, dgamma, dbeta, None, None, None, None

@@ -33,7 +33,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from fastdet_torch import disable_tf32, resolve_device
-from fastdet_torch.models.layers import (BatchNorm, ConvBN, DWConvBlock,
+from fastdet_torch.models.layers import (BF16, BatchNorm, ConvBN,
+                                         DWConvBlock, head_conv,
                                          upsample_nearest_2x)
 from fastdet_torch.models.shufflenet import ShuffleNetV2
 from fastdet_torch.ops.decode import make_grid
@@ -48,29 +49,36 @@ class AnchorFreeDetector(nn.Module):
     """Single-scale anchor-free detector: (B, H, W, 3) float NHWC → the raw
     NHWC (obj (B,h,w,1), cls (B,h,w,classes), reg (B,h,w,4)) at stride 16,
     or with `deploy=True` their decoded concat [σ(reg), σ(obj),
-    softmax(cls)] (B, h, w, 5 + classes)."""
+    softmax(cls)] (B, h, w, 5 + classes).  `dtype` is the compute dtype,
+    as `Detector`'s: bf16 outputs from f32 parameters."""
 
     def __init__(self, classes: int = 80, out_depth: int = 96,
-                 stage_out_channels: Tuple[int, ...] = (-1, 24, 48, 96, 192)):
+                 stage_out_channels: Tuple[int, ...] = (-1, 24, 48, 96, 192),
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.classes = classes
-        self.backbone = ShuffleNetV2(stage_out_channels)
+        self.dtype = dtype
+        self.backbone = ShuffleNetV2(stage_out_channels, dtype=dtype)
         self.fuse = ConvBN(stage_out_channels[3] + stage_out_channels[4],
-                           out_depth, 1, relu=True)
-        self.head_cls = DWConvBlock(out_depth, 5)
-        self.head_reg = DWConvBlock(out_depth, 5)
+                           out_depth, 1, relu=True, dtype=dtype)
+        self.head_cls = DWConvBlock(out_depth, 5, dtype=dtype)
+        self.head_reg = DWConvBlock(out_depth, 5, dtype=dtype)
         self.out_obj = nn.Conv2d(out_depth, 1, 1)
         self.out_cls = nn.Conv2d(out_depth, classes, 1)
         self.out_reg = nn.Conv2d(out_depth, 4, 1)
 
     def forward(self, x, deploy: bool = False):
+        if self.dtype == BF16:
+            x = x.to(BF16)
         c2, c3 = self.backbone(x.permute(0, 3, 1, 2))
         s = self.fuse(torch.cat([c2, upsample_nearest_2x(c3)], dim=1))
         feat_cls = self.head_cls(s)
         feat_reg = self.head_reg(s)
+        d = self.dtype
         obj, cls, reg = (o.permute(0, 2, 3, 1) for o in (
-            self.out_obj(feat_cls), self.out_cls(feat_cls),
-            self.out_reg(feat_reg)))
+            head_conv(self.out_obj, feat_cls, d),
+            head_conv(self.out_cls, feat_cls, d),
+            head_conv(self.out_reg, feat_reg, d)))
         if deploy:
             return torch.cat([torch.sigmoid(reg), torch.sigmoid(obj),
                               torch.softmax(cls, dim=-1)], dim=-1)

@@ -11,14 +11,16 @@ from fastdet_torch.models.layers import ConvBN, DWConvBlock, upsample_nearest_2x
 
 
 class LightFPN(nn.Module):
-    def __init__(self, c2: int, c3: int, out_depth: int = 72):
+    def __init__(self, c2: int, c3: int, out_depth: int = 72,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv1x1_3 = ConvBN(c3, out_depth, 1, relu=True)
-        self.conv1x1_2 = ConvBN(c2 + c3, out_depth, 1, relu=True)
-        self.cls_head_3 = DWConvBlock(out_depth, 5)
-        self.reg_head_3 = DWConvBlock(out_depth, 5)
-        self.cls_head_2 = DWConvBlock(out_depth, 5)
-        self.reg_head_2 = DWConvBlock(out_depth, 5)
+        d = dtype
+        self.conv1x1_3 = ConvBN(c3, out_depth, 1, relu=True, dtype=d)
+        self.conv1x1_2 = ConvBN(c2 + c3, out_depth, 1, relu=True, dtype=d)
+        self.cls_head_3 = DWConvBlock(out_depth, 5, dtype=d)
+        self.reg_head_3 = DWConvBlock(out_depth, 5, dtype=d)
+        self.cls_head_2 = DWConvBlock(out_depth, 5, dtype=d)
+        self.reg_head_2 = DWConvBlock(out_depth, 5, dtype=d)
 
     def forward(self, C2, C3):
         S3 = self.conv1x1_3(C3)

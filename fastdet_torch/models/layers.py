@@ -20,6 +20,39 @@ from torch import nn
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9
+BF16 = torch.bfloat16
+
+
+def conv16(x, w, stride: int = 1, padding: int = 0, groups: int = 1):
+    """bf16 x ⊛ bf16 w → bf16: f32 accumulation, one rounding.  On the
+    card cuDNN's bf16 convolution computes just that; on the CPU the
+    products run in f32 from the bf16 values and are rounded after."""
+    if x.device.type == "cuda":
+        return F.conv2d(x, w, None, stride, padding, 1, groups)
+    return F.conv2d(x.float(), w.float(), None, stride, padding, 1,
+                    groups).to(BF16)
+
+
+def round16(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to bf16 (to nearest even) and back to t's dtype (f32, or
+    f64): a bf16 rounding point written out in a wider type, as the
+    training kernels' plain versions compute."""
+    return t.to(BF16).to(t.dtype)
+
+
+def add_bias(x, b):
+    """bf16 (or f32) x + the f32 bias → f32 (one kernel: the sum
+    promotes)."""
+    return x + b[:, None, None]
+
+
+def head_conv(conv: nn.Conv2d, x, dtype):
+    """A 1×1 head conv with bias: in bf16 as flax's `nn.Conv(dtype=bf16)`
+    computes it (bf16 product, the bias cast to bf16 and added in bf16),
+    else the module itself."""
+    if dtype != BF16:
+        return conv(x)
+    return conv16(x, conv.weight.to(BF16)) + conv.bias.to(BF16)[:, None, None]
 
 
 class BatchNorm(nn.Module):
@@ -35,6 +68,8 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x):
+        if x.dtype == BF16:
+            return self._forward16(x)
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, BN_EPS)
@@ -46,6 +81,23 @@ class BatchNorm(nn.Module):
         update_running_stats(self, mean, var)
         mul = torch.rsqrt(var + BN_EPS) * self.weight
         return d * mul.view(shape) + self.bias.view(shape)
+
+    def _forward16(self, x):
+        """flax's BatchNorm(dtype=bf16): f32 statistics of the upcast
+        input (two-pass variance), (x − μ)·(rsqrt(var + eps)·γ) + β in f32,
+        one rounding to bf16."""
+        xf = x.float()
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        if self.training:
+            dims = [d for d in range(x.dim()) if d != 1]
+            mean = xf.mean(dims)
+            var = ((xf - mean.view(shape)) ** 2).mean(dims)
+            update_running_stats(self, mean, var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + BN_EPS) * self.weight
+        return ((xf - mean.view(shape)) * mul.view(shape)
+                + self.bias.view(shape)).to(BF16)
 
 
 @torch.no_grad()
@@ -61,15 +113,23 @@ class ConvBN(nn.Module):
     ``groups=features_in`` gives a depthwise conv."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 1, stride: int = 1,
-                 groups: int = 1, relu: bool = True):
+                 groups: int = 1, relu: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.conv = nn.Conv2d(cin, cout, kernel, stride, kernel // 2,
                               groups=groups, bias=False)
         self.bn = BatchNorm(cout)
         self.relu = relu
+        self.dtype = dtype
 
     def forward(self, x):
-        x = self.bn(self.conv(x))
+        if self.dtype == BF16:
+            c = self.conv
+            x = conv16(x.to(BF16), c.weight.to(BF16), c.stride[0],
+                       c.padding[0], c.groups)
+        else:
+            x = self.conv(x)
+        x = self.bn(x)
         return F.relu(x) if self.relu else x
 
 
@@ -77,13 +137,14 @@ class DWConvBlock(nn.Module):
     """Head block: 2 × [dw k×k + BN + ReLU → pw 1×1 + BN], with NO ReLU
     after either pw (the reference's quirk, fastdet/models/layers.py:65)."""
 
-    def __init__(self, features: int, kernel: int = 5):
+    def __init__(self, features: int, kernel: int = 5,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        c = features
-        self.dw1 = ConvBN(c, c, kernel, groups=c, relu=True)
-        self.pw1 = ConvBN(c, c, 1, relu=False)
-        self.dw2 = ConvBN(c, c, kernel, groups=c, relu=True)
-        self.pw2 = ConvBN(c, c, 1, relu=False)
+        c, d = features, dtype
+        self.dw1 = ConvBN(c, c, kernel, groups=c, relu=True, dtype=d)
+        self.pw1 = ConvBN(c, c, 1, relu=False, dtype=d)
+        self.dw2 = ConvBN(c, c, kernel, groups=c, relu=True, dtype=d)
+        self.pw2 = ConvBN(c, c, 1, relu=False, dtype=d)
 
     def forward(self, x):
         return self.pw2(self.dw2(self.pw1(self.dw1(x))))

@@ -42,16 +42,25 @@ def family_name(name) -> str:
     raise ValueError(f"unknown model family: {name}")
 
 
+def _model(cls, dtype, *args, **kw) -> nn.Module:
+    """bf16 is a compute dtype (f32 parameters, as the JAX package's
+    `get_family(dtype=bf16)`); any other dtype casts the parameters, as
+    the f64 parity tests want."""
+    if dtype == torch.bfloat16:
+        return cls(*args, dtype=dtype, **kw)
+    return cls(*args, **kw).to(dtype)
+
+
 def get_family(name, cfg, dtype=torch.float32) -> ModelFamily:
-    """The family `name` for the `.data` config `cfg`, its model in
-    `dtype` with PyTorch's default initialisation (load a state dict into
-    it)."""
+    """The family `name` for the `.data` config `cfg`, its model computing
+    in `dtype` with PyTorch's default initialisation (load a state dict
+    into it)."""
     if family_name(name) == "yolo-fastestv2":
         from fastdet_torch.models.detector import Detector
         from fastdet_torch.ops.postprocess import build_detect_fn
         from fastdet_torch.train.loss import compute_loss
 
-        model = Detector(cfg.classes, cfg.anchor_num).to(dtype)
+        model = _model(Detector, dtype, cfg.classes, cfg.anchor_num)
 
         def detect_builder(**kw):
             return build_detect_fn(model, cfg, **kw)
@@ -63,7 +72,7 @@ def get_family(name, cfg, dtype=torch.float32) -> ModelFamily:
                                                  anchorfree_loss,
                                                  build_anchorfree_detect_fn)
 
-    model = AnchorFreeDetector(classes=cfg.classes).to(dtype)
+    model = _model(AnchorFreeDetector, dtype, classes=cfg.classes)
 
     def detect_builder(**kw):
         kw.pop("dtype", None)

@@ -19,20 +19,21 @@ from fastdet_torch.models.layers import ConvBN
 
 class ShuffleV2Block(nn.Module):
     def __init__(self, inp: int, oup: int, mid: int, ksize: int = 3,
-                 stride: int = 1):
+                 stride: int = 1, dtype: torch.dtype = torch.float32):
         super().__init__()
         if stride not in (1, 2):
             raise ValueError(f"stride must be 1 or 2, got {stride}")
         self.stride = stride
         out_main = oup - inp
-        self.main_pw = ConvBN(inp, mid, 1, relu=True)
+        d = dtype
+        self.main_pw = ConvBN(inp, mid, 1, relu=True, dtype=d)
         self.main_dw = ConvBN(mid, mid, ksize, stride=stride, groups=mid,
-                              relu=False)
-        self.main_pw_linear = ConvBN(mid, out_main, 1, relu=True)
+                              relu=False, dtype=d)
+        self.main_pw_linear = ConvBN(mid, out_main, 1, relu=True, dtype=d)
         if stride == 2:
             self.proj_dw = ConvBN(inp, inp, ksize, stride=2, groups=inp,
-                                  relu=False)
-            self.proj_pw = ConvBN(inp, inp, 1, relu=True)
+                                  relu=False, dtype=d)
+            self.proj_pw = ConvBN(inp, inp, 1, relu=True, dtype=d)
 
     def _main(self, x):
         return self.main_pw_linear(self.main_dw(self.main_pw(x)))
@@ -48,14 +49,17 @@ class ShuffleNetV2(nn.Module):
     """Backbone returning (C2, C3) at stride 16 / 32.
 
     stage_out_channels follows the reference convention
-    [-1, stem, stage2, stage3, stage4]."""
+    [-1, stem, stage2, stage3, stage4].  In bf16 the stem's max-pool runs
+    on the bf16 values."""
 
     def __init__(self, stage_out_channels: Sequence[int] = (-1, 24, 48, 96,
                                                             192),
-                 stage_repeats: Sequence[int] = (4, 8, 4)):
+                 stage_repeats: Sequence[int] = (4, 8, 4),
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         stem = stage_out_channels[1]
-        self.first_conv = ConvBN(3, stem, 3, stride=2, relu=True)
+        self.first_conv = ConvBN(3, stem, 3, stride=2, relu=True,
+                                 dtype=dtype)
         self.stage_names = []
         input_channel = stem
         for s, repeats in enumerate(stage_repeats):
@@ -64,10 +68,12 @@ class ShuffleNetV2(nn.Module):
             for i in range(repeats):
                 if i == 0:
                     block = ShuffleV2Block(input_channel, output_channel,
-                                           output_channel // 2, 3, stride=2)
+                                           output_channel // 2, 3, stride=2,
+                                           dtype=dtype)
                 else:
                     block = ShuffleV2Block(input_channel // 2, output_channel,
-                                           output_channel // 2, 3, stride=1)
+                                           output_channel // 2, 3, stride=1,
+                                           dtype=dtype)
                 name = f"stage{s + 2}_{i}"
                 self.add_module(name, block)
                 names.append(name)

@@ -22,6 +22,12 @@ The stem depends on `input_format`:
     carries dW back through it.  `stem_group` defaults to 1, as in the JAX
     package: per-image BN statistics, not full-batch ones.
 
+A model built to compute in bf16 (`Detector(dtype=torch.bfloat16)`)
+takes the JAX package's bf16 fused forward: the nhwc stem takes
+`images.astype(bf16) / bf16(255)`, `StemTrain` and `SpanTrain` run B7's
+and B8's bf16 forms on bf16 activations, and the model's modules round
+at flax's points, as the JAX package's XLA parts do.
+
 Running statistics: exact full-batch, pooled from the groups
 (`combine_ghost_stats`, `combine_stem_stats`) and updated with flax's
 momentum 0.9, as training-mode BN updates every other layer's.  With
@@ -57,7 +63,9 @@ def build_fused_train_apply(input_hw: Tuple[int, int], *,
                             device=None) -> Callable:
     """→ `apply_fn(model, images) -> 6 NHWC outputs`; the model is in
     training mode and its BN running statistics update.  images: (B, H, W,
-    3) uint8 for "nhwc", (B, 48, pad128(H/4·W/4)) uint8 for "s2d_u8"."""
+    3) uint8 for "nhwc", (B, 48, pad128(H/4·W/4)) uint8 for "s2d_u8".
+    The forward computes in the model's dtype: bfloat16, or its
+    parameters' (f32, f64 in the parity tests)."""
     if input_format not in ("nhwc", "s2d_u8"):
         raise ValueError(f"unknown input_format {input_format!r}")
     dev = resolve_device(device)
@@ -82,7 +90,8 @@ def build_fused_train_apply(input_hw: Tuple[int, int], *,
         fc = bb.first_conv
         y, stats = StemTrain.apply(images.contiguous(),
                                    fc.conv.weight * (1.0 / 255.0),
-                                   fc.bn.weight, fc.bn.bias, h4, w4, g_stem)
+                                   fc.bn.weight, fc.bn.bias, h4, w4, g_stem,
+                                   dtype == torch.bfloat16)
         update_running_stats(fc.bn, *combine_stem_stats(stats))
         return y
 
@@ -90,7 +99,9 @@ def build_fused_train_apply(input_hw: Tuple[int, int], *,
 
     def apply_fn(model, images):
         bb = model.backbone
-        x = stem(bb, images.to(dev), bb.first_conv.conv.weight.dtype)
+        x = stem(bb, images.to(dev), torch.bfloat16
+                 if model.dtype == torch.bfloat16
+                 else bb.first_conv.conv.weight.dtype)
         feats = []
         for stage, reps, c in _STAGES:
             x = getattr(bb, f"stage{stage}_0")(x)

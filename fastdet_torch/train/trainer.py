@@ -20,9 +20,17 @@ each image, as in the JAX package).  The loss is `loss_fn(outputs,
 labels, mask, anchors, input_hw)`: `compute_loss` by default, the
 family's (`models/registry.py`) for another model, e.g. the anchor-free
 family's, whose model has no fused training (`fused_backbone=True` raises
-for it, as the JAX CLI refuses it).  The Trainer computes in its model's
-dtype: f32 (the port's kernels), or f64 on the CPU for the parity tests.
-Not ported: bf16 compute (ROADMAP A1), data-parallel meshes (A12).
+for it, as the JAX CLI refuses it).
+
+The Trainer computes in its model's dtype: f32 (the port's kernels), or
+f64 on the CPU for the parity tests.  `compute_dtype=torch.bfloat16` is
+the JAX package's bf16 training: the model must be built to compute in
+bf16 (`Detector(dtype=torch.bfloat16)`, `get_family(..., dtype=)`), and
+such a model makes it the default; its parameters, their gradients and
+the momentum buffers stay f32, the images are scaled as
+`images.astype(bf16) / bf16(255)`, the fused modes run B7 and B8 in
+bf16, and the loss casts the bf16 outputs to f32.
+float16 raises.  Not ported: data-parallel meshes (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ import torch
 from fastdet_torch import disable_tf32, resolve_device
 from fastdet_torch.config import Config
 from fastdet_torch.models.detector import Detector
+from fastdet_torch.models.layers import BF16
 from fastdet_torch.train.loss import compute_loss
 from fastdet_torch.train.schedule import make_lr_schedule
 
@@ -59,17 +68,28 @@ class Trainer:
                  compute_dtype: Optional[torch.dtype] = None,
                  fused_input_format: str = "nhwc",
                  loss_fn: Callable = compute_loss):
-        if compute_dtype in (torch.bfloat16, torch.float16):
+        if compute_dtype == torch.float16:
             raise NotImplementedError(
-                "fastdet_torch: bf16 training is ROADMAP A1, not ported yet")
+                "fastdet_torch: float16 training is not ported (the JAX "
+                "package trains in float32 or bfloat16)")
         if fused_backbone and not isinstance(model, Detector):
             raise ValueError("fused_backbone supports the yolo-fastestv2 "
                              "family only")
+        model_bf16 = getattr(model, "dtype", None) == BF16
+        if compute_dtype is None and model_bf16:
+            compute_dtype = BF16
+        if (compute_dtype == BF16) != model_bf16:
+            raise ValueError(
+                "compute_dtype=torch.bfloat16 takes a model built to compute "
+                "in bf16 (dtype=torch.bfloat16), and only it")
         self.device = resolve_device(device)
         disable_tf32(self.device)
         self.cfg = cfg
         self.loss_fn = loss_fn
-        self.model = model.to(self.device, compute_dtype).train()
+        self.compute_dtype = compute_dtype
+        # bf16 is a compute dtype: the parameters stay f32
+        self.model = (model.to(self.device) if compute_dtype == BF16
+                      else model.to(self.device, compute_dtype)).train()
         self.input_hw = (cfg.height, cfg.width)
         self.schedule = make_lr_schedule(
             cfg.learning_rate, steps_per_epoch, cfg.steps or (), gamma=0.1,
@@ -96,6 +116,8 @@ class Trainer:
         images = torch.as_tensor(images_u8).to(self.device)
         if self._fused is not None:
             return self._fused(self.model, images)
+        if self.compute_dtype == BF16:
+            return self.model(images.to(BF16) / 255.0)
         dtype = next(self.model.parameters()).dtype
         return self.model(images.to(dtype) / 255.0)
 

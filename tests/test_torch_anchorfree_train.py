@@ -24,6 +24,7 @@ from fastdet_torch.io import load_state_dict
 from fastdet_torch.models.anchorfree import anchorfree_loss
 from fastdet_torch.models.registry import get_family
 from fastdet_torch.train.trainer import Trainer
+from torch_cases import FEW_THREADS
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SYNTH_NPZ = os.path.join(REPO, "weights", "anchorfree-synth.npz")
@@ -38,7 +39,7 @@ def test_anchorfree_train_matches_jax_x64():
     proc = subprocess.run(
         [sys.executable, os.path.join(REPO, "tests", "torch_train_x64.py"),
          "anchorfree"], capture_output=True, text=True, timeout=900,
-        cwd=REPO)
+        cwd=REPO, env=dict(os.environ, **FEW_THREADS))
     assert proc.returncode == 0, proc.stdout + proc.stderr[-4000:]
     assert "PASS" in proc.stdout
 

@@ -34,7 +34,8 @@ from torch_cases import (AF_GOLDEN, ANCHORS, BOX_ULPS_CARD, IOU, NC, NV_CLASSES,
                          golden_mismatches, grad_err, head_outputs,
                          make_inputs, nv_window, out_of_range_window,
                          pool_ties, port_geo, s2span_case,
-                         span_train_case, span_train_grad_errs,
+                         span16_backward_errs, span_train_case,
+                         span_train_grad_errs,
                          staged_reference, staged_window, stem8_case,
                          stem_case, stem_train_case)
 
@@ -953,3 +954,215 @@ def test_fused_pipeline_bf16_default_on_the_card(card, family):
                    and abs(j[i, 4] - row[4]) <= 0.05]
             assert hit
             free.remove(hit[0])
+
+
+# ------------------------------------------ bf16 training (B8, B7 in bf16)
+
+def _rel16(got, want):
+    w = want.float()
+    return float((got.float() - w).abs().max() / w.abs().max())
+
+
+@pytest.mark.parametrize("case,real",
+                         [(c, False) for c in SPAN_TRAIN_FULL]
+                         + [(SPAN_TRAIN_FULL[1], True)]
+                         + [(c, False) for c in SPAN_TRAIN_SMALL[:1]
+                            + SPAN_TRAIN_EDGE[:2]],
+                         ids=["stage2_b128", "stage3_b128", "stage4_b128",
+                              "stage3_b128_real", "small_g2", "edge_g3",
+                              "edge_g1"])
+def test_span_train_bf16_kernels_match_plain(card, case, real):
+    """B8's bf16 form against its plain bf16 version (the smoke's phase 10
+    bounds): out and the saved inputs within 2⁻⁶ of max |value|, the
+    first block's stats within 5e-5 of each kind's largest; the backward on
+    the same dy, saved inputs and stats: dx and each weight gradient within
+    2⁻⁶ of its max |value| (β2, zero in exact arithmetic, of the block's
+    largest BN-parameter gradient); the seeded stage-3 case, whose plain
+    version stands ~5% of dγ1's max |value| from itself summed in another
+    order (the kernel 5.7%), within twice that distance from its f64 sums
+    where that is larger (`torch_cases.span16_backward_errs`); bf16 in and out,
+    f32 stats and gradients; one counted launch each; a second backward
+    gives the same bits.  `real`: the stage's real span weights, as the
+    smoke times them."""
+    b, c, h, w, nblk, g = case
+    x, rows, dy = span_train_case(sum(case) + 1, b, c, h, w, nblk, card)
+    x, dy = x.to(torch.bfloat16), dy.to(torch.bfloat16)
+    if real:
+        det = Detector(80, 3)
+        det.load_state_dict(load_state_dict(REF_NPZ))
+        stage, reps = {48: (2, 4), 96: (3, 8), 192: (4, 4)}[c]
+        rows = fused_train.pack_span_train_weights(
+            [getattr(det.backbone, f"stage{stage}_{i}")
+             for i in range(1, reps)]).detach().to(card).contiguous()
+    before = (fused_train.span_train_forward_bf16.launches,
+              fused_train.span_train_backward_bf16.launches)
+    out, xsave, stats = fused_train.span_train_forward_bf16(x, rows, g)
+    ref = fused_train.span_train_forward_reference(x, rows, g)
+    torch.cuda.synchronize()
+    assert out.dtype == xsave.dtype == torch.bfloat16
+    assert stats.dtype == torch.float32
+    assert _rel16(out, ref[0]) <= 2 ** -6
+    assert _rel16(xsave, ref[1]) <= 2 ** -6
+    for j in range(3):
+        assert _rel16(stats[0, :, :, j], ref[2][0, :, :, j]) <= 5e-5
+    dx, drows = fused_train.span_train_backward_bf16(dy, xsave, stats, rows,
+                                                     g)
+    torch.cuda.synchronize()
+    assert dx.dtype == torch.bfloat16 and drows.dtype == torch.float32
+    assert (fused_train.span_train_forward_bf16.launches,
+            fused_train.span_train_backward_bf16.launches) == (
+                before[0] + 1, before[1] + 1)
+    errs, _ = span16_backward_errs((dx, drows), dy, xsave, stats, rows, g,
+                                   witness=case == SPAN_TRAIN_FULL[1]
+                                   and not real)
+    off = {k: v for k, v in errs.items() if v[0] > v[1]}
+    assert not off, off
+    dx2, drows2 = fused_train.span_train_backward_bf16(dy, xsave, stats,
+                                                       rows, g)
+    assert torch.equal(dx, dx2) and torch.equal(drows, drows2)
+
+
+def test_span_train_bf16_plan_matches_the_kernels(card):
+    """The bf16 form stages f32 tiles as the f32 form does: one plan and
+    one shared-memory size for both, the kernels' own, at the smoke's
+    shapes; the bf16 backward's scratch holds the second f32 gradient
+    buffer beside the f32 form's."""
+    from fastdet_torch.kernels import _build
+    lib = _build.load("span_train", fused_train._SIGNATURES)
+    for b, c, h, w, nblk, g in SPAN_TRAIN_FULL:
+        plan = fused_train.span_train_plan(b, c, h, w, nblk, g)
+        for bwd, tile in ((0, plan.tile_fwd), (1, plan.tile_bwd)):
+            assert lib.fastdet_span_train_smem(c, h, w, *tile, bwd) == \
+                plan.smem_of(bwd)
+        tr, tc = plan.tile_bwd
+        assert (lib.fastdet_span_train_bwd_scratch_bf16(b, c, h, w, nblk, g,
+                                                        tr, tc)
+                - lib.fastdet_span_train_bwd_scratch(b, c, h, w, nblk, g, tr,
+                                                     tc)) == b * c * h * w
+
+
+def test_span_train_bf16_wrappers_check_their_inputs(card):
+    x, rows, dy = span_train_case(0, 4, 48, 6, 7, 2, card)
+    x16, dy16 = x.to(torch.bfloat16), dy.to(torch.bfloat16)
+    out, xsave, stats = fused_train.span_train_forward_bf16(x16, rows, 2)
+    with pytest.raises(ValueError, match="bfloat16"):
+        fused_train.span_train_forward_bf16(x, rows, 2)       # f32 x
+    with pytest.raises(ValueError, match="float32"):
+        fused_train.span_train_forward(x16, rows, 2)          # bf16 x
+    with pytest.raises(ValueError, match="weights"):
+        fused_train.span_train_forward_bf16(x16, rows.to(torch.bfloat16), 2)
+    with pytest.raises(ValueError, match="group"):
+        fused_train.span_train_forward_bf16(x16, rows, 3)
+    with pytest.raises(ValueError, match="bfloat16"):
+        fused_train.span_train_backward_bf16(dy, xsave, stats, rows, 2)
+    with pytest.raises(ValueError, match="tensor"):
+        fused_train.span_train_backward_bf16(dy16, xsave.float(), stats,
+                                             rows, 2)
+
+
+@pytest.mark.parametrize("case", [STEM_TRAIN_CASES[i] for i in (0, 1, 3, 6)],
+                         ids=["b128_352_g1", "b8_352_g4", "b4_96_ties",
+                              "b4_96_g2_ties_signed"])
+def test_stem_train_bf16_kernels_match_plain(card, case):
+    """B7's bf16 form against its plain bf16 version: y bf16 within one
+    bf16 ULP and y and z bit for bit the plain conv, rounded BN + ReLU and
+    pool with the kernel's stats, the stats within 5e-5; dW, dγ, dβ within
+    2⁻⁶ of max |value| on the same bf16 dy, x, stats and z; one counted
+    launch each; a second backward gives the same bits."""
+    b, hgt, wid, g, tie, signed = case
+    h4, w4 = hgt // 4, wid // 4
+    x, w_raw, gamma, beta, dy = stem_train_case(sum(case) + 1, b, hgt, wid,
+                                                tie, card, signed)
+    w = (w_raw * (1.0 / 255.0)).contiguous()
+    dy = dy.to(torch.bfloat16)
+    before = (stem_train.stem_train_forward_bf16.launches,
+              stem_train.stem_train_backward_bf16.launches)
+    y, stats, z = stem_train.stem_train_forward_bf16(x, w, gamma, beta, h4,
+                                                     w4, g)
+    ry, rstats = stem_train.stem_train_forward_reference(x, w, gamma, beta,
+                                                         h4, w4, g, True)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16 and z.dtype == stats.dtype == \
+        torch.float32
+    assert _bf16_ulps(y, ry) <= 1
+    for k in range(3):
+        assert _rel16(stats[..., k], rstats[..., k]) <= 5e-5
+    u = stem_train._conv(stem_train._image(x, h4, w4, w.dtype),
+                         stem_train._rounded(w, True))
+    bn, _ = stem_train._bn_parts(u, stats, gamma, beta, g)
+    assert torch.equal(y, F.max_pool2d(torch.relu(bn).to(torch.bfloat16), 3,
+                                       2, 1))
+    assert torch.equal(z, stem_train.pooled_extreme(u, gamma))
+    grads = stem_train.stem_train_backward_bf16(dy, x, stats, w, gamma,
+                                                beta, h4, w4, g, z)
+    refs = stem_train.stem_train_backward_reference(dy, x, stats, w, gamma,
+                                                    beta, h4, w4, g, True)
+    torch.cuda.synchronize()
+    assert (stem_train.stem_train_forward_bf16.launches,
+            stem_train.stem_train_backward_bf16.launches) == (
+                before[0] + 1, before[1] + 1)
+    for name, got, want in zip(("dW", "dgamma", "dbeta"), grads, refs):
+        assert _rel16(got, want) <= 2 ** -6, name
+    again = stem_train.stem_train_backward_bf16(dy, x, stats, w, gamma, beta,
+                                                h4, w4, g, z)
+    assert all(torch.equal(a, b_) for a, b_ in zip(grads, again))
+
+
+def test_stem_train_bf16_wrappers_check_their_inputs(card):
+    x, w_raw, gamma, beta, dy = stem_train_case(0, 4, 32, 48, device=card)
+    w = (w_raw * (1.0 / 255.0)).contiguous()
+    y, stats, z = stem_train.stem_train_forward_bf16(x, w, gamma, beta, 8,
+                                                     12, 2)
+    assert y.dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="w as"):
+        stem_train.stem_train_forward_bf16(x, w.to(torch.bfloat16), gamma,
+                                           beta, 8, 12, 2)
+    with pytest.raises(ValueError, match="group"):
+        stem_train.stem_train_forward_bf16(x, w, gamma, beta, 8, 12, 3)
+    with pytest.raises(ValueError, match="dy"):
+        stem_train.stem_train_backward_bf16(dy, x, stats, w, gamma, beta, 8,
+                                            12, 2, z)        # f32 dy
+    with pytest.raises(ValueError, match="dy"):
+        stem_train.stem_train_backward(dy.to(torch.bfloat16), x, stats, w,
+                                       gamma, beta, 8, 12, 2, z)
+    with pytest.raises(ValueError, match="z as"):
+        stem_train.stem_train_backward_bf16(dy.to(torch.bfloat16), x, stats,
+                                            w, gamma, beta, 8, 12, 2, z[:2])
+
+
+def test_bf16_trainer_on_the_card_matches_its_plain_versions(card):
+    """`Trainer(compute_dtype=bf16)` in the fused s2d mode at b4 96² on the
+    card: the bf16 kernels launch (B7 once each way, B8 three times) and
+    the step's loss is within 2⁻⁵ of the same step on the CPU, whose spans
+    and stem run the plain bf16 versions."""
+    cfg = Config.from_dict({"classes": 80, "width": 96, "height": 96,
+                            "anchor_num": 3,
+                            "anchors": [4.0, 6.0, 9.0, 12.0, 16.0, 24.0,
+                                        24.0, 16.0, 32.0, 40.0, 52.0, 48.0],
+                            "learning_rate": 0.01, "steps": [1000],
+                            "subdivisions": 1, "batch_size": 4,
+                            "epochs": 1})
+    from fastdet_torch.train.trainer import Trainer
+    rng = np.random.default_rng(7)
+    images = rng.integers(0, 256, (4, 96, 96, 3), dtype=np.uint8)
+    labels = np.zeros((4, 4, 5), np.float32)
+    labels[:, 0] = [3, 0.4, 0.5, 0.3, 0.4]
+    mask = np.zeros((4, 4), bool)
+    mask[:, 0] = True
+    x = fused_infer.pack_images_s2d(images)
+    losses = {}
+    for dev in (card, torch.device("cpu")):
+        model = Detector(80, 3, dtype=torch.bfloat16)
+        model.load_state_dict(load_state_dict(REF_NPZ))
+        tr = Trainer(model, cfg, 1, device=dev, fused_backbone=True,
+                     fused_input_format="s2d_u8",
+                     compute_dtype=torch.bfloat16)
+        before = (stem_train.stem_train_forward_bf16.launches,
+                  fused_train.span_train_backward_bf16.launches)
+        losses[dev.type] = float(tr.step(x, labels, mask)["total"])
+        if dev.type == "cuda":
+            assert (stem_train.stem_train_forward_bf16.launches,
+                    fused_train.span_train_backward_bf16.launches) == (
+                        before[0] + 1, before[1] + 3)
+    assert abs(losses["cuda"] - losses["cpu"]) <= 2 ** -5 * abs(
+        losses["cpu"])

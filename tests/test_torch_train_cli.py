@@ -27,6 +27,7 @@ from fastdet_torch.config import Config
 from fastdet_torch.io import load_state_dict
 from fastdet_torch.models import Detector
 from fastdet_torch.serve import DevicePipeline
+from torch_cases import FEW_THREADS
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WEIGHTS = os.path.join(REPO, "weights", "coco2017-ref.npz")
@@ -36,6 +37,7 @@ def run(args, timeout=600, env_extra=None):
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
     env.pop("PYTHONPATH", None)
+    env.update(FEW_THREADS)
     env.update(env_extra or {})
     return subprocess.run([sys.executable, *args], capture_output=True,
                           text=True, timeout=timeout, env=env, cwd=REPO)
@@ -153,7 +155,7 @@ def test_fused_backbone_cli_trains(train_world, port_run, tmp_path):
 
 
 @pytest.mark.parametrize("extra,env,label", [
-    (("--bf16",), None, "A1"),
+    (("--chain", "0"), None, "--chain must be"),
     (("--fused-backbone", "--model", "anchorfree"), None,
      "--fused-backbone supports the yolo-fastestv2 family only"),
     ((), {"FASTDET_NUM_PROCESSES": "2"}, "A12"),

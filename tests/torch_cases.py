@@ -15,6 +15,15 @@ largest |coordinate|:
 
 import numpy as np
 
+# Thread pools of a test's subprocess: two threads for torch's OpenMP pool
+# and XLA's Eigen pool.  The suite runs in parallel workers; a full-width
+# pool in each subprocess oversubscribes the CPU, and the f64 training
+# parity subprocesses then ran 15× their time alone (~45 s each with
+# these limits or without them, alone).
+FEW_THREADS = {"OMP_NUM_THREADS": "2",
+               "XLA_FLAGS": "--xla_cpu_multi_thread_eigen=false "
+                            "intra_op_parallelism_threads=2"}
+
 from fastdet_torch.ops.postprocess import _geo_table
 
 NC = 80
@@ -239,6 +248,56 @@ def span_train_grad_errs(dx, drows, rdx, rdrows):
             out.append((f"blk{i}.{name}",)
                        + grad_err(drows[i, lo:hi], rdrows[i, lo:hi], scale))
     return out
+
+
+BF16_TRAIN_RTOL = 2.0 ** -6
+
+
+def span_train_rel_errs(dx, drows, rdx, rdrows):
+    """{leaf: max |Δ| / scale} of a B8 backward against another: dx and
+    each block's fields over their own max |value|, β2 (0 in exact
+    arithmetic, see `span_train_grad_errs`) over its block's largest
+    BN-parameter gradient."""
+    from fastdet_torch.kernels.fused_train import row_sections
+    rdx = rdx.double()
+    out = {"dx": float((dx.double() - rdx).abs().max() / rdx.abs().max())}
+    secs = row_sections(dx.shape[1] // 2)
+    for i in range(drows.shape[0]):
+        got, want = drows[i].double(), rdrows[i].double()
+        bn_scale = float(want[secs[3][1]:].abs().max())
+        for name, lo, hi in secs:
+            scale = bn_scale if name == "b2" else float(
+                want[lo:hi].abs().max())
+            out[f"blk{i}.{name}"] = (float((got[lo:hi] - want[lo:hi]).abs()
+                                           .max()) / max(scale, 1e-30))
+    return out
+
+
+def span16_backward_errs(got, dy, xsave, stats, rows, g, witness=False):
+    """B8's bf16 backward `got` = (dx, drows) against its plain version on
+    the same bf16 dy, saved inputs and stats → ({leaf: (err, bound)}, the
+    plain version's (dx, drows)), err as `span_train_rel_errs`, bound
+    BF16_TRAIN_RTOL.  `witness`: an
+    ill-conditioned case, where two correct sum orders of the bf16
+    function flip roundings and ReLU masks that a deep span carries far;
+    there a leaf's bound is twice the plain version's own distance on
+    that leaf from the same function with every sum in f64, where that is
+    the larger.  The seeded weights of `span_train_case` at stage 3, b128
+    (7 blocks) are such a case: the plain version's f32 sums on the card
+    stood 5.0% of dγ1's max |value| from its f64 sums and 5.2% from its
+    own f32 sums on the CPU, the kernel 5.7% from it (smoke phase 10
+    prints the three)."""
+    import torch
+    from fastdet_torch.kernels.fused_train import \
+        span_train_backward_reference as plain
+    p32 = plain(dy, xsave, stats, rows, g)
+    errs = span_train_rel_errs(*got, *p32)
+    if not witness:
+        return {k: (e, BF16_TRAIN_RTOL) for k, e in errs.items()}, p32
+    spread = span_train_rel_errs(*p32, *plain(dy, xsave, stats, rows, g,
+                                              torch.float64))
+    return {k: (e, max(BF16_TRAIN_RTOL, 2 * spread[k]))
+            for k, e in errs.items()}, p32
 
 
 # (b, H, W, group, tie, signed): the training stem B7 at the main path's
