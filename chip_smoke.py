@@ -149,7 +149,8 @@ Phases:
      B10, B2, B9) against their plain versions at the f32 phases' shape
      classes (stems within one bf16 ULP, stages within 2⁻⁶ of the output's
      max |value|; max |Δ| and the share of equal elements), each call's
-     launches held to `stem_plan` / `span16_plan`;
+     launches held to `stem_plan` / `span16_plan` and each stage plan's
+     shared memory to the kernel's (`fastdet_span16_smem`);
      `FusedPipeline(dtype=None)` behind the HTTP server (phase 4's 12
      concurrent /detect_raw requests, the bf16 kernels' launches counted
      from 0), its detections and its b128 352² detections held to the JAX
@@ -1106,6 +1107,19 @@ def stage_split(fn, wrapper, what: str, plan, tries: int = 5):
         f"{plan.variant}, cluster {plan.cluster}, {plan.rows} rows per CTA, "
         f"{plan.ctas} CTAs of {plan.threads} threads, {plan.smem_bytes} B "
         f"of shared memory each", tries)
+
+
+def stage16_split(fn, wrapper, what: str, plan, tries: int = 5):
+    """One bf16 stage call of B2 or B9 held to `span16_plan`
+    (`kernel_launch_split`: its launches, all of the bf16 stage kernel)."""
+    from fastdet_torch.kernels.fused_infer import SPAN16_KERNEL
+    return kernel_launch_split(
+        fn, wrapper, what, plan.launches, SPAN16_KERNEL,
+        f"{plan.variant}, cluster {plan.cluster}, {plan.rows} rows per CTA"
+        + (f" in chunks of {plan.orows} for the stride-2 block"
+           if plan.orows else "")
+        + f", {plan.ctas} CTAs of {plan.threads} threads, "
+        f"{plan.smem_bytes} B of shared memory each", tries)
 
 
 def stem_split(fn, wrapper, what: str, plan, tries: int = 5):
@@ -3321,19 +3335,17 @@ def library16_weights(p, stage, nblk):
     k1, kc = fi._pad16(m) * m, fi._pad16(9 * m) * m
     b16 = torch.bfloat16
 
-    def mats(w, b, has_wp):
-        w1 = fi._frag_matrix(w[:k1], m, m)[:, :, None, None].to(b16)
-        wc = fi._tap_conv_weight(fi._frag_matrix(w[k1:k1 + kc], m, 9 * m),
-                                 m).to(b16)
-        out = [w1, b[:m].to(b16), wc, b[m:2 * m].to(b16)]
-        if has_wp:
-            out += [fi._tap_conv_weight(fi._frag_matrix(w[k1 + kc:], m,
-                                                        9 * m), m).to(b16),
-                    b[2 * m:].to(b16)]
-        return out
-    span = [mats(p[f"s{stage}_span16"][k], p[f"s{stage}_span16_b"][k],
-                 False) for k in range(nblk)]
-    return span, mats(p[f"s{stage}_s2_16"], p[f"s{stage}_s2_16_b"], True)
+    def mats(w1, wc, b):
+        return [w1[:, :, None, None].to(b16), b[:m].to(b16),
+                fi._tap_conv_weight(wc, m).to(b16), b[m:2 * m].to(b16)]
+    span = [mats(*fi.span16_matrices(p[f"s{stage}_span16"][k], m, k),
+                 p[f"s{stage}_span16_b"][k]) for k in range(nblk)]
+    w, b = p[f"s{stage}_s2_16"], p[f"s{stage}_s2_16_b"]
+    s2 = mats(fi._frag_matrix(w[:k1], m, m), fi._frag_matrix(
+        w[k1:k1 + kc], m, 9 * m), b) + [
+            fi._tap_conv_weight(fi._frag_matrix(w[k1 + kc:], m, 9 * m),
+                                m).to(b16), b[2 * m:].to(b16)]
+    return span, s2
 
 
 def phase_bf16(sd, photo, card, images, big, fused_pipe, af_sd):
@@ -3353,6 +3365,7 @@ def phase_bf16(sd, photo, card, images, big, fused_pipe, af_sd):
     import dataclasses
     import torch
     from fastdet_torch.config import Config, load_names, resolve_path
+    from fastdet_torch.kernels import _build
     from fastdet_torch.kernels import fused_infer as fi
     from fastdet_torch.kernels import pp_fused
     from fastdet_torch.kernels.fold import STAGES
@@ -3361,6 +3374,7 @@ def phase_bf16(sd, photo, card, images, big, fused_pipe, af_sd):
     from torch_cases import (S2SPAN_CASES, SPAN_CASES, STEM8_CASES,
                              STEM_CASES, s2span_case, stem8_case, stem_case)
     b16 = torch.bfloat16
+    span_lib = _build.load("span", fi._SPAN_SIGNATURES)
     reps = {s: r for s, r, _ in STAGES}
     chans = {s: c for s, _, c in STAGES}
     cfg = Config.from_file(DATA)
@@ -3425,6 +3439,15 @@ def phase_bf16(sd, photo, card, images, big, fused_pipe, af_sd):
                 fn, ref = fi.s2span_bf16, fi.s2span_reference_bf16
             got = launched(fn, lambda: fn(x, *args), plan.launches,
                            f"{what} {case}")
+            win = x.shape[3] if what == "s2span_bf16" else 0
+            for rows, halo, s2, orows in plan.layouts:
+                smem = span_lib.fastdet_span16_smem(
+                    chans[stage] // 2, rows, got.shape[3], halo, int(s2),
+                    win, orows)
+                check(smem <= plan.smem_bytes and (
+                    len(plan.layouts) > 1 or smem == plan.smem_bytes),
+                    f"{what} {case}: the kernel's {smem} B of shared "
+                    f"memory, the plan's {plan.smem_bytes}")
             want = ref(x, *args)
             e = float((got.float() - want.float()).abs().max())
             rel = e / float(want.float().abs().max())
@@ -3436,7 +3459,8 @@ def phase_bf16(sd, photo, card, images, big, fused_pipe, af_sd):
         log(f"  {what} against its plain version at {len(cases)} shapes: "
             f"max |Δ| ≤ {worst[0]:.3g} of the output's max |value| (≤ "
             f"2^-6), ≥ {worst[1]:.5f} of the elements equal, max |Δ| "
-            f"{err[what]:.3g}; launches a call as `span16_plan`")
+            f"{err[what]:.3g}; launches a call and shared memory as "
+            f"`span16_plan`")
 
     # the bf16 convs of the parts the JAX package leaves to XLA: cuDNN's
     # bf16 conv against the f32 conv of the same bf16 values, rounded
@@ -3468,12 +3492,12 @@ def phase_bf16(sd, photo, card, images, big, fused_pipe, af_sd):
     answers, served, stats, serve_launches = serve_concurrently(
         pipe, images, cfg, names,
         [fi.stem_s2d_bf16, fi.span_bf16, pp_fused.rank_decode_nms])
-    want13 = 1 + sum(fi.span16_plan(1, c, 88 >> i, 88 >> i, r - 1).launches
+    per_batch = 1 + sum(fi.span16_plan(1, c, 88 >> i, 88 >> i, r - 1).launches
                      for i, (_, r, c) in enumerate(STAGES, 1))
-    check(serve_launches["stem_s2d_bf16"] * (want13 - 1)
+    check(serve_launches["stem_s2d_bf16"] * (per_batch - 1)
           == serve_launches["span_bf16"],
           f"served launches {serve_launches}: not 1 stem to "
-          f"{want13 - 1} span launches a batch")
+          f"{per_batch - 1} span launches a batch")
     pairs, wide, excused, bad, equal = bf16_contract(
         served, fused_pipe(images), 0.3, 0.45)
     check(not bad, f"bf16 served detections: {bad}")
@@ -3528,7 +3552,7 @@ def phase_bf16(sd, photo, card, images, big, fused_pipe, af_sd):
         log("  the bf16 kernels inside a b128 batch (torch.profiler, ms a "
             "batch): " + ", ".join(
                 f"{name} {inside.get(name, 0.0):.4f}" for name in (
-                    "stem_kernel", "span_bf16_kernel",
+                    "stem_kernel", fi.SPAN16_KERNEL,
                     "rank_decode_nms_kernel")))
 
     # ---- 3. each kernel on the served batch's inputs: time, bound,
@@ -3584,6 +3608,11 @@ def phase_bf16(sd, photo, card, images, big, fused_pipe, af_sd):
                     f"input: kernel {t[0]:.4f} ms, plain {t[1]:.4f}, cuDNN "
                     f"bf16 {t[2]:.4f}, bound {bnd[0]:.4f} ({bnd[1]}), "
                     f"max |Δ| {e:.3g}")
+                s2 = fn is fi.s2span_bf16
+                stage16_split(lambda: fn(inp, *aa), fn,
+                              f"{fn.__name__} s{sid} b128",
+                              fi.span16_plan(128, c, hw, hw, r - 1, s2,
+                                             2 * hw if s2 else 0))
             x = fi.span_bf16(xb, *a)
             xs2 = fi.s2span_bf16(xs2, *a2)
         for name, acc in (("span_bf16", span_t), ("s2span_bf16", s2_t)):
@@ -3712,7 +3741,7 @@ def phase_bf16(sd, photo, card, images, big, fused_pipe, af_sd):
         torch.cuda.synchronize()
         af_launches = {"stem_s2d_bf16": fi.stem_s2d_bf16.launches,
                        "span_bf16": fi.span_bf16.launches}
-        check(af_launches == {"stem_s2d_bf16": 1, "span_bf16": want13 - 1},
+        check(af_launches == {"stem_s2d_bf16": 1, "span_bf16": per_batch - 1},
               f"anchor-free bf16 launches {af_launches}")
         fwd_af, p_af = fi.build_fused_forward(af_sd, dtype=b16,
                                               head="anchorfree")

@@ -97,31 +97,33 @@ int fastdet_s2span(const float* x, float* out, float* tmp, const float* wts,
 // bf16 -> out (B, 2*CIN, ceil(hin/2), ceil(win/2)) bf16: the stride-2
 // block, concat[bf16(ReLU(Wp . taps_s2(x) + bp)), bf16(ReLU(Wc .
 // taps_s2(y) + bc))] with y = bf16(ReLU(pw1(x) + b1)) and both dw3x3 s2
-// composed with their pointwise convs (span_block.cuh, the bf16 stage), in
-// one launch over bands of rows_s2 rows, then nblk span blocks as
-// fastdet_span_bf16 runs them (bands of `rows`).  w_s2 / b_s2: the
+// composed with their pointwise convs, then nblk span blocks as
+// fastdet_span_bf16 runs them (span_block.cuh, the bf16 stage kernel).
+// "stage": one launch, the stride-2 block the prologue of the span over
+// chunks of `orows` output rows; "per block": the stride-2 block alone in
+// bands of rows_s2 rows, then the span a launch a block.  w_s2 / b_s2: the
 // stride-2 block's fold.pack_s2_16 weights and biases; w_span / b_span:
-// the span's (may be null when nblk = 0); tmp: scratch of out's shape.
-// Returns a cudaError_t (0 = launched).
+// the span's (may be null when nblk = 0); weights 16-byte aligned; tmp:
+// scratch of out's shape.  Returns a cudaError_t (0 = launched).
 int fastdet_s2span_bf16(const __nv_bfloat16* x, __nv_bfloat16* out,
                         __nv_bfloat16* tmp, const uint16_t* w_s2,
                         const float* b_s2, const uint16_t* w_span,
                         const float* b_span, int b, int cin, int hin,
-                        int win, int nblk, int rows_s2, int rows,
-                        void* stream) {
+                        int win, int nblk, int rows, int rows_s2, int orows,
+                        int cluster, int per_block, void* stream) {
   if (b < 1 || b > 65535 || hin < 1 || win < 1 || nblk < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (cin) {
     case 24: return launch_s2span16<24>(x, out, tmp, w_s2, b_s2, w_span,
-                                        b_span, b, hin, win, nblk, rows_s2,
-                                        rows, s);
+                                        b_span, b, hin, win, nblk, rows,
+                                        rows_s2, orows, cluster, per_block, s);
     case 48: return launch_s2span16<48>(x, out, tmp, w_s2, b_s2, w_span,
-                                        b_span, b, hin, win, nblk, rows_s2,
-                                        rows, s);
+                                        b_span, b, hin, win, nblk, rows,
+                                        rows_s2, orows, cluster, per_block, s);
     case 96: return launch_s2span16<96>(x, out, tmp, w_s2, b_s2, w_span,
-                                        b_span, b, hin, win, nblk, rows_s2,
-                                        rows, s);
+                                        b_span, b, hin, win, nblk, rows,
+                                        rows_s2, orows, cluster, per_block, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

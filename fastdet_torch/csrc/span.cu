@@ -58,25 +58,28 @@ int fastdet_span(const float* x, float* out, float* tmp, const float* wts,
 // out bf16 through nblk blocks, each y = bf16(ReLU(pw1(x_odd) + b1)),
 // z = bf16(ReLU(Wc . taps(y) + bc)) with dw3x3 and pw2 composed into one
 // (MID, 9*MID) bf16 matrix, out = concat[x_even, z] (span_block.cuh, the
-// bf16 stage).  One launch a block over bands of `rows` rows
-// (fused_infer.span16_plan); tmp is a scratch tensor of x's shape (nblk >
-// 1).  wts: (nblk, fold.span16_elems(MID)) bf16 in fold.mma_fragments
-// order, 8-byte aligned; bias (nblk, 2*MID) f32; all on the card.  Returns
-// a cudaError_t (0 = launched).
+// bf16 stage kernel).  One launch ("stage": a cluster of `cluster` bands
+// an image) or one a block ("per block", bands of `rows` rows that compute
+// their halo rows' pw1), as fused_infer.span16_plan says; tmp is a scratch
+// tensor of x's shape (per block, nblk > 1).  wts: (nblk,
+// fold.span16_elems(MID)) bf16 (fold.pack_span16: pw1 over the block's
+// slots, then Wc, in fold.mma_fragments order), 16-byte aligned; bias
+// (nblk, 2*MID) f32; all on the card.  Returns a cudaError_t (0 =
+// launched).
 int fastdet_span_bf16(const __nv_bfloat16* x, __nv_bfloat16* out,
                       __nv_bfloat16* tmp, const uint16_t* wts,
                       const float* bias, int b, int c, int h, int w, int nblk,
-                      int rows, void* stream) {
+                      int rows, int cluster, int per_block, void* stream) {
   if (b < 1 || b > 65535 || h < 1 || w < 1 || nblk < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (c) {
     case 48: return launch_span16<24>(x, out, tmp, wts, bias, b, h, w, nblk,
-                                      rows, s);
+                                      rows, cluster, per_block, s);
     case 96: return launch_span16<48>(x, out, tmp, wts, bias, b, h, w, nblk,
-                                      rows, s);
+                                      rows, cluster, per_block, s);
     case 192: return launch_span16<96>(x, out, tmp, wts, bias, b, h, w, nblk,
-                                       rows, s);
+                                       rows, cluster, per_block, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

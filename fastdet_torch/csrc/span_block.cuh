@@ -594,54 +594,159 @@ int launch_span(const float* src, float* out, float* tmp, const float* wts,
 // packings; fused_infer.span_reference_bf16, s2span_reference_bf16).
 // bf16(Wc) is not bf16(pw2) . bf16(dw), so the bf16 stage runs the
 // composed product, an implicit GEMM of depth K = 9*MID, on the tensor
-// cores (mma.sync m16n8k16 bf16, f32 accumulate): M = pixels, N = MID
-// output channels.
+// cores (mma.sync m16n8k16 bf16, f32 accumulate): M = pixels, N = MID.
 //
-// One launch per block: a CTA takes a band of `rows` output rows of one
-// image, stages what the band needs of the block's input pixel-major in
-// shared memory (a pixel's channels contiguous, so that an A register, two
-// channels of one pixel at one tap, is one 4-byte load; the pixel stride
-// is padded so that a warp's A loads meet 32 banks), zero on rows off the
-// image:
-//   stride 1: the odd channels of rows r0-1 .. r0+rv (the depthwise halo);
-//             pw1 + ReLU into Y (rows off the image 0: the conv's zero
-//             pad), then Wc over the 9 taps of Y into channels MID..C-1
-//             of the output band; the even channels are copied across;
-//   stride 2: all CIN channels of input rows 2*r0-1 .. 2*(r0+rv)-1; pw1 +
-//             ReLU into Y on the input grid, then per output pixel Wc over
-//             Y's and Wp over X's stride-2 taps.
-// The B operand (the weights) is read from device memory through L1 in
-// the lanes' fragment order (fold.mma_fragments), one 8-byte load per
-// lane, k-step and n-tile, shared by the MT m-tiles a warp takes at once.
+// One launch a stage call (span16_stage_kernel), as the f32 stage kernel:
+// a CTA holds a band of `rows` output rows of one image, all C = 2*MID
+// channels, in shared memory for all nblk blocks; the CTAs of an image
+// form a thread-block cluster, and the depthwise halo (pw1's output on the
+// rows beyond the band) comes from the neighbours over distributed shared
+// memory with the two-barrier scheme of the f32 kernel.  The passthrough
+// half never moves.  Shared memory, pixel-major (a pixel's channels
+// contiguous, its stride an odd number of 16-byte units, so that the 8
+// rows of an ldmatrix meet distinct banks):
+//   X  the band, C slots a pixel;
+//   Y  pw1's output, MID channels, the band's rows and the row above and
+//      below, one zero column on each side (the conv's zero pad), so that
+//      every tap's A row is the pixel's address plus a constant;
+//   a ring of two chunks of B fragments, streamed by cp.async;
+//   16 zero bytes, the A row of K past 9*MID, and past MID in the
+//   stride-2 pw1 (both at MID = 24).
+// Each GEMM (M pixels, N = MID, K = C, 9*MID or pad16(MID)) gives a warp
+// MT m-tiles by NTW n-tiles at once: per k-step one ldmatrix.x4 an m-tile
+// and one 8-byte shared load a lane an n-tile, each B fragment feeding MT
+// MMAs and each A fragment NTW.  M-tile i of a pass goes to warp row
+// i % WM, so that a small M (a stride-2 chunk) spreads over the warps; at
+// MID 96 two warp columns split N, so that stage 4's 121 pixels an image
+// (8 m-tiles) keep all 8 warps busy.  The weights stream through the ring in
+// chunks of KC k-steps, the next chunk (of this GEMM, its next pass, or
+// the next GEMM) loading while the current one is multiplied.  A band
+// larger than a pass (CAP m-tiles) is multiplied in passes, the weights
+// streamed again for each.  The 9 taps are unrolled: a lane's A address is
+// its pixel's plus a compile-time tap offset.
+//
+// The channel shuffle: the weights carry it (fold.pack_span16).  Logical
+// channel l of block k lies in slot P_k(l): P_0 the identity, then the
+// passthrough keeps its slots (P_{k+1}(j) = P_k(2j)) and z_r is written
+// where pw1's input 2r + 1 was (P_{k+1}(MID + r) = P_k(2r + 1)).  pw1 runs
+// over all C slots with the composed `wa`'s top half, whose even columns
+// are 0 (as the JAX package's pw1 is), its columns permuted by P_k on the
+// host; z's epilogue stores by the table P_k(2r + 1), kept in shared
+// memory (lmap); staging and the output go through its inverse.
+//
+// The stride-2 block (S2) is the launch's prologue: over chunks of `orows`
+// output rows, the 2*orows + 1 input rows staged pixel-major with zero
+// columns (XI), pw1 into YI (zero off the image), then Wp over XI's and Wc
+// over YI's stride-2 taps into the band's slots (proj j in slot j, main in
+// MID + j: P_0).  Where no cluster of 8 holds an image the plan launches
+// this kernel once a block (halo 2: the band stages the rows above and
+// below and computes their pw1 itself), and the stride-2 block alone.
+//
+// What bounds it on this card: at 352² b128 the spans (3/7/3 blocks)
+// 0.0142 ms by bytes at stage 2 (the activation read and written once) and
+// 0.0202 / 0.0087 ms by bf16 tensor-core operations at stages 3 and 4
+// (pw1 over all C slots adds a tenth to the operations).  The card reads
+// the mma.sync loops, the epilogues and, at stage 2, the staging of the
+// NCHW input as most of the time (fastdet_torch.kernels.stage_phases).
 // Rounding points are the JAX package's: the f32 bias is added to the f32
 // accumulator, then ReLU, then one rounding to bf16.
 
 constexpr int kThreads16 = 256;
 constexpr int kWarps16 = kThreads16 / 32;
-constexpr int kMTiles16 = 2;       // m-tiles of 16 pixels a warp at once
 
 __host__ __device__ constexpr int pad16(int n) { return (n + 15) & ~15; }
 
-// bf16 elements between two pixels of a pixel-major buffer of `mid`
-// channels: 2 * words with words = 4 modulo 8 (8 pixels x 4 pairs of a
-// warp's A load fall in distinct banks)
-__host__ __device__ constexpr int px_stride16(int mid) {
-  return 2 * (mid / 2 + ((12 - (mid / 2) % 8) % 8));
+// the stride (bf16) of a pixel of n channels (n a multiple of 8): an odd
+// number of 16-byte units
+__host__ __device__ constexpr int odd16(int n) {
+  return ((n / 8) & 1) ? n : n + 8;
 }
 
-// Shared memory (bytes) of one CTA: X and Y, each `npix` pixels of
-// px_stride16(mid) bf16: rows + 2 rows of w (stride 1) or 2*rows + 1 rows
-// of win (stride 2)
-__host__ __device__ inline size_t span16_smem_bytes(int mid, int rows, int w,
-                                                    int s2, int win) {
-  const size_t npix =
-      s2 ? (size_t)(2 * rows + 1) * win : (size_t)(rows + 2) * w;
-  return 2 * npix * px_stride16(mid) * sizeof(__nv_bfloat16);
+// k-steps of B a ring chunk holds
+__host__ __device__ constexpr int kc16(int mid) {
+  return mid == 24 ? 14 : mid == 48 ? 9 : 6;
+}
+
+template <int MID>
+struct Cfg16 {
+  static constexpr int C = 2 * MID;
+  static constexpr int NT = MID / 8;               // n-tiles of 8 channels
+  static constexpr int NTW = NT < 6 ? NT : 6;      // n-tiles a warp
+  static constexpr int WN = NT / NTW;              // warps along N
+  static constexpr int WM = kWarps16 / WN;         // warps along M
+  static constexpr int MT = MID == 96 ? 2 : 4;     // m-tiles a warp at once
+  static constexpr int CAP = WM * MT;              // m-tiles a pass
+  static constexpr int KC = kc16(MID);
+  static constexpr int KSB = MID * 32;             // bytes of a k-step's B
+  static constexpr int PSX = odd16(C);
+  static constexpr int PSY = odd16(MID);
+  static constexpr int KS1 = C / 16;               // the span's pw1
+  static constexpr int KSC = pad16(9 * MID) / 16;  // a composed 3x3
+  static constexpr int KS1S = pad16(MID) / 16;     // the stride-2 pw1
+  static constexpr int ELEMS = (C + pad16(9 * MID)) * MID;  // a span block
+};
+
+// Byte offsets into a CTA's shared memory (bytes 0-15 are zeros).
+struct Layout16 {
+  int lmap;    // 2 x C int16: the slot of each logical channel, by k parity
+  int inv;     // C int16: the logical channel of each slot
+  int ring;    // two chunks of B fragments
+  int x;       // X: (rows, + 2 with halo 2) x w pixels of odd16(C)
+  int u;       // Y, (rows + 2) x (w + 2) pixels of odd16(MID); or XI (S2)
+  int yi;      // YI (S2): after XI's (2*orows + 1) x (win + 2) pixels,
+               // both of odd16(MID)
+  int bytes;   // total
+};
+
+__host__ __device__ inline Layout16 span16_layout(int mid, int rows, int w,
+                                                  int halo, int s2, int win,
+                                                  int orows) {
+  const int c = 2 * mid;
+  Layout16 L{};
+  L.lmap = 16;
+  L.inv = L.lmap + 4 * c;
+  L.ring = L.inv + 2 * c;
+  L.x = L.ring + 2 * kc16(mid) * mid * 32;
+  L.u = L.x + (rows + (halo == 2 ? 2 : 0)) * w * odd16(c) * 2;
+  const int ybytes = (rows + 2) * (w + 2) * odd16(mid) * 2;
+  int pbytes = 0;
+  L.yi = L.u;
+  if (s2) {
+    const int npi = (2 * orows + 1) * (win + 2);
+    L.yi = L.u + npi * odd16(mid) * 2;
+    pbytes = 2 * npi * odd16(mid) * 2;
+  }
+  L.bytes = L.u + (ybytes > pbytes ? ybytes : pbytes);
+  return L;
 }
 
 __device__ __forceinline__ unsigned char* dyn_smem16() {
   extern __shared__ uint4 smem_u4[];
   return reinterpret_cast<unsigned char*>(smem_u4);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp_async16_to(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait0() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(addr));
 }
 
 __device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
@@ -653,333 +758,564 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
 }
 
-// acc[mt][n] += A . B over K = KTOT (padded to 16 with zero A), for the
-// warp's kMTiles16 m-tiles: a_pair(mt, r, k) is the lane's A register of
-// m-tile mt, row g + 8r, columns k and k+1 (two bf16, lo = k); frag is the
-// B operand in fold.mma_fragments order.
-template <int MID, int KTOT, class APair>
-__device__ __forceinline__ void gemm16(float (&acc)[kMTiles16][MID / 8][4],
-                                       const uint2* __restrict__ frag,
-                                       APair a_pair) {
-  constexpr int KS = pad16(KTOT) / 16;
-  constexpr int NT = MID / 8;
-  const int lane = threadIdx.x & 31, tig = lane & 3;
-#pragma unroll 2
-  for (int s = 0; s < KS; ++s) {
-    uint32_t a[kMTiles16][4];
+__device__ __forceinline__ __nv_bfloat162 relu_bias16(float a, float b,
+                                                      float2 bias) {
+  return __floats2bfloat162_rn(fmaxf(a + bias.x, 0.f),
+                               fmaxf(b + bias.y, 0.f));
+}
+
+// The first of the lane's output columns in a GEMM's epilogue: o0 + 8n
+// + {0, 1} for its n-tiles n < NTW (`gemm16`).
+template <int MID>
+__device__ __forceinline__ int lane_col0() {
+  using K = Cfg16<MID>;
+  return (threadIdx.x >> 5) % K::WN * K::NTW * 8 + 2 * (threadIdx.x & 3);
+}
+
+// The lane's biases of a GEMM's columns, read before the GEMM so that the
+// epilogue waits on no load.
+template <int MID>
+struct Bias16 {
+  float2 v[Cfg16<MID>::NTW];
+  __device__ __forceinline__ explicit Bias16(const float* bias) {
+    const int o0 = lane_col0<MID>();
 #pragma unroll
-    for (int mt = 0; mt < kMTiles16; ++mt)
+    for (int n = 0; n < Cfg16<MID>::NTW; ++n)
+      v[n] = make_float2(__ldg(bias + o0 + 8 * n), __ldg(bias + o0 + 8 * n + 1));
+  }
+};
+
+// nks k-steps of B fragments (fold.mma_fragments order) into a ring chunk
+template <int MID>
+__device__ __forceinline__ void ring_issue(uint32_t dst, const uint16_t* src,
+                                           int nks) {
+  const int n16 = nks * (Cfg16<MID>::KSB / 16);
+  const char* s = reinterpret_cast<const char*>(src);
+  for (int i = threadIdx.x; i < n16; i += kThreads16)
+    cp_async16_to(dst + 16 * i, s + 16 * i);
+  cp_async_commit();
+}
+
+// The first chunk of the GEMM after this one (src null: none).
+struct Next16 {
+  const uint16_t* src;
+  int ks;
+};
+
+// The k-steps of ring chunk j for a warp's first NM m-tiles (NM known at
+// compile time, so that the whole chunk is one schedule).
+template <int MID, int KS, int NM, class AAddr>
+__device__ __forceinline__ void chunk16(
+    float (&acc)[Cfg16<MID>::MT][Cfg16<MID>::NTW][4],
+    const uint32_t (&base)[Cfg16<MID>::MT], const unsigned char* bbuf, int j,
+    int wn, int lane, AAddr a_addr) {
+  using K = Cfg16<MID>;
+  const int h = lane >> 4;
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int k = 16 * s + 8 * half + 2 * tig;
-        const bool in = (KTOT % 16 == 0) || k < KTOT;
-        a[mt][2 * half] = in ? a_pair(mt, 0, k) : 0u;
-        a[mt][2 * half + 1] = in ? a_pair(mt, 1, k) : 0u;
-      }
+  for (int ss = 0; ss < K::KC; ++ss) {
+    const int s = j * K::KC + ss;
+    if (s < KS) {
+      uint32_t a[NM][4];
+      uint2 b[K::NTW];
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      const uint2 b = __ldg(frag + (s * NT + n) * 32 + lane);
+      for (int mt = 0; mt < NM; ++mt)
+        ldmatrix_x4(a[mt], a_addr(base[mt], s, h));
 #pragma unroll
-      for (int mt = 0; mt < kMTiles16; ++mt)
-        mma_bf16_16816(acc[mt][n], a[mt], b);
+      for (int n = 0; n < K::NTW; ++n)
+        b[n] = *reinterpret_cast<const uint2*>(
+            bbuf + ((ss * K::NT + wn * K::NTW + n) * 32 + lane) * 8);
+#pragma unroll
+      for (int mt = 0; mt < NM; ++mt)
+#pragma unroll
+        for (int n = 0; n < K::NTW; ++n)
+          mma_bf16_16816(acc[mt][n], a[mt], b[n]);
     }
   }
 }
 
-template <int MID>
-__device__ __forceinline__ void zero_acc(float (&acc)[kMTiles16][MID / 8][4]) {
-#pragma unroll
-  for (int mt = 0; mt < kMTiles16; ++mt)
-#pragma unroll
-    for (int n = 0; n < MID / 8; ++n)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[mt][n][q] = 0.f;
-}
-
-__device__ __forceinline__ uint32_t bf16_pair_bits(__nv_bfloat16 lo,
-                                                   __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo)
-         | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-// The epilogue: out(pixel, o) = bf16(ReLU(acc + bias[o])) for the lane's
-// pixels m < npix (channels 8n + 2*tig + {0, 1}), handed to
-// put(pixel, o, pair) with the pair of channels o, o+1.
-template <int MID, class Put>
-__device__ __forceinline__ void epilogue16(
-    const float (&acc)[kMTiles16][MID / 8][4], const float* __restrict__ bias,
-    int m0, int npix, Put put) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, tig = lane & 3;
-#pragma unroll
-  for (int n = 0; n < MID / 8; ++n) {
-    const int o = 8 * n + 2 * tig;
-    const float b0 = __ldg(bias + o), b1 = __ldg(bias + o + 1);
-#pragma unroll
-    for (int mt = 0; mt < kMTiles16; ++mt)
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int m = (m0 + mt) * 16 + g + 8 * r;
-        if (m >= npix) continue;
-        put(m, o, __floats2bfloat162_rn(fmaxf(acc[mt][n][2 * r] + b0, 0.f),
-                                        fmaxf(acc[mt][n][2 * r + 1] + b1,
-                                              0.f)));
-      }
-  }
-}
-
-// pw1 + ReLU over `npix` staged pixels: Y[m] = bf16(ReLU(W1 . X[m] + b1)),
-// 0 where !live(m) (rows off the image: the depthwise conv's zero pad).
-template <int MID, int KIN, class Live>
-__device__ __forceinline__ void pw1_16(const __nv_bfloat16* sx,
-                                       __nv_bfloat16* sy, int npix,
-                                       const uint2* __restrict__ w1,
-                                       const float* __restrict__ b1,
-                                       Live live) {
-  constexpr int PS = px_stride16(MID);
+// One GEMM phase: for each of the npix pixels p (M) and MID columns o
+// (N), sum over KS k-steps of A(p, k) B(k, o), the B fragments streamed
+// from src through the ring (the phase's first chunk already issued into
+// ring chunk `cur`; the chunk after the phase's last is `next`'s first).
+// A pass takes CAP m-tiles, m-tile i of a pass to warp row i % WM, so
+// that a small M spreads over the warps.  a_base(p): the shared address
+// of p's A row; a_addr(base, s, h): the lane's row address at k-step s,
+// k-half h (columns 16s + 8h ..).  epi(p, o0, v, r): row r of the lane's
+// fragments for pixel p, columns o0 + 8n + {0, 1} in v[n][2r],
+// v[n][2r + 1].
+template <int MID, int KS, class ABase, class AAddr, class Epi>
+__device__ __forceinline__ void gemm16(unsigned char* ring, int& cur,
+                                       const uint16_t* src, int npix,
+                                       Next16 next, ABase a_base,
+                                       AAddr a_addr, Epi epi) {
+  using K = Cfg16<MID>;
+  constexpr int NCH = (KS + K::KC - 1) / K::KC;
+  constexpr int CHB = K::KC * K::KSB;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int mtiles = (npix + 15) / 16;
-  for (int m0 = warp * kMTiles16; m0 < mtiles; m0 += kWarps16 * kMTiles16) {
-    float acc[kMTiles16][MID / 8][4];
-    zero_acc<MID>(acc);
-    int q[kMTiles16][2];
+  const int wn = warp % K::WN, wm = warp / K::WN;
+  const int g = lane >> 2, tig = lane & 3;
+  const int mtiles = (npix + 15) >> 4;
+  const int npass = (mtiles + K::CAP - 1) / K::CAP;
+  const uint32_t ring_s = smem_u32(ring);
+  for (int pass = 0; pass < npass; ++pass) {
+    const int mt0 = pass * K::CAP + wm;      // then every WM-th
+    const int nmt = max(0, min(K::MT, (mtiles - mt0 + K::WM - 1) / K::WM));
+    uint32_t base[K::MT];
 #pragma unroll
-    for (int mt = 0; mt < kMTiles16; ++mt)
+    for (int mt = 0; mt < K::MT; ++mt)
+      base[mt] = a_base(
+          min((mt0 + mt * K::WM) * 16 + (lane & 15), npix - 1));
+    float acc[K::MT][K::NTW][4];
 #pragma unroll
-      for (int r = 0; r < 2; ++r)
-        q[mt][r] = min((m0 + mt) * 16 + g + 8 * r, npix - 1) * PS;
-    gemm16<MID, KIN>(acc, w1, [&](int mt, int r, int k) {
-      return *reinterpret_cast<const uint32_t*>(sx + q[mt][r] + k);
-    });
-    epilogue16<MID>(acc, b1, m0, npix,
-                    [&](int m, int o, __nv_bfloat162 v) {
-                      if (!live(m)) v = __floats2bfloat162_rn(0.f, 0.f);
-                      *reinterpret_cast<__nv_bfloat162*>(sy + m * PS + o) = v;
-                    });
+    for (int mt = 0; mt < K::MT; ++mt)
+#pragma unroll
+      for (int n = 0; n < K::NTW; ++n)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[mt][n][q] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NCH; ++j) {
+      cp_async_wait0();
+      __syncthreads();       // chunk j landed; all warps are done with cur^1
+      {
+        const uint16_t* nsrc = next.src;
+        int nks = next.ks;
+        if (j + 1 < NCH) {
+          nsrc = src + (size_t)(j + 1) * K::KC * MID * 16;
+          nks = KS - (j + 1) * K::KC;
+        } else if (pass + 1 < npass) {
+          nsrc = src;
+          nks = KS;
+        }
+        if (nsrc)
+          ring_issue<MID>(ring_s + (cur ^ 1) * CHB, nsrc,
+                          nks < K::KC ? nks : K::KC);
+      }
+      const unsigned char* bbuf = ring + cur * CHB;
+      if (nmt == K::MT)
+        chunk16<MID, KS, K::MT>(acc, base, bbuf, j, wn, lane, a_addr);
+      else if (K::MT > 3 && nmt == 3)
+        chunk16<MID, KS, (K::MT > 3 ? 3 : 1)>(acc, base, bbuf, j, wn, lane,
+                                              a_addr);
+      else if (K::MT > 2 && nmt == 2)
+        chunk16<MID, KS, (K::MT > 2 ? 2 : 1)>(acc, base, bbuf, j, wn, lane,
+                                              a_addr);
+      else if (nmt == 1)
+        chunk16<MID, KS, 1>(acc, base, bbuf, j, wn, lane, a_addr);
+      cur ^= 1;
+    }
+#pragma unroll
+    for (int mt = 0; mt < K::MT; ++mt)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int p = (mt0 + mt * K::WM) * 16 + g + 8 * r;
+        if (mt < nmt && p < npix)
+          epi(p, wn * K::NTW * 8 + 2 * tig, acc[mt], r);
+      }
   }
 }
 
-// One stride-1 block of the bf16 span: x (B, 2*MID, h, w) bf16 -> y, one
-// CTA per (band of `rows` rows, image).  wts: [pw1 | Wc] fragments, bias
-// [b1 | bc] f32.
+// The A address of a composed 3x3 GEMM: column k = 9 taps of MID channels
+// (tap t = ky*3 + kx major), the tap's pixel at base + ky*rowb + kx*psb
+// (bytes), the 16 zero bytes beyond K = 9*MID.
 template <int MID>
-__global__ void __launch_bounds__(kThreads16)
-span_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                 __nv_bfloat16* __restrict__ y, const uint2* __restrict__ wts,
-                 const float* __restrict__ bias, int h, int w, int rows) {
-  constexpr int C = 2 * MID, PS = px_stride16(MID);
-  const int r0 = blockIdx.x * rows, rv = min(rows, h - r0);
-  const int npix = (rv + 2) * w;            // staged rows r0-1 .. r0+rv
+struct TapAddr16 {
+  uint32_t rowb, psb, zero;
+  __device__ __forceinline__ uint32_t at(uint32_t base, int k0) const {
+    const int t = k0 / MID, ch = k0 - t * MID;
+    return t < 9 ? base + (t / 3) * rowb + (t % 3) * psb + 2 * ch : zero;
+  }
+  __device__ __forceinline__ uint32_t operator()(uint32_t base, int s,
+                                                 int h) const {
+    if ((16 * s) / MID == (16 * s + 8) / MID)   // one tap: compile time
+      return at(base + 16 * h, 16 * s);
+    return h ? at(base, 16 * s + 8) : at(base, 16 * s);
+  }
+};
+
+// The A address of a pointwise GEMM of depth KV (a multiple of 8): the
+// pixel's channels in order, the 16 zero bytes beyond KV (pad16(KV)).
+template <int KV>
+struct RowAddr16 {
+  uint32_t zero;
+  __device__ __forceinline__ uint32_t operator()(uint32_t base, int s,
+                                                 int h) const {
+    if (16 * s + 8 >= KV) return h ? zero : base + 32 * s;
+    return base + 32 * s + 16 * h;
+  }
+};
+
+// The stage kernel: one CTA per (band of `rows` output rows, image).  S2:
+// x is the stage input (B, MID, hin, win), the stride-2 block (ws2, bs2:
+// fold.pack_s2_16) is the prologue; else x is (B, C, h, w).  Then nblk
+// span blocks from wspan / bspan (block k0 of the span first: its slots
+// P_k0), and the band of y (B, C, h, w) is written once.
+template <int MID, bool S2>
+__global__ void __launch_bounds__(kThreads16, 1)
+span16_stage_kernel(const __nv_bfloat16* __restrict__ x,
+                    __nv_bfloat16* __restrict__ y,
+                    const uint16_t* __restrict__ wspan,
+                    const float* __restrict__ bspan,
+                    const uint16_t* __restrict__ ws2,
+                    const float* __restrict__ bs2, int hin, int win, int h,
+                    int w, int rows, int nblk, int halo, int k0, int orows) {
+  using K = Cfg16<MID>;
+  using bf16 = __nv_bfloat16;
+  constexpr int C = K::C, PSX = K::PSX, PSY = K::PSY;
+  unsigned char* sm = dyn_smem16();
+  const Layout16 L = span16_layout(MID, rows, w, halo, S2, win, orows);
+  short* lmap = reinterpret_cast<short*>(sm + L.lmap);
+  short* inv = reinterpret_cast<short*>(sm + L.inv);
+  unsigned char* ring = sm + L.ring;
+  bf16* sx = reinterpret_cast<bf16*>(sm + L.x);
+  bf16* sy = reinterpret_cast<bf16*>(sm + L.u);
+  const uint32_t zero = smem_u32(sm);
+  const uint32_t sx_s = smem_u32(sx), sy_s = smem_u32(sy);
+  const int tid = threadIdx.x;
+  const int r0 = blockIdx.x * rows, rv = max(0, min(rows, h - r0));
   const size_t plane = (size_t)h * w;
-  const __nv_bfloat16* xb = x + (size_t)blockIdx.y * C * plane;
-  __nv_bfloat16* yb = y + (size_t)blockIdx.y * C * plane;
-  __nv_bfloat16* sx = reinterpret_cast<__nv_bfloat16*>(dyn_smem16());
-  __nv_bfloat16* sy = sx + (size_t)npix * PS;
-  const int tid = threadIdx.x;
+  const int xoff = halo == 2 ? w : 0;        // X pixel of band pixel 0
+  const int xr0 = r0 - (halo == 2 ? 1 : 0);  // image row of X's row 0
+  const int yrow0 = halo == 2 ? 0 : 1;       // Y row of X's row 0
+  const uint4 zero4 = make_uint4(0, 0, 0, 0);
+  int cur = 0;
 
-  // 1. the odd channels pixel-major (pairs of odd channels 4jp+1, 4jp+3),
-  //    0 off the image; the even channels across (the passthrough)
-  for (int it = tid; it < (MID / 2) * npix; it += kThreads16) {
-    const int jp = it / npix, q = it - jp * npix;
-    const int gy = r0 - 1 + q / w;
-    uint32_t v = 0;
-    if (gy >= 0 && gy < h) {
-      const size_t off = (size_t)gy * w + q % w;
-      v = bf16_pair_bits(xb[(4 * jp + 1) * plane + off],
-                         xb[(4 * jp + 3) * plane + off]);
-    }
-    *reinterpret_cast<uint32_t*>(sx + q * PS + 2 * jp) = v;
+  if (tid == 0) *reinterpret_cast<uint4*>(sm) = zero4;
+  if (tid < C) {                             // P_k0
+    int s = tid;
+    for (int i = 0; i < k0; ++i) s = s < MID ? 2 * s : 2 * (s - MID) + 1;
+    lmap[tid] = (short)s;
+    inv[s] = (short)tid;
   }
-  const int nout = rv * w;
-  for (int it = tid; it < MID * nout; it += kThreads16) {
-    const int j = it / nout, p = it - j * nout;
-    yb[j * plane + (size_t)r0 * w + p] = xb[2 * j * plane + (size_t)r0 * w + p];
-  }
+  constexpr int KS0 = S2 ? K::KS1S : K::KS1;  // the first GEMM's k-steps
+  ring_issue<MID>(smem_u32(ring), S2 ? ws2 : wspan,
+                  KS0 < K::KC ? KS0 : K::KC);
   __syncthreads();
 
-  // 2. pw1 + ReLU -> Y
-  pw1_16<MID, MID>(sx, sy, npix, wts, bias, [&](int m) {
-    const int gy = r0 - 1 + m / w;
-    return gy >= 0 && gy < h;
-  });
-  __syncthreads();
-
-  // 3. z = bf16(ReLU(Wc . taps(Y) + bc)) -> channels MID..C-1
-  const uint2* wc = wts + pad16(MID) * MID / 4;
-  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2;
-  const int mtiles = (nout + 15) / 16;
-  for (int m0 = warp * kMTiles16; m0 < mtiles; m0 += kWarps16 * kMTiles16) {
-    float acc[kMTiles16][MID / 8][4];
-    zero_acc<MID>(acc);
-    int base[kMTiles16][2], cl[kMTiles16][2], cr[kMTiles16][2];
+  if (S2) {
+    // ---- the stride-2 block, over chunks of orows output rows
+    const size_t in_plane = (size_t)hin * win;
+    const bf16* xb = x + (size_t)blockIdx.y * MID * in_plane;
+    const int pitch = win + 2;
+    bf16* sxi = sy;
+    bf16* syi = reinterpret_cast<bf16*>(sm + L.yi);
+    const uint32_t sxi_s = smem_u32(sxi), syi_s = smem_u32(syi);
+    const uint16_t* w1s = ws2;
+    const uint16_t* wcs = ws2 + pad16(MID) * MID;
+    const uint16_t* wps = wcs + pad16(9 * MID) * MID;
+    const TapAddr16<MID> tx{(uint32_t)(pitch * PSY * 2), PSY * 2, zero};
+    for (int ro0 = r0; ro0 < r0 + rv; ro0 += orows) {
+      const int orc = min(orows, r0 + rv - ro0);
+      const int iy0 = 2 * ro0 - 1, npi = (2 * orc + 1) * pitch;
+      __syncthreads();                       // XI and YI are free
+      // XI: input rows iy0 .., columns -1 .. win, 0 off the image; four
+      // items (a pixel's 8 channels) a thread in flight
+      constexpr int G = MID / 8;
+      for (int it0 = tid; it0 < npi * G; it0 += 4 * kThreads16) {
+        alignas(16) bf16 e[4][8];
 #pragma unroll
-    for (int mt = 0; mt < kMTiles16; ++mt)
+        for (int u = 0; u < 4; ++u) {
+          const int it = it0 + u * kThreads16;
+          const int gq = it / npi, q = it - gq * npi;
+          const int lr = q / pitch, ix = q - lr * pitch - 1, iy = iy0 + lr;
+          const bool ok = it < npi * G && iy >= 0 && iy < hin && ix >= 0 &&
+                          ix < win;
+          const bf16* src = xb + (size_t)(8 * gq) * in_plane +
+                            (size_t)iy * win + ix;
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int p = min((m0 + mt) * 16 + g + 8 * r, nout - 1);
-        const int col = p % w;
-        base[mt][r] = p + w;                // staged pixel of the centre tap
-        cl[mt][r] = col > 0;
-        cr[mt][r] = col + 1 < w;
+          for (int k = 0; k < 8; ++k)
+            e[u][k] = ok ? src[k * in_plane] : __float2bfloat16(0.f);
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int it = it0 + u * kThreads16;
+          const int gq = it / npi, q = it - gq * npi;
+          if (it < npi * G)
+            *reinterpret_cast<uint4*>(sxi + q * PSY + 8 * gq) =
+                *reinterpret_cast<const uint4*>(e[u]);
+        }
       }
-    gemm16<MID, 9 * MID>(acc, wc, [&](int mt, int r, int k) -> uint32_t {
-      const int t = k / MID, c = k - t * MID;
-      const int dy = t / 3 - 1, dx = t - 3 * (t / 3) - 1;
-      if ((dx < 0 && !cl[mt][r]) || (dx > 0 && !cr[mt][r])) return 0u;
-      return *reinterpret_cast<const uint32_t*>(
-          sy + (base[mt][r] + dy * w + dx) * PS + c);
-    });
-    epilogue16<MID>(acc, bias + MID, m0, nout,
-                    [&](int m, int o, __nv_bfloat162 v) {
-                      __nv_bfloat16* dst =
-                          yb + (size_t)(MID + o) * plane + (size_t)r0 * w + m;
-                      dst[0] = v.x;
-                      dst[plane] = v.y;
-                    });
-  }
-}
-
-// The bf16 stride-2 block: x (B, MID, hin, win) bf16 -> y (B, 2*MID, h, w)
-// = concat[proj, main], one CTA per (band of `rows` output rows, image).
-// wts: [pw1 | Wc | Wp] fragments, bias [b1 | bc | bp] f32.
-template <int MID>
-__global__ void __launch_bounds__(kThreads16)
-s2_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-               __nv_bfloat16* __restrict__ y, const uint2* __restrict__ wts,
-               const float* __restrict__ bias, int hin, int win, int h, int w,
-               int rows) {
-  constexpr int CIN = MID, PS = px_stride16(MID);
-  const int r0 = blockIdx.x * rows, rv = min(rows, h - r0);
-  const int iy0 = 2 * r0 - 1;
-  const int npix = (2 * rv + 1) * win;      // input rows iy0 .. iy0 + 2rv
-  const size_t in_plane = (size_t)hin * win, plane = (size_t)h * w;
-  const __nv_bfloat16* xb = x + (size_t)blockIdx.y * CIN * in_plane;
-  __nv_bfloat16* yb = y + (size_t)blockIdx.y * 2 * MID * plane;
-  __nv_bfloat16* sx = reinterpret_cast<__nv_bfloat16*>(dyn_smem16());
-  __nv_bfloat16* sy = sx + (size_t)npix * PS;
-  const int tid = threadIdx.x;
-
-  // 1. the input rows pixel-major, 0 off the image
-  for (int it = tid; it < (CIN / 2) * npix; it += kThreads16) {
-    const int cp = it / npix, q = it - cp * npix;
-    const int iy = iy0 + q / win;
-    uint32_t v = 0;
-    if (iy >= 0 && iy < hin) {
-      const size_t off = (size_t)iy * win + q % win;
-      v = bf16_pair_bits(xb[2 * cp * in_plane + off],
-                         xb[(2 * cp + 1) * in_plane + off]);
-    }
-    *reinterpret_cast<uint32_t*>(sx + q * PS + 2 * cp) = v;
-  }
-  __syncthreads();
-
-  // 2. pw1 + ReLU on the input grid -> Y
-  pw1_16<MID, CIN>(sx, sy, npix, wts, bias, [&](int m) {
-    const int iy = iy0 + m / win;
-    return iy >= 0 && iy < hin;
-  });
-  __syncthreads();
-
-  // 3. per output pixel: main = Wc over Y's stride-2 taps, projection =
-  //    Wp over X's
-  const uint2* wc = wts + pad16(CIN) * MID / 4;
-  const uint2* wp = wc + pad16(9 * MID) * MID / 4;
-  const int nout = rv * w;
-  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2;
-  const int mtiles = (nout + 15) / 16;
-  for (int m0 = warp * kMTiles16; m0 < mtiles; m0 += kWarps16 * kMTiles16) {
-    int base[kMTiles16][2], cl[kMTiles16][2], cr[kMTiles16][2];
+      // pw1 + ReLU on the input grid -> YI (0 off the image)
+      const Bias16<MID> b1s(bs2);
+      gemm16<MID, K::KS1S>(
+          ring, cur, w1s, npi, Next16{wps, K::KSC},
+          [&](int q) { return sxi_s + q * PSY * 2; },
+          RowAddr16<MID>{zero},
+          [&](int q, int o0, const float (&v)[K::NTW][4], int r) {
+            const int lr = q / pitch, pc = q - lr * pitch;
+            const bool live = iy0 + lr >= 0 && iy0 + lr < hin && pc >= 1 &&
+                              pc <= win;
 #pragma unroll
-    for (int mt = 0; mt < kMTiles16; ++mt)
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int p = min((m0 + mt) * 16 + g + 8 * r, nout - 1);
-        const int row = p / w, col = p - (p / w) * w;
-        base[mt][r] = (2 * row + 1) * win + 2 * col;   // the centre tap
-        cl[mt][r] = col > 0;
-        cr[mt][r] = 2 * col + 1 < win;
-      }
-    for (int branch = 0; branch < 2; ++branch) {
-      const __nv_bfloat16* src = branch ? sy : sx;
-      float acc[kMTiles16][MID / 8][4];
-      zero_acc<MID>(acc);
-      auto a_pair = [&](int mt, int r, int k) -> uint32_t {
-        const int t = k / MID, c = k - t * MID;
-        const int dy = t / 3 - 1, dx = t - 3 * (t / 3) - 1;
-        if ((dx < 0 && !cl[mt][r]) || (dx > 0 && !cr[mt][r])) return 0u;
-        return *reinterpret_cast<const uint32_t*>(
-            src + (base[mt][r] + dy * win + dx) * PS + c);
+            for (int n = 0; n < K::NTW; ++n) {
+              const int o = o0 + 8 * n;
+              __nv_bfloat162 t = relu_bias16(v[n][2 * r], v[n][2 * r + 1],
+                                             b1s.v[n]);
+              if (!live) t = __floats2bfloat162_rn(0.f, 0.f);
+              *reinterpret_cast<__nv_bfloat162*>(syi + q * PSY + o) = t;
+            }
+          });
+      // the projection: Wp over XI's stride-2 taps -> slots 0 .. MID-1;
+      // the main branch: Wc over YI's -> slots MID .. C-1
+      auto tap_base = [&](uint32_t src) {
+        return [=](int p) {
+          const int i = p / w, c = p - i * w;
+          return src + (2 * i * pitch + 2 * c) * PSY * 2;
+        };
       };
-      gemm16<MID, 9 * MID>(acc, branch ? wc : wp, a_pair);
-      epilogue16<MID>(acc, bias + (branch ? MID : 2 * MID), m0, nout,
-                      [&](int m, int o, __nv_bfloat162 v) {
-                        __nv_bfloat16* dst = yb
-                            + (size_t)(branch * MID + o) * plane
-                            + (size_t)r0 * w + m;
-                        dst[0] = v.x;
-                        dst[plane] = v.y;
-                      });
+      auto put = [&](int slot0, const Bias16<MID> bias) {
+        return [=](int p, int o0, const float (&v)[K::NTW][4], int r) {
+          bf16* px = sx + ((ro0 - r0) * w + p) * PSX + slot0;
+#pragma unroll
+          for (int n = 0; n < K::NTW; ++n) {
+            const int o = o0 + 8 * n;
+            *reinterpret_cast<__nv_bfloat162*>(px + o) =
+                relu_bias16(v[n][2 * r], v[n][2 * r + 1], bias.v[n]);
+          }
+        };
+      };
+      gemm16<MID, K::KSC>(ring, cur, wps, orc * w, Next16{wcs, K::KSC},
+                          tap_base(sxi_s), tx,
+                          put(0, Bias16<MID>(bs2 + 2 * MID)));
+      const bool last = ro0 + orows >= r0 + rv;
+      const Next16 nx = !last ? Next16{w1s, K::KS1S}
+                              : Next16{nblk ? wspan : nullptr, K::KS1};
+      gemm16<MID, K::KSC>(ring, cur, wcs, orc * w, nx, tap_base(syi_s),
+                          tx, put(MID, Bias16<MID>(bs2 + MID)));
+    }
+    __syncthreads();                         // XI and YI are done with
+  } else {
+    // ---- the band (and with halo 2 the rows above and below) into X,
+    //      logical channel inv[s] in slot s; four items (a pixel's 8
+    //      channels, 2-byte loads: 4-byte pixel pairs read slower at 44²)
+    //      a thread in flight
+    const bf16* xb = x + (size_t)blockIdx.y * C * plane;
+    const int nq = (rv + (halo == 2 ? 2 : 0)) * w;
+    for (int it0 = tid; it0 < nq * (C / 8); it0 += 4 * kThreads16) {
+      alignas(16) bf16 e[4][8];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int it = it0 + u * kThreads16;
+        const int gs = it / nq, q = it - gs * nq;
+        const long off = (long)xr0 * w + q;
+        const bool ok = it < nq * (C / 8) && off >= 0 && off < (long)plane;
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          e[u][k] = ok ? xb[inv[8 * gs + k] * plane + off]
+                       : __float2bfloat16(0.f);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int it = it0 + u * kThreads16;
+        const int gs = it / nq, q = it - gs * nq;
+        if (it < nq * (C / 8))
+          *reinterpret_cast<uint4*>(sx + q * PSX + 8 * gs) =
+              *reinterpret_cast<const uint4*>(e[u]);
+      }
+    }
+  }
+
+  if (nblk > 0) {
+    // Y: zero (the halo rows at the image's edges, the zero columns)
+    const int rowb = (w + 2) * PSY * 2;
+    for (int i = 16 * tid; i < (rows + 2) * rowb; i += 16 * kThreads16)
+      *reinterpret_cast<uint4*>(sm + L.u + i) = zero4;
+    const bool has_above = halo == 1 && r0 > 0;
+    const bool has_below = halo == 1 && r0 + rv < h;
+    const int rank = blockIdx.x;             // cluster dims (n, 1, 1)
+    const TapAddr16<MID> ty{(uint32_t)rowb, PSY * 2, zero};
+    const uint16_t* wk = wspan;
+    const float* bk = bspan;
+    for (int k = 0; k < nblk; ++k, wk += K::ELEMS, bk += C) {
+      const short* lcur = lmap + (k & 1) * C;
+      short* lnxt = lmap + ((k + 1) & 1) * C;
+      if (halo == 1 && k > 0) cluster_wait();   // the neighbours read Y
+      // 1. pw1 + ReLU over all C slots: X -> Y's rows (0 off the image)
+      const Bias16<MID> b1(bk);
+      gemm16<MID, K::KS1>(
+          ring, cur, wk, (rv + (halo == 2 ? 2 : 0)) * w,
+          Next16{wk + C * MID, K::KSC},
+          [&](int q) { return sx_s + q * PSX * 2; }, RowAddr16<C>{zero},
+          [&](int q, int o0, const float (&v)[K::NTW][4], int r) {
+            const int i = q / w, c = q - i * w;
+            const bool live = xr0 + i >= 0 && xr0 + i < h;
+            bf16* dst = sy + ((i + yrow0) * (w + 2) + c + 1) * PSY;
+#pragma unroll
+            for (int n = 0; n < K::NTW; ++n) {
+              const int o = o0 + 8 * n;
+              __nv_bfloat162 t = relu_bias16(v[n][2 * r], v[n][2 * r + 1],
+                                             b1.v[n]);
+              if (!live) t = __floats2bfloat162_rn(0.f, 0.f);
+              *reinterpret_cast<__nv_bfloat162*>(dst + o) = t;
+            }
+          });
+      if (tid < C)                           // P_{k+1}
+        lnxt[tid] = tid < MID ? lcur[2 * tid] : lcur[2 * (tid - MID) + 1];
+      if (halo == 1) {
+        // 2. the neighbours' edge rows of pw1's output -> Y's rows 0, rv+1
+        cluster_arrive();
+        cluster_wait();
+        for (int i = 16 * tid; i < rowb; i += 16 * kThreads16) {
+          if (has_above) {
+            const unsigned char* peer =
+                cg::this_cluster().map_shared_rank(sm, rank - 1);
+            *reinterpret_cast<uint4*>(sm + L.u + i) =
+                *reinterpret_cast<const uint4*>(peer + L.u + rows * rowb + i);
+          }
+          if (has_below) {
+            const unsigned char* peer =
+                cg::this_cluster().map_shared_rank(sm, rank + 1);
+            *reinterpret_cast<uint4*>(sm + L.u + (rv + 1) * rowb + i) =
+                *reinterpret_cast<const uint4*>(peer + L.u + rowb + i);
+          }
+        }
+        cluster_arrive();                    // done reading the neighbours
+      }
+      // 3. z = bf16(ReLU(Wc . taps(Y) + bc)) -> the slots of pw1's inputs,
+      //    z_o in slot P_k(2o + 1)
+      const Bias16<MID> bc(bk + MID);
+      short2 zslot[K::NTW];
+#pragma unroll
+      for (int n = 0; n < K::NTW; ++n) {
+        const int o = lane_col0<MID>() + 8 * n;
+        zslot[n] = make_short2(lcur[2 * o + 1], lcur[2 * o + 3]);
+      }
+      gemm16<MID, K::KSC>(
+          ring, cur, wk + C * MID, rv * w,
+          Next16{k + 1 < nblk ? wk + K::ELEMS : nullptr, K::KS1},
+          [&](int p) {
+            const int i = p / w, c = p - i * w;
+            return sy_s + (i * (w + 2) + c) * PSY * 2;
+          },
+          ty,
+          [&](int p, int, const float (&v)[K::NTW][4], int r) {
+            bf16* px = sx + (p + xoff) * PSX;
+#pragma unroll
+            for (int n = 0; n < K::NTW; ++n) {
+              const __nv_bfloat162 t =
+                  relu_bias16(v[n][2 * r], v[n][2 * r + 1], bc.v[n]);
+              px[zslot[n].x] = t.x;
+              px[zslot[n].y] = t.y;
+            }
+          });
+    }
+    if (halo == 1) cluster_wait();           // the neighbours are done
+  }
+  __syncthreads();
+
+  // ---- the band of every logical channel, written once
+  const short* lfin = lmap + (nblk & 1) * C;
+  if (tid < C) inv[lfin[tid]] = (short)tid;
+  __syncthreads();
+  bf16* yb = y + (size_t)blockIdx.y * C * plane + (size_t)r0 * w;
+  const int nq = rv * w;
+  const bool pairs = plane % 2 == 0 && (r0 * w) % 2 == 0;
+  const int np = pairs ? (nq + 1) / 2 : nq;         // items a group
+  for (int it = tid; it < np * (C / 8); it += kThreads16) {
+    const int gs = it / np, q = (it - gs * np) << (pairs ? 1 : 0);
+    const bool two = pairs && q + 1 < nq;
+    alignas(16) bf16 e[2][8];
+    *reinterpret_cast<uint4*>(e[0]) =
+        *reinterpret_cast<const uint4*>(sx + (q + xoff) * PSX + 8 * gs);
+    if (two)
+      *reinterpret_cast<uint4*>(e[1]) = *reinterpret_cast<const uint4*>(
+          sx + (q + 1 + xoff) * PSX + 8 * gs);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      bf16* dst = yb + inv[8 * gs + k] * plane + q;
+      if (two)
+        *reinterpret_cast<__nv_bfloat162*>(dst) = __halves2bfloat162(
+            e[0][k], e[1][k]);
+      else
+        dst[0] = e[0][k];
     }
   }
 }
 
-template <class Kernel>
-int set_smem16(Kernel kernel, size_t smem) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  return (int)err;
+template <int MID, bool S2>
+int launch_stage16(const __nv_bfloat16* x, __nv_bfloat16* y,
+                   const uint16_t* wspan, const float* bspan,
+                   const uint16_t* ws2, const float* bs2, int b, int hin,
+                   int win, int h, int w, int rows, int cluster, int nblk,
+                   int halo, int k0, int orows, cudaStream_t stream) {
+  if (rows < 1 || cluster < 1 || cluster > 8 || (S2 && orows < 1))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      (size_t)span16_layout(MID, rows, w, halo, S2, win, orows).bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      span16_stage_kernel<MID, S2>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int bands = (h + rows - 1) / rows;
+  if (bands % cluster) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(bands, b, 1);
+  cfg.blockDim = dim3(kThreads16, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, span16_stage_kernel<MID, S2>, x, y, wspan,
+                           bspan, ws2, bs2, hin, win, h, w, rows, nblk, halo,
+                           k0, orows);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
-// nblk bf16 stride-1 blocks from src (B, 2*MID, h, w) to out, one launch a
-// block over bands of `rows` rows, ping-pong through tmp so that the last
-// block writes out; src is never written.  wts: nblk rows of
+// nblk bf16 stride-1 blocks from src (B, 2*MID, h, w) to out with the
+// plan's rows and cluster: one launch ("stage"), or one launch a block
+// ("per block": halo 2, ping-pong through tmp so that the last block
+// writes out; src is never written).  wts: nblk rows of
 // fold.span16_elems(MID) bf16; bias: nblk rows of 2*MID f32.
 template <int MID>
 int launch_span16(const __nv_bfloat16* src, __nv_bfloat16* out,
                   __nv_bfloat16* tmp, const uint16_t* wts, const float* bias,
-                  int b, int h, int w, int nblk, int rows,
-                  cudaStream_t stream) {
-  if (rows < 1 || nblk < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = span16_smem_bytes(MID, rows, w, 0, 0);
-  int err = set_smem16(span_bf16_kernel<MID>, smem);
-  if (err) return err;
-  constexpr size_t kElems = (size_t)(pad16(MID) + pad16(9 * MID)) * MID;
-  const dim3 grid((h + rows - 1) / rows, b);
+                  int b, int h, int w, int nblk, int rows, int cluster,
+                  int per_block, cudaStream_t stream) {
+  if (nblk < 1) return (int)cudaErrorInvalidValue;
+  if (!per_block)
+    return launch_stage16<MID, false>(src, out, wts, bias, nullptr, nullptr,
+                                      b, h, w, h, w, rows, cluster, nblk,
+                                      cluster > 1 ? 1 : 0, 0, 0, stream);
   for (int k = 0; k < nblk; ++k) {
     __nv_bfloat16* dst = ((nblk - 1 - k) % 2 == 0) ? out : tmp;
-    span_bf16_kernel<MID><<<grid, kThreads16, smem, stream>>>(
-        src, dst, reinterpret_cast<const uint2*>(wts + k * kElems),
-        bias + (size_t)k * 2 * MID, h, w, rows);
-    err = (int)cudaGetLastError();
-    if (err) return err;
+    const int rc = launch_stage16<MID, false>(
+        src, dst, wts + (size_t)k * Cfg16<MID>::ELEMS, bias + k * 2 * MID,
+        nullptr, nullptr, b, h, w, h, w, rows, 1, 1, rows < h ? 2 : 0, k, 0,
+        stream);
+    if (rc) return rc;
     src = dst;
   }
   return 0;
 }
 
-// The bf16 stride-2 block (one launch, bands of rows_s2 rows), then nblk
-// stride-1 blocks (launch_span16); the stride-2 block writes tmp when nblk
-// is odd, so that the last block writes out.
+// The bf16 stage: the stride-2 block as the prologue of the span's launch
+// ("stage"), or alone in a launch of bands of rows_s2 rows followed by the
+// span's per-block launches ("per block"; it writes tmp when nblk is odd,
+// so that the last block writes out).
 template <int MID>
 int launch_s2span16(const __nv_bfloat16* x, __nv_bfloat16* out,
                     __nv_bfloat16* tmp, const uint16_t* w_s2,
                     const float* b_s2, const uint16_t* w_span,
                     const float* b_span, int b, int hin, int win, int nblk,
-                    int rows_s2, int rows, cudaStream_t stream) {
+                    int rows, int rows_s2, int orows, int cluster,
+                    int per_block, cudaStream_t stream) {
   const int h = (hin + 1) / 2, w = (win + 1) / 2;
-  if (rows_s2 < 1 || nblk < 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = span16_smem_bytes(MID, rows_s2, w, 1, win);
-  int err = set_smem16(s2_bf16_kernel<MID>, smem);
-  if (err) return err;
+  if (!per_block)
+    return launch_stage16<MID, true>(x, out, w_span, b_span, w_s2, b_s2, b,
+                                     hin, win, h, w, rows, cluster, nblk,
+                                     (cluster > 1 && nblk > 0) ? 1 : 0, 0,
+                                     orows, stream);
   __nv_bfloat16* dst = (nblk % 2 == 1) ? tmp : out;
-  s2_bf16_kernel<MID><<<dim3((h + rows_s2 - 1) / rows_s2, b), kThreads16,
-                        smem, stream>>>(
-      x, dst, reinterpret_cast<const uint2*>(w_s2), b_s2, hin, win, h, w,
-      rows_s2);
-  err = (int)cudaGetLastError();
-  if (err || nblk == 0) return err;
+  const int rc = launch_stage16<MID, true>(x, dst, nullptr, nullptr, w_s2,
+                                           b_s2, b, hin, win, h, w, rows_s2,
+                                           1, 0, 0, 0, orows, stream);
+  if (rc || nblk == 0) return rc;
   return launch_span16<MID>(dst, out, tmp, w_span, b_span, b, h, w, nblk,
-                            rows, stream);
+                            rows, 1, 1, stream);
 }
 }  // namespace
 
@@ -993,11 +1329,12 @@ size_t fastdet_span_stage_smem(int mid, int rows, int w, int halo, int s2) {
          sizeof(float);
 }
 
-// Shared memory (bytes) of one CTA of the bf16 stage kernels: a band of
-// `rows` output rows of width w at MID channels, s2 for the stride-2 block
-// (input width win).
-size_t fastdet_span16_smem(int mid, int rows, int w, int s2, int win) {
-  return span16_smem_bytes(mid, rows, w, s2, win);
+// Shared memory (bytes) of one CTA of the bf16 stage kernel: MID channels
+// a branch, a band of `rows` output rows of width w, halo 0/1/2, s2 for the
+// stride-2 prologue from input width win in chunks of orows output rows.
+size_t fastdet_span16_smem(int mid, int rows, int w, int halo, int s2,
+                           int win, int orows) {
+  return (size_t)span16_layout(mid, rows, w, halo, s2, win, orows).bytes;
 }
 
 const char* fastdet_cuda_error_string(int code) {

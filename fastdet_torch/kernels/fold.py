@@ -298,8 +298,20 @@ def _pad16(n: int) -> int:
 
 
 def span16_elems(mid: int) -> int:
-    """bf16 elements of one block of the bf16 span (`pack_span16`)."""
-    return (_pad16(mid) + _pad16(9 * mid)) * mid
+    """bf16 elements of one block of the bf16 span (`pack_span16`): pw1
+    over the block's 2·mid slots, then the composed `wc`."""
+    return (2 * mid + _pad16(9 * mid)) * mid
+
+
+def span16_slots(mid: int, k: int) -> np.ndarray:
+    """The bf16 stage kernel's slot of each logical channel before span
+    block k: (2·mid,) int, P_0 the identity, then P_{k+1}[j] = P_k[2j]
+    (the passthrough never moves) and P_{k+1}[mid + r] = P_k[2r + 1] (z_r
+    is written where pw1's input channel 2r + 1 was)."""
+    p = np.arange(2 * mid)
+    for _ in range(k):
+        p = np.concatenate([p[0::2], p[1::2]])
+    return p
 
 
 def s2_16_elems(cin: int, mid: int) -> int:
@@ -309,19 +321,38 @@ def s2_16_elems(cin: int, mid: int) -> int:
 
 def pack_span16(blocks) -> Tuple[np.ndarray, np.ndarray]:
     """`pack_s1_block` dicts of one stage → the bf16 span kernel's weights:
-    (nblk, span16_elems) uint16 bf16 bits, per block pw1 (mid_out × mid_in,
-    bf16 of the odd columns of the composed `wa`'s top half, which are
-    pw1's) then the composed `wc`, each in `mma_fragments` order; and
-    (nblk, 2·mid) f32 biases [ba top half | bc]."""
+    (nblk, span16_elems) uint16 bf16 bits, per block k pw1 (mid_out × 2·mid
+    slots: the bf16 of the composed `wa`'s top half, whose even columns
+    are 0, with its columns permuted to the kernel's slots,
+    `w1[:, span16_slots(mid, k)] = wa[:mid]`) then the composed `wc`, each
+    in `mma_fragments` order; and (nblk, 2·mid) f32 biases [ba top half |
+    bc].  `unpack_span16` gives back the JAX package's matrices."""
     ws, bs = [], []
-    for blk in blocks:
+    for k, blk in enumerate(blocks):
         comp = compose_s1_block(blk)
         mid = blk["b1"].shape[0]
-        w1 = comp["wa"][:mid, 1::2]
-        ws.append(np.concatenate([mma_fragments(to_bf16_bits(w1)),
-                                  mma_fragments(to_bf16_bits(comp["wc"]))]))
+        ws.append(span16_row(comp["wa"][:mid], comp["wc"], k))
         bs.append(np.concatenate([comp["ba"][:mid], comp["bc"]]))
     return np.stack(ws), np.stack(bs).astype(np.float32)
+
+
+def span16_row(wa_top: np.ndarray, wc: np.ndarray, k: int) -> np.ndarray:
+    """Block k's row of `pack_span16` from its composed f32 matrices
+    `wa`[:mid] (mid × 2·mid) and `wc` (mid × 9·mid)."""
+    mid = wc.shape[0]
+    w1 = np.zeros((mid, 2 * mid), np.float32)
+    w1[:, span16_slots(mid, k)] = wa_top
+    return np.concatenate([mma_fragments(to_bf16_bits(w1)),
+                           mma_fragments(to_bf16_bits(wc))])
+
+
+def unpack_span16(row: np.ndarray, mid: int, k: int):
+    """Block k's row of `pack_span16` → (wa top half (mid × 2·mid, the
+    logical channels' columns), wc (mid × 9·mid)), the bits as packed."""
+    k1 = 2 * mid * mid
+    w1 = unpack_mma_fragments(row[:k1], mid, 2 * mid)
+    return (w1[:, span16_slots(mid, k)],
+            unpack_mma_fragments(row[k1:], mid, 9 * mid))
 
 
 def pack_s2_16(blk) -> Tuple[np.ndarray, np.ndarray]:

@@ -81,7 +81,7 @@ from fastdet_torch.kernels.fold import (S2_ROW_KEYS, STAGES,
                                         pack_fused_weights_af, pack_s2_16,
                                         pack_s2span_weights, pack_span16,
                                         pack_span_weights, s2_16_elems,
-                                        span16_elems)
+                                        span16_elems, span16_slots)
 from fastdet_torch.kernels.stem_train import SMS
 from fastdet_torch.models.layers import add_bias as _bias
 from fastdet_torch.models.layers import conv16 as _conv16
@@ -483,9 +483,9 @@ _SPAN_SIGNATURES = {
     "fastdet_span": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
                      + [ctypes.c_void_p], ctypes.c_int),
     "fastdet_span_stage_smem": ([ctypes.c_int] * 5, ctypes.c_size_t),
-    "fastdet_span_bf16": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+    "fastdet_span_bf16": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
                           + [ctypes.c_void_p], ctypes.c_int),
-    "fastdet_span16_smem": ([ctypes.c_int] * 5, ctypes.c_size_t),
+    "fastdet_span16_smem": ([ctypes.c_int] * 7, ctypes.c_size_t),
 }
 
 
@@ -652,9 +652,9 @@ _S2SPAN_SIGNATURES = {
     "fastdet_s2span": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
                        + [ctypes.c_void_p], ctypes.c_int),
     "fastdet_span_stage_smem": ([ctypes.c_int] * 5, ctypes.c_size_t),
-    "fastdet_s2span_bf16": ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+    "fastdet_s2span_bf16": ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
                             + [ctypes.c_void_p], ctypes.c_int),
-    "fastdet_span16_smem": ([ctypes.c_int] * 5, ctypes.c_size_t),
+    "fastdet_span16_smem": ([ctypes.c_int] * 7, ctypes.c_size_t),
 }
 
 
@@ -715,10 +715,7 @@ s2span.launches = 0
 
 BF16 = torch.bfloat16
 DTYPES = (torch.float32, BF16)
-SPAN16_KERNEL = "span_bf16_kernel"
-S2_16_KERNEL = "s2_bf16_kernel"
-SPAN16_SMEM_BUDGET = 113 * 1024   # two CTAs an SM
-
+SPAN16_KERNEL = "span16_stage_kernel"
 
 def _pad16(n: int) -> int:
     return (n + 15) // 16 * 16
@@ -848,63 +845,153 @@ def stem_s2d8_bf16(x, w16, b, h8: int, w8: int):
 stem_s2d8_bf16.launches = 0
 
 
-def px_stride16(mid: int) -> int:
-    """bf16 elements between two pixels of the bf16 stage kernel's
-    pixel-major buffers (`px_stride16`): mid rounded up so that the stride
-    in 4-byte words is 4 modulo 8."""
-    words = mid // 2
-    return 2 * (words + (12 - words % 8) % 8)
+# The bf16 stage kernel (`csrc/span_block.cuh`, B2 and B9 in bf16): a
+# band of output rows of one image, all C channels, pixel-major in one
+# CTA's shared memory for all the call's blocks; the CTAs of an image a
+# thread-block cluster that trades the depthwise halo; the weights
+# streamed through a ring of two chunks of B fragments; the channel
+# shuffle in the packed pw1 (`fold.span16_slots`).  `span16_plan` picks
+# the launch; the C function `fastdet_span16_smem` reports the same shared
+# memory as `span16_smem`.
+
+SPAN16_THREADS = 256             # kThreads16
+SPAN16_CHUNK = {24: 14, 48: 9, 96: 6}   # kc16: k-steps a ring chunk
 
 
-def span16_smem(mid: int, rows: int, w: int, stride2: bool = False,
-                win: int = 0) -> int:
-    """Shared memory (bytes) of one CTA of a bf16 stage kernel
-    (`span16_smem_bytes`): the staged input X and pw1's output Y, each
-    rows + 2 rows of w pixels (stride 1) or 2·rows + 1 input rows of win
-    pixels (stride 2), px_stride16(mid) bf16 a pixel."""
-    npix = (2 * rows + 1) * win if stride2 else (rows + 2) * w
-    return 2 * npix * px_stride16(mid) * 2
+def _odd16(n: int) -> int:
+    """A pixel's stride (bf16) of n channels: an odd number of 16-byte
+    units (`odd16`)."""
+    return n if (n // 8) % 2 else n + 8
+
+
+def span16_pass_pixels(mid: int) -> int:
+    """Pixels a GEMM pass of the bf16 stage kernel multiplies (CAP m-tiles
+    of 16, `Cfg16`): the warps along M (N split over 2 at mid 96) times
+    the m-tiles a warp holds (MT: 2 at mid 96, else 4)."""
+    nt = mid // 8
+    wn = nt // min(nt, 6)
+    return 16 * (SPAN16_THREADS // 32 // wn) * (2 if mid == 96 else 4)
+
+
+def span16_smem(mid: int, rows: int, w: int, halo: int,
+                stride2: bool = False, win: int = 0, orows: int = 0) -> int:
+    """Shared memory (bytes) of one CTA of the bf16 stage kernel
+    (`span16_layout`): 16 zero bytes and the slot tables; the ring of two
+    chunks of B fragments; X, the band (with halo 2 the rows above and
+    below too), 2·mid slots a pixel; then Y, pw1's output on the band's
+    rows and one row each side with a zero column each side, or (stride2)
+    the prologue's XI and YI, 2·orows + 1 input rows of win + 2 pixels,
+    whichever is larger."""
+    c = 2 * mid
+    head = 16 + 6 * c + 2 * SPAN16_CHUNK[mid] * mid * 32
+    x = (rows + (2 if halo == 2 else 0)) * w * _odd16(c) * 2
+    y = (rows + 2) * (w + 2) * _odd16(mid) * 2
+    pro = ((2 * orows + 1) * (win + 2) * 2 * _odd16(mid) * 2 if stride2
+           else 0)
+    return head + x + max(y, pro)
 
 
 @dataclass(frozen=True)
 class Span16Plan:
-    """How one call of `span_bf16` or `s2span_bf16` runs on the card: one
-    launch a block, each over bands of output rows, one CTA a band and
-    image."""
-    rows: int        # output rows a CTA in the span's launches
-    rows_s2: int     # in the stride-2 block's launch
-    smem_bytes: int  # a CTA of the span's launches
-    smem_s2: int     # a CTA of the stride-2 block's launch (0 without)
-    launches: int    # device launches a call: nblk (+ 1 with stride2)
+    """How one call of `span_bf16` or `s2span_bf16` runs on the card."""
+    variant: str     # "stage": one launch; "per_block": one a block
+    cluster: int     # CTAs of an image's cluster (1 for "per_block")
+    rows: int        # output rows a CTA in the span's launch(es)
+    rows_s2: int     # in the stride-2 block's launch ("per_block"; else rows)
+    orows: int       # output rows a chunk of the stride-2 block (0 without)
+    bands: int       # CTAs an image in the span's launch(es)
+    halo: int        # 0 none, 1 the cluster neighbours', 2 recomputed
+    threads: int
+    layouts: tuple   # (rows, halo, stride2, orows) of each kind of launch
+    smem_bytes: int  # shared memory a CTA, the largest launch's
+    launches: int    # device launches a call
+    ctas: int        # CTAs of the span's launch (of the whole call, "stage")
+
+    def band_rows(self, h: int) -> List[Tuple[int, int]]:
+        """(first row, rows) of each CTA's band of an image."""
+        return [(i * self.rows, min(self.rows, h - i * self.rows))
+                for i in range(self.bands)]
 
 
-def _rows16(mid: int, h: int, w: int, stride2: bool, win: int) -> int:
-    """Equal bands, as few as keep a CTA within SPAN16_SMEM_BUDGET (two an
-    SM; one band row if even that is over, while it fits a CTA)."""
-    fit = 1
-    for rows in range(h, 0, -1):
-        if span16_smem(mid, rows, w, stride2, win) <= SPAN16_SMEM_BUDGET:
-            fit = rows
-            break
-    if span16_smem(mid, fit, w, stride2, win) > SMEM_PER_CTA:
-        raise ValueError(f"no band of the bf16 stage at mid {mid}, width "
-                         f"{win if stride2 else w} fits a CTA")
-    return -(-h // -(-h // fit))
+def _orows16(mid: int, rows: int, w: int, halo: int, win: int) -> int:
+    """The stride-2 prologue's chunk: the most output rows (≤ rows, one
+    GEMM pass of Wc and Wp) whose input rows fit the CTA; 0 if none."""
+    for o in range(min(rows, span16_pass_pixels(mid) // w), 0, -1):
+        if span16_smem(mid, rows, w, halo, True, win, o) <= SMEM_PER_CTA:
+            return o
+    return 0
 
 
 @functools.lru_cache(maxsize=None)
 def span16_plan(b: int, c: int, h: int, w: int, nblk: int,
                 stride2: bool = False, win: int = 0) -> Span16Plan:
-    """The launch plan of the bf16 stage for an output (b, c, h, w) of
-    nblk span blocks, after a stride-2 block from input width `win` when
-    stride2 (B9)."""
+    """The launch plan of the bf16 stage kernel for an output (b, c, h, w)
+    of nblk span blocks, after a stride-2 block from input width `win`
+    when stride2 (B9).  The smallest cluster (1, 2, 4 or 8 CTAs, a band of
+    ⌈h/n⌉ rows each, none empty) whose CTA fits the card's shared memory
+    holds the whole stage in one launch: each CTA streams every block's
+    weights, so fewer and larger bands stream less (at b128 352² smaller
+    bands read slower on the card, `stage_phases`), and a band past one
+    GEMM pass (`span16_pass_pixels`) is multiplied in passes.  The
+    stride-2 prologue takes the most output rows a chunk that fit.  Stage
+    4 at 352² (121 pixels an image, one CTA) splits N over two warp
+    columns so that no warp idles.  Where no cluster of 8 fits: one
+    launch a block, each CTA as large a band as fits, its halo rows' pw1
+    its own, and one for the stride-2 block."""
     mid = c // 2
-    rows = _rows16(mid, h, w, False, 0) if nblk else h
-    rows_s2 = _rows16(mid, h, w, True, win) if stride2 else rows
-    return Span16Plan(rows, rows_s2,
-                      span16_smem(mid, rows, w) if nblk else 0,
-                      span16_smem(mid, rows_s2, w, True, win) if stride2
-                      else 0, nblk + int(stride2))
+    for n in STAGE_CLUSTERS:
+        rows = -(-h // n)
+        if (n - 1) * rows >= h:
+            continue
+        halo = 1 if n > 1 and nblk else 0
+        orows = _orows16(mid, rows, w, halo, win) if stride2 else 0
+        if stride2 and not orows:
+            continue
+        smem = span16_smem(mid, rows, w, halo, stride2, win, orows)
+        if smem <= SMEM_PER_CTA:
+            return Span16Plan("stage", n, rows, rows, orows, n, halo,
+                              SPAN16_THREADS,
+                              ((rows, halo, stride2, orows),), smem, 1,
+                              b * n)
+    rows = h
+    if nblk:
+        rows = next((r for r in range(h, 0, -1) if span16_smem(
+            mid, r, w, 2 if r < h else 0) <= SMEM_PER_CTA), 0)
+        if not rows:
+            raise ValueError(f"no band of the bf16 stage at mid {mid}, width "
+                             f"{w} fits a CTA")
+        rows = -(-h // -(-h // rows))
+    halo = 2 if rows < h else 0
+    layouts = ((rows, halo, False, 0),) if nblk else ()
+    rows_s2 = orows = 0
+    if stride2:
+        for r in range(h, 0, -1):
+            orows = _orows16(mid, r, w, 0, win)
+            if orows:
+                rows_s2 = -(-h // -(-h // r))
+                orows = _orows16(mid, rows_s2, w, 0, win)
+                break
+        if not orows:
+            raise ValueError(f"no band of the bf16 stride-2 block at mid "
+                             f"{mid}, input width {win} fits a CTA")
+        layouts += ((rows_s2, 0, True, orows),)
+    bands = -(-h // rows)
+    return Span16Plan("per_block", 1, rows, rows_s2 or rows, orows, bands,
+                      halo, SPAN16_THREADS, layouts,
+                      max(span16_smem(mid, r, w, hl, s2, win, o)
+                          for r, hl, s2, o in layouts),
+                      nblk + int(stride2), b * bands)
+
+
+def span16_matrices(row: torch.Tensor, mid: int, k: int):
+    """Block k's row of the bf16 span's weights (`fold.pack_span16`) → its
+    pw1 (mid × mid, the odd logical channels' columns of the composed
+    `wa`) and Wc (mid × 9·mid), f32 (the bf16 values, exact)."""
+    k1 = 2 * mid * mid
+    w1 = _frag_matrix(row[:k1], mid, 2 * mid)
+    slots = torch.from_numpy(span16_slots(mid, k)).to(row.device)
+    return (w1[:, slots][:, 1::2].contiguous(),
+            _frag_matrix(row[k1:], mid, 9 * mid))
 
 
 def span_reference_bf16(x, weights, bias, nblk: int):
@@ -914,11 +1001,9 @@ def span_reference_bf16(x, weights, bias, nblk: int):
     bf16(ReLU(pw1(x_odd) + b1)), z = bf16(ReLU(Wc ⊛ y + bc)), concat
     [x_even, z]."""
     mid = x.shape[1] // 2
-    k1 = _pad16(mid) * mid
     for k in range(nblk):
-        w1 = _frag_matrix(weights[k, :k1], mid, mid)
-        wc = _tap_conv_weight(_frag_matrix(weights[k, k1:], mid, 9 * mid),
-                              mid)
+        w1, wc = span16_matrices(weights[k], mid, k)
+        wc = _tap_conv_weight(wc, mid)
         y = F.relu(F.conv2d(x[:, 1::2].float(), w1[:, :, None, None],
                             bias[k, :mid])).to(BF16)
         z = F.relu(F.conv2d(y.float(), wc, bias[k, mid:], padding=1))
@@ -971,18 +1056,19 @@ def span_bf16(x, weights, bias, nblk: int):
     bsz, c, h, w = x.shape
     mid = c // 2
     _check16(weights, "span_bf16", "weights", dev, BF16,
-             (nblk, span16_elems(mid)), 8)
+             (nblk, span16_elems(mid)), 16)
     _check16(bias, "span_bf16", "biases", dev, torch.float32,
              (nblk, 2 * mid), 4)
     plan = span16_plan(bsz, c, h, w, nblk)
+    per_block = plan.variant == "per_block"
     out = torch.empty_like(x)
-    tmp = torch.empty_like(x) if nblk > 1 else out
+    tmp = torch.empty_like(x) if per_block and nblk > 1 else out
     lib = _build.load("span", _SPAN_SIGNATURES)
     with torch.cuda.device(dev):
         rc = lib.fastdet_span_bf16(
             x.data_ptr(), out.data_ptr(), tmp.data_ptr(), weights.data_ptr(),
-            bias.data_ptr(), bsz, c, h, w, nblk, plan.rows,
-            torch.cuda.current_stream(dev).cuda_stream)
+            bias.data_ptr(), bsz, c, h, w, nblk, plan.rows, plan.cluster,
+            int(per_block), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, "span_bf16")
     span_bf16.launches += plan.launches
     return out
@@ -1009,26 +1095,27 @@ def s2span_bf16(x, w_s2, b_s2, w_span, b_span, nblk: int):
             f"with cin in {S2SPAN_CHANNELS}, got {x.dtype} {tuple(x.shape)}")
     bsz, cin, hin, win = x.shape
     _check16(w_s2, "s2span_bf16", "stride-2 weights", dev, BF16,
-             (s2_16_elems(cin, cin),), 8)
+             (s2_16_elems(cin, cin),), 16)
     _check16(b_s2, "s2span_bf16", "stride-2 biases", dev, torch.float32,
              (3 * cin,), 4)
     if nblk:
         _check16(w_span, "s2span_bf16", "span weights", dev, BF16,
-                 (nblk, span16_elems(cin)), 8)
+                 (nblk, span16_elems(cin)), 16)
         _check16(b_span, "s2span_bf16", "span biases", dev, torch.float32,
                  (nblk, 2 * cin), 4)
     shape = (bsz, 2 * cin, (hin + 1) // 2, (win + 1) // 2)
     plan = span16_plan(bsz, 2 * cin, shape[2], shape[3], nblk, True, win)
+    per_block = plan.variant == "per_block"
     out = torch.empty(shape, dtype=BF16, device=dev)
-    tmp = torch.empty_like(out) if nblk > 0 else out
+    tmp = torch.empty_like(out) if per_block and nblk > 0 else out
     lib = _build.load("s2span", _S2SPAN_SIGNATURES)
     with torch.cuda.device(dev):
         rc = lib.fastdet_s2span_bf16(
             x.data_ptr(), out.data_ptr(), tmp.data_ptr(), w_s2.data_ptr(),
             b_s2.data_ptr(), w_span.data_ptr() if nblk else None,
             b_span.data_ptr() if nblk else None, bsz, cin, hin, win, nblk,
-            plan.rows_s2, plan.rows,
-            torch.cuda.current_stream(dev).cuda_stream)
+            plan.rows, plan.rows_s2, plan.orows, plan.cluster,
+            int(per_block), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, "s2span_bf16")
     s2span_bf16.launches += plan.launches
     return out

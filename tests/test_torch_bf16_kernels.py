@@ -131,24 +131,31 @@ def test_mma_fragments_roundtrip(n, k):
 @pytest.mark.parametrize("stage", [2, 3, 4])
 def test_span16_weights_equal_jax_composed_bitwise(stage):
     """Each span block's bf16 pw1 and composed Wc equal the JAX package's
-    bf16 `wa` (its odd columns, the rest 0 and the passthrough selection)
-    and `wc`, bit for bit; the f32 biases `ba`, `bc` too."""
+    bf16 `wa` (its top half: pw1 on the odd columns, 0 on the even, whose
+    columns the packing permutes to block k's slots `fold.span16_slots`;
+    the bottom half the passthrough selection) and `wc`, bit for bit; the
+    f32 biases `ba`, `bc` too."""
     jp, pp = _jax_packed(), _port_packed()
     c = CHANNELS[stage]
     mid = c // 2
     w, b = pp[f"s{stage}_span16"], pp[f"s{stage}_span16_b"]
     assert w.dtype == BF16 and b.dtype == torch.float32
     assert tuple(w.shape) == (REPS[stage] - 1, fold.span16_elems(mid))
-    k1 = fold._pad16(mid) * mid
+    k1 = c * mid
     for i in range(1, REPS[stage]):
         wa, wc = _bits(jp[f"s{stage}_{i}_wa"]), _bits(jp[f"s{stage}_{i}_wc"])
         row = _bits(w[i - 1])
+        w1, wc_got = fold.unpack_span16(row, mid, i - 1)
+        np.testing.assert_array_equal(w1, wa[:mid])
+        slots = fold.span16_slots(mid, i - 1)
         np.testing.assert_array_equal(
-            fold.unpack_mma_fragments(row[:k1], mid, mid), wa[:mid, 1::2])
+            fold.unpack_mma_fragments(row[:k1], mid, c)[:, slots], wa[:mid])
+        assert sorted(slots) == list(range(c))
         assert not wa[:mid, 0::2].any()
         sel = np.zeros((mid, c), np.float32)
         sel[np.arange(mid), np.arange(0, c, 2)] = 1.0
         np.testing.assert_array_equal(wa[mid:], _bits(sel))
+        np.testing.assert_array_equal(wc_got, wc)
         np.testing.assert_array_equal(
             fold.unpack_mma_fragments(row[k1:], mid, 9 * mid), wc)
         ba, bc = (np.asarray(jp[f"s{stage}_{i}_{k}"]) for k in ("ba", "bc"))
@@ -363,21 +370,24 @@ def test_s2span_bf16_matches_jax_s2span_call(stage, nblk):
                                      (128, 192, 11, 11), (32, 48, 80, 80),
                                      (1, 192, 20, 20), (2, 96, 15, 13)])
 def test_span16_plan(b, c, h, w):
-    """The bf16 stage's launch plan: a launch a block (and one for the
-    stride-2 block), equal bands no taller than the image, each CTA within
-    two-an-SM shared memory: X and Y, pixel-major, at a pixel stride that
-    is 4 modulo 8 words."""
+    """The bf16 stage kernel's launch plan: one launch a stage call (the
+    stride-2 block its prologue), a cluster of ≤ 8 CTAs an image whose
+    bands cover the image once, each CTA's shared memory within the
+    card's and equal to the layout's (`span16_smem`)."""
     mid = c // 2
     for stride2 in (False, True):
-        plan = fused_infer.span16_plan(b, c, h, w, 3, stride2, 2 * w)
-        assert plan.launches == 3 + stride2
-        for rows in (plan.rows, plan.rows_s2):
-            assert 1 <= rows <= h and -(-h // rows) * rows - h < rows
-        assert plan.smem_bytes == 2 * (plan.rows + 2) * w * \
-            fused_infer.px_stride16(mid) * 2
-        assert max(plan.smem_bytes, plan.smem_s2) <= \
-            fused_infer.SPAN16_SMEM_BUDGET
-    assert (fused_infer.px_stride16(mid) // 2) % 8 == 4
+        win = 2 * w if stride2 else 0
+        plan = fused_infer.span16_plan(b, c, h, w, 3, stride2, win)
+        assert plan.variant == "stage" and plan.launches == 1
+        assert 1 <= plan.cluster <= 8 and plan.bands == plan.cluster
+        assert plan.ctas == b * plan.cluster
+        bands = plan.band_rows(h)
+        assert all(n >= 1 for _, n in bands) and sum(n for _, n in bands) == h
+        assert plan.halo == (1 if plan.cluster > 1 else 0)
+        assert plan.smem_bytes <= fused_infer.SMEM_PER_CTA == 232448
+        assert plan.smem_bytes == fused_infer.span16_smem(
+            mid, plan.rows, w, plan.halo, stride2, win, plan.orows)
+        assert (plan.orows >= 1) == stride2
 
 
 def test_bf16_wrappers_refuse_other_devices():

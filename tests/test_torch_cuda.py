@@ -841,14 +841,17 @@ def test_stem_bf16_kernels_match_plain(card, packed16, factor, case):
 
 @pytest.mark.parametrize("case", [(128, 2, 44, 44), (128, 3, 22, 22),
                                   (128, 4, 11, 11), (1, 2, 80, 80),
-                                  (3, 4, 5, 3)],
+                                  (3, 4, 5, 3), (2, 2, 160, 160)],
                          ids=lambda c: "b%d-s%d-%dx%d" % c)
 def test_span_bf16_kernel_matches_plain(card, packed16, case):
+    """The stage variant at every width, and at 160² (1280² input) the
+    per-block one, which no cluster of 8 holds."""
     bsz, stage, h, w = case
     reps, c = {s: (r, ch) for s, r, ch in fold.STAGES}[stage]
     x = s2span_case(stage + h, bsz, c, h, w, str(card)).to(torch.bfloat16)
     wts, bias = packed16[f"s{stage}_span16"], packed16[f"s{stage}_span16_b"]
     plan = fused_infer.span16_plan(bsz, c, h, w, reps - 1)
+    assert plan.variant == ("per_block" if h > 80 else "stage")
     before = fused_infer.span_bf16.launches
     got = fused_infer.span_bf16(x, wts, bias, reps - 1)
     assert fused_infer.span_bf16.launches == before + plan.launches
@@ -858,10 +861,12 @@ def test_span_bf16_kernel_matches_plain(card, packed16, case):
 
 
 @pytest.mark.parametrize("case", [(128, 2, 88, 88), (128, 4, 22, 22),
-                                  (2, 3, 30, 26), (3, 4, 9, 13)],
+                                  (2, 3, 30, 26), (3, 4, 9, 13),
+                                  (2, 2, 320, 320)],
                          ids=lambda c: "b%d-s%d-%dx%d" % c)
 @pytest.mark.parametrize("span_blocks", [False, True])
 def test_s2span_bf16_kernel_matches_plain(card, packed16, case, span_blocks):
+    """The stage variant, and at 320² input the per-block one."""
     bsz, stage, hin, win = case
     reps, c = {s: (r, ch) for s, r, ch in fold.STAGES}[stage]
     nblk = reps - 1 if span_blocks else 0
@@ -872,6 +877,7 @@ def test_s2span_bf16_kernel_matches_plain(card, packed16, case, span_blocks):
             packed16[f"s{stage}_span16_b"][:nblk])
     plan = fused_infer.span16_plan(bsz, c, (hin + 1) // 2, (win + 1) // 2,
                                    nblk, True, win)
+    assert plan.variant == ("per_block" if hin > 160 else "stage")
     before = fused_infer.s2span_bf16.launches
     got = fused_infer.s2span_bf16(x, *args, nblk)
     assert fused_infer.s2span_bf16.launches == before + plan.launches
@@ -881,17 +887,24 @@ def test_s2span_bf16_kernel_matches_plain(card, packed16, case, span_blocks):
 
 
 def test_span16_plan_smem_matches_the_kernels(card):
+    """`span16_plan`'s shared memory, launch by launch, is the kernel's
+    (`fastdet_span16_smem`, from `span16_layout`) at every span and stage
+    case, the per-block variant's too."""
     from fastdet_torch.kernels import _build
     lib = _build.load("span", fused_infer._SPAN_SIGNATURES)
-    for bsz, stage, h, w in SPAN_CASES:
-        c = {s: ch for s, _, ch in fold.STAGES}[stage]
-        plan = fused_infer.span16_plan(bsz, c, h, w, 3, True, 2 * w)
-        assert plan.smem_bytes == lib.fastdet_span16_smem(
-            c // 2, plan.rows, w, 0, 0)
-        assert plan.smem_s2 == lib.fastdet_span16_smem(
-            c // 2, plan.rows_s2, w, 1, 2 * w)
-        assert max(plan.smem_bytes, plan.smem_s2) <= \
-            fused_infer.SPAN16_SMEM_BUDGET
+    chans = {s: ch for s, _, ch in fold.STAGES}
+    cases = ([(bsz, chans[stage], h, w, 0) for bsz, stage, h, w in SPAN_CASES]
+             + [(bsz, chans[stage], (hin + 1) // 2, (win + 1) // 2, win)
+                for bsz, stage, hin, win in S2SPAN_CASES]
+             + [(2, 48, 160, 160, 0), (2, 48, 160, 160, 320)])
+    for bsz, c, h, w, win in cases:
+        plan = fused_infer.span16_plan(bsz, c, h, w, 3, win > 0, win)
+        got = [lib.fastdet_span16_smem(c // 2, rows, w, halo, int(s2), win,
+                                       orows)
+               for rows, halo, s2, orows in plan.layouts]
+        assert max(got) == plan.smem_bytes <= fused_infer.SMEM_PER_CTA
+        assert plan.launches == (1 if plan.variant == "stage"
+                                 else 3 + (win > 0))
 
 
 def test_bf16_wrappers_check_their_inputs(card, packed16):
@@ -912,12 +925,12 @@ def test_bf16_wrappers_check_their_inputs(card, packed16):
 @pytest.mark.parametrize("family", ["yolo-fastestv2", "anchorfree"])
 def test_fused_pipeline_bf16_default_on_the_card(card, family):
     """FusedPipeline(dtype=None) serves bf16 through the bf16 kernels (one
-    stem and 13 span launches a batch) and holds the JAX package's bf16
-    serving contract against the f32 pipeline: the same count and classes,
-    boxes within 4 px (or 2⁻⁵ of the box's larger side, the smoke's rule
-    for large boxes), scores within 0.05.  Yolo-FastestV2 on seeded noise
-    at conf 0.05, the anchor-free family on its golden image with its
-    trained 3-class weights (real detections)."""
+    stem and 3 span launches a batch, one a stage) and holds the JAX
+    package's bf16 serving contract against the f32 pipeline: the same
+    count and classes, boxes within 4 px (or 2⁻⁵ of the box's larger
+    side, the smoke's rule for large boxes), scores within 0.05.
+    Yolo-FastestV2 on seeded noise at conf 0.05, the anchor-free family on
+    its golden image with its trained 3-class weights (real detections)."""
     if family == "anchorfree":
         with open(AF_GOLDEN) as f:
             golden = json.load(f)
@@ -938,8 +951,13 @@ def test_fused_pipeline_bf16_default_on_the_card(card, family):
     pipe = FusedPipeline(sd, cfg, device=card, family=family, **kw)
     assert pipe.dtype == torch.bfloat16
     got = pipe(imgs)
+    h = cfg.height // 8
+    spans = sum(fused_infer.span16_plan(len(imgs), c, h >> i, h >> i,
+                                        r - 1).launches
+                for i, (_, r, c) in enumerate(fold.STAGES))
+    assert spans == 3
     assert fused_infer.stem_s2d_bf16.launches == before[0] + 1
-    assert fused_infer.span_bf16.launches == before[1] + 13
+    assert fused_infer.span_bf16.launches == before[1] + spans
     want = FusedPipeline(sd, cfg, dtype=torch.float32, device=card,
                          family=family, **kw)(imgs)
     if family == "anchorfree":
