@@ -163,8 +163,12 @@ Phases:
      in bf16 (B6); the anchor-free family in bf16 at b128 352² (phase 8d's
      model);
   10. bf16 training, the JAX package's training headline: the bf16 forms
-     of B8 (the three stages at b128 352², real weights, the JAX
-     package's groups; stage 3 with seeded weights; two small shapes) and
+     of B8 (`csrc/span16_train.cu`: the three stages at b128 352², real
+     weights, the JAX package's groups; stage 3 with seeded weights; two
+     small shapes and `SPAN_TRAIN_EDGE`; each block's z as the backward
+     recomputes it bit for bit the forward's; the plan's cluster, the
+     card's active clusters and the source's ptxas registers and spills
+     printed) and
      B7 (b128 352² photo variants at group 1 and 16, two tie images)
      against their plain bf16 versions (B8's outputs and gradients within
      2⁻⁶ of max |value|, the seeded stage 3's gradients within twice the
@@ -3856,10 +3860,15 @@ def phase_bf16_train(sd, photo, dev_pipe, card, f32_times):
     at b128 352² (the span blocks' real weights, `pick_train_group`'s
     groups), at stage 3 with the card tests' seeded weights (its backward
     held with the plain version's own spread, which the phase prints:
-    `span16_backward_errs`) and two small shapes; B7 at b128 352² photo
+    `span16_backward_errs`), a small shape and `SPAN_TRAIN_EDGE`; B7 at
+    b128 352² photo
     variants with the real stem weights at ghost group 1 and
     STEM_GROUPED, and two tie images (one with γ of both signs and 0).
-    Bounds: B8's out, saved
+    B8's bf16 form is `csrc/span16_train.cu`: a cluster per ghost
+    group, one launch forward and two backward a stage call
+    (`span16_train_plan`); the backward's recomputed block outputs (z,
+    written on request by `span16_backward_launch`) equal the forward's
+    out and saved inputs bit for bit.  Bounds: B8's out, saved
     inputs, dx and weight gradients within BF16_TRAIN_RTOL of max |value|
     (the backward given the same dy, saved inputs and stats; the seeded
     stage 3's within twice the plain version's distance from its f64 sums
@@ -3891,10 +3900,12 @@ def phase_bf16_train(sd, photo, dev_pipe, card, f32_times):
     stem_train_fwd/bwd_bf16 (g1 and grouped)."""
     import torch
     import torch.nn.functional as F
-    from torch_cases import (SPAN_TRAIN_FULL, STEM_TRAIN_CASES,
-                             span16_backward_errs, span_train_case,
-                             span_train_rel_errs, stem_train_case)
+    from torch_cases import (SPAN_TRAIN_EDGE, SPAN_TRAIN_FULL,
+                             STEM_TRAIN_CASES, span16_backward_errs,
+                             span_train_case, span_train_rel_errs,
+                             stem_train_case)
     from fastdet_torch.cli.train import run_training
+    from fastdet_torch.kernels import _build
     from fastdet_torch.config import Config
     from fastdet_torch.kernels import fused_train as ft
     from fastdet_torch.kernels import stem_train as stt
@@ -3916,11 +3927,18 @@ def phase_bf16_train(sd, photo, dev_pipe, card, f32_times):
     launches = {"fwd": [], "bwd": []}
     # the three stages with their real weights (timed), stage 3 with the
     # seeded weights of the card tests (ill-conditioned: its backward is
-    # held with the plain version's own spread, `span16_backward_errs`),
-    # two small shapes
+    # held with the plain version's own spread, `span16_backward_errs`), a
+    # small shape and the edges of the plan
     span_cases = ([(c, True) for c in SPAN_TRAIN_FULL]
-                  + [(SPAN_TRAIN_FULL[1], False), ((4, 48, 6, 7, 2, 2), False),
-                     ((3, 96, 9, 7, 2, 3), False)])
+                  + [(SPAN_TRAIN_FULL[1], False), ((4, 48, 6, 7, 2, 2), False)]
+                  + [(c, False) for c in SPAN_TRAIN_EDGE])
+    lib16 = _build.load("span16_train", ft._SIGNATURES16)
+    regs = [ln.strip() for ln in _build.build_log.get(
+        "span16_train", {}).get("ptxas", "").splitlines()
+        if "registers" in ln or "spill" in ln]
+    if regs:
+        log("  span16_train ptxas (fwd 24/48/96, bwd 24/48/96 and "
+            "reduce_rows in the order built): " + " | ".join(regs))
     for case, full in span_cases:
         b, c, h, w, nblk, g = case
         x32, rows, dy32 = span_train_case(sum(case) + 1, b, c, h, w, nblk,
@@ -3955,6 +3973,27 @@ def phase_bf16_train(sd, photo, dev_pipe, card, f32_times):
         torch.cuda.synchronize()
         check(dx.dtype == b16 and drows.dtype == torch.float32,
               f"B8 bf16 backward dtypes at {case}")
+        # the backward's recompute: each block's z bit for bit the
+        # forward's (the next block input's second half, or out's)
+        rec = torch.empty((nblk, b, c // 2, h, w), dtype=b16, device="cuda")
+        ft.span16_backward_launch(dy, xsave, stats, rows, g, rec)
+        torch.cuda.synchronize()
+        nexts = [xsave[k + 1] for k in range(nblk - 1)] + [fo]
+        check(all(torch.equal(rec[k], nexts[k][:, c // 2:])
+                  for k in range(nblk)),
+              f"B8 bf16 backward's recomputed z is not the forward's at "
+              f"{case}")
+        del rec, nexts
+        plan16 = ft.span16_train_plan(b, c, h, w, nblk, g)
+        occ = [lib16.fastdet_span16_train_clusters(b, c, h, w, nblk, g,
+                                                   *plan16.args, k)
+               for k in (0, 1)]
+        check(min(occ) > 0 and [lib16.fastdet_span16_train_smem(
+            c // 2, plan16.rows, w, plan16.ipc, plan16.cluster, k)
+            for k in (0, 1)]
+            == [plan16.smem_fwd, plan16.smem_bwd],
+            f"B8 bf16 plan at {case}: active clusters {occ}, or shared "
+            f"memory not the kernel's")
         held, (rdx, rdrows) = span16_backward_errs(
             (dx, drows), dy, xsave, stats, rows, g, witness)
         errs = [(k, e) for k, (e, _) in held.items()]
@@ -3970,7 +4009,12 @@ def phase_bf16_train(sd, photo, dev_pipe, card, f32_times):
                f"out {rel_err(fo, ro):.3g} of max |out| ({eq:.5f} equal), "
                f"stats {s_err:.3g} (block 0; all {s_all:.3g}), backward "
                f"{b_err:.3g} (worst "
-               f"{max(errs, key=lambda e: e[1])[0]})")
+               f"{max(errs, key=lambda e: e[1])[0]}); recomputed z bit for "
+               f"bit the forward's; cluster {plan16.cluster} ({plan16.bpi} "
+               f"bands of {plan16.rows} rows an image, {plan16.ipc} images a "
+               f"CTA, {plan16.ctas} CTAs), active clusters fwd {occ[0]}, bwd "
+               f"{occ[1]}, smem fwd {plan16.smem_fwd} B, bwd "
+               f"{plan16.smem_bwd} B")
         tot["fwd"][4] = max(tot["fwd"][4], float((fo.float() - ro.float())
                                                  .abs().max()))
         tot["bwd"][4] = max(tot["bwd"][4], float((dx.float() - rdx.float())
@@ -4019,13 +4063,12 @@ def phase_bf16_train(sd, photo, dev_pipe, card, f32_times):
             f"fwd {pl_f:.3f} ms, bwd {pl_b:.3f} ms; bound fwd {bf:.4f} ms "
             f"({byf}), bwd {bb:.4f} ms ({byb}); cuDNN bf16 blocks (training "
             f"mode) fwd {lib_f:.4f} ms, fwd+bwd {lib_fb:.4f} ms")
-        plan = ft.span_train_plan(b, c, h, w, nblk, g)
         for k, fn, wrapper, want in (
                 ("fwd", lambda: ft.span_train_forward_bf16(x, rows, g),
-                 ft.span_train_forward_bf16, plan.launches_fwd),
+                 ft.span_train_forward_bf16, plan16.launches_fwd),
                 ("bwd", lambda: ft.span_train_backward_bf16(
                     dy, xsave, stats, rows, g), ft.span_train_backward_bf16,
-                 plan.launches_bwd)):
+                 plan16.launches_bwd)):
             split, n, note = counted_split(fn, wrapper, f"B8 bf16 {k} at "
                                            f"{case}", want)
             if split is None:
@@ -4575,9 +4618,9 @@ def main() -> int:
     # 352² times, B8's summed over the three stages; library_ms is cuDNN
     # in bf16 on the same inputs
     for name, key, source, replaces in (
-            ("span_train_fwd_bf16", "span_train_fwd_bf16", "span_train",
+            ("span_train_fwd_bf16", "span_train_fwd_bf16", "span16_train",
              "fastdet/kernels/fused_train.py:329"),
-            ("span_train_bwd_bf16", "span_train_bwd_bf16", "span_train",
+            ("span_train_bwd_bf16", "span_train_bwd_bf16", "span16_train",
              "fastdet/kernels/fused_train.py:362"),
             ("stem_train_fwd_bf16", "stem_train_fwd_bf16_g1", "stem_train",
              "fastdet/kernels/stem_train.py:462"),

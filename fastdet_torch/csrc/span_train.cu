@@ -81,23 +81,12 @@
 // (u1, u2, u3, dv, dy: 23.8 / 11.9 / 5.9 MB each at stages 2 / 3 / 4)
 // make a round trip through L2 between launches.
 //
-// The bf16 form (fastdet_span_train_fwd_bf16 / _bwd_bf16; the same
-// Pallas kernels at dtype=bfloat16) is the same kernels instantiated on
-// bf16 activations: x, out, the saved block inputs xsave and the span's
-// dy and dx are bf16 in device memory (half the bytes of the saved inputs
-// and of the span's edges), staged as f32 in shared memory (exact), and
-// the kernels round where the JAX kernel rounds: the weights per matrix
-// (bf16(w1), bf16(wd), bf16(w2)), y = ReLU(BN1(u1)), v = BN2(u2) and z =
-// ReLU(BN3(u3)); in the backward du3 before dv = w2 du3, du2 before the
-// depthwise products (dwd and dy), du1 and the passthrough gradient
-// before dx.  u1, u2, u3, every statistic, dW2 = v (x) du3 and dW1 = x (x)
-// du1 (f32 products against the upcast bf16 v and x) and the block-to-
-// block gradient stay f32.  A bf16 x bf16 product is exact in f32, so
-// the CUDA-core products equal a tensor core's; only the sums' order
-// differs from the JAX kernel's.  The plan and the shared memory are the
-// f32 form's.
+// The bf16 form of B8 (the same Pallas kernels at dtype=bfloat16) is a
+// kernel of its own, csrc/span16_train.cu: a thread-block cluster per
+// ghost group holds the group's bf16 activation in shared memory for every
+// block, and the products run on bf16 tensor cores.  This file holds the
+// f32 form only.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -109,21 +98,6 @@ constexpr int kWarps = kThreads / 32;
 // memory at the plan's tiles allows as many)
 template <int MID> struct Occ { static constexpr int CTAS = MID == 96 ? 2 : 4; };
 constexpr float kEps = 1e-5f;
-
-typedef __nv_bfloat16 bf16;
-template <typename A> struct IsBf16 { static constexpr bool value = false; };
-template <> struct IsBf16<bf16> { static constexpr bool value = true; };
-
-// v rounded to bf16 (to nearest even) where B, else v
-template <bool B>
-__device__ __forceinline__ float rnd(float v) {
-  if constexpr (B) return __bfloat162float(__float2bfloat16_rn(v));
-  return v;
-}
-__device__ __forceinline__ float ldf(const float* p) { return *p; }
-__device__ __forceinline__ float ldf(const bf16* p) { return __bfloat162float(*p); }
-__device__ __forceinline__ void stf(float* p, float v) { *p = v; }
-__device__ __forceinline__ void stf(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
 
 template <int MID>
 struct Row {
@@ -295,35 +269,16 @@ __device__ __forceinline__ void async_copy(float* s, const float* g, int n) {
   }
 }
 
-// A weight matrix as async_copy stages it, each value rounded to bf16
-// where B (then by plain loads: the barrier after the prologue's
-// cp.async wait covers them too).
-template <int MID, bool TRANS, bool B>
-__device__ __forceinline__ void copy_weights(float* s, const float* g, int n) {
-  if constexpr (!B) {
-    async_copy<MID, TRANS>(s, g, n);
-  } else {
-    for (int i = threadIdx.x; i < n; i += kThreads) {
-      const int k = i / MID, j = i - k * MID;
-      s[i] = rnd<true>(TRANS ? g[j * MID + k] : g[i]);
-    }
-  }
-}
-
 // The tile's pixels of NC channels of one image's (C', h, w) map src,
-// channel c at src + c * cstride, to s[c * ss + p] as f32: asynchronously
-// from f32, by plain loads from bf16 (exact).
-template <int NC, typename A>
+// channel c at src + c * cstride, to s[c * ss + p], asynchronously.
+template <int NC>
 __device__ __forceinline__ void async_tile(const Geo& G, const Tile& T,
-                                           const A* src, size_t cstride,
+                                           const float* src, size_t cstride,
                                            float* s, int ss) {
   tile_positions<NC>(T.n, [&](int p, int c0, int cstep) {
-    const A* g = src + pix(G, T, p);
+    const float* g = src + pix(G, T, p);
 #pragma unroll 4
-    for (int c = c0; c < NC; c += cstep) {
-      if constexpr (IsBf16<A>::value) s[c * ss + p] = ldf(g + c * cstride);
-      else cp_async4(s + c * ss + p, g + c * cstride);
-    }
+    for (int c = c0; c < NC; c += cstep) cp_async4(s + c * ss + p, g + c * cstride);
   });
 }
 
@@ -349,9 +304,8 @@ __device__ __forceinline__ void async_halo(const Geo& G, const Tile& T,
 }
 
 // s = ReLU(BN(s)) in place on the haloed tile's positions on the image
-// (those off it stay 0), rounded to bf16 where B; BN's mu, sinv*gamma and
-// beta.
-template <int MID, bool B>
+// (those off it stay 0); BN's mu, sinv*gamma and beta.
+template <int MID>
 __device__ __forceinline__ void halo_bn_relu(const Geo& G, const Tile& T,
                                              const float* mu, const float* sc,
                                              const float* beta, float* s) {
@@ -363,7 +317,7 @@ __device__ __forceinline__ void halo_bn_relu(const Geo& G, const Tile& T,
 #pragma unroll 4
       for (int c = c0; c < MID; c += cstep)
         s[c * G.phs + hp] =
-            rnd<B>(fmaxf(bn(s[c * G.phs + hp], mu[c], sc[c], beta[c]), 0.f));
+            fmaxf(bn(s[c * G.phs + hp], mu[c], sc[c], beta[c]), 0.f);
     }
   });
 }
@@ -599,16 +553,6 @@ __device__ void dw_product(const float* s_a, const float* s_c, int ps, int n,
   }
 }
 
-// s[c*ss + p] rounded to bf16 in place over the tile's pixels, then a
-// barrier.  Every thread must call it.
-template <int MID>
-__device__ __forceinline__ void round_tile(const Tile& T, float* s, int ss) {
-  tile_positions<MID>(T.n, [&](int p, int c0, int cstep) {
-    for (int c = c0; c < MID; c += cstep) s[c * ss + p] = rnd<true>(s[c * ss + p]);
-  });
-  __syncthreads();
-}
-
 // ------------------------------------------------------------ forward
 
 // The block input x_i = cat[x_{i-1}[:, 0::2], z], z = ReLU(BN3(u3)):
@@ -620,24 +564,22 @@ __device__ __forceinline__ void round_tile(const Tile& T, float* s, int ss) {
 // Then, when W1 is given, u1 = pw1(x_i[:, 1::2]) to u1 and, when fst1 is
 // given, its tile moments to fst1.  Shared memory holds x_i's channels by
 // row (only the rows needed), u1 going to the even rows once written out.
-// A: the activations' type (float, or bf16: z and w1 rounded).
-template <int MID, typename A>
+template <int MID>
 __global__ void __launch_bounds__(kThreads, Occ<MID>::CTAS)
-in_kernel(Geo G, const A* __restrict__ src, const float* __restrict__ u3,
+in_kernel(Geo G, const float* __restrict__ src, const float* __restrict__ u3,
           const float* __restrict__ fst3, const float* __restrict__ gb3,
-          float* __restrict__ st3, A* __restrict__ dst,
+          float* __restrict__ st3, float* __restrict__ dst,
           const float* __restrict__ W1, float* __restrict__ u1,
           float* __restrict__ fst1) {
   constexpr int C = 2 * MID, H = MID / 2;
-  constexpr bool B = IsBf16<A>::value;
   extern __shared__ __align__(16) float smem[];
   float* s_w = smem;                      // MID x MID
   float* s_c = s_w + MID * MID;           // BN3: mu, sinv*gamma, beta; scratch
   float* s_x = s_c + Smem<MID>::CONSTF;   // C x ps: x_i by channel
   const Tile T = make_tile(G, blockIdx.x);
   const size_t plane = (size_t)G.h * G.w;
-  const A* sb = src + (size_t)T.b * C * plane;
-  if (W1) copy_weights<MID, false, B>(s_w, W1, MID * MID);
+  const float* sb = src + (size_t)T.b * C * plane;
+  if (W1) async_copy<MID>(s_w, W1, MID * MID);
   if (!u3) {
     // all channels of x_i = src, or its odd ones (rows 1, 3, ...)
     if (dst) async_tile<C>(G, T, sb, plane, s_x, G.ps);
@@ -658,16 +600,16 @@ in_kernel(Geo G, const A* __restrict__ src, const float* __restrict__ u3,
       tile_positions<MID>(T.n, [&](int p, int c0, int cstep) {
 #pragma unroll 4
         for (int c = c0; c < MID; c += cstep)
-          s_z[c * G.ps + p] = rnd<B>(fmaxf(
+          s_z[c * G.ps + p] = fmaxf(
               bn(s_z[c * G.ps + p], s_c[c], s_c[MID + c], s_c[2 * MID + c]),
-              0.f));
+              0.f);
       });
       __syncthreads();
     }
     tile_positions<C>(T.n, [&](int p, int c0, int cstep) {
-      A* d = dst + (size_t)T.b * C * plane + pix(G, T, p);
+      float* d = dst + (size_t)T.b * C * plane + pix(G, T, p);
 #pragma unroll 4
-      for (int c = c_lo + c0; c < C; c += cstep) stf(d + c * plane, s_x[c * G.ps + p]);
+      for (int c = c_lo + c0; c < C; c += cstep) d[c * plane] = s_x[c * G.ps + p];
     });
   }
   if (!W1) return;
@@ -683,8 +625,8 @@ in_kernel(Geo G, const A* __restrict__ src, const float* __restrict__ u3,
 }
 
 // u2 = dw3x3(ReLU(BN1(u1))), BN1's stats merged from fst1 (written to
-// st1); u2's tile moments to fst2.  B: y and wd rounded to bf16.
-template <int MID, bool B>
+// st1); u2's tile moments to fst2.
+template <int MID>
 __global__ void __launch_bounds__(kThreads, Occ<MID>::CTAS)
 fwd_dw_kernel(Geo G, const float* __restrict__ u1,
               const float* __restrict__ fst1, const float* __restrict__ row,
@@ -697,12 +639,12 @@ fwd_dw_kernel(Geo G, const float* __restrict__ u1,
   float* s_u = s_y + MID * G.phs;         // MID x ps: u2
   const Tile T = make_tile(G, blockIdx.x);
   const size_t plane = (size_t)G.h * G.w;
-  copy_weights<MID, false, B>(s_wd, row + Row<MID>::WD, 9 * MID);
+  async_copy<MID>(s_wd, row + Row<MID>::WD, 9 * MID);
   async_halo<MID>(G, T, u1 + (size_t)T.b * MID * plane, s_y);
   bn_from_moments<MID>(G, T, fst1, row + Row<MID>::GB, st1, s_c);
   cp_async_wait();
   __syncthreads();
-  halo_bn_relu<MID, B>(G, T, s_c, s_c + MID, s_c + 2 * MID, s_y);
+  halo_bn_relu<MID>(G, T, s_c, s_c + MID, s_c + 2 * MID, s_y);
   __syncthreads();
   tile_positions<MID>(T.n, [&](int p, int c0, int cstep) {
     const int h0 = tap(T, p, 0), hw = T.tw + 2;
@@ -726,16 +668,14 @@ fwd_dw_kernel(Geo G, const float* __restrict__ u1,
 // tile moments to fst3.  Meanwhile the warps that hold no pointwise work
 // (all of them after it, if none is free) write the next block input's
 // passthrough half: xnext[:, c] = x[:, 2c], c < MID (x = xsave[i]).
-// A bf16: v and w2 rounded.
-template <int MID, typename A>
+template <int MID>
 __global__ void __launch_bounds__(kThreads, Occ<MID>::CTAS)
 fwd_pw2_kernel(Geo G, const float* __restrict__ u2,
                const float* __restrict__ fst2, const float* __restrict__ row,
                float* __restrict__ st2, float* __restrict__ u3,
-               float* __restrict__ fst3, const A* __restrict__ x,
-               A* __restrict__ xnext) {
+               float* __restrict__ fst3, const float* __restrict__ x,
+               float* __restrict__ xnext) {
   constexpr int C = 2 * MID;
-  constexpr bool B = IsBf16<A>::value;
   extern __shared__ __align__(16) float smem[];
   float* s_w = smem;                      // MID x MID
   float* s_c = s_w + MID * MID;           // BN2 constants, scratch
@@ -743,7 +683,7 @@ fwd_pw2_kernel(Geo G, const float* __restrict__ u2,
   float* s_u = s_v + MID * G.ps;          // MID x ps: u3
   const Tile T = make_tile(G, blockIdx.x);
   const size_t plane = (size_t)G.h * G.w;
-  copy_weights<MID, false, B>(s_w, row + Row<MID>::W2, MID * MID);
+  async_copy<MID>(s_w, row + Row<MID>::W2, MID * MID);
   async_tile<MID>(G, T, u2 + (size_t)T.b * MID * plane, plane, s_v, G.ps);
   bn_from_moments<MID>(G, T, fst2, row + Row<MID>::GB + 2 * MID, st2, s_c);
   cp_async_wait();
@@ -752,7 +692,7 @@ fwd_pw2_kernel(Geo G, const float* __restrict__ u2,
 #pragma unroll 4
     for (int c = c0; c < MID; c += cstep)
       s_v[c * G.ps + p] =
-          rnd<B>(bn(s_v[c * G.ps + p], s_c[c], s_c[MID + c], s_c[2 * MID + c]));
+          bn(s_v[c * G.ps + p], s_c[c], s_c[MID + c], s_c[2 * MID + c]);
   });
   __syncthreads();
   // the passthrough copy: by the warps past pw_tile's items, or by all
@@ -763,7 +703,7 @@ fwd_pw2_kernel(Geo G, const float* __restrict__ u2,
     for (int p = threadIdx.x - n0; p < T.n; p += nthr) {
       const size_t q = (size_t)T.b * C * plane + pix(G, T, p);
       for (int cb = 0; cb < MID; cb += 8) {
-        A v[8];
+        float v[8];
 #pragma unroll
         for (int u = 0; u < 8; ++u) v[u] = x[q + 2 * (cb + u) * plane];
 #pragma unroll
@@ -787,12 +727,11 @@ fwd_pw2_kernel(Geo G, const float* __restrict__ u2,
 // Recompute u2 = dw(ReLU(BN1(u1))) and u3 = pw2(BN2(u2)) with the saved
 // stats st (3, G, 3, MID) and write both; then BN3's backward sums of the
 // tile into its partial row: gz = gin[:, MID + j] where BN3(u3) > 0, sum
-// gz*xhat3 (dgamma3) and sum gz (dbeta3).  B: y, v, wd and w2 rounded as
-// in the forward; GI: gin's type.
-template <int MID, bool B, typename GI>
+// gz*xhat3 (dgamma3) and sum gz (dbeta3).
+template <int MID>
 __global__ void __launch_bounds__(kThreads, Occ<MID>::CTAS)
 rec_kernel(Geo G, const float* __restrict__ u1, const float* __restrict__ st,
-           const float* __restrict__ row, const GI* __restrict__ gin,
+           const float* __restrict__ row, const float* __restrict__ gin,
            float* __restrict__ u2, float* __restrict__ u3,
            float* __restrict__ part) {
   constexpr int C = 2 * MID, CW = MID / kWarps;
@@ -806,15 +745,15 @@ rec_kernel(Geo G, const float* __restrict__ u1, const float* __restrict__ st,
   const size_t plane = (size_t)G.h * G.w;
   const size_t bnst = (size_t)G.G * 3 * MID;
   const float* gb = row + Row<MID>::GB;
-  copy_weights<MID, false, B>(s_w, row + Row<MID>::W2, MID * MID);
-  copy_weights<MID, false, B>(s_wd, row + Row<MID>::WD, 9 * MID);
+  async_copy<MID>(s_w, row + Row<MID>::W2, MID * MID);
+  async_copy<MID>(s_wd, row + Row<MID>::WD, 9 * MID);
   async_halo<MID>(G, T, u1 + (size_t)T.b * MID * plane, s_y);
   bn_saved<MID>(st, gb, T.gi, s_c);
   bn_saved<MID>(st + bnst, gb + 2 * MID, T.gi, s_c + 4 * MID);
   bn_saved<MID>(st + 2 * bnst, gb + 4 * MID, T.gi, s_c + 8 * MID);
   cp_async_wait();
   __syncthreads();
-  halo_bn_relu<MID, B>(G, T, s_c, s_c + 2 * MID, s_c + 3 * MID, s_y);
+  halo_bn_relu<MID>(G, T, s_c, s_c + 2 * MID, s_c + 3 * MID, s_y);
   __syncthreads();
   const float* c2 = s_c + 4 * MID;
   tile_positions<MID>(T.n, [&](int p, int c0, int cstep) {
@@ -827,7 +766,7 @@ rec_kernel(Geo G, const float* __restrict__ u1, const float* __restrict__ st,
       for (int t = 0; t < 9; ++t)
         acc = acc + s_wd[t * MID + c] * yc[(t / 3) * hw + t % 3];
       out[c * plane] = acc;
-      s_v[c * G.ps + p] = rnd<B>(bn(acc, c2[c], c2[2 * MID + c], c2[3 * MID + c]));
+      s_v[c * G.ps + p] = bn(acc, c2[c], c2[2 * MID + c], c2[3 * MID + c]);
     }
   });
   __syncthreads();
@@ -844,12 +783,12 @@ rec_kernel(Geo G, const float* __restrict__ u1, const float* __restrict__ st,
   float s1[CW], s2[CW];
 #pragma unroll
   for (int i = 0; i < CW; ++i) s1[i] = s2[i] = 0.f;
-  const GI* gz = gin + ((size_t)T.b * C + MID + warp) * plane;
+  const float* gz = gin + ((size_t)T.b * C + MID + warp) * plane;
   for (int p = lane; p < T.n; p += 32) {
     const int q = pix(G, T, p);
     float gv[CW];
 #pragma unroll
-    for (int i = 0; i < CW; ++i) gv[i] = ldf(gz + i * kWarps * plane + q);
+    for (int i = 0; i < CW; ++i) gv[i] = gz[i * kWarps * plane + q];
 #pragma unroll
     for (int i = 0; i < CW; ++i) {
       const int c = warp + i * kWarps;
@@ -873,13 +812,12 @@ rec_kernel(Geo G, const float* __restrict__ u1, const float* __restrict__ st,
 // BN3 backward: du3 = (gamma3*sinv3)*(gz - mean gz - xhat3*mean gz*xhat3)
 // with the group's means from the tiles' rows; dW2 partial = sum v (x)
 // du3 (v = BN2(u2)); dv = w2 du3 to dv; BN2's backward sums of the tile:
-// sum dv*xhat2 (dgamma2), sum dv (dbeta2).  B: v and w2 rounded, and du3
-// after the dW2 product, before dv.
-template <int MID, bool B, typename GI>
+// sum dv*xhat2 (dgamma2), sum dv (dbeta2).
+template <int MID>
 __global__ void __launch_bounds__(kThreads, Occ<MID>::CTAS)
 bn3_kernel(Geo G, const float* __restrict__ u2, const float* __restrict__ u3,
            const float* __restrict__ st, const float* __restrict__ row,
-           const GI* __restrict__ gin, float* __restrict__ dv,
+           const float* __restrict__ gin, float* __restrict__ dv,
            float* __restrict__ part) {
   constexpr int C = 2 * MID, CW = MID / kWarps;
   extern __shared__ __align__(16) float smem[];
@@ -895,7 +833,7 @@ bn3_kernel(Geo G, const float* __restrict__ u2, const float* __restrict__ u3,
   float* c2 = s_c;
   float* c3 = s_c + 4 * MID;
   float* a3 = s_c + 8 * MID;
-  copy_weights<MID, true, B>(s_w, row + Row<MID>::W2, MID * MID);
+  async_copy<MID, true>(s_w, row + Row<MID>::W2, MID * MID);
   async_tile<MID>(G, T, u2 + (size_t)T.b * MID * plane, plane, s_v, G.ps);
   async_tile<MID>(G, T, u3 + (size_t)T.b * MID * plane, plane, s_du, G.ps);
   bn_saved<MID>(st + bnst, gb + 2 * MID, T.gi, c2);
@@ -904,13 +842,13 @@ bn3_kernel(Geo G, const float* __restrict__ u2, const float* __restrict__ u3,
   cp_async_wait();
   __syncthreads();
   tile_positions<MID>(T.n, [&](int p, int c0, int cstep) {
-    const GI* gq = gin + ((size_t)T.b * C + MID) * plane + pix(G, T, p);
+    const float* gq = gin + ((size_t)T.b * C + MID) * plane + pix(G, T, p);
     for (int cb = c0; cb < MID; cb += 4 * cstep) {
       float gv[4];
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         const int c = cb + u * cstep;
-        gv[u] = c < MID ? ldf(gq + c * plane) : 0.f;
+        gv[u] = c < MID ? gq[c * plane] : 0.f;
       }
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
@@ -922,8 +860,8 @@ bn3_kernel(Geo G, const float* __restrict__ u2, const float* __restrict__ u3,
         const float xhat = (uu - c3[c]) * c3[MID + c];
         const float k3 = gb[4 * MID + c] * c3[MID + c];
         s_du[c * G.ps + p] = k3 * (g - a3[c] - xhat * a3[MID + c]);
-        s_v[c * G.ps + p] = rnd<B>(
-            bn(s_v[c * G.ps + p], c2[c], c2[2 * MID + c], c2[3 * MID + c]));
+        s_v[c * G.ps + p] =
+            bn(s_v[c * G.ps + p], c2[c], c2[2 * MID + c], c2[3 * MID + c]);
       }
     }
   });
@@ -931,7 +869,6 @@ bn3_kernel(Geo G, const float* __restrict__ u2, const float* __restrict__ u3,
   float* prow = part + (size_t)T.t * Row<MID>::LEN;
   dw_product<MID>(s_v, s_du, G.ps, T.n, s_comb, prow + Row<MID>::W2);
   __syncthreads();
-  if constexpr (B) round_tile<MID>(T, s_du, G.ps);
   pw_tile<MID>(s_du, G.ps, s_w, T.n, [&](int i, int p, float v) {
     dv[((size_t)T.b * MID + i) * plane + pix(G, T, p)] = v;
     s_v[i * G.ps + p] = v;
@@ -969,8 +906,8 @@ bn3_kernel(Geo G, const float* __restrict__ u2, const float* __restrict__ u3,
 // on the haloed tile (0 off the image); the dw taps' gradients sum du2 *
 // shifted y; dy = the transposed dw of du2 (taps 8-t), gy = dy where
 // BN1(u1) > 0, to gy; BN1's backward sums: sum gy*xhat1 (dgamma1), sum gy
-// (dbeta1).  B: du2, y and wd rounded.
-template <int MID, bool B>
+// (dbeta1).
+template <int MID>
 __global__ void __launch_bounds__(kThreads, Occ<MID>::CTAS)
 bn2_kernel(Geo G, const float* __restrict__ u1, const float* __restrict__ u2,
            const float* __restrict__ dv, const float* __restrict__ st,
@@ -988,7 +925,7 @@ bn2_kernel(Geo G, const float* __restrict__ u1, const float* __restrict__ u2,
   float* c1 = s_c;
   float* c2 = s_c + 4 * MID;
   float* a2 = s_c + 8 * MID;
-  copy_weights<MID, false, B>(s_wd, row + Row<MID>::WD, 9 * MID);
+  async_copy<MID>(s_wd, row + Row<MID>::WD, 9 * MID);
   async_halo<MID>(G, T, u1 + (size_t)T.b * MID * plane, s_y);
   async_halo<MID>(G, T, dv + (size_t)T.b * MID * plane, s_d);
   bn_saved<MID>(st, gb, T.gi, c1);
@@ -1018,12 +955,12 @@ bn2_kernel(Geo G, const float* __restrict__ u1, const float* __restrict__ u2,
         const float xhat = (uv[u] - c2[c]) * c2[MID + c];
         const float k2 = gb[2 * MID + c] * c2[MID + c];
         s_d[c * G.phs + hp] =
-            rnd<B>(k2 * (s_d[c * G.phs + hp] - a2[c] - xhat * a2[MID + c]));
+            k2 * (s_d[c * G.phs + hp] - a2[c] - xhat * a2[MID + c]);
       }
     }
   });
   // y = ReLU(BN1(u1)) in place; xhat1 below reads u1 from device memory
-  halo_bn_relu<MID, B>(G, T, c1, c1 + 2 * MID, c1 + 3 * MID, s_y);
+  halo_bn_relu<MID>(G, T, c1, c1 + 2 * MID, c1 + 3 * MID, s_y);
   __syncthreads();
   float* prow = part + (size_t)T.t * Row<MID>::LEN;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -1069,17 +1006,14 @@ bn2_kernel(Geo G, const float* __restrict__ u1, const float* __restrict__ u2,
 
 // BN1 backward: du1 = (gamma1*sinv1)*(gy - mean gy - xhat1*mean gy*xhat1);
 // dW1 partial = sum x[:, 1::2] (x) du1; gout's odd channels w1 du1, its
-// even channels gin[:, :MID] (the passthrough's gradient).  A bf16: w1
-// rounded, and du1 and the passthrough gradient before dx; GI, GO: gin's
-// and gout's types.
-template <int MID, typename A, typename GI, typename GO>
+// even channels gin[:, :MID] (the passthrough's gradient).
+template <int MID>
 __global__ void __launch_bounds__(kThreads, Occ<MID>::CTAS)
-bn1_kernel(Geo G, const A* __restrict__ x, const float* __restrict__ u1,
+bn1_kernel(Geo G, const float* __restrict__ x, const float* __restrict__ u1,
            const float* __restrict__ gy, const float* __restrict__ st,
-           const float* __restrict__ row, const GI* __restrict__ gin,
-           GO* __restrict__ gout, float* __restrict__ part) {
+           const float* __restrict__ row, const float* __restrict__ gin,
+           float* __restrict__ gout, float* __restrict__ part) {
   constexpr int C = 2 * MID;
-  constexpr bool B = IsBf16<A>::value;
   extern __shared__ __align__(16) float smem[];
   float* s_w = smem;                      // MID x MID: w1 transposed
   float* s_c = s_w + MID * MID;           // BN1 constants, BN1 means
@@ -1091,7 +1025,7 @@ bn1_kernel(Geo G, const A* __restrict__ x, const float* __restrict__ u1,
   const float* gb = row + Row<MID>::GB;
   float* c1 = s_c;
   float* a1 = s_c + 4 * MID;
-  copy_weights<MID, true, B>(s_w, row + Row<MID>::W1, MID * MID);
+  async_copy<MID, true>(s_w, row + Row<MID>::W1, MID * MID);
   async_tile<MID>(G, T, x + (size_t)T.b * C * plane + plane, 2 * plane, s_x,
                   G.ps);
   async_tile<MID>(G, T, gy + (size_t)T.b * MID * plane, plane, s_du, G.ps);
@@ -1105,12 +1039,12 @@ bn1_kernel(Geo G, const A* __restrict__ x, const float* __restrict__ u1,
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         const int c = cb + u * cstep;
-        v[u] = c < MID ? ldf(gin + q + c * plane) : 0.f;
+        v[u] = c < MID ? gin[q + c * plane] : 0.f;
       }
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         const int c = cb + u * cstep;
-        if (c < MID) stf(gout + q + 2 * c * plane, rnd<B>(v[u]));
+        if (c < MID) gout[q + 2 * c * plane] = v[u];
       }
     }
   });
@@ -1138,12 +1072,8 @@ bn1_kernel(Geo G, const A* __restrict__ x, const float* __restrict__ u1,
   __syncthreads();
   float* prow = part + (size_t)T.t * Row<MID>::LEN;
   dw_product<MID>(s_x, s_du, G.ps, T.n, s_comb, prow + Row<MID>::W1);
-  if constexpr (B) {
-    __syncthreads();
-    round_tile<MID>(T, s_du, G.ps);
-  }
   pw_tile<MID>(s_du, G.ps, s_w, T.n, [&](int i, int p, float v) {
-    stf(gout + ((size_t)T.b * C + 2 * i + 1) * plane + pix(G, T, p), v);
+    gout[((size_t)T.b * C + 2 * i + 1) * plane + pix(G, T, p)] = v;
   });
 }
 
@@ -1201,16 +1131,15 @@ size_t fwd_scratch(const Geo& G) {
   return 3 * (size_t)G.b * MID * G.h * G.w + 3 * (size_t)G.ntiles * 2 * MID;
 }
 
-// u1, u2, u3, dv, gy, the block-to-block gradient (two buffers in bf16,
-// where dx, bf16, cannot hold it), the partial rows
-template <int MID, bool B>
+// u1, u2, u3, dv, gy, the block-to-block gradient, the partial rows
+template <int MID>
 size_t bwd_scratch(const Geo& G, int nblk) {
   const size_t half = (size_t)G.b * MID * G.h * G.w;
-  return 5 * half + (B ? 4 : 2) * half + (size_t)nblk * G.ntiles * Row<MID>::LEN;
+  return 7 * half + (size_t)nblk * G.ntiles * Row<MID>::LEN;
 }
 
-template <int MID, typename A>
-int span_fwd(const A* x, const float* blocks, A* out, A* xsave,
+template <int MID>
+int span_fwd(const float* x, const float* blocks, float* out, float* xsave,
              float* stats, float* scratch, const Geo& G, int nblk,
              cudaStream_t s) {
   constexpr int C = 2 * MID, LEN = Row<MID>::LEN;
@@ -1224,16 +1153,15 @@ int span_fwd(const A* x, const float* blocks, A* out, A* xsave,
   float* fst1 = u3 + half;
   float* fst2 = fst1 + slot;
   float* fst3 = fst2 + slot;
-  constexpr bool B = IsBf16<A>::value;
-  const auto k_in = in_kernel<MID, A>;
-  const auto k_dw = fwd_dw_kernel<MID, B>;
-  const auto k_pw2 = fwd_pw2_kernel<MID, A>;
+  const auto k_in = in_kernel<MID>;
+  const auto k_dw = fwd_dw_kernel<MID>;
+  const auto k_pw2 = fwd_pw2_kernel<MID>;
   for (int i = 0; i <= nblk; ++i) {
     const float* row = blocks + (size_t)i * LEN;
     float* st = stats + (size_t)i * 3 * bnst;
     const bool last = i == nblk;
     const float* prev = i ? blocks + (size_t)(i - 1) * LEN : nullptr;
-    A* xi = last ? out : xsave + i * act;
+    float* xi = last ? out : xsave + i * act;
     FASTDET_LAUNCH(k_in, Smem<MID>::in(G), s, G,
                    i ? xsave + (i - 1) * act : x, i ? u3 : nullptr, fst3,
                    i ? prev + Row<MID>::GB + 4 * MID : nullptr,
@@ -1248,20 +1176,20 @@ int span_fwd(const A* x, const float* blocks, A* out, A* xsave,
   return 0;
 }
 
-// The backward's five launches for block i: its gradient in gin (GI),
-// out to gout (GO).
-template <int MID, typename A, typename GI, typename GO>
-int bwd_block(const Geo& G, const A* xi, const float* st, const float* row,
-              const GI* gin, GO* gout, float* u1, float* u2, float* u3,
-              float* dv, float* gy, float* pi, cudaStream_t s) {
-  constexpr bool B = IsBf16<A>::value;
-  const auto k_in = in_kernel<MID, A>;
-  const auto k_rec = rec_kernel<MID, B, GI>;
-  const auto k_bn3 = bn3_kernel<MID, B, GI>;
-  const auto k_bn2 = bn2_kernel<MID, B>;
-  const auto k_bn1 = bn1_kernel<MID, A, GI, GO>;
+// The backward's five launches for block i: its gradient in gin, out to
+// gout.
+template <int MID>
+int bwd_block(const Geo& G, const float* xi, const float* st,
+              const float* row, const float* gin, float* gout, float* u1,
+              float* u2, float* u3, float* dv, float* gy, float* pi,
+              cudaStream_t s) {
+  const auto k_in = in_kernel<MID>;
+  const auto k_rec = rec_kernel<MID>;
+  const auto k_bn3 = bn3_kernel<MID>;
+  const auto k_bn2 = bn2_kernel<MID>;
+  const auto k_bn1 = bn1_kernel<MID>;
   FASTDET_LAUNCH(k_in, Smem<MID>::in(G), s, G, xi, nullptr, nullptr, nullptr,
-                 nullptr, (A*)nullptr, row + Row<MID>::W1, u1, nullptr);
+                 nullptr, (float*)nullptr, row + Row<MID>::W1, u1, nullptr);
   FASTDET_LAUNCH(k_rec, Smem<MID>::rec(G), s, G, u1, st, row, gin, u2, u3,
                  pi);
   FASTDET_LAUNCH(k_bn3, Smem<MID>::bn3(G), s, G, u2, u3, st, row, gin, dv,
@@ -1273,9 +1201,9 @@ int bwd_block(const Geo& G, const A* xi, const float* st, const float* row,
   return 0;
 }
 
-template <int MID, typename A>
-int span_bwd(const A* dy, const A* xsave, const float* stats,
-             const float* blocks, A* dx, float* dblocks, float* scratch,
+template <int MID>
+int span_bwd(const float* dy, const float* xsave, const float* stats,
+             const float* blocks, float* dx, float* dblocks, float* scratch,
              const Geo& G, int nblk, cudaStream_t s) {
   constexpr int C = 2 * MID, LEN = Row<MID>::LEN;
   const size_t act = (size_t)G.b * C * G.h * G.w;
@@ -1287,39 +1215,18 @@ int span_bwd(const A* dy, const A* xsave, const float* stats,
   float* dv = u3 + half;
   float* gy = dv + half;
   float* tmp = gy + half;                    // (B, C, h, w): ping-pong with dx
-  constexpr bool B = IsBf16<A>::value;
-  float* tmp2 = B ? tmp + act : nullptr;     // bf16: the second f32 buffer
-  float* part = tmp + (B ? 2 : 1) * act;     // (nblk, ntiles, LEN)
-  const float* gf = nullptr;                 // the f32 gradient of block i+1
+  float* part = tmp + act;                   // (nblk, ntiles, LEN)
+  const float* gf = nullptr;                 // the gradient of block i+1
   for (int i = nblk - 1; i >= 0; --i) {
     const float* row = blocks + (size_t)i * LEN;
-    const A* xi = xsave + i * act;
+    const float* xi = xsave + i * act;
     const float* st = stats + (size_t)i * 3 * bnst;
     float* pi = part + (size_t)i * G.ntiles * LEN;
-    int rc;
-    if constexpr (!B) {
-      // f32: the gradients ping-pong between dx and tmp; block 0 writes dx
-      float* gout = (i % 2 == 0) ? dx : tmp;
-      rc = bwd_block<MID, A, float, float>(G, xi, st, row, gf ? gf : dy, gout,
-                                           u1, u2, u3, dv, gy, pi, s);
-      gf = gout;
-    } else {
-      // bf16: dy and dx are bf16, the gradients between blocks f32
-      float* gout = (i % 2 == 0) ? tmp : tmp2;
-      if (!gf && i == 0)
-        rc = bwd_block<MID, A, A, A>(G, xi, st, row, dy, dx, u1, u2, u3, dv,
-                                     gy, pi, s);
-      else if (!gf)
-        rc = bwd_block<MID, A, A, float>(G, xi, st, row, dy, gout, u1, u2,
-                                         u3, dv, gy, pi, s);
-      else if (i == 0)
-        rc = bwd_block<MID, A, float, A>(G, xi, st, row, gf, dx, u1, u2, u3,
-                                         dv, gy, pi, s);
-      else
-        rc = bwd_block<MID, A, float, float>(G, xi, st, row, gf, gout, u1, u2,
-                                             u3, dv, gy, pi, s);
-      gf = gout;
-    }
+    // the gradients ping-pong between dx and tmp; block 0 writes dx
+    float* gout = (i % 2 == 0) ? dx : tmp;
+    const int rc = bwd_block<MID>(G, xi, st, row, gf ? gf : dy, gout, u1, u2,
+                                  u3, dv, gy, pi, s);
+    gf = gout;
     if (rc) return rc;
   }
   reduce_rows_kernel<<<dim3((LEN + 31) / 32, nblk), kThreads, 0, s>>>(
@@ -1338,7 +1245,6 @@ size_t most_smem(int c, const Geo& G, bool backward) {
 
 bool valid(int b, int c, int h, int w, int nblk, int g, int tr, int tc,
            bool backward) {
-  // (the bf16 form's shared memory is the f32 form's: it stages f32)
   if (b < 1 || h < 1 || w < 1 || nblk < 1 || g < 1 || b % g) return false;
   if (c != 48 && c != 96 && c != 192) return false;
   if (tr < 1 || tr > h || tc < 1 || tc > w) return false;
@@ -1346,44 +1252,41 @@ bool valid(int b, int c, int h, int w, int nblk, int g, int tr, int tc,
   return most_smem(c, make_geo(b, h, w, g, tr, tc), backward) <= kSmemLimit;
 }
 
-template <typename A>
-int span_fwd_c(const A* x, const float* blocks, A* out, A* xsave,
+int span_fwd_c(const float* x, const float* blocks, float* out, float* xsave,
                float* stats, float* scratch, int b, int c, int h, int w,
                int nblk, int g, int tr, int tc, void* stream) {
   if (!valid(b, c, h, w, nblk, g, tr, tc, false)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const Geo G = make_geo(b, h, w, g, tr, tc);
   switch (c) {
-    case 48: return span_fwd<24, A>(x, blocks, out, xsave, stats, scratch, G, nblk, s);
-    case 96: return span_fwd<48, A>(x, blocks, out, xsave, stats, scratch, G, nblk, s);
-    default: return span_fwd<96, A>(x, blocks, out, xsave, stats, scratch, G, nblk, s);
+    case 48: return span_fwd<24>(x, blocks, out, xsave, stats, scratch, G, nblk, s);
+    case 96: return span_fwd<48>(x, blocks, out, xsave, stats, scratch, G, nblk, s);
+    default: return span_fwd<96>(x, blocks, out, xsave, stats, scratch, G, nblk, s);
   }
 }
 
-template <typename A>
-int span_bwd_c(const A* dy, const A* xsave, const float* stats,
-               const float* blocks, A* dx, float* dblocks, float* scratch,
+int span_bwd_c(const float* dy, const float* xsave, const float* stats,
+               const float* blocks, float* dx, float* dblocks, float* scratch,
                int b, int c, int h, int w, int nblk, int g, int tr, int tc,
                void* stream) {
   if (!valid(b, c, h, w, nblk, g, tr, tc, true)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const Geo G = make_geo(b, h, w, g, tr, tc);
   switch (c) {
-    case 48: return span_bwd<24, A>(dy, xsave, stats, blocks, dx, dblocks, scratch, G, nblk, s);
-    case 96: return span_bwd<48, A>(dy, xsave, stats, blocks, dx, dblocks, scratch, G, nblk, s);
-    default: return span_bwd<96, A>(dy, xsave, stats, blocks, dx, dblocks, scratch, G, nblk, s);
+    case 48: return span_bwd<24>(dy, xsave, stats, blocks, dx, dblocks, scratch, G, nblk, s);
+    case 96: return span_bwd<48>(dy, xsave, stats, blocks, dx, dblocks, scratch, G, nblk, s);
+    default: return span_bwd<96>(dy, xsave, stats, blocks, dx, dblocks, scratch, G, nblk, s);
   }
 }
 
-template <bool B>
 size_t bwd_scratch_c(int b, int c, int h, int w, int nblk, int g, int tr,
                      int tc) {
   if (!valid(b, c, h, w, nblk, g, tr, tc, true)) return 0;
   const Geo G = make_geo(b, h, w, g, tr, tc);
   switch (c) {
-    case 48: return bwd_scratch<24, B>(G, nblk);
-    case 96: return bwd_scratch<48, B>(G, nblk);
-    default: return bwd_scratch<96, B>(G, nblk);
+    case 48: return bwd_scratch<24>(G, nblk);
+    case 96: return bwd_scratch<48>(G, nblk);
+    default: return bwd_scratch<96>(G, nblk);
   }
 }
 
@@ -1419,30 +1322,14 @@ int fastdet_span_train_fwd(const float* x, const float* blocks, float* out,
                            float* xsave, float* stats, float* scratch, int b,
                            int c, int h, int w, int nblk, int g, int tr,
                            int tc, void* stream) {
-  return span_fwd_c<float>(x, blocks, out, xsave, stats, scratch, b, c, h, w,
-                           nblk, g, tr, tc, stream);
-}
-
-// The bf16 form: x, out and xsave bf16, the rest as the f32 form's (its
-// scratch too: fastdet_span_train_fwd_scratch).
-int fastdet_span_train_fwd_bf16(const bf16* x, const float* blocks, bf16* out,
-                                bf16* xsave, float* stats, float* scratch,
-                                int b, int c, int h, int w, int nblk, int g,
-                                int tr, int tc, void* stream) {
-  return span_fwd_c<bf16>(x, blocks, out, xsave, stats, scratch, b, c, h, w,
-                          nblk, g, tr, tc, stream);
+  return span_fwd_c(x, blocks, out, xsave, stats, scratch, b, c, h, w, nblk,
+                    g, tr, tc, stream);
 }
 
 // Floats of scratch that fastdet_span_train_bwd needs (0 if invalid).
 size_t fastdet_span_train_bwd_scratch(int b, int c, int h, int w, int nblk,
                                       int g, int tr, int tc) {
-  return bwd_scratch_c<false>(b, c, h, w, nblk, g, tr, tc);
-}
-
-// Floats of scratch that fastdet_span_train_bwd_bf16 needs (0 if invalid).
-size_t fastdet_span_train_bwd_scratch_bf16(int b, int c, int h, int w,
-                                           int nblk, int g, int tr, int tc) {
-  return bwd_scratch_c<true>(b, c, h, w, nblk, g, tr, tc);
+  return bwd_scratch_c(b, c, h, w, nblk, g, tr, tc);
 }
 
 // dy (B, C, h, w), xsave, stats and blocks as the forward's -> dx (B, C,
@@ -1452,18 +1339,8 @@ int fastdet_span_train_bwd(const float* dy, const float* xsave,
                            float* dblocks, float* scratch, int b, int c, int h,
                            int w, int nblk, int g, int tr, int tc,
                            void* stream) {
-  return span_bwd_c<float>(dy, xsave, stats, blocks, dx, dblocks, scratch, b,
-                           c, h, w, nblk, g, tr, tc, stream);
-}
-
-// The bf16 form: dy, xsave and dx bf16, the rest f32.
-int fastdet_span_train_bwd_bf16(const bf16* dy, const bf16* xsave,
-                                const float* stats, const float* blocks,
-                                bf16* dx, float* dblocks, float* scratch,
-                                int b, int c, int h, int w, int nblk, int g,
-                                int tr, int tc, void* stream) {
-  return span_bwd_c<bf16>(dy, xsave, stats, blocks, dx, dblocks, scratch, b,
-                          c, h, w, nblk, g, tr, tc, stream);
+  return span_bwd_c(dy, xsave, stats, blocks, dx, dblocks, scratch, b, c, h,
+                    w, nblk, g, tr, tc, stream);
 }
 
 const char* fastdet_cuda_error_string(int code) {

@@ -16,8 +16,15 @@ stage kernel `s2span`) are held to 2e-4, not bitwise, and contract to
 FMA.  The training kernels `span_train` and `stem_train`
 are built without FMA so that their plain versions recompute their
 forwards bit for bit (their backward's ReLU masks and pool routing then
-agree); their bf16 forms, C entries of the same sources, keep that
-(their products are bf16 × bf16, exact in f32 with or without FMA).
+agree); the bf16 form of `stem_train`, C entries of the same source,
+keeps that (its products are bf16 × bf16, exact in f32 with or without
+FMA).  `span16_train`, the bf16 training span, is built with the default
+flags and contracts to FMA: its backward recomputes y, v, z and the ReLU
+masks with the forward's own device functions (the same MMA k-order, the
+depthwise taps in order by `__fmaf_rn`, BN by `__fsub_rn`, `__fmul_rn`
+and `__fadd_rn`, which the compiler never contracts), so the recompute
+is the forward's bit for bit with contraction on or off; against its
+plain version it is held to 2⁻⁶ of max |value|, not bitwise.
 `build_all` starts one `nvcc` per source, all at once.
 
 A failed build raises; nothing falls back to a plain version.
@@ -45,7 +52,7 @@ SOURCE_FLAGS = {"pp_fused": ("--fmad=false",),
                 "span_train": ("--fmad=false",),
                 "stem_train": ("--fmad=false",)}
 SOURCES = ("pp_fused", "stem_s2d", "span", "nms_keep", "span_train",
-           "stem_train", "stem_s2d8", "s2span")
+           "stem_train", "stem_s2d8", "s2span", "span16_train")
 BUILD_TIMEOUT_S = 600
 
 _lock = threading.Lock()

@@ -60,16 +60,20 @@ the gradient between blocks stays f32 and dx leaves the span as bf16.
 The plain versions compute it in f32 from the bf16-rounded operands (a
 bf16 × bf16 product is exact in f32), not by torch's bf16 ops, which
 round their outputs.  `span_train_forward_bf16` /
-`span_train_backward_bf16` launch the bf16 C entries of
-`csrc/span_train.cu` (the same kernels on bf16 activations; the plan is
-the f32 form's), with launch counts of their own.
+`span_train_backward_bf16` launch `csrc/span16_train.cu`, a kernel of
+its own for the bf16 form (a thread-block cluster per ghost group, the
+band in shared memory for every block, the backward's products on bf16
+tensor cores, pw1 and pw2 in this module's `_pw` order so that the
+recompute's ReLU masks are the plain version's; one launch forward, two
+backward), with the launch plan `span16_train_plan` and launch counts of
+their own.
 """
 
 from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -413,19 +417,392 @@ def span_train_plan(b: int, c: int, h: int, w: int, nblk: int,
         launches_fwd=3 * nblk + 1, launches_bwd=5 * nblk + 1)
 
 
+# The bf16 form (csrc/span16_train.cu): a warp holds its share of a band's
+# pointwise outputs in registers (MTW m-tiles of 16 pixels by NTW n-tiles
+# of 8 channels, `Cfg<MID>`), so a band is at most this many pixels.
+SPAN16_TRAIN_PMAX = {24: 512, 48: 256, 96: 128}
+SPAN16_TRAIN_MAX_CLUSTER = 16     # with the non-portable cluster attribute
+SPAN16_TRAIN_THREADS = 512        # kThreads
+SPAN16_TRAIN_WARPS = SPAN16_TRAIN_THREADS // 32
+
+
+def _odd16(n: int) -> int:
+    return n if (n // 8) & 1 else n + 8
+
+
+def _up16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+def span16_train_smem(mid: int, rows: int, w: int, ipc: int, n: int,
+                      backward: bool) -> int:
+    """Bytes of shared memory of a CTA of csrc/span16_train.cu
+    (`span16_train_layout`) holding ipc slices of `rows` rows of width w in
+    a cluster of n: 16 zero bytes, four mbarriers, the slot tables, the BN
+    constants, the warp rows' sums, the n CTAs' pushed sums (two slots),
+    bf16(wd), bf16(w1) and bf16(w2) (f32 in the forward), x's odd channels
+    (XO), y with its halo (Y); forward: the band's C slots (X; V shares
+    XO's bytes); backward: V (also du2 with its halo) and the two bf16
+    terms of du."""
+    c, p = 2 * mid, ipc * rows * w
+    p16 = _up16(p)
+    psy = _odd16(mid)
+    halo_px = ipc * (rows + 2) * (w + 2)
+    warps_m = SPAN16_TRAIN_WARPS // (mid // 24)
+    nbytes = (48 + _up16(6 * c) + _up16(15 * mid * 4)
+              + _up16(warps_m * 8 * mid) + _up16(16 * n * mid)
+              + _up16(8 * mid) + _up16(36 * mid)
+              + 2 * _up16(2 * mid * psy if backward else 4 * mid * mid)
+              + _up16(2 * p16 * psy) + _up16(2 * halo_px * psy))
+    if not backward:
+        return nbytes + _up16(2 * p * _odd16(c))
+    return (nbytes + _up16(2 * max(p16, halo_px) * psy)
+            + 2 * _up16(2 * p16 * psy))
+
+
+@dataclass(frozen=True)
+class Span16TrainPlan:
+    """How `csrc/span16_train.cu` runs one stage call: a thread-block
+    cluster of `cluster` CTAs of SPAN16_TRAIN_THREADS threads per ghost
+    group, each CTA a band of `rows` rows of one image (`bpi` bands an
+    image) or `ipc` whole images (`rows` = h), `pixels` = ipc·rows·w of
+    them; the forward one launch, the backward one plus the sum of its
+    `part_rows` weight-gradient partial rows a block (one a CTA)."""
+    cluster: int
+    bpi: int
+    ipc: int
+    rows: int
+    pixels: int
+    groups: int
+    ctas: int
+    smem_fwd: int
+    smem_bwd: int
+    part_rows: int
+    launches_fwd: int
+    launches_bwd: int
+
+    @property
+    def args(self) -> Tuple[int, int, int, int]:
+        """(cluster, bpi, ipc, rows), as the C functions take them."""
+        return self.cluster, self.bpi, self.ipc, self.rows
+
+    @property
+    def nonportable(self) -> bool:
+        """A cluster past the portable 8 CTAs."""
+        return self.cluster > 8
+
+    def band_rows(self, h: int):
+        """[(first row, rows)] of an image's bands."""
+        return [(j * self.rows, min(self.rows, h - j * self.rows))
+                for j in range(self.bpi)]
+
+
+def span16_train_plan(b: int, c: int, h: int, w: int, nblk: int, g: int,
+                      cluster: Optional[int] = None) -> Span16TrainPlan:
+    """The launch plan of B8's bf16 form for a (b, c, h, w) span input of
+    nblk blocks at ghost group g: the smallest cluster (fewest CTAs, so
+    fewest partial rows and DSMEM reads) whose band fits a CTA's registers
+    (SPAN16_TRAIN_PMAX pixels) and shared memory, of ipc = g/n whole images
+    a CTA or of bpi = n/g bands an image (⌈h/bpi⌉ rows, none empty), at
+    most SPAN16_TRAIN_MAX_CLUSTER CTAs; `cluster` forces a size (the tests
+    use it to cut small shapes into bands).  A group that fits no cluster
+    raises ValueError."""
+    mid = c // 2
+    if c not in SPAN_CHANNELS or nblk < 1 or g < 1 or b % g:
+        raise ValueError(f"span16_train_plan: no plan for C={c}, nblk={nblk},"
+                         f" group {g} of batch {b}")
+    cands = [(g // ipc, 1, ipc, h) for ipc in range(g, 1, -1) if g % ipc == 0]
+    for bpi in range(1, h + 1):
+        rows = -(-h // bpi)
+        if (bpi - 1) * rows < h:
+            cands.append((g * bpi, bpi, 1, rows))
+    for n, bpi, ipc, rows in sorted(cands):
+        if n > SPAN16_TRAIN_MAX_CLUSTER or (cluster and n != cluster):
+            continue
+        pixels = ipc * rows * w
+        sf = span16_train_smem(mid, rows, w, ipc, n, False)
+        sb = span16_train_smem(mid, rows, w, ipc, n, True)
+        if (pixels <= SPAN16_TRAIN_PMAX[mid] and sf <= SMEM_PER_CTA
+                and sb <= SMEM_PER_CTA):
+            groups = b // g
+            return Span16TrainPlan(n, bpi, ipc, rows, pixels, groups,
+                                   groups * n, sf, sb, groups * n, 1, 2)
+    raise ValueError(
+        f"span16_train_plan: a ghost group of {g} images of {h}x{w} at C={c} "
+        f"fits no cluster of at most {SPAN16_TRAIN_MAX_CLUSTER} CTAs"
+        + (f" of {cluster}" if cluster else "") + " (a band holds at most "
+        f"{SPAN16_TRAIN_PMAX[mid]} pixels)")
+
+
+# ------------------------------------------------ the bf16 kernel's steps
+
+def span16_train_slots(k: int, c: int):
+    """P_k of csrc/span16_train.cu: slot of each logical channel of block
+    k's input, P_0 the identity, P_{k+1}(j) = P_k(2j), P_{k+1}(mid + r) =
+    P_k(2r + 1) (`span16_next_slots`)."""
+    cur = list(range(c))
+    for _ in range(k):
+        cur = span16_next_slots(cur, c // 2)
+    return cur
+
+
+def span16_next_slots(cur, mid: int):
+    """The slots after a block: the passthrough keeps its slots, z_r takes
+    the slot of pw1's input 2r + 1."""
+    return [cur[2 * j] for j in range(mid)] + [cur[2 * r + 1]
+                                               for r in range(mid)]
+
+
+def span16_band(plan: Span16TrainPlan, g: int, h: int, w: int, gi: int,
+                rank: int) -> dict:
+    """CTA `rank` of group gi's cluster (`make_band`): each of its
+    pixels' image and plane offset (0 where dead: rows past the image in
+    the last band), which are live, their place (slice, row, column) in a
+    haloed buffer, and the neighbouring bands."""
+    rows, ipc = plan.rows, plan.ipc
+    if ipc > 1:
+        img0, r0, rv, above, below = gi * g + rank * ipc, 0, h, False, False
+    else:
+        j = rank % plan.bpi
+        img0, r0 = gi * g + rank // plan.bpi, j * rows
+        rv, above, below = min(rows, h - r0), j > 0, j + 1 < plan.bpi
+    p = torch.arange(ipc * rows * w)
+    per = rows * w
+    q = p % per
+    live = (q // w) < rv
+    return {"img": img0 + p // per, "off": torch.where(live, r0 * w + q, 0),
+            "live": live, "yj": p // per, "yi": q // w + 1,
+            "yc": q % w + 1, "above": above, "below": below}
+
+
+def _rank_sum(parts):
+    """The cluster's sum: the CTAs' sums added in rank order."""
+    tot = torch.zeros_like(parts[0])
+    for part in parts:
+        tot = tot + part
+    return tot
+
+
+def _pw_rows(x, w):
+    """pw1 / pw2 of a band's (P, mid) rows as `pw_seq` sums them: input
+    channels in order, acc + x·w (the plain version's `_pw`)."""
+    acc = torch.zeros(x.shape[0], w.shape[1])
+    for i in range(w.shape[0]):
+        acc = acc + x[:, i:i + 1] * w[i]
+    return acc
+
+
+def _split16(t):
+    """t = hi + lo + O(2⁻¹⁷|t|), both bf16 values (in t's dtype)."""
+    hi = round16(t)
+    return hi, round16(t - hi)
+
+
+def _taps(buf, bd, wd, rows, w, flip=False):
+    """The depthwise 3×3 of a haloed (ipc, rows+2, w+2, mid) buffer at a
+    band's pixels, taps in order (8 - t's weight where flip)."""
+    acc = torch.zeros(bd["yi"].shape[0], buf.shape[-1])
+    for t in range(9):
+        ky, kx = t // 3 - 1, t % 3 - 1
+        acc = acc + wd[8 - t if flip else t] * buf[bd["yj"], bd["yi"] + ky,
+                                                   bd["yc"] + kx]
+    return acc
+
+
+def _haloed(vals, bd, plan, w):
+    """A band's per-pixel rows (P, mid) in a zeroed haloed buffer."""
+    buf = torch.zeros(plan.ipc, plan.rows + 2, w + 2, vals.shape[1])
+    buf[bd["yj"], bd["yi"], bd["yc"]] = vals
+    return buf
+
+
+def span16_halo(bufs, bands, rows):
+    """Each band's halo rows from its neighbours' edge band rows (in
+    place): the band above's last row, the band below's first."""
+    edges = [(b[:, rows].clone(), b[:, 1].clone()) for b in bufs]
+    for r, bd in enumerate(bands):
+        if bd["above"]:
+            bufs[r][:, 0] = edges[r - 1][0]
+        if bd["below"]:
+            bufs[r][:, rows + 1] = edges[r + 1][1]
+
+
+def span16_train_steps(x: torch.Tensor, blocks: torch.Tensor, g: int,
+                       dy: torch.Tensor, plan: Span16TrainPlan):
+    """csrc/span16_train.cu's steps on the CPU in f32, a cluster at a time,
+    each CTA's band as the kernel holds it: the forward's slots (block
+    input in `span16_train_slots`, x's odd channels gathered in logical
+    order), y and du2 in haloed buffers whose halo rows come from the
+    neighbouring bands (`span16_halo`), each BN's statistics and backward
+    sums as the CTAs' sums over their live pixels added in rank order (the
+    mean, then Σ(u-μ)²), the rounding points, the backward's f32 gradient
+    in the slots (dz of an even channel rounded where read), dW1 and dW2
+    from du's two bf16 terms, and each CTA's partial row added in CTA
+    order.  pw1 and pw2 sum in the plain version's order, as the kernel's
+    `pw_seq` does; the backward's products and every other sum are f32 in
+    torch's order, not the tensor cores'.  bf16 x, dy (B, C, h, w) → (out,
+    xsave, stats, dx, dblocks) as the plain versions give them."""
+    b, c, h, w = x.shape
+    mid, nblk, plane = c // 2, blocks.shape[0], h * w
+    ngroups, m = b // g, float(g * h * w)
+    rnd = round16
+    xf, dyf = x.float().reshape(b, c, plane), dy.float().reshape(b, c, plane)
+    rows = [_unpack(r, mid) for r in blocks.float()]
+    w1s, wds, w2s = ([rnd(r[i]) for r in rows] for i in range(3))
+    out = torch.zeros(b, c, plane)
+    xsave = torch.zeros(nblk, b, c, plane)
+    stats = torch.zeros(nblk, 3, ngroups, 3, mid)
+    dx = torch.zeros(b, c, plane)
+    part = torch.zeros(nblk, ngroups * plan.cluster, row_len(mid))
+
+    def bn(u, st, gb, k):
+        return (u - st[0]) * (st[1] * gb[2 * k]) + gb[2 * k + 1]
+
+    def stats_of(us, bands):
+        mu = _rank_sum([u[bd["live"]].sum(0) for u, bd in zip(us, bands)]) / m
+        var = _rank_sum([((u[bd["live"]] - mu) ** 2).sum(0)
+                         for u, bd in zip(us, bands)]) / m
+        return torch.stack([mu, torch.rsqrt(var + EPS), var])
+
+    def zero_dead(ts, bands):
+        return [torch.where(bd["live"][:, None], t, torch.zeros_like(t))
+                for t, bd in zip(ts, bands)]
+
+    def bn_back(gs, us, st, gb, k, bands, col, kk):
+        """→ du of each band; the CTAs' (Σg·x̂, Σg) into their partial
+        rows at the BN's (dγ, dβ) columns."""
+        xh = [(u - st[0]) * st[1] for u in us]
+        sums = [torch.stack([(gr * x_)[bd["live"]].sum(0),
+                             gr[bd["live"]].sum(0)])
+                for gr, x_, bd in zip(gs, xh, bands)]
+        for r, s in enumerate(sums):
+            part[kk, col + r, GB + 2 * k * mid:GB + (2 * k + 2) * mid] = \
+                s.reshape(-1)
+        tot = _rank_sum(sums)
+        return zero_dead([(gb[2 * k] * st[1]) * (gr - tot[1] / m
+                                                 - x_ * (tot[0] / m))
+                          for gr, x_ in zip(gs, xh)], bands)
+
+    GB = 2 * mid * mid + 9 * mid
+    for gi in range(ngroups):
+        n = plan.cluster
+        bands = [span16_band(plan, g, h, w, gi, r) for r in range(n)]
+        col = gi * n
+        # ---- forward
+        X = [torch.where(bd["live"][:, None], xf[bd["img"], :, bd["off"]],
+                         torch.zeros(1)) for bd in bands]
+        cur = list(range(c))
+        for k in range(nblk):
+            gb = rows[k][3]
+            for bd, xs in zip(bands, X):
+                lv = bd["live"]
+                xsave[k, bd["img"][lv], :, bd["off"][lv]] = xs[lv][:, cur]
+            odd = [cur[2 * i + 1] for i in range(mid)]
+            u1 = [_pw_rows(xs[:, odd], w1s[k]) for xs in X]
+            st1 = stats_of(u1, bands)
+            ys = [_haloed(y, bd, plan, w) for y, bd in zip(zero_dead(
+                [rnd(torch.relu(bn(u, st1, gb, 0))) for u in u1], bands),
+                bands)]
+            span16_halo(ys, bands, plan.rows)
+            u2 = [_taps(y, bd, wds[k], plan.rows, w)
+                  for y, bd in zip(ys, bands)]
+            st2 = stats_of(u2, bands)
+            vs = zero_dead([rnd(bn(u, st2, gb, 1)) for u in u2], bands)
+            u3 = [_pw_rows(v, w2s[k]) for v in vs]
+            st3 = stats_of(u3, bands)
+            for xs, u, bd in zip(X, u3, bands):
+                lvi = bd["live"].nonzero()[:, 0]
+                xs[lvi[:, None], torch.tensor(odd)[None]] = rnd(
+                    torch.relu(bn(u, st3, gb, 2)))[lvi]
+            stats[k, :, gi] = torch.stack([st1, st2, st3])
+            cur = span16_next_slots(cur, mid)
+        for bd, xs in zip(bands, X):
+            lv = bd["live"]
+            out[bd["img"][lv], :, bd["off"][lv]] = xs[lv][:, cur]
+        # ---- backward
+        slots = span16_train_slots(nblk, c)
+        gbuf = [torch.zeros(len(bd["live"]), c) for bd in bands]
+        for gq, bd in zip(gbuf, bands):
+            lv = bd["live"]
+            gq[lv.nonzero()[:, 0][:, None], torch.tensor(slots)[None]] = \
+                dyf[bd["img"][lv], :, bd["off"][lv]]
+        for k in range(nblk - 1, -1, -1):
+            cur = span16_train_slots(k, c)
+            gb = rows[k][3]
+            st1, st2, st3 = stats[k, :, gi]
+            xo = [torch.where(bd["live"][:, None],
+                              xsave[k][bd["img"], 1::2, bd["off"]],
+                              torch.zeros(1)) for bd in bands]
+            u1 = [_pw_rows(a, w1s[k]) for a in xo]
+            ys = [_haloed(y, bd, plan, w) for y, bd in zip(zero_dead(
+                [rnd(torch.relu(bn(u, st1, gb, 0))) for u in u1], bands),
+                bands)]
+            span16_halo(ys, bands, plan.rows)
+            u2 = [_taps(y, bd, wds[k], plan.rows, w)
+                  for y, bd in zip(ys, bands)]
+            vs = zero_dead([rnd(bn(u, st2, gb, 1)) for u in u2], bands)
+            u3 = [_pw_rows(v, w2s[k]) for v in vs]
+            odd = [cur[2 * o + 1] for o in range(mid)]
+            even_o = (torch.arange(mid) % 2 == 0)[None]
+            dz = [torch.where(even_o, rnd(gq[:, odd]), gq[:, odd])
+                  for gq in gbuf]
+            gz = zero_dead([torch.where(bn(u, st3, gb, 2) > 0, d,
+                                        torch.zeros(1))
+                            for u, d in zip(u3, dz)], bands)
+            du3 = bn_back(gz, u3, st3, gb, 2, bands, col, k)
+            dv = []
+            for r, (v, d) in enumerate(zip(vs, du3)):
+                hi, lo = _split16(d)
+                part[k, col + r, mid * mid + 9 * mid:GB] = \
+                    (v.t() @ hi + v.t() @ lo).reshape(-1)
+                dv.append(hi @ w2s[k].t())
+            du2 = [rnd(d) for d in bn_back(dv, u2, st2, gb, 1, bands, col, k)]
+            d2 = [_haloed(d, bd, plan, w) for d, bd in zip(du2, bands)]
+            span16_halo(d2, bands, plan.rows)
+            for r, (d, y, bd) in enumerate(zip(du2, ys, bands)):
+                lv = bd["live"]
+                part[k, col + r, mid * mid:mid * mid + 9 * mid] = torch.stack(
+                    [(d[lv] * y[bd["yj"], bd["yi"] + t // 3 - 1,
+                                bd["yc"] + t % 3 - 1][lv]).sum(0)
+                     for t in range(9)]).reshape(-1)
+            gy = zero_dead([torch.where(bn(u, st1, gb, 0) > 0,
+                                        _taps(d, bd, wds[k], plan.rows, w,
+                                              True), torch.zeros(1))
+                            for u, d, bd in zip(u1, d2, bands)], bands)
+            du1 = bn_back(gy, u1, st1, gb, 0, bands, col, k)
+            for r, (a, d, gq, bd) in enumerate(zip(xo, du1, gbuf, bands)):
+                hi, lo = _split16(d)
+                part[k, col + r, :mid * mid] = (a.t() @ hi
+                                                + a.t() @ lo).reshape(-1)
+                lv = bd["live"]
+                gq[lv.nonzero()[:, 0][:, None], torch.tensor(odd)[None]] = \
+                    (hi @ w1s[k].t())[lv]
+        for gq, bd in zip(gbuf, bands):
+            lv = bd["live"]
+            dx[bd["img"][lv], :, bd["off"][lv]] = rnd(gq[lv])
+    dblocks = _rank_sum([part[:, r] for r in range(part.shape[1])])
+    shape = (b, c, h, w)
+    return (out.reshape(shape).to(BF16), xsave.reshape((nblk,) + shape)
+            .to(BF16), stats, dx.reshape(shape).to(BF16), dblocks)
+
+
 # ------------------------------------------------------------ the kernels
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "fastdet_span_train_fwd": ([_P] * 6 + [_I] * 8 + [_P], _I),
-    "fastdet_span_train_fwd_bf16": ([_P] * 6 + [_I] * 8 + [_P], _I),
     "fastdet_span_train_fwd_scratch": ([_I] * 8, ctypes.c_size_t),
     "fastdet_span_train_bwd": ([_P] * 7 + [_I] * 8 + [_P], _I),
-    "fastdet_span_train_bwd_bf16": ([_P] * 7 + [_I] * 8 + [_P], _I),
     "fastdet_span_train_bwd_scratch": ([_I] * 8, ctypes.c_size_t),
-    "fastdet_span_train_bwd_scratch_bf16": ([_I] * 8, ctypes.c_size_t),
     "fastdet_span_train_smem": ([_I] * 6, ctypes.c_size_t),
+}
+_SIGNATURES16 = {
+    "fastdet_span16_train_fwd": ([_P] * 5 + [_I] * 10 + [_P], _I),
+    "fastdet_span16_train_bwd": ([_P] * 8 + [_I] * 10 + [_P], _I),
+    "fastdet_span16_train_scratch": ([_I] * 10, ctypes.c_size_t),
+    "fastdet_span16_train_smem": ([_I] * 6, ctypes.c_size_t),
+    "fastdet_span16_train_clusters": ([_I] * 11, _I),
 }
 
 
@@ -449,7 +826,8 @@ def _check_inputs(what, x, blocks, g, dtype):
 
 def _forward(counter, bf16: bool, x, blocks, g):
     """The forward of either form: CPU → the plain version; CUDA → the C
-    entry of `csrc/span_train.cu` (one counted call on `counter`)."""
+    entry of `csrc/span_train.cu`, or of `csrc/span16_train.cu` for bf16
+    (one counted call on `counter`)."""
     dev = x.device
     if dev.type == "cpu":
         return span_train_forward_reference(x, blocks, g)
@@ -459,22 +837,30 @@ def _forward(counter, bf16: bool, x, blocks, g):
     _check_inputs(what, x, blocks, g, BF16 if bf16 else torch.float32)
     b, c, h, w = x.shape
     nblk, mid = blocks.shape[0], c // 2
-    tr, tc = span_train_plan(b, c, h, w, nblk, g).tile_fwd
     out = torch.empty_like(x)
     xsave = torch.empty((nblk,) + tuple(x.shape), dtype=x.dtype, device=dev)
     stats = torch.empty((nblk, 3, b // g, 3, mid), dtype=torch.float32,
                         device=dev)
-    lib = _build.load("span_train", _SIGNATURES)
-    scratch = torch.empty(
-        lib.fastdet_span_train_fwd_scratch(b, c, h, w, nblk, g, tr, tc),
-        dtype=torch.float32, device=dev)
-    fn = (lib.fastdet_span_train_fwd_bf16 if bf16
-          else lib.fastdet_span_train_fwd)
-    with torch.cuda.device(dev):
-        rc = fn(x.data_ptr(), blocks.data_ptr(), out.data_ptr(),
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if bf16:
+        plan = span16_train_plan(b, c, h, w, nblk, g)
+        lib = _build.load("span16_train", _SIGNATURES16)
+        with torch.cuda.device(dev):
+            rc = lib.fastdet_span16_train_fwd(
+                x.data_ptr(), blocks.data_ptr(), out.data_ptr(),
+                xsave.data_ptr(), stats.data_ptr(), b, c, h, w, nblk, g,
+                *plan.args, stream)
+    else:
+        tr, tc = span_train_plan(b, c, h, w, nblk, g).tile_fwd
+        lib = _build.load("span_train", _SIGNATURES)
+        scratch = torch.empty(
+            lib.fastdet_span_train_fwd_scratch(b, c, h, w, nblk, g, tr, tc),
+            dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            rc = lib.fastdet_span_train_fwd(
+                x.data_ptr(), blocks.data_ptr(), out.data_ptr(),
                 xsave.data_ptr(), stats.data_ptr(), scratch.data_ptr(), b, c,
-                h, w, nblk, g, tr, tc,
-                torch.cuda.current_stream(dev).cuda_stream)
+                h, w, nblk, g, tr, tc, stream)
     _build.check(lib, rc, what)
     counter.launches += 1
     return out, xsave, stats
@@ -489,7 +875,8 @@ def span_train_forward(x: torch.Tensor, blocks: torch.Tensor, g: int):
 
 def span_train_forward_bf16(x: torch.Tensor, blocks: torch.Tensor, g: int):
     """The bf16 form of `span_train_forward`: x, out and xsave bf16, stats
-    f32."""
+    f32; CUDA: the forward kernel of `csrc/span16_train.cu`, one launch
+    (`span16_train_plan`)."""
     return _forward(span_train_forward_bf16, True, x, blocks, g)
 
 
@@ -497,15 +884,8 @@ span_train_forward.launches = 0
 span_train_forward_bf16.launches = 0
 
 
-def _backward(counter, bf16: bool, dy, xsave, stats, blocks, g):
-    """The backward of either form: CPU → the plain version; CUDA → the C
-    entry (one counted call on `counter`)."""
+def _backward_inputs(what, bf16, dy, xsave, stats, blocks, g):
     dev = dy.device
-    if dev.type == "cpu":
-        return span_train_backward_reference(dy, xsave, stats, blocks, g)
-    what = counter.__name__
-    if dev.type != "cuda":
-        raise ValueError(f"{what}: unsupported device {dev}")
     dt = BF16 if bf16 else torch.float32
     _check_inputs(what, dy, blocks, g, dt)
     b, c, h, w = dy.shape
@@ -517,23 +897,76 @@ def _backward(counter, bf16: bool, dy, xsave, stats, blocks, g):
             raise ValueError(
                 f"{what}: expected a contiguous {tdt} {shape} tensor on "
                 f"{dev}, got {t.dtype} {tuple(t.shape)}")
+
+
+def _backward(counter, bf16: bool, dy, xsave, stats, blocks, g):
+    """The backward of either form: CPU → the plain version; CUDA → the C
+    entry (one counted call on `counter`)."""
+    dev = dy.device
+    if dev.type == "cpu":
+        return span_train_backward_reference(dy, xsave, stats, blocks, g)
+    what = counter.__name__
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {dev}")
+    if bf16:
+        dx, dblocks = span16_backward_launch(dy, xsave, stats, blocks, g,
+                                             what=what)
+        counter.launches += 1
+        return dx, dblocks
+    _backward_inputs(what, False, dy, xsave, stats, blocks, g)
+    b, c, h, w = dy.shape
+    nblk = blocks.shape[0]
     tr, tc = span_train_plan(b, c, h, w, nblk, g).tile_bwd
     lib = _build.load("span_train", _SIGNATURES)
     dx = torch.empty_like(dy)
     dblocks = torch.empty_like(blocks)
-    nscratch = (lib.fastdet_span_train_bwd_scratch_bf16 if bf16
-                else lib.fastdet_span_train_bwd_scratch)
-    scratch = torch.empty(nscratch(b, c, h, w, nblk, g, tr, tc),
-                          dtype=torch.float32, device=dev)
-    fn = (lib.fastdet_span_train_bwd_bf16 if bf16
-          else lib.fastdet_span_train_bwd)
+    scratch = torch.empty(
+        lib.fastdet_span_train_bwd_scratch(b, c, h, w, nblk, g, tr, tc),
+        dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        rc = fn(dy.data_ptr(), xsave.data_ptr(), stats.data_ptr(),
-                blocks.data_ptr(), dx.data_ptr(), dblocks.data_ptr(),
-                scratch.data_ptr(), b, c, h, w, nblk, g, tr, tc,
-                torch.cuda.current_stream(dev).cuda_stream)
+        rc = lib.fastdet_span_train_bwd(
+            dy.data_ptr(), xsave.data_ptr(), stats.data_ptr(),
+            blocks.data_ptr(), dx.data_ptr(), dblocks.data_ptr(),
+            scratch.data_ptr(), b, c, h, w, nblk, g, tr, tc,
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, what)
     counter.launches += 1
+    return dx, dblocks
+
+
+def span16_backward_launch(dy, xsave, stats, blocks, g, rec=None,
+                           what="span16_backward_launch"):
+    """The two launches of the bf16 backward (`csrc/span16_train.cu`) on
+    CUDA tensors, uncounted → (dx, dblocks).  `rec`: None, or a contiguous
+    bf16 (nblk, B, C/2, h, w) tensor into which the kernel writes each
+    block's recomputed z (the block output's second half), for holding the
+    recompute to the forward's outputs bit for bit."""
+    _backward_inputs(what, True, dy, xsave, stats, blocks, g)
+    dev = dy.device
+    b, c, h, w = dy.shape
+    nblk = blocks.shape[0]
+    if rec is not None and (
+            rec.device != dev or rec.dtype != BF16 or not rec.is_contiguous()
+            or tuple(rec.shape) != (nblk, b, c // 2, h, w)):
+        raise ValueError(f"{what}: rec must be a contiguous bfloat16 "
+                         f"{(nblk, b, c // 2, h, w)} tensor on {dev}")
+    plan = span16_train_plan(b, c, h, w, nblk, g)
+    lib = _build.load("span16_train", _SIGNATURES16)
+    n = lib.fastdet_span16_train_scratch(b, c, h, w, nblk, g, *plan.args)
+    if not n:
+        raise ValueError(f"{what}: the kernel refuses the plan {plan.args} "
+                         f"at {(b, c, h, w)}, nblk {nblk}, group {g}")
+    scratch = torch.empty(n, dtype=torch.float32, device=dev)
+    dx = torch.empty_like(dy)
+    dblocks = torch.empty_like(blocks)
+    with torch.cuda.device(dev):
+        rc = lib.fastdet_span16_train_bwd(
+            dy.data_ptr(), xsave.data_ptr(), stats.data_ptr(),
+            blocks.data_ptr(), dx.data_ptr(), dblocks.data_ptr(),
+            scratch.data_ptr(), None if rec is None else rec.data_ptr(), b,
+            c, h, w, nblk, g, *plan.args,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, what)
     return dx, dblocks
 
 
@@ -550,7 +983,8 @@ def span_train_backward_bf16(dy: torch.Tensor, xsave: torch.Tensor,
                              stats: torch.Tensor, blocks: torch.Tensor,
                              g: int):
     """The bf16 form of `span_train_backward`: dy, xsave and dx bf16,
-    dblocks f32."""
+    dblocks f32; CUDA: the backward kernel of `csrc/span16_train.cu` and
+    the sum of its partial rows, two launches (`span16_train_plan`)."""
     return _backward(span_train_backward_bf16, True, dy, xsave, stats,
                      blocks, g)
 

@@ -283,10 +283,10 @@ def span16_backward_errs(got, dy, xsave, stats, rows, g, witness=False):
     there a leaf's bound is twice the plain version's own distance on
     that leaf from the same function with every sum in f64, where that is
     the larger.  The seeded weights of `span_train_case` at stage 3, b128
-    (7 blocks) are such a case: the plain version's f32 sums on the card
-    stood 5.0% of dγ1's max |value| from its f64 sums and 5.2% from its
-    own f32 sums on the CPU, the kernel 5.7% from it (smoke phase 10
-    prints the three)."""
+    (7 blocks) are such a case: on the kernel's saved inputs and stats
+    the plain version's f32 sums on the card stood 4.4% of dγ1's max
+    |value| from its f64 sums and 4.1% from its own f32 sums on the CPU,
+    the kernel 5.3% from it (smoke phase 10 prints the three)."""
     import torch
     from fastdet_torch.kernels.fused_train import \
         span_train_backward_reference as plain
