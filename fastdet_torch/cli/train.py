@@ -169,8 +169,10 @@ def main(argv=None) -> int:
                              "evaluation stays f32)")
     parser.add_argument("--chain", type=int, default=1,
                         help="accepted for parity with the JAX CLI: the "
-                             "port runs the K steps of a chain one after "
-                             "another, which is the same arithmetic")
+                             "port runs the K = max(1, --chain) steps of a "
+                             "chain one after another, which is the same "
+                             "arithmetic (--chain 0 or less trains step by "
+                             "step, as --chain 1)")
     parser.add_argument("--summary", action="store_true",
                         help="print the model parameter table at startup")
     parser.add_argument("--profile", type=str, default="",
@@ -204,8 +206,7 @@ def main(argv=None) -> int:
         raise NotImplementedError(
             "fastdet_torch: reference .pth backbones are ROADMAP A13, not "
             "ported yet")
-    if opt.chain < 1:
-        raise ValueError("--chain must be ≥ 1")
+    chain = max(1, opt.chain)          # as the JAX CLI clamps it
 
     cfg = Config.from_file(opt.data)
     print("train config:")
@@ -242,8 +243,8 @@ def main(argv=None) -> int:
     if opt.summary:
         from fastdet_torch.utils import summarize_model
         print(summarize_model(model, (1, cfg.height, cfg.width, 3)))
-    if opt.chain > 1:
-        print(f"chaining {opt.chain} train steps: run one after another")
+    if chain > 1:
+        print(f"chaining {chain} train steps: run one after another")
     os.makedirs(opt.weights_dir, exist_ok=True)
 
     def batches(epoch):

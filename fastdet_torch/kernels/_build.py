@@ -16,9 +16,10 @@ stage kernel `s2span`) are held to 2e-4, not bitwise, and contract to
 FMA.  The training kernels `span_train` and `stem_train`
 are built without FMA so that their plain versions recompute their
 forwards bit for bit (their backward's ReLU masks and pool routing then
-agree); the bf16 form of `stem_train`, C entries of the same source,
-keeps that (its products are bf16 × bf16, exact in f32 with or without
-FMA).  `span16_train`, the bf16 training span, is built with the default
+agree).  `stem16_train`, the bf16 training stem, is built without FMA
+too, for BN's two roundings; its conv takes explicit `__fmaf_rn`, which
+equals the plain version's multiply and add bit for bit because each
+product bf16(w)·pixel is exact in f32.  `span16_train`, the bf16 training span, is built with the default
 flags and contracts to FMA: its backward recomputes y, v, z and the ReLU
 masks with the forward's own device functions (the same MMA k-order, the
 depthwise taps in order by `__fmaf_rn`, BN by `__fsub_rn`, `__fmul_rn`
@@ -50,9 +51,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SOURCE_FLAGS = {"pp_fused": ("--fmad=false",),
                 "nms_keep": ("--fmad=false",),
                 "span_train": ("--fmad=false",),
-                "stem_train": ("--fmad=false",)}
+                "stem_train": ("--fmad=false",),
+                "stem16_train": ("--fmad=false",)}
 SOURCES = ("pp_fused", "stem_s2d", "span", "nms_keep", "span_train",
-           "stem_train", "stem_s2d8", "s2span", "span16_train")
+           "stem_train", "stem_s2d8", "s2span", "span16_train",
+           "stem16_train")
 BUILD_TIMEOUT_S = 600
 
 _lock = threading.Lock()

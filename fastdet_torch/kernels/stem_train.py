@@ -28,7 +28,8 @@ where no positive tie occurs.
 The TPU kernel's forms are not carried over: no (192, 96) phase matrix
 and its selection matmuls, no lane rolls or bf16 bitcasts, no ×4 phase
 tiling of γ/β.  One CUDA design (`csrc/stem_train.cu`) serves the JAX
-package's group-1 and grouped kernels, with g as an argument.  It sweeps
+package's group-1 and grouped kernels in f32, with g as an argument (the
+bf16 form has its own, below).  It sweeps
 the conv once each way, from two identities that the plain helpers below
 state: the pool commutes with BN and ReLU if it takes the raw conv's max
 where γ ≥ 0 and its min where γ < 0 (`stem_train_pooled_reference`,
@@ -57,9 +58,14 @@ statistics are f32; the backward routes dy by the JAX precedence among
 the rounded yb, recomputed as the forward rounds them, and rounds du to
 bf16 before the dW product.  The statistics keep the port's two-pass
 variance; JAX's stem takes max(E[u²] − μ², 0) (ROADMAP §C).  The kernels
-are `stem_train_forward_bf16` / `stem_train_backward_bf16` (the same
-kernels with bf16's rounding points, counts of their own); their two
-approximations of the bf16 function are stated in `csrc/stem_train.cu`.
+are `stem_train_forward_bf16` / `stem_train_backward_bf16`, a design of
+their own (`csrc/stem16_train.cu`, `stem16_train_plan`): every product
+bf16(w)·pixel is exact in f32, so the conv runs by FMA and stays the
+plain `_conv` bit for bit; the moments come from the patches' integer
+Gram matrix on u8 tensor cores; the forward saves, instead of z, each
+pool window's winner by the JAX precedence (`stem16_winners_reference`:
+its code and its raw conv output zw), which the backward reads to route
+dy owner by owner (du rounded whole) and to take the routed Sg, Sgx.
 """
 
 from __future__ import annotations
@@ -275,6 +281,40 @@ def stem_train_sums_reference(dy, z, stats, gamma, beta, g: int):
             (gy * xhat).reshape(b // g, g, COUT, -1).sum((1, 3)))
 
 
+def stem16_winners_reference(u, stats, gamma, beta, g: int):
+    """Each pool window's winner in the bf16 form, from the raw conv
+    outputs u (B, 24, 2·h4, 2·w4) and the stats → (code (B, 24, h4, w4)
+    uint8, zw (B, 24, h4, w4) in u's dtype): the first member, in the JAX
+    precedence (`_route`: column 2j, 2j+1, 2j−1; within it row 2i, 2i+1,
+    2i−1), whose rounded yb = bf16(ReLU(bn)) is the window's maximum;
+    code = 3·column + row in that order, zw = the winner's raw u.  y is
+    bf16(ReLU(bn(zw))) bit for bit, and the backward's routed gy, Sg and
+    Sgx follow from (dy, code, zw): no tie of the rounded values and no
+    γ = 0 channel moves them."""
+    bn, _ = _bn_parts(u, stats, gamma, beta, g)
+    yb = round16(torch.relu(bn))
+    ninf = float("-inf")
+    ph = [(yb[:, :, py::2, px::2], u[:, :, py::2, px::2])
+          for py in (0, 1) for px in (0, 1)]
+    # members in precedence order: (column, row) with column 2j (px 0 of
+    # cell j), 2j+1 (px 1), 2j−1 (px 1 of cell j−1); row 2i (py 0), 2i+1
+    # (py 1), 2i−1 (py 1 of cell i−1); −inf beyond the top and left
+    vals, raws = [], []
+    for px, left in ((0, False), (1, False), (1, True)):
+        for py, up in ((0, False), (1, False), (1, True)):
+            v, r = ph[2 * py + px]
+            if up:
+                v, r = _shift(v, 2, 1, ninf), _shift(r, 2, 1, 0.0)
+            if left:
+                v, r = _shift(v, 3, 1, ninf), _shift(r, 3, 1, 0.0)
+            vals.append(v)
+            raws.append(r)
+    vals = torch.stack(vals)
+    first = (vals == vals.max(0).values).int().argmax(0)
+    zw = torch.stack(raws).gather(0, first[None])[0]
+    return first.to(torch.uint8), zw
+
+
 def combine_stem_stats(stats: torch.Tensor):
     """(G, 24, [μ, σinv, var]) per-group stats → the exact full-batch
     (mean (24,), var (24,)) for equal group sizes: mean = E_g[μ_g], var =
@@ -420,18 +460,106 @@ def stem_train_plan(b: int, h4: int, w4: int, g: int) -> StemTrainPlan:
         sweeps_bwd=_bwd_outputs(h4, w4) / hw4)
 
 
+S16_MAX_ROWS = 11       # cell rows of a bf16 tile, at most
+S16_WARP_COLS = 31      # cell columns a warp owns (kWarpCols)
+S16_MAX_NCW = 3         # column warps of a tile (kMaxNcw)
+S16_RS = 100            # staged columns of a plane row (kRS)
+S16_GRAM = 28           # Gram entries: 27 taps and the ones column (kG)
+S16_KERNELS_FWD = ("stem16_gram_kernel", "stem16_stats_kernel",
+                   "stem16_emit_kernel")
+S16_KERNELS_BWD = ("stem16_sums_kernel", "stem16_bwd_kernel",
+                   "stem16_reduce_kernel")
+
+
+def _smem16_bytes() -> Dict[str, int]:
+    """Dynamic shared memory of `csrc/stem16_train.cu`'s kernels
+    (`fastdet_stem16_train_smem`): the gram kernel's band of staged u8
+    cell rows (48 planes of S16_RS bytes, a plane of ones and one of
+    zeros; its per-warp 32×32 sums take their place after) and tap table;
+    a ring of four staged u8 rows in the emit and the backward, the
+    backward's with a window row's codes and bf16 dy in each slot; the
+    conv kernels' bf16 weights and per-channel factors; the emit's ring of
+    three f32 rows; the backward's du tile (24 channels × (4 phases × 96
+    columns + 8 pad), bf16), tap table and ring of three bf16 rows."""
+    row = 48 * S16_RS
+    windows = COUT * S16_RS * 3               # a window row's codes, dy
+    return {"stem16_gram_kernel": (S16_MAX_ROWS + 1) * 50 * S16_RS + 16
+            + 4 * 4 * 32,
+            "stem16_emit_kernel": 4 * (27 * COUT + 3 * COUT + 3 * row)
+            + 4 * row,
+            "stem16_bwd_kernel": 4 * (27 * COUT + 8 * COUT + 4 * 32)
+            + 2 * (COUT * (4 * 96 + 8) + 3 * row) + 4 * (row + windows)}
+
+
+@dataclass(frozen=True)
+class Stem16TrainPlan:
+    """How `csrc/stem16_train.cu` runs one call at (b, h4, w4, g).
+
+    Every sweeping kernel (gram, emit, the backward sweep) takes one CTA
+    of `threads` = 128·ncw per tile of `rows` cell rows × 31·ncw cell
+    columns of one image (`bands` × `chunks` tiles an image): warp =
+    (column warp, channel group of 6), lane = a cell column, lane 0 the
+    column to the left of the warp's 31.  The gram kernel's Gram
+    matrices, the emit's outputs and the backward's du and dW partials
+    each belong to exactly one tile; the emit recomputes the
+    phases py = 1 of the row above its band (for bands below the first)
+    and the column left of each warp, the backward recomputes nothing
+    (owner computes).  The stats kernel takes one CTA per group, the sums
+    one per (image, channel), the reduce 648 + 48."""
+    rows: int
+    ncw: int
+    bands: int
+    chunks: int
+    threads: int
+    ctas: int
+    smem_by_kernel: Dict[str, int]
+    kernels_fwd: Tuple[str, ...]
+    kernels_bwd: Tuple[str, ...]
+
+    @property
+    def launches_fwd(self) -> int:
+        return len(self.kernels_fwd)
+
+    @property
+    def launches_bwd(self) -> int:
+        return len(self.kernels_bwd)
+
+    @property
+    def cols(self) -> int:
+        return S16_WARP_COLS * self.ncw
+
+
+@functools.lru_cache(maxsize=64)
+def stem16_train_plan(b: int, h4: int, w4: int, g: int) -> Stem16TrainPlan:
+    """The launch plan of the bf16 B7 for b images of (4·h4)×(4·w4) at
+    ghost group g (g does not change it: a group is whole images)."""
+    del g
+    rows = -(-h4 // -(-h4 // S16_MAX_ROWS))   # balanced bands
+    ncw = min(S16_MAX_NCW, -(-w4 // S16_WARP_COLS))
+    bands, chunks = -(-h4 // rows), -(-w4 // (S16_WARP_COLS * ncw))
+    return Stem16TrainPlan(
+        rows=rows, ncw=ncw, bands=bands, chunks=chunks, threads=128 * ncw,
+        ctas=b * bands * chunks, smem_by_kernel=_smem16_bytes(),
+        kernels_fwd=S16_KERNELS_FWD, kernels_bwd=S16_KERNELS_BWD)
+
+
 # ------------------------------------------------------------ the kernels
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "fastdet_stem_train_fwd": ([_P] * 8 + [_I] * 7 + [_P], _I),
-    "fastdet_stem_train_fwd_bf16": ([_P] * 8 + [_I] * 7 + [_P], _I),
     "fastdet_stem_train_bwd": ([_P] * 11 + [_I] * 5 + [_P], _I),
-    "fastdet_stem_train_bwd_bf16": ([_P] * 11 + [_I] * 5 + [_P], _I),
     "fastdet_stem_train_fwd_scratch": ([_I] * 5, ctypes.c_size_t),
     "fastdet_stem_train_bwd_scratch": ([_I] * 2, ctypes.c_size_t),
     "fastdet_stem_train_smem": ([_I], ctypes.c_size_t),
+}
+_SIGNATURES16 = {
+    "fastdet_stem16_train_fwd": ([_P] * 9 + [_I] * 7 + [_P], _I),
+    "fastdet_stem16_train_bwd": ([_P] * 12 + [_I] * 7 + [_P], _I),
+    "fastdet_stem16_train_fwd_scratch": ([_I] * 5, ctypes.c_size_t),
+    "fastdet_stem16_train_bwd_scratch": ([_I] * 5, ctypes.c_size_t),
+    "fastdet_stem16_train_smem": ([_I], ctypes.c_size_t),
 }
 
 
@@ -456,40 +584,22 @@ def _check(what: str, x, w, gamma, beta, h4: int, w4: int, g: int):
     return b, npad
 
 
-def _forward(counter, bf16: bool, x, w, gamma, beta, h4: int, w4: int,
-             g: int):
-    """The forward of either form: CPU → the plain versions; CUDA → the C
-    entry of `csrc/stem_train.cu` (one counted call on `counter`)."""
-    dev = x.device
-    if dev.type == "cpu":
-        return (*stem_train_forward_reference(x, w, gamma, beta, h4, w4, g,
-                                              bf16),
-                stem_train_pooled_reference(x, _rounded(w, bf16), gamma, h4,
-                                            w4))
-    what = counter.__name__
+def _check_saved(what, dev, b, h4, w4, g, named):
+    """Each (name, tensor, dtype) of `named` as a contiguous (B, 24, h4,
+    w4) tensor on dev ("stats" (B/g, 24, 3))."""
+    for name, t, dt in named:
+        shape = (b // g, COUT, 3) if name == "stats" else (b, COUT, h4, w4)
+        if (t.device != dev or t.dtype != dt or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError(
+                f"{what}: expected {name} as a contiguous {dt} {shape} "
+                f"tensor on {dev}, got {t.dtype} {tuple(t.shape)} on "
+                f"{t.device}")
+
+
+def _cuda_only(what: str, dev) -> None:
     if dev.type != "cuda":
         raise ValueError(f"{what}: unsupported device {dev}")
-    b, npad = _check(what, x, w, gamma, beta, h4, w4, g)
-    plan = stem_train_plan(b, h4, w4, g)
-    lib = _build.load("stem_train", _SIGNATURES)
-    y = torch.empty((b, COUT, h4, w4),
-                    dtype=BF16 if bf16 else torch.float32, device=dev)
-    z = torch.empty((b, COUT, h4, w4), dtype=torch.float32, device=dev)
-    stats = torch.empty((b // g, COUT, 3), dtype=torch.float32, device=dev)
-    tr, ncw = plan.tile_fwd[0], plan.ncw
-    scratch = torch.empty(
-        lib.fastdet_stem_train_fwd_scratch(b, h4, w4, tr, ncw),
-        dtype=torch.float32, device=dev)
-    fn = (lib.fastdet_stem_train_fwd_bf16 if bf16
-          else lib.fastdet_stem_train_fwd)
-    with torch.cuda.device(dev):
-        rc = fn(x.data_ptr(), w.data_ptr(), gamma.data_ptr(),
-                beta.data_ptr(), y.data_ptr(), z.data_ptr(),
-                stats.data_ptr(), scratch.data_ptr(), b, h4, w4, npad, g, tr,
-                ncw, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, rc, what)
-    counter.launches += 1
-    return y, stats, z
 
 
 def stem_train_forward(x, w, gamma, beta, h4: int, w4: int, g: int):
@@ -497,58 +607,72 @@ def stem_train_forward(x, w, gamma, beta, h4: int, w4: int, g: int):
     `stem_train_forward_reference`, and z (B, 24, h4, w4), the pooled raw
     conv that the backward takes.  CUDA: the forward kernels of
     `csrc/stem_train.cu` (one counted call); CPU: the plain versions."""
-    return _forward(stem_train_forward, False, x, w, gamma, beta, h4, w4, g)
+    dev = x.device
+    if dev.type == "cpu":
+        return (*stem_train_forward_reference(x, w, gamma, beta, h4, w4, g),
+                stem_train_pooled_reference(x, w, gamma, h4, w4))
+    what = "stem_train_forward"
+    _cuda_only(what, dev)
+    b, npad = _check(what, x, w, gamma, beta, h4, w4, g)
+    plan = stem_train_plan(b, h4, w4, g)
+    lib = _build.load("stem_train", _SIGNATURES)
+    y = torch.empty((b, COUT, h4, w4), dtype=torch.float32, device=dev)
+    z = torch.empty_like(y)
+    stats = torch.empty((b // g, COUT, 3), dtype=torch.float32, device=dev)
+    tr, ncw = plan.tile_fwd[0], plan.ncw
+    scratch = torch.empty(
+        lib.fastdet_stem_train_fwd_scratch(b, h4, w4, tr, ncw),
+        dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.fastdet_stem_train_fwd(
+            x.data_ptr(), w.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+            y.data_ptr(), z.data_ptr(), stats.data_ptr(), scratch.data_ptr(),
+            b, h4, w4, npad, g, tr, ncw,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, what)
+    stem_train_forward.launches += 1
+    return y, stats, z
 
 
 def stem_train_forward_bf16(x, w, gamma, beta, h4: int, w4: int, g: int):
-    """The bf16 form of `stem_train_forward`: y bf16 (stats and z f32)."""
-    return _forward(stem_train_forward_bf16, True, x, w, gamma, beta, h4,
-                    w4, g)
+    """The bf16 form → (y (B, 24, h4, w4) bf16, stats (B/g, 24, 3) f32,
+    zw (B, 24, h4, w4) f32, code (B, 24, h4, w4) uint8): y and stats as
+    `stem_train_forward_reference(..., bf16=True)`, and each pool window's
+    winner (`stem16_winners_reference`) for the backward.  CUDA: the
+    forward kernels of `csrc/stem16_train.cu` (one counted call); CPU: the
+    plain versions."""
+    dev = x.device
+    if dev.type == "cpu":
+        y, stats = stem_train_forward_reference(x, w, gamma, beta, h4, w4, g,
+                                                True)
+        u = _conv(_image(x, h4, w4, w.dtype), round16(w))
+        return (y, stats, *reversed(stem16_winners_reference(
+            u, stats, gamma, beta, g)))
+    what = "stem_train_forward_bf16"
+    _cuda_only(what, dev)
+    b, npad = _check(what, x, w, gamma, beta, h4, w4, g)
+    plan = stem16_train_plan(b, h4, w4, g)
+    lib = _build.load("stem16_train", _SIGNATURES16)
+    y = torch.empty((b, COUT, h4, w4), dtype=BF16, device=dev)
+    zw = torch.empty((b, COUT, h4, w4), dtype=torch.float32, device=dev)
+    code = torch.empty((b, COUT, h4, w4), dtype=torch.uint8, device=dev)
+    stats = torch.empty((b // g, COUT, 3), dtype=torch.float32, device=dev)
+    scratch = torch.empty(
+        lib.fastdet_stem16_train_fwd_scratch(b, h4, w4, plan.rows, plan.ncw),
+        dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.fastdet_stem16_train_fwd(
+            x.data_ptr(), w.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+            y.data_ptr(), zw.data_ptr(), code.data_ptr(), stats.data_ptr(),
+            scratch.data_ptr(), b, h4, w4, npad, g, plan.rows, plan.ncw,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, what)
+    stem_train_forward_bf16.launches += 1
+    return y, stats, zw, code
 
 
 stem_train_forward.launches = 0
 stem_train_forward_bf16.launches = 0
-
-
-def _backward(counter, bf16: bool, dy, x, stats, w, gamma, beta, h4: int,
-              w4: int, g: int, z):
-    """The backward of either form: CPU → the plain version; CUDA → the C
-    entry (one counted call on `counter`)."""
-    dev = x.device
-    if dev.type == "cpu":
-        return stem_train_backward_reference(dy, x, stats, w, gamma, beta,
-                                             h4, w4, g, bf16)
-    what = counter.__name__
-    if dev.type != "cuda":
-        raise ValueError(f"{what}: unsupported device {dev}")
-    b, npad = _check(what, x, w, gamma, beta, h4, w4, g)
-    for name, t, shape, dt in (
-            ("dy", dy, (b, COUT, h4, w4), BF16 if bf16 else torch.float32),
-            ("z", z, (b, COUT, h4, w4), torch.float32),
-            ("stats", stats, (b // g, COUT, 3), torch.float32)):
-        if (t.device != dev or t.dtype != dt or tuple(t.shape) != shape
-                or not t.is_contiguous()):
-            raise ValueError(
-                f"{what}: expected {name} as a contiguous {dt} {shape} "
-                f"tensor on {dev}, got {t.dtype} {tuple(t.shape)} on "
-                f"{t.device}")
-    lib = _build.load("stem_train", _SIGNATURES)
-    dw = torch.empty_like(w)
-    dgamma = torch.empty_like(gamma)
-    dbeta = torch.empty_like(beta)
-    scratch = torch.empty(lib.fastdet_stem_train_bwd_scratch(b, h4),
-                          dtype=torch.float32, device=dev)
-    fn = (lib.fastdet_stem_train_bwd_bf16 if bf16
-          else lib.fastdet_stem_train_bwd)
-    with torch.cuda.device(dev):
-        rc = fn(dy.data_ptr(), x.data_ptr(), z.data_ptr(), stats.data_ptr(),
-                w.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-                dw.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(),
-                scratch.data_ptr(), b, h4, w4, npad, g,
-                torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, rc, what)
-    counter.launches += 1
-    return dw, dgamma, dbeta
 
 
 def stem_train_backward(dy, x, stats, w, gamma, beta, h4: int, w4: int,
@@ -559,16 +683,70 @@ def stem_train_backward(dy, x, stats, w, gamma, beta, h4: int, w4: int,
     reduced in a fixed order, so two runs give the same bits.  CPU: the
     plain version, which recomputes everything from x and does not read
     z."""
-    return _backward(stem_train_backward, False, dy, x, stats, w, gamma,
-                     beta, h4, w4, g, z)
+    dev = x.device
+    if dev.type == "cpu":
+        return stem_train_backward_reference(dy, x, stats, w, gamma, beta,
+                                             h4, w4, g)
+    what = "stem_train_backward"
+    _cuda_only(what, dev)
+    b, npad = _check(what, x, w, gamma, beta, h4, w4, g)
+    _check_saved(what, dev, b, h4, w4, g,
+                 (("dy", dy, torch.float32), ("z", z, torch.float32),
+                  ("stats", stats, torch.float32)))
+    lib = _build.load("stem_train", _SIGNATURES)
+    dw = torch.empty_like(w)
+    dgamma = torch.empty_like(gamma)
+    dbeta = torch.empty_like(beta)
+    scratch = torch.empty(lib.fastdet_stem_train_bwd_scratch(b, h4),
+                          dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.fastdet_stem_train_bwd(
+            dy.data_ptr(), x.data_ptr(), z.data_ptr(), stats.data_ptr(),
+            w.data_ptr(), gamma.data_ptr(), beta.data_ptr(), dw.data_ptr(),
+            dgamma.data_ptr(), dbeta.data_ptr(), scratch.data_ptr(), b, h4,
+            w4, npad, g, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, what)
+    stem_train_backward.launches += 1
+    return dw, dgamma, dbeta
 
 
 def stem_train_backward_bf16(dy, x, stats, w, gamma, beta, h4: int, w4: int,
-                             g: int, z):
-    """The bf16 form of `stem_train_backward`: dy bf16, the gradients
-    f32."""
-    return _backward(stem_train_backward_bf16, True, dy, x, stats, w, gamma,
-                     beta, h4, w4, g, z)
+                             g: int, zw, code):
+    """The bf16 form → (dW, dγ, dβ) f32 as
+    `stem_train_backward_reference(..., bf16=True)`, from dy bf16 and the
+    forward's winners (zw, code).  CUDA: the backward kernels of
+    `csrc/stem16_train.cu` (one counted call; partial sums reduced in a
+    fixed order, so two runs give the same bits); CPU: the plain version,
+    which recomputes everything from x and reads neither zw nor code."""
+    dev = x.device
+    if dev.type == "cpu":
+        return stem_train_backward_reference(dy, x, stats, w, gamma, beta,
+                                             h4, w4, g, True)
+    what = "stem_train_backward_bf16"
+    _cuda_only(what, dev)
+    b, npad = _check(what, x, w, gamma, beta, h4, w4, g)
+    _check_saved(what, dev, b, h4, w4, g,
+                 (("dy", dy, BF16), ("zw", zw, torch.float32),
+                  ("code", code, torch.uint8),
+                  ("stats", stats, torch.float32)))
+    plan = stem16_train_plan(b, h4, w4, g)
+    lib = _build.load("stem16_train", _SIGNATURES16)
+    dw = torch.empty_like(w)
+    dgamma = torch.empty_like(gamma)
+    dbeta = torch.empty_like(beta)
+    scratch = torch.empty(
+        lib.fastdet_stem16_train_bwd_scratch(b, h4, w4, plan.rows, plan.ncw),
+        dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.fastdet_stem16_train_bwd(
+            dy.data_ptr(), x.data_ptr(), zw.data_ptr(), code.data_ptr(),
+            stats.data_ptr(), w.data_ptr(), gamma.data_ptr(),
+            beta.data_ptr(), dw.data_ptr(), dgamma.data_ptr(),
+            dbeta.data_ptr(), scratch.data_ptr(), b, h4, w4, npad, g,
+            plan.rows, plan.ncw, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, what)
+    stem_train_backward_bf16.launches += 1
+    return dw, dgamma, dbeta
 
 
 stem_train_backward.launches = 0
@@ -580,14 +758,20 @@ class StemTrain(torch.autograd.Function):
     beta, h4, w4, g, bf16=False) -> (y, stats)`; w is the scaled OIHW
     weight (f32 in both forms); with `bf16` the bf16 form (y bf16); stats
     carry no gradient (they feed the running statistics), x gets none.
-    It saves z, the pooled raw conv, for the backward's BN sums
-    ((B, 24, h4, w4) f32)."""
+    It saves what its backward kernel reads beside x and the stats: z,
+    the pooled raw conv ((B, 24, h4, w4) f32), in the f32 form; each pool
+    window's winner, zw f32 and code uint8 of that shape, in the bf16
+    form (no z)."""
 
     @staticmethod
     def forward(ctx, x, w, gamma, beta, h4, w4, g, bf16=False):
-        fwd = stem_train_forward_bf16 if bf16 else stem_train_forward
-        y, stats, z = fwd(x, w, gamma, beta, h4, w4, g)
-        ctx.save_for_backward(x, stats, w, gamma, beta, z)
+        if bf16:
+            y, stats, *saved = stem_train_forward_bf16(x, w, gamma, beta, h4,
+                                                       w4, g)
+        else:
+            y, stats, *saved = stem_train_forward(x, w, gamma, beta, h4, w4,
+                                                  g)
+        ctx.save_for_backward(x, stats, w, gamma, beta, *saved)
         ctx.geom = (h4, w4, g)
         ctx.bf16 = bf16
         ctx.mark_non_differentiable(stats)
@@ -595,8 +779,8 @@ class StemTrain(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy, _dstats):
-        x, stats, w, gamma, beta, z = ctx.saved_tensors
+        x, stats, w, gamma, beta, *saved = ctx.saved_tensors
         bwd = stem_train_backward_bf16 if ctx.bf16 else stem_train_backward
         dw, dgamma, dbeta = bwd(dy.contiguous(), x, stats, w, gamma, beta,
-                                *ctx.geom, z)
+                                *ctx.geom, *saved)
         return None, dw, dgamma, dbeta, None, None, None, None

@@ -1094,11 +1094,13 @@ def test_span_train_bf16_wrappers_check_their_inputs(card):
                          ids=["b128_352_g1", "b8_352_g4", "b4_96_ties",
                               "b4_96_g2_ties_signed"])
 def test_stem_train_bf16_kernels_match_plain(card, case):
-    """B7's bf16 form against its plain bf16 version: y bf16 within one
-    bf16 ULP and y and z bit for bit the plain conv, rounded BN + ReLU and
-    pool with the kernel's stats, the stats within 5e-5; dW, dγ, dβ within
-    2⁻⁶ of max |value| on the same bf16 dy, x, stats and z; one counted
-    launch each; a second backward gives the same bits."""
+    """B7's bf16 form (`csrc/stem16_train.cu`) against its plain bf16
+    version: y bf16 within one bf16 ULP and bit for bit the plain conv,
+    rounded BN + ReLU and pool with the kernel's stats, the pool windows'
+    winners (code, zw) bit for bit `stem16_winners_reference` of the plain
+    conv, the stats within 5e-5; dW, dγ, dβ within 2⁻⁶ of max |value| on
+    the same bf16 dy, x, stats and winners; one counted launch each; a
+    second backward gives the same bits."""
     b, hgt, wid, g, tie, signed = case
     h4, w4 = hgt // 4, wid // 4
     x, w_raw, gamma, beta, dy = stem_train_case(sum(case) + 1, b, hgt, wid,
@@ -1107,13 +1109,13 @@ def test_stem_train_bf16_kernels_match_plain(card, case):
     dy = dy.to(torch.bfloat16)
     before = (stem_train.stem_train_forward_bf16.launches,
               stem_train.stem_train_backward_bf16.launches)
-    y, stats, z = stem_train.stem_train_forward_bf16(x, w, gamma, beta, h4,
-                                                     w4, g)
+    y, stats, zw, code = stem_train.stem_train_forward_bf16(x, w, gamma, beta,
+                                                            h4, w4, g)
     ry, rstats = stem_train.stem_train_forward_reference(x, w, gamma, beta,
                                                          h4, w4, g, True)
     torch.cuda.synchronize()
-    assert y.dtype == torch.bfloat16 and z.dtype == stats.dtype == \
-        torch.float32
+    assert y.dtype == torch.bfloat16 and zw.dtype == stats.dtype == \
+        torch.float32 and code.dtype == torch.uint8
     assert _bf16_ulps(y, ry) <= 1
     for k in range(3):
         assert _rel16(stats[..., k], rstats[..., k]) <= 5e-5
@@ -1122,9 +1124,11 @@ def test_stem_train_bf16_kernels_match_plain(card, case):
     bn, _ = stem_train._bn_parts(u, stats, gamma, beta, g)
     assert torch.equal(y, F.max_pool2d(torch.relu(bn).to(torch.bfloat16), 3,
                                        2, 1))
-    assert torch.equal(z, stem_train.pooled_extreme(u, gamma))
+    rcode, rzw = stem_train.stem16_winners_reference(u, stats, gamma, beta,
+                                                     g)
+    assert torch.equal(code, rcode) and torch.equal(zw, rzw)
     grads = stem_train.stem_train_backward_bf16(dy, x, stats, w, gamma,
-                                                beta, h4, w4, g, z)
+                                                beta, h4, w4, g, zw, code)
     refs = stem_train.stem_train_backward_reference(dy, x, stats, w, gamma,
                                                     beta, h4, w4, g, True)
     torch.cuda.synchronize()
@@ -1134,15 +1138,15 @@ def test_stem_train_bf16_kernels_match_plain(card, case):
     for name, got, want in zip(("dW", "dgamma", "dbeta"), grads, refs):
         assert _rel16(got, want) <= 2 ** -6, name
     again = stem_train.stem_train_backward_bf16(dy, x, stats, w, gamma, beta,
-                                                h4, w4, g, z)
+                                                h4, w4, g, zw, code)
     assert all(torch.equal(a, b_) for a, b_ in zip(grads, again))
 
 
 def test_stem_train_bf16_wrappers_check_their_inputs(card):
     x, w_raw, gamma, beta, dy = stem_train_case(0, 4, 32, 48, device=card)
     w = (w_raw * (1.0 / 255.0)).contiguous()
-    y, stats, z = stem_train.stem_train_forward_bf16(x, w, gamma, beta, 8,
-                                                     12, 2)
+    y, stats, zw, code = stem_train.stem_train_forward_bf16(x, w, gamma, beta,
+                                                            8, 12, 2)
     assert y.dtype == torch.bfloat16
     with pytest.raises(ValueError, match="w as"):
         stem_train.stem_train_forward_bf16(x, w.to(torch.bfloat16), gamma,
@@ -1151,13 +1155,18 @@ def test_stem_train_bf16_wrappers_check_their_inputs(card):
         stem_train.stem_train_forward_bf16(x, w, gamma, beta, 8, 12, 3)
     with pytest.raises(ValueError, match="dy"):
         stem_train.stem_train_backward_bf16(dy, x, stats, w, gamma, beta, 8,
-                                            12, 2, z)        # f32 dy
+                                            12, 2, zw, code)  # f32 dy
     with pytest.raises(ValueError, match="dy"):
         stem_train.stem_train_backward(dy.to(torch.bfloat16), x, stats, w,
-                                       gamma, beta, 8, 12, 2, z)
-    with pytest.raises(ValueError, match="z as"):
+                                       gamma, beta, 8, 12, 2, zw)
+    with pytest.raises(ValueError, match="zw as"):
         stem_train.stem_train_backward_bf16(dy.to(torch.bfloat16), x, stats,
-                                            w, gamma, beta, 8, 12, 2, z[:2])
+                                            w, gamma, beta, 8, 12, 2, zw[:2],
+                                            code)
+    with pytest.raises(ValueError, match="code as"):
+        stem_train.stem_train_backward_bf16(dy.to(torch.bfloat16), x, stats,
+                                            w, gamma, beta, 8, 12, 2, zw,
+                                            code.float())
 
 
 def test_bf16_trainer_on_the_card_matches_its_plain_versions(card):

@@ -154,8 +154,20 @@ def test_fused_backbone_cli_trains(train_world, port_run, tmp_path):
                                rtol=0, atol=1e-4)
 
 
+@pytest.mark.parametrize("chain", ["0", "-2"])
+def test_train_cli_clamps_chain_as_jax(train_world, port_run, tmp_path,
+                                       chain):
+    """`--chain` below 1 trains step by step, as the JAX CLI clamps it
+    (K = max(1, --chain)): exit 0 and the `Epoch:` lines of `--chain 1`."""
+    r = cli(train_world, tmp_path, True, "--chain", chain)
+    assert r.returncode == 0, r.stderr[-3000:]
+    want = [ln for ln in port_run[0].stdout.splitlines()
+            if ln.startswith("Epoch:")]
+    got = [ln for ln in r.stdout.splitlines() if ln.startswith("Epoch:")]
+    assert len(want) == 4 and got == want, r.stdout[-2000:]
+
+
 @pytest.mark.parametrize("extra,env,label", [
-    (("--chain", "0"), None, "--chain must be"),
     (("--fused-backbone", "--model", "anchorfree"), None,
      "--fused-backbone supports the yolo-fastestv2 family only"),
     ((), {"FASTDET_NUM_PROCESSES": "2"}, "A12"),
