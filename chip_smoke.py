@@ -13,7 +13,8 @@ drives the fused forward's five other combinations of `input_format` and
 `fuse_s2` into detections, evaluates seeded labelled photos through the
 eval entry point in both of its modes, serves 640² through
 `FusedPipeline`, trains at full width on the default, fused and fused
-s2d paths, and serves, evaluates and trains the anchor-free family.
+s2d paths, serves, evaluates and trains the anchor-free family, serves
+and trains in bf16, and runs and evaluates the int8 PTQ chain.
 One line per phase; any failed check ends the run with a non-zero exit.
 Without a card, or outside the repository, it exits non-zero and prints
 no result.
@@ -189,6 +190,23 @@ Phases:
      relative L2 0.5 by group of leaves, the loss and the parameters after
      2 steps within 2⁻⁵), ms/step, img/s and the device busy share beside
      8b's f32 step (`bf16_train_phase.py` runs it alone);
+  11. int8 PTQ: `weights/coco-int8.npz` through `forward_from` at b128
+     352² on photo variants with both MACs (f32 products, and
+     `torch._int_mm`), every op's int8 input and integer accumulator
+     bitwise between them and against the port's CPU run on 4 of the
+     images, the maps bitwise or within one ULP of the CPU's (printed);
+     `calibrate` (32 variants, b8) on the card within one histogram bin
+     of the CPU's; the int8 detections at the serving point (conf 0.3,
+     iou 0.4, window 128) against the f32 model's on the photo by the JAX
+     package's rule (counts ±1, classes, IoU ≥ 0.7), for the artifact and
+     for the photo's own calibration, and on the 128 variants (how many
+     hold it, printed); `run_evaluation(int8=...)` on phase 7's images,
+     its P/R/AP/F1 those of the plain staged chain on the int8 maps,
+     beside f32's; rank_decode_nms's and nms_keep's launches counted from
+     0 on the int8 serving detect and eval, and each kernel on the int8
+     path's windows; the forward's time for each MAC beside the f32 nn
+     forward's, with the card's name and power limit
+     (`int8_phase.py` runs it alone);
   6. the kernel summary (a JSON line: launches of stem_s2d, span and
      rank_decode_nms from the fused serving path (rank_decode_nms's ms
      its device time on the served window, phase 4), of nms_keep from the
@@ -196,7 +214,8 @@ Phases:
      span_train_fwd/bwd from the fused training run, of stem_train_fwd/bwd
      from the s2d training runs at group 1 and 16, of stem_s2d8 and
      s2span from the flag paths of 4c, phase 9's bf16 entries and phase
-     10's bf16 training entries; the phase line adds stem_s2d's and
+     10's bf16 training entries, phase 11's int8 entries of
+     rank_decode_nms and nms_keep; the phase line adds stem_s2d's and
      span's launches on the anchor-free
      path of 8d), the card line, and
      the host time of each phase, and the last line {"ok": true,
@@ -4463,6 +4482,320 @@ def phase_bf16_train(sd, photo, dev_pipe, card, f32_times):
     return launches, out
 
 
+# ------------------------------------------------ int8 PTQ (phase 11)
+
+INT8 = os.path.join(REPO, "weights", "coco-int8.npz")
+INT8_MACS = ("bf16", "int32")
+INT8_SERVE = dict(conf_thres=0.3, iou_thres=0.4, max_nms=128)
+
+
+def greedy_match(det_a, det_b):
+    """The JAX package's matching for its int8 detection rule
+    (tests/test_quant.py `_greedy_match`): greedy, class-aware, by xyxy
+    IoU → the IoUs of the matches."""
+    ious = []
+    used = np.zeros(len(det_b), bool)
+    for a in det_a:
+        best, best_j = 0.0, -1
+        for j, b in enumerate(det_b):
+            if used[j] or int(a[5]) != int(b[5]):
+                continue
+            x1, y1 = max(a[0], b[0]), max(a[1], b[1])
+            x2, y2 = min(a[2], b[2]), min(a[3], b[3])
+            inter = max(x2 - x1, 0.0) * max(y2 - y1, 0.0)
+            ua = ((a[2] - a[0]) * (a[3] - a[1])
+                  + (b[2] - b[0]) * (b[3] - b[1]) - inter)
+            iou = inter / ua if ua > 0 else 0.0
+            if iou > best:
+                best, best_j = iou, j
+        if best_j >= 0:
+            used[best_j] = True
+            ious.append(best)
+    return ious
+
+
+def int8_rule(f32, q):
+    """JAX's rule for int8 detections against the f32 model's
+    (tests/test_quant.py::test_int8_detections_match_f32): counts within
+    ±1, all but one matched within their class, every match at IoU
+    ≥ 0.7.  → (holds, the matches' IoUs)."""
+    ious = greedy_match(f32, q)
+    return (abs(len(f32) - len(q)) <= 1
+            and len(ious) >= min(len(f32), len(q)) - 1
+            and all(i >= 0.7 for i in ious)), ious
+
+
+def chain_check(got, want, what, rows=None):
+    """Every op's int8 inputs and integer accumulators in the record `got`
+    bit for bit those of `want` (its first `rows` images); the
+    accumulators compared as values (f32 under the "bf16" MAC, int32
+    under "int32").  → the number of op calls compared."""
+    check(set(got) == set(want), f"{what}: ops {sorted(set(got) ^ set(want))}")
+    calls = 0
+    for name, pairs in got.items():
+        check(len(pairs) == len(want[name]), f"{what}: {name} calls")
+        for (xq, acc), (wxq, wacc) in zip(pairs, want[name]):
+            if rows is not None:
+                wxq, wacc = wxq[:rows], wacc[:rows]
+            check(torch_equal(xq, wxq), f"{what}: {name} int8 input differs")
+            check(torch_equal(acc.double(), wacc.double()),
+                  f"{what}: {name} accumulator differs")
+            calls += 1
+    return calls
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+    return a.shape == b.shape and torch.equal(a, b.to(a.device))
+
+
+def phase_int8(sd, photo, card, dev_pipe, images):
+    """Int8 PTQ on the card: `weights/coco-int8.npz` through
+    `forward_from` at b128 352² with both MACs, each op's int8 input and
+    accumulator bit for bit between them and against the port's CPU run
+    on the first 4 images; `calibrate` on the card against the CPU; the
+    int8 detections at the serving point against the f32 model's by JAX's
+    rule; `run_evaluation(int8=...)` on phase 7's images beside f32's,
+    equal to the plain staged chain on the int8 maps; the forward's time
+    for each MAC beside the f32 nn forward's.  rank_decode_nms's and
+    nms_keep's launches are counted from 0 on the int8 serving detect and
+    the int8 eval.  → (launches, {kernel: (ms, plain_ms, bound_ms,
+    bound_by, max |Δ|)})."""
+    import torch
+    from torch_cases import ANCHORS, BOX_ULPS_CARD, IOU, NC, box_ulps, \
+        staged_window
+    from fastdet_torch import disable_tf32
+    from fastdet_torch.cli.evaluation import PR_PASS, run_evaluation
+    from fastdet_torch.config import Config
+    from fastdet_torch.kernels import nms_kernel as nk
+    from fastdet_torch.kernels import pp_fused
+    from fastdet_torch.models import Detector
+    from fastdet_torch.ops.postprocess import (_anchors_array, _geo_table,
+                                               postprocess, rank_scores,
+                                               rank_topk)
+    from fastdet_torch.quant import (calibrate, fold_model, forward_from,
+                                     load_quantized, quantize_weights)
+    from fastdet_torch.quant.ptq import FloatOps, QuantOps, forward_folded
+    disable_tf32(torch.device("cuda"))
+    cfg = Config.from_file(DATA)
+    qw, scales = load_quantized(INT8)
+    check(len(qw) == 76, f"{INT8}: {len(qw)} ops")
+    x = torch.from_numpy(photo_variants(photo, 128, seed=11)).cuda()
+    fwd = {mac: forward_from(qw, scales, mac=mac) for mac in INT8_MACS}
+
+    # ---- 1. both MACs at b128 352², every op bit for bit
+    recs, outs = {}, {}
+    for mac in INT8_MACS:
+        recs[mac] = {}
+        outs[mac] = fwd[mac](x, record=recs[mac])
+    torch.cuda.synchronize()
+    check(all(o.is_cuda and torch.isfinite(o).all() for o in outs["bf16"]),
+          "int8 maps not finite or not on the card")
+    check(all(torch.equal(a, b) for a, b in zip(*outs.values())),
+          "the two MACs' maps differ")
+    calls = chain_check(recs["int32"], recs["bf16"], "int32 against bf16")
+
+    # ---- 2. the port's own CPU run on the first 4 images
+    cpu_rec = {}
+    cpu_out = forward_from(qw, scales, device="cpu")(x[:4].cpu(),
+                                                     record=cpu_rec)
+    chain_check(cpu_rec, recs["bf16"], "CPU against the card", rows=4)
+    worst, bitwise = 0.0, True
+    for a, b in zip(cpu_out, outs["bf16"]):
+        a, b = a.numpy(), b[:4].cpu().numpy()
+        bitwise &= bool(np.array_equal(a, b))
+        mag = np.maximum(np.abs(a), np.abs(b))
+        worst = max(worst, float((np.abs(a - b) / np.spacing(mag)).max()))
+    check(worst <= 1, f"logits {worst} ULPs from the CPU run's")
+    rescales = [(name, acc) for name, pairs in recs["bf16"].items()
+                for _, acc in pairs]                   # for step 6
+    del recs, cpu_rec
+    log(f"phase 11 int8: coco-int8.npz ({len(qw)} ops) at b128 352² on "
+        f"photo variants, MACs bf16 (f32 products) and int32 "
+        f"(torch._int_mm): {calls} op calls' int8 inputs and accumulators "
+        f"bitwise equal, maps bitwise equal; against the port's CPU run on "
+        f"4 images every int8 input and accumulator bitwise, the logits "
+        + ("bitwise" if bitwise else f"within {worst:g} ULP"))
+
+    # ---- 3. calibration on the card against the CPU
+    folded = fold_model(sd)
+    cal = photo_variants(photo, 32, seed=12)
+    t0 = time.perf_counter()
+    s_card = calibrate(folded, cal, batch=8)
+    cal_s = time.perf_counter() - t0
+    s_cpu = calibrate(folded, cal, batch=8, device="cpu")
+    max_ops = FloatOps(folded, record=True)
+    with torch.inference_mode():
+        for i in range(0, len(cal), 8):
+            forward_folded(torch.from_numpy(cal[i:i + 8]).cuda(), max_ops)
+    bins = {k: abs(s_card[k] - s_cpu[k]) / (float(m) / 2048 / 127)
+            for k, m in max_ops.maxabs.items()}
+    check(set(s_card) == set(s_cpu) == set(bins) and
+          max(bins.values()) <= 1.001,
+          f"calibration on the card {max(bins.values())} bins off the CPU's")
+    same = sum(s_card[k] == s_cpu[k] for k in s_card)
+    log(f"  calibrate (percentile, 32 photo variants, b8): {len(s_card)} "
+        f"scales within {max(bins.values()):.3g} histogram bins of the CPU "
+        f"run's ({same} equal), {cal_s:.2f} s on the card (host clock)")
+
+    # ---- 4. detections at the serving point against the f32 model's
+    anchors = np.asarray(cfg.anchors, np.float32).reshape(2, 3, 2)
+    det = Detector(80, 3)
+    det.load_state_dict(sd)
+    det = det.cuda().eval()
+
+    def serve(maps):
+        d, n = postprocess(maps, anchors, (352, 352), **INT8_SERVE)
+        return [r[:c] for r, c in zip(d.cpu().numpy(), n.cpu().numpy())]
+
+    g = resize_u8(photo)[None]
+    calg = np.concatenate([g] + [np.clip(g.astype(np.int32) * f // 4, 0,
+                                         255).astype(np.uint8)
+                                 for f in (3, 5)])
+    models = {"coco-int8.npz": fwd["bf16"],
+              "calibrated on the photo ×1, ×3/4, ×5/4 on the card":
+                  forward_from(quantize_weights(folded),
+                               calibrate(folded, calg))}
+    with torch.inference_mode():
+        gt = torch.from_numpy(g).cuda()
+        want_g = serve(det(gt.float() / 255.0))[0]
+        want_x = serve(det(x.float() / 255.0))
+        check(len(want_g) > 0, "the f32 model found nothing on the photo")
+        for what, f in models.items():
+            got_g = serve(f(gt))[0]
+            ok, ious = int8_rule(want_g, got_g)
+            ious = [round(float(i), 3) for i in ious]
+            check(ok, f"int8 ({what}) on the photo: {len(got_g)} detections "
+                  f"against f32's {len(want_g)}, IoUs {ious}")
+            if f is fwd["bf16"]:
+                pp_fused.rank_decode_nms.launches = 0
+                got_x = serve(f(x))
+                b3 = pp_fused.rank_decode_nms.launches
+                check(b3 == 1, f"int8 serving detect: {b3} B3 launches")
+            else:
+                got_x = serve(f(x))
+            held = sum(int8_rule(a, b)[0] for a, b in zip(want_x, got_x))
+            log(f"  int8 ({what}) at the serving point (conf 0.3, iou 0.4, "
+                f"window 128): the photo {len(got_g)} detections against "
+                f"f32's {len(want_g)}, IoUs {ious} (JAX's rule holds); on "
+                f"the {len(want_x)} variants "
+                f"{sum(map(len, got_x))} against {sum(map(len, want_x))}, "
+                f"the rule holds on {held}")
+
+    # ---- 5. eval: run_evaluation(int8=...) on phase 7's images
+    labels, mask = eval_labels(dev_pipe(images), seed=7)
+    bsz, n_batches = 128, -(-len(images) // 128)
+
+    def batches(bs):
+        for s in range(0, len(images), bs):
+            yield images[s:s + bs], labels[s:s + bs], mask[s:s + bs]
+
+    run_evaluation(cfg, None, batches, fused=False, device="cuda",
+                   batch=bsz, int8=(qw, scales))                 # warm-up
+    torch.cuda.synchronize()
+    nk.keep_mask_batch.launches = pp_fused.rank_decode_nms.launches = 0
+    t0 = time.perf_counter()
+    res_map, res_pr = run_evaluation(cfg, None, batches, fused=False,
+                                     device="cuda", batch=bsz,
+                                     int8=(qw, scales))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    keep_n = nk.keep_mask_batch.launches
+    check(keep_n == 2 * n_batches and pp_fused.rank_decode_nms.launches == 0,
+          f"int8 eval: nms_keep {keep_n}, rank_decode_nms "
+          f"{pp_fused.rank_decode_nms.launches} launches")
+    check(res_map is not None and res_pr is not None, "int8 eval: nothing")
+    plain = plain_eval(fwd["bf16"], images, labels, mask, bsz)
+    check(plain == [res_map, res_pr], f"int8 eval {res_map} {res_pr} differs "
+          f"from the plain staged chain's {plain}")
+    f_map, f_pr = run_evaluation(cfg, sd, batches, fused=False,
+                                 device="cuda", batch=bsz)
+    q_vals = (res_pr[0], res_pr[1], res_map[2], res_pr[3])
+    f_vals = (f_pr[0], f_pr[1], f_map[2], f_pr[3])
+    log(f"  eval --int8 on phase 7's {len(images)} images (b{bsz}): "
+        + " ".join(f"{k}:{v:f}" for k, v in zip(
+            ("Precision", "Recall", "AP", "F1"), q_vals))
+        + ", equal to the plain staged chain on the int8 maps; f32 "
+        + " ".join(f"{k}:{v:f}" for k, v in zip(
+            ("Precision", "Recall", "AP", "F1"), f_vals))
+        + f"; {2 * len(images) / secs:.1f} img/s over both passes "
+        f"({secs:.3f} s, host clock); nms_keep {keep_n} launches")
+
+    # ---- 6. times at b128 352² (CUDA-event medians)
+    with torch.inference_mode():
+        ms = {mac: cuda_median_ms(lambda f=fwd[mac]: f(x)) for mac in
+              INT8_MACS}
+        f32_ms = cuda_median_ms(lambda: det(x.float() / 255.0))
+    log(f"  int8 forward at b128 352² ({card}): bf16 MAC {ms['bf16']:.3f} "
+        f"ms, int32 MAC {ms['int32']:.3f} ms, the f32 nn forward (cuDNN, "
+        f"TF32 off) {f32_ms:.3f} ms (CUDA-event medians of 15)")
+    for mac in INT8_MACS:
+        with torch.inference_mode():
+            profile_device(lambda f=fwd[mac]: f(x),
+                           f"int8 forwards ({mac} MAC) at b128", calls=3,
+                           top=10)
+    # the rescales alone (acc·(sx·sw) + b in f64, rounded once), replayed
+    # on the b128 forward's own accumulators
+    ops = QuantOps(qw, scales)
+
+    def rescale_all():
+        for name, acc in rescales:
+            ops._out(name, ops.ops[name], None, acc, relu=False)
+    with torch.inference_mode():
+        rescale_ms = cuda_median_ms(rescale_all)
+    del rescales
+    log(f"  of the bf16-MAC forward's {ms['bf16']:.3f} ms, its "
+        f"{len(ops.ops) + 3} rescales take {rescale_ms:.3f} ms (replayed on "
+        f"its accumulators, CUDA-event median of 15)")
+
+    # ---- 7. B3 and nms_keep on the int8 path's own windows
+    out = {}
+    with torch.inference_mode():
+        maps = outs["bf16"]
+        ranked, reg_f, cls_f, meta = rank_scores(maps, (352, 352), 0.3)
+        neg_k, combo_k = rank_topk(ranked, cls_f, nc=NC, k=128)
+        geo = _geo_table(meta, tuple(_anchors_array(anchors).ravel()
+                                     .tolist()), "cuda:0")
+        args = (neg_k, combo_k, reg_f.contiguous(), geo)
+        keep, boxes = pp_fused.rank_decode_nms(*args, nc=NC, iou_thres=IOU)
+        rkeep, rboxes = pp_fused.rank_decode_nms_reference(*args, nc=NC,
+                                                           iou_thres=IOU)
+        check(torch.equal(keep, rkeep), "B3 keep differs on the int8 window")
+        nb, rb = boxes.cpu().numpy(), rboxes.cpu().numpy()
+        check(float(box_ulps(nb, rb).max()) <= BOX_ULPS_CARD,
+              "B3 boxes off on the int8 window")
+
+        def run_b3():
+            return pp_fused.rank_decode_nms(*args, nc=NC, iou_thres=IOU)
+        b3_ms = rdn_split(run_b3, "rank_decode_nms on the int8 b128 window",
+                          128, 128)
+        b3_plain = cuda_ms(lambda: pp_fused.rank_decode_nms_reference(
+            *args, nc=NC, iou_thres=IOU), 10, 2)
+        out["rank_decode_nms"] = (b3_ms, b3_plain, *rdn_bound(neg_k, combo_k),
+                                  float(np.abs(nb - rb).max()))
+        emaps = fwd["bf16"](images[:bsz])
+        boxes, score, cls = staged_window(emaps, ANCHORS, (352, 352),
+                                          conf_thres=PR_PASS["conf_thres"],
+                                          max_nms=PR_PASS["max_nms"])
+        valid = score > 0
+        keep = nk.keep_mask_batch(boxes, cls, valid, iou_thres=NMS_IOU)
+        want = nk.keep_mask_batch_reference(boxes, cls, valid,
+                                            iou_thres=NMS_IOU)
+        check(torch.equal(keep, want), "nms_keep differs on the int8 window")
+        k_ms = cuda_ms(lambda: nk.keep_mask_batch(boxes, cls, valid,
+                                                  iou_thres=NMS_IOU), 50, 5)
+        k_plain = cuda_ms(lambda: nk.keep_mask_batch_reference(
+            boxes, cls, valid, iou_thres=NMS_IOU), 2, 1)
+        out["nms_keep"] = (k_ms, k_plain,
+                           *nms_keep_bound(valid, PR_PASS["max_nms"]), 0.0)
+    log(f"  on the int8 path's windows: rank_decode_nms (b128, k=128) "
+        f"{b3_ms:.4f} ms a call (timed as the line above says), plain "
+        f"{b3_plain:.3f} ms, keep equal;"
+        f" nms_keep (b128, k=1024, conf 0.3, {int(valid.sum())} valid) "
+        f"{k_ms:.4f} ms back to back, plain {k_plain:.3f} ms, keep equal")
+    return {"rank_decode_nms": b3, "nms_keep": keep_n}, out
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import torch
@@ -4532,6 +4865,9 @@ def main() -> int:
     train16_launches, train16 = phase_bf16_train(sd, photo, dev_pipe, card,
                                                  train_times)
     lap("10")
+    int8_launches, int8_main = phase_int8(sd, photo, card, dev_pipe,
+                                          eval_images)
+    lap("11")
     log('phase 6 kernels: ["stem_s2d", "span", "rank_decode_nms", '
         '"nms_keep", "span_train", "stem_train", "stem_s2d8", "s2span"] '
         f'(rank_decode_nms launches on the device path: {launches}; '
@@ -4542,7 +4878,9 @@ def main() -> int:
         f'kernels stem_s2d_bf16 and span_bf16 on the bf16 serving path, '
         f'stem_s2d8_bf16 and s2span_bf16 on its flag paths, stem_s2d_bf16 '
         f'at 640²: {bf16_launches}; the bf16 training kernels on the bf16 '
-        f'training paths: {train16_launches}')
+        f'training paths: {train16_launches}; rank_decode_nms and '
+        f'nms_keep on the int8 path: {int8_launches["rank_decode_nms"]}, '
+        f'{int8_launches["nms_keep"]}')
     log("phase times (host clock, s): " + ", ".join(
         f"{name} {t - laps[i][1]:.1f}"
         for i, (name, t) in enumerate(laps[1:]))
@@ -4681,6 +5019,18 @@ def main() -> int:
             "replaces": replaces, "launches": train16_launches[key],
             "max_abs_err": k_err, "ms": k_ms, "plain_ms": k_plain,
             "bound_ms": k_bound, "bound_by": k_by, "library_ms": k_lib})
+    # the int8 path (phase 11): B3 on its serving detect (k = 128), and
+    # nms_keep (B5's site, k = 1024) on its eval; times on its windows
+    for name, source, replaces in (
+            ("rank_decode_nms", "pp_fused", "fastdet/kernels/pp_fused.py:156"),
+            ("nms_keep", "nms_keep", "fastdet/kernels/nms_kernel.py:201")):
+        k_ms, k_plain, k_bound, k_by, k_err = int8_main[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"fastdet_torch/csrc/{source}.cu",
+            "replaces": replaces, "launches": int8_launches[name],
+            "max_abs_err": k_err, "ms": k_ms, "plain_ms": k_plain,
+            "bound_ms": k_bound, "bound_by": k_by, "library_ms": None})
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -1205,3 +1205,31 @@ def test_bf16_trainer_on_the_card_matches_its_plain_versions(card):
                         before[0] + 1, before[1] + 3)
     assert abs(losses["cuda"] - losses["cpu"]) <= 2 ** -5 * abs(
         losses["cpu"])
+
+
+@pytest.mark.parametrize("b,hw", [(1, (96, 96)), (2, (64, 96))])
+def test_int8_forward_macs_match_the_cpu(card, b, hw):
+    """`weights/coco-int8.npz` through `forward_from` on the card with both
+    MACs: every op's int8 input and accumulator, and the maps, bit for
+    bit each other's and the CPU run's.  At b1 96² the stride-32 heads
+    have 9 rows, which `torch._int_mm` gets padded past 16."""
+    from fastdet_torch.quant import forward_from, load_quantized
+    qw, scales = load_quantized("weights/coco-int8.npz")
+    images = torch.from_numpy(np.random.default_rng(b).integers(
+        0, 256, (b, *hw, 3), dtype=np.uint8))
+    runs = {}
+    for mac, dev in (("bf16", card), ("int32", card), ("bf16", "cpu")):
+        rec = {}
+        outs = forward_from(qw, scales, mac=mac, device=dev)(images,
+                                                             record=rec)
+        assert all(o.device.type == torch.device(dev).type for o in outs)
+        runs[mac, str(dev)] = ([o.cpu() for o in outs], rec)
+    (want, wrec), *others = runs.values()
+    for outs, rec in others:
+        assert all(torch.equal(a, b) for a, b in zip(outs, want))
+        assert set(rec) == set(wrec)
+        for name, calls in rec.items():
+            for (xq, acc), (wxq, wacc) in zip(calls, wrec[name]):
+                assert torch.equal(xq.cpu(), wxq.cpu()), name
+                assert torch.equal(acc.cpu().double(), wacc.cpu().double()), \
+                    name

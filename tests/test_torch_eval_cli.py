@@ -7,7 +7,8 @@ spurious box added, so that TP, FP and FN all occur.
 
 Both CLIs print the same `Precision:… Recall:… AP:… F1:…` line to 1e-6
 (the forwards agree to ~1e-5, the postprocess to a few ULPs), and the
-port's `--fused` mode prints its default mode's line.
+port's `--fused` mode prints its default mode's line; with `--int8
+weights/coco-int8.npz` too.
 """
 
 import os
@@ -29,6 +30,7 @@ from fastdet_torch.serve import DevicePipeline
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WEIGHTS = os.path.join(REPO, "weights", "coco2017-ref.npz")
+INT8 = os.path.join(REPO, "weights", "coco-int8.npz")
 
 
 def run(args, timeout=600):
@@ -114,13 +116,20 @@ def test_eval_cli_matches_jax(val_world):
                                atol=1e-6)
 
 
-@pytest.mark.parametrize("extra,label", [
-    (("--int8", "weights/coco-int8.npz"), "A11"),
-])
-def test_eval_cli_unported_options_exit_nonzero(val_world, extra, label):
-    r = port_cli(val_world, *extra)
-    assert r.returncode != 0
-    assert label in r.stderr
+def test_eval_cli_int8_matches_jax(val_world):
+    """`--int8 weights/coco-int8.npz` (no weights: the artifact holds them
+    and names its family) prints the JAX CLI's `--int8` line: the int8
+    chain is JAX's bit for bit (tests/test_torch_quant.py)."""
+    args = ["--data", str(val_world / "val.data"), "--int8", INT8,
+            "--batch", "4"]
+    jax_run = run([os.path.join(REPO, "cli", "evaluation.py"), *args])
+    assert jax_run.returncode == 0, jax_run.stderr[-3000:]
+    port = run(["-m", "fastdet_torch.cli.evaluation", "--device", "cpu",
+                *args])
+    assert port.returncode == 0, port.stderr[-3000:]
+    want, got = summary(jax_run.stdout), summary(port.stdout)
+    assert all(0 < v < 1 for v in want), want
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
 
 
 def test_eval_cli_data_package_stays_off_module_level():
