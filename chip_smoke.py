@@ -14,7 +14,8 @@ drives the fused forward's five other combinations of `input_format` and
 eval entry point in both of its modes, serves 640² through
 `FusedPipeline`, trains at full width on the default, fused and fused
 s2d paths, serves, evaluates and trains the anchor-free family, serves
-and trains in bf16, and runs and evaluates the int8 PTQ chain.
+and trains in bf16, runs and evaluates the int8 PTQ chain, and trains
+the convergence check's bf16 fused s2d configuration to its bar.
 One line per phase; any failed check ends the run with a non-zero exit.
 Without a card, or outside the repository, it exits non-zero and prints
 no result.
@@ -46,7 +47,10 @@ Phases:
      partial tiles and odd sizes) against their plain versions, ≤ 2e-4,
      and the plans' shared memory the kernels' own;
   3. weights through the carrier, forward on the card (TF32 off) against
-     the same forward on the CPU, ≤ 2e-4;
+     the same forward on the CPU, ≤ 2e-4; the same weights as a
+     reference-layout `.pth` (written in a temporary directory): its state
+     dict bit for bit the `.npz`'s, the photo's `FusedPipeline`
+     detections bit for bit the `.npz`'s;
   3b. the fused forward on the card against Detector on the card, ≤ 2e-4;
   4. serving: ≥ 8 concurrent raw requests through the HTTP server, each
      answer equal to `DevicePipeline` on the same batch; a conf-0.01 batch
@@ -207,6 +211,20 @@ Phases:
      path's windows; the forward's time for each MAC beside the f32 nn
      forward's, with the card's name and power limit
      (`int8_phase.py` runs it alone);
+  12. convergence: `fastdet_torch.tools.convergence_check.run_convergence`
+     at its defaults (600 steps of b32 128², the synthetic task, seed 0)
+     for Yolo-FastestV2 in bf16 in the fused s2d mode (B7 and B8 in
+     bf16), held to the tool's bar (final mAP@0.5 over 0.5 and above step
+     0's), its AP curve, seconds, img/s and the card printed, the
+     launches of B7, B8 (both dtypes) and B3 counted from 0 over the run
+     (the bf16 B8 3 a step each way, the bf16 B7 1, the f32 ones none, B3
+     2 an eval); then B8 bf16 at the run's three stages (ghost groups of
+     16) against its plain version on the card tests' seeded inputs by
+     the witness rule of `span16_backward_errs` (the trained weights'
+     distances printed beside), B7 bf16 on the run's first batch with the
+     trained stem, and B3 on the trained model's eval window (b32, k =
+     240) bit for bit, each with its time, bound, plain version's and
+     cuDNN's;
   6. the kernel summary (a JSON line: launches of stem_s2d, span and
      rank_decode_nms from the fused serving path (rank_decode_nms's ms
      its device time on the served window, phase 4), of nms_keep from the
@@ -215,7 +233,9 @@ Phases:
      from the s2d training runs at group 1 and 16, of stem_s2d8 and
      s2span from the flag paths of 4c, phase 9's bf16 entries and phase
      10's bf16 training entries, phase 11's int8 entries of
-     rank_decode_nms and nms_keep; the phase line adds stem_s2d's and
+     rank_decode_nms and nms_keep, phase 12's of the bf16 B8 and B7 and
+     of rank_decode_nms on the convergence path; the phase line adds
+     stem_s2d's and
      span's launches on the anchor-free
      path of 8d), the card line, and
      the host time of each phase, and the last line {"ok": true,
@@ -240,7 +260,7 @@ import zlib
 
 import numpy as np
 
-WATCHDOG_S = 600          # a hang becomes a traceback and exit 1
+WATCHDOG_S = 900          # a hang becomes a traceback and exit 1
 REPO = os.path.dirname(os.path.abspath(__file__))
 DATA = os.path.join(REPO, "data", "coco.data")
 WEIGHTS = os.path.join(REPO, "weights", "coco2017-ref.npz")
@@ -388,18 +408,20 @@ def bound(nbytes: float, ops: float, peak_ops_s: float = PEAK_F32_OPS_S):
                                        else "operations")
 
 
-def rdn_bound(neg_k, combo_k):
+def rdn_bound(neg_k, combo_k, nc=None):
     """Least time for rank_decode_nms on these inputs: bytes it must move
     (sort keys, gathered reg rows (16 B) and the distinct geometry rows it
     reads (20 B), keep (1 B) and boxes (16 B) out) over the memory rate,
     and its f32 operations (≈40 per candidate decode, 14 per IoU against
-    a valid higher-ranked candidate) over the f32 rate.  → (ms, by)."""
+    a valid higher-ranked candidate) over the f32 rate; `nc` classes
+    (80 by default).  → (ms, by)."""
     from torch_cases import NC
+    nc = nc or NC
     b, k = neg_k.shape
     valid = (neg_k < 0).cpu().numpy()
     # pairs (i, j) with j < i and j valid, per image
     pairs = int((np.cumsum(valid, axis=1) - valid).sum())
-    n_geo = int(np.unique((combo_k // NC).cpu().numpy()).size)
+    n_geo = int(np.unique((combo_k // nc).cpu().numpy()).size)
     nbytes = b * k * (4 + 4 + 16 + 1 + 16) + n_geo * 20
     return bound(nbytes, b * k * 40 + pairs * 14)
 
@@ -519,10 +541,41 @@ def phase_weights_forward(photo):
     err = max(float((o.cpu() - r).abs().max()) for o, r in zip(out, ref))
     check(all(torch.isfinite(o).all() for o in out), "non-finite forward")
     check(err <= 2e-4, f"forward on the card {err} off the CPU's")
+    pth_rows = phase_pth_weights(sd, photo)
     log(f"phase 3 weights+forward: {n} floats carried; 6 NHWC outputs "
         f"{[tuple(o.shape) for o in out]}; card vs CPU max |Δ| {err:.3g} "
-        f"(≤ 2e-4, TF32 off)")
+        f"(≤ 2e-4, TF32 off); the reference-layout .pth of the same weights "
+        f"(`torch_cases.write_reference_pth`, in a temporary directory): "
+        f"its state dict bit for bit the .npz's, the photo's {pth_rows} "
+        f"FusedPipeline detections bit for bit the .npz's")
     return sd
+
+
+def phase_pth_weights(sd, photo):
+    """3: `load_state_dict` of a reference-layout `.pth` (the reference
+    weights written back in the reference's names, `num_batches_tracked`
+    and all) equals the `.npz`'s, and `FusedPipeline` (bf16, the serving
+    default) serves the photo with it bit for bit as with the `.npz`.
+    → the detections' count."""
+    import tempfile
+    import torch
+    from fastdet_torch.config import Config
+    from fastdet_torch.io import load_state_dict
+    from fastdet_torch.serve import FusedPipeline
+    from torch_cases import write_reference_pth
+    with tempfile.TemporaryDirectory() as tmp:
+        sd_pth = load_state_dict(str(write_reference_pth(
+            WEIGHTS, os.path.join(tmp, "coco2017-ref.pth"))))
+    check(sorted(sd_pth) == sorted(sd)
+          and all(torch.equal(sd_pth[k], sd[k]) for k in sd),
+          "the .pth state dict is not the .npz's")
+    cfg = Config.from_file(DATA)
+    img = resize_u8(photo)[None]
+    rows = [FusedPipeline(w, cfg)(img)[0] for w in (sd_pth, sd)]
+    check(len(rows[1]) > 0 and rows[0].dtype == rows[1].dtype
+          and np.array_equal(rows[0], rows[1]),
+          f"FusedPipeline from the .pth: {rows[0]}, from the .npz: {rows[1]}")
+    return len(rows[1])
 
 
 class Recorder:
@@ -4796,6 +4849,250 @@ def phase_int8(sd, photo, card, dev_pipe, images):
     return {"rank_decode_nms": b3, "nms_keep": keep_n}, out
 
 
+# ------------------------------------------------ convergence (phase 12)
+
+# the configuration phase 12 gates with the convergence check at its
+# defaults (600 steps of b32 128², seed 0): the training headline, bf16 in
+# the fused s2d mode (B7 and B8 in bf16).  The default f32 mode's run
+# would take the script past 450 s; the eight configurations of the
+# check are run with the tool itself (README, PERF.md §2)
+CONVERGENCE_NAME = ("yolo-fastestv2 --bf16 --fused-backbone --input-format "
+                    "s2d_u8")
+CONVERGENCE_KW = {"bf16": True, "fused_backbone": True,
+                  "input_format": "s2d_u8"}
+
+
+def phase_convergence(card):
+    """12. Convergence on the card: `run_convergence` (the tool's entry
+    point) at its defaults for `CONVERGENCE_KW`, held to the tool's bar
+    (final mAP@0.5 over 0.5 and above step 0's), with the launches of B7,
+    B8 (both dtypes) and B3 counted from 0 over the run; then, at the
+    run's own shapes, B8 bf16 (the three stages at b32 128², ghost groups
+    of 16; held on the card tests' seeded inputs and weights by the
+    witness rule of `span16_backward_errs`, and, printed beside them, with
+    the trained weights, timed), B7 bf16 (the run's first batch, the
+    trained stem, group 1) and B3 (the trained model's eval window, b32
+    k = 240) against their plain versions, with times, bounds and
+    cuDNN's.  → (launches, kernel numbers)."""
+    import torch
+    import torch.nn.functional as F
+    from fastdet_torch.kernels import fused_train as ft
+    from fastdet_torch.kernels import pp_fused
+    from fastdet_torch.kernels import stem_train as stt
+    from fastdet_torch.kernels.fused_infer import pack_images_s2d
+    from fastdet_torch.ops.postprocess import (_geo_table, rank_scores,
+                                               rank_topk)
+    from fastdet_torch.tools import convergence_check as cc
+    from torch_cases import (BOX_ULPS_CARD, CONV_ANCHORS, CONV_K, CONV_NC,
+                             SPAN_TRAIN_CONV, box_ulps, span16_backward_errs,
+                             span_train_case, span_train_rel_errs)
+    b16 = torch.bfloat16
+    counted = (ft.span_train_forward, ft.span_train_backward,
+               stt.stem_train_forward, stt.stem_train_backward,
+               ft.span_train_forward_bf16, ft.span_train_backward_bf16,
+               stt.stem_train_forward_bf16, stt.stem_train_backward_bf16,
+               pp_fused.rank_decode_nms)
+    for k in counted:
+        k.launches = 0
+    rec = {}
+    aps = cc.run_convergence(device="cuda", record=rec, **CONVERGENCE_KW)
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in counted}
+    ok = cc.converged(aps)
+    log(f"phase 12 convergence, {CONVERGENCE_NAME}: AP curve "
+        f"{[round(a, 4) for a in aps]}, {rec['seconds']:.1f} s of training "
+        f"and eval ({rec['img_s']:.1f} img/s) on {card}; launches over the "
+        f"run: {launches}; CONVERGENCE {'OK' if ok else 'FAILED'}")
+    check(ok, f"{CONVERGENCE_NAME} failed the convergence bar: {aps}")
+    check(all(launches[k.__name__] == 0 for k in counted[:4])
+          and launches["rank_decode_nms"] == 2 * len(aps)
+          and launches["span_train_forward_bf16"] == 3 * 600
+          and launches["span_train_backward_bf16"] == 3 * 600
+          and launches["stem_train_forward_bf16"] == 600
+          and launches["stem_train_backward_bf16"] == 600,
+          f"launches {launches}, want the bf16 B8 1800 and the bf16 B7 600 "
+          f"each way, the f32 ones none, B3 2 an eval")
+    model = rec["trainer"].model
+    out = {}
+
+    # ---- B8 bf16 at the run's three stages
+    tot = {"fwd": [0.0] * 6, "bwd": [0.0] * 6}
+    by = {"fwd": [0.0, 0.0], "bwd": [0.0, 0.0]}
+
+    def span16_errs(x, rows, dy, g):
+        fo, xsave, stats = ft.span_train_forward_bf16(x, rows, g)
+        ro, rxsave, rstats = ft.span_train_forward_reference(x, rows, g)
+        f_err = max(rel_err(fo, ro), rel_err(xsave, rxsave))
+        s_err = max(rel_err(stats[0, :, :, j], rstats[0, :, :, j])
+                    for j in range(3))
+        dx, drows = ft.span_train_backward_bf16(dy, xsave, stats, rows, g)
+        held, (rdx, rdrows) = span16_backward_errs(
+            (dx, drows), dy, xsave, stats, rows, g, witness=True)
+        err = (float((fo.float() - ro.float()).abs().max()),
+               max(float((dx.float() - rdx.float()).abs().max()),
+                   float((drows - rdrows).abs().max())))
+        return f_err, s_err, held, err, (xsave, stats, dx, drows)
+
+    for case in SPAN_TRAIN_CONV:
+        b, c, h, w, nblk, g = case
+        check(ft.pick_train_group(b, (h * w + 127) // 128 * 128, c) == g,
+              f"ghost group of {case}")
+        x32, seeded, dy32 = span_train_case(sum(case) + 1, b, c, h, w, nblk,
+                                            "cuda")
+        x, dy = x32.to(b16), dy32.to(b16)
+        # held as the card tests hold it: seeded inputs and weights
+        f_err, s_err, held, err, _ = span16_errs(x, seeded, dy, g)
+        check(f_err <= BF16_TRAIN_RTOL and s_err <= STATS_RTOL,
+              f"B8 bf16 forward at {case}: {f_err:.3g}, stats {s_err:.3g}")
+        off = {k: v for k, v in held.items() if v[0] > v[1]}
+        check(not off, f"B8 bf16 backward off at {case}: {off}")
+        worst = max(held, key=lambda k: held[k][0])
+        # the trained weights: printed with the plain version's own
+        # distance from its f64 sums, and timed
+        stage, reps = {48: (2, 4), 96: (3, 8), 192: (4, 4)}[c]
+        blocks = [getattr(model.backbone, f"stage{stage}_{i}")
+                  for i in range(1, reps)]
+        rows = ft.pack_span_train_weights(blocks).detach().contiguous()
+        t_f, t_s, t_held, _, (xsave, stats, dx, drows) = span16_errs(
+            x, rows, dy, g)
+        p64 = ft.span_train_backward_reference(dy, xsave, stats, rows, g,
+                                               torch.float64)
+        k64 = span_train_rel_errs(dx, drows, *p64)
+        t_worst = max(t_held, key=lambda k: t_held[k][0] / t_held[k][1])
+        log(f"  span_train bf16 at b{b} C={c} {h}x{w} g={g}: seeded (held): "
+            f"out {f_err:.3g} of max |value|, stats {s_err:.3g}, backward "
+            f"worst {worst} {held[worst][0]:.3g} (bound {held[worst][1]:.3g}"
+            f"); the trained weights (printed): out {t_f:.3g}, stats "
+            f"{t_s:.3g}, backward {t_worst}: kernel vs plain "
+            f"{t_held[t_worst][0]:.4g} (witness bound "
+            f"{t_held[t_worst][1]:.4g}, twice the plain version's f32 sums "
+            f"from its f64 sums), kernel vs the plain version's f64 sums "
+            f"{k64[t_worst]:.4g}")
+        ms_f = cuda_ms(lambda: ft.span_train_forward_bf16(x, rows, g), 10)
+        ms_b = cuda_ms(lambda: ft.span_train_backward_bf16(
+            dy, xsave, stats, rows, g), 10)
+        pl_f = cuda_ms(lambda: ft.span_train_forward_reference(x, rows, g),
+                       2, 1)
+        pl_b = cuda_ms(lambda: ft.span_train_backward_reference(
+            dy, xsave, stats, rows, g), 2, 1)
+        seq = torch.nn.Sequential(*blocks).train()
+        xg = x.clone().requires_grad_()
+        lib_f = cuda_ms(lambda: seq(xg), 10)
+        lib_fb = cuda_ms(lambda: seq(xg).backward(dy), 10)
+        seq.zero_grad(set_to_none=True)
+        (bf, byf), (bb, byb) = span16_train_bound(b, c, h, w, nblk, g)
+        log(f"    times (trained weights): kernels fwd {ms_f:.4f} ms, bwd "
+            f"{ms_b:.4f} ms; plain {pl_f:.3f} / {pl_b:.3f} ms; bound "
+            f"{bf:.4f} ({byf}) / {bb:.4f} ({byb}) ms; cuDNN bf16 blocks "
+            f"fwd {lib_f:.4f}, fwd+bwd {lib_fb:.4f} ms")
+        for k, vals, e, byk, bk in (
+                ("fwd", (ms_f, pl_f, bf, lib_f), err[0], byf, bf),
+                ("bwd", (ms_b, pl_b, bb, lib_fb - lib_f), err[1], byb, bb)):
+            t = tot[k]
+            t[0] += vals[0]
+            t[1] += vals[1]
+            t[2] += vals[2]
+            t[4] = max(t[4], e)
+            t[5] += vals[3]
+            by[k][0 if byk == "bytes" else 1] += bk
+        del xsave, stats, dx, drows, p64
+    for k in ("fwd", "bwd"):
+        t = tot[k]
+        out[f"span_train_{k}_bf16"] = (
+            t[0], t[1], t[2], "bytes" if by[k][0] >= by[k][1]
+            else "operations", t[4], t[5])
+
+    # ---- B7 bf16 on the run's first s2d batch, the trained stem
+    images, _, _ = cc.make_batch(np.random.RandomState(0), 32)
+    x = torch.from_numpy(pack_images_s2d(images)).cuda()
+    fc = model.backbone.first_conv.train()
+    w = (fc.conv.weight * (1.0 / 255.0)).detach().contiguous()
+    gamma, beta = fc.bn.weight.detach(), fc.bn.bias.detach()
+    dy = torch.from_numpy(np.random.default_rng(12).normal(
+        0.0, 1.0, (32, 24, 32, 32)).astype(np.float32)).cuda().to(b16)
+    y, stats, zw, code = stt.stem_train_forward_bf16(x, w, gamma, beta, 32,
+                                                     32, 1)
+    ry, rstats = stt.stem_train_forward_reference(x, w, gamma, beta, 32, 32,
+                                                  1, True)
+    ulps = bf16_ulps(y, ry)
+    s_err = max(rel_err(stats[..., k], rstats[..., k]) for k in range(3))
+    check(ulps <= 1 and s_err <= STATS_RTOL,
+          f"B7 bf16 forward at b32 128²: y {ulps:.3g} ULPs, stats "
+          f"{s_err:.3g}")
+    grads = stt.stem_train_backward_bf16(dy, x, stats, w, gamma, beta, 32,
+                                         32, 1, zw, code)
+    refs = stt.stem_train_backward_reference(dy, x, stats, w, gamma, beta,
+                                             32, 32, 1, True)
+    b_rel = {leaf: rel_err(a, c) for leaf, a, c in
+             zip(("dW", "dgamma", "dbeta"), grads, refs)}
+    check(max(b_rel.values()) <= BF16_TRAIN_RTOL,
+          f"B7 bf16 backward at b32 128²: {b_rel}")
+    img16 = (torch.from_numpy(images).cuda().permute(0, 3, 1, 2).to(b16)
+             / 255.0)
+
+    def lib_stem():
+        return F.max_pool2d(fc(img16), 3, 2, 1)
+
+    lib_f = cuda_ms(lib_stem, 10)
+    lib_fb = cuda_ms(lambda: lib_stem().backward(dy), 10)
+    fc.zero_grad(set_to_none=True)
+    ms_f = cuda_ms(lambda: stt.stem_train_forward_bf16(
+        x, w, gamma, beta, 32, 32, 1), 10)
+    ms_b = cuda_ms(lambda: stt.stem_train_backward_bf16(
+        dy, x, stats, w, gamma, beta, 32, 32, 1, zw, code), 10)
+    pl_f = cuda_ms(lambda: stt.stem_train_forward_reference(
+        x, w, gamma, beta, 32, 32, 1, True), 2, 1)
+    pl_b = cuda_ms(lambda: stt.stem_train_backward_reference(
+        dy, x, stats, w, gamma, beta, 32, 32, 1, True), 2, 1)
+    (bf, byf), (bb, byb) = stem16_train_bound(32, 32, 32, 1)
+    e_f = float((y.float() - ry.float()).abs().max())
+    e_b = max(float((a - c).abs().max()) for a, c in zip(grads, refs))
+    out["stem_train_fwd_bf16"] = (ms_f, pl_f, bf, byf, e_f, lib_f)
+    out["stem_train_bwd_bf16"] = (ms_b, pl_b, bb, byb, e_b, lib_fb - lib_f)
+    log(f"  stem_train bf16 at b32 128² g=1 (the run's first batch, trained "
+        f"stem): y {ulps:.3g} bf16 ULPs, stats {s_err:.3g}, backward "
+        + ", ".join(f"{k} {v:.3g}" for k, v in b_rel.items())
+        + f"; kernels fwd {ms_f:.4f} ms, bwd {ms_b:.4f} ms; plain "
+        f"{pl_f:.3f} / {pl_b:.3f} ms; bound {bf:.4f} ({byf}) / {bb:.4f} "
+        f"({byb}) ms; cuDNN bf16 stem fwd {lib_f:.4f}, fwd+bwd "
+        f"{lib_fb:.4f} ms")
+
+    # ---- B3 on the trained model's eval window (its outputs in f32, as
+    # its detect casts them)
+    model.eval()
+    ev_images, _, _ = cc.eval_set()
+    with torch.inference_mode():
+        outs = [o.float() for o in model(
+            torch.from_numpy(ev_images[:32]).cuda().float() / 255.0)]
+        ranked, reg_f, cls_f, meta = rank_scores(outs, (128, 128), 0.05)
+        neg_k, combo_k = rank_topk(ranked, cls_f, nc=CONV_NC,
+                                   k=min(1024, ranked.shape[1]))
+    check(neg_k.shape == (32, CONV_K), f"eval window {tuple(neg_k.shape)}")
+    geo = _geo_table(meta, tuple(CONV_ANCHORS.ravel().tolist()), "cuda")
+    reg_f = reg_f.contiguous()
+    args = (neg_k, combo_k, reg_f, geo)
+    keep, boxes = pp_fused.rank_decode_nms(*args, nc=CONV_NC, iou_thres=0.45)
+    rkeep, rboxes = pp_fused.rank_decode_nms_reference(*args, nc=CONV_NC,
+                                                       iou_thres=0.45)
+    ulp = float(box_ulps(boxes.cpu().numpy(), rboxes.cpu().numpy()).max())
+    check(torch.equal(keep, rkeep) and ulp <= BOX_ULPS_CARD,
+          f"B3 on the eval window: keep equal {torch.equal(keep, rkeep)}, "
+          f"boxes {ulp} ULPs")
+    ms = cuda_ms(lambda: pp_fused.rank_decode_nms(*args, nc=CONV_NC,
+                                                  iou_thres=0.45), 20)
+    pl = cuda_ms(lambda: pp_fused.rank_decode_nms_reference(
+        *args, nc=CONV_NC, iou_thres=0.45), 3, 1)
+    bd, byd = rdn_bound(neg_k, combo_k, CONV_NC)
+    err = float(np.nan_to_num(np.abs(boxes.cpu().numpy()
+                                     - rboxes.cpu().numpy())).max())
+    out["rank_decode_nms"] = (ms, pl, bd, byd, err)
+    log(f"  rank_decode_nms on the trained model's eval window (b32 k=240, "
+        f"{int((neg_k < 0).sum())} valid, {int(keep.sum())} kept): keep "
+        f"bit for bit, boxes ≤ {ulp:.3g} ULPs; {ms:.4f} ms back to back, "
+        f"plain {pl:.3f} ms, bound {bd:.6f} ms ({byd})")
+    return launches, out
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import torch
@@ -4868,6 +5165,8 @@ def main() -> int:
     int8_launches, int8_main = phase_int8(sd, photo, card, dev_pipe,
                                           eval_images)
     lap("11")
+    conv_launches, conv_main = phase_convergence(card)
+    lap("12")
     log('phase 6 kernels: ["stem_s2d", "span", "rank_decode_nms", '
         '"nms_keep", "span_train", "stem_train", "stem_s2d8", "s2span"] '
         f'(rank_decode_nms launches on the device path: {launches}; '
@@ -4880,7 +5179,8 @@ def main() -> int:
         f'at 640²: {bf16_launches}; the bf16 training kernels on the bf16 '
         f'training paths: {train16_launches}; rank_decode_nms and '
         f'nms_keep on the int8 path: {int8_launches["rank_decode_nms"]}, '
-        f'{int8_launches["nms_keep"]}')
+        f'{int8_launches["nms_keep"]}; the convergence runs: '
+        f'{conv_launches}')
     log("phase times (host clock, s): " + ", ".join(
         f"{name} {t - laps[i][1]:.1f}"
         for i, (name, t) in enumerate(laps[1:]))
@@ -5031,6 +5331,33 @@ def main() -> int:
             "replaces": replaces, "launches": int8_launches[name],
             "max_abs_err": k_err, "ms": k_ms, "plain_ms": k_plain,
             "bound_ms": k_bound, "bound_by": k_by, "library_ms": None})
+    # the convergence runs (phase 12): launches over both runs (B3 over
+    # their evals, the bf16 B8 and B7 over the fused s2d run); times at the
+    # runs' own shapes (b32 128²) with the trained weights
+    for name, wrapper, source, replaces in (
+            ("span_train_fwd_bf16", "span_train_forward_bf16",
+             "span16_train", "fastdet/kernels/fused_train.py:329"),
+            ("span_train_bwd_bf16", "span_train_backward_bf16",
+             "span16_train", "fastdet/kernels/fused_train.py:362"),
+            ("stem_train_fwd_bf16", "stem_train_forward_bf16",
+             "stem16_train", "fastdet/kernels/stem_train.py:462"),
+            ("stem_train_bwd_bf16", "stem_train_backward_bf16",
+             "stem16_train", "fastdet/kernels/stem_train.py:490")):
+        k_ms, k_plain, k_bound, k_by, k_err, k_lib = conv_main[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"fastdet_torch/csrc/{source}.cu",
+            "replaces": replaces, "launches": conv_launches[wrapper],
+            "max_abs_err": k_err, "ms": k_ms, "plain_ms": k_plain,
+            "bound_ms": k_bound, "bound_by": k_by, "library_ms": k_lib})
+    k_ms, k_plain, k_bound, k_by, k_err = conv_main["rank_decode_nms"]
+    kernels.append({
+        "name": "rank_decode_nms", "route": "cuda",
+        "source": "fastdet_torch/csrc/pp_fused.cu",
+        "replaces": "fastdet/kernels/pp_fused.py:156",
+        "launches": conv_launches["rank_decode_nms"], "max_abs_err": k_err,
+        "ms": k_ms, "plain_ms": k_plain, "bound_ms": k_bound,
+        "bound_by": k_by, "library_ms": None})
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

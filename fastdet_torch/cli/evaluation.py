@@ -122,7 +122,7 @@ def main(argv=None) -> int:
     parser.add_argument("--data", type=str, default="",
                         help="Specify training profile *.data")
     parser.add_argument("--weights", type=str, default="",
-                        help="The path of the model weights (.npz)")
+                        help="The path of the model weights (.npz/.pth)")
     parser.add_argument("--model", type=str, default="yolo-fastestv2",
                         help="model family: yolo-fastestv2 | anchorfree")
     parser.add_argument("--batch", type=int, default=0,

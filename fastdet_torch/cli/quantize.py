@@ -59,7 +59,7 @@ def main(argv=None) -> int:
     parser.add_argument("--data", type=str, required=True,
                         help="Specify training profile *.data")
     parser.add_argument("--weights", type=str, required=True,
-                        help="f32 model weights (.npz)")
+                        help="f32 model weights (.npz/.pth)")
     parser.add_argument("--calib", type=str, default="",
                         help="calibration images: directory or list file "
                              "(default: the profile's val list)")

@@ -35,7 +35,7 @@ def main(argv=None) -> int:
     parser.add_argument("--data", type=str, default="",
                         help="Specify training profile *.data")
     parser.add_argument("--weights", type=str, default="",
-                        help="The path of the model weights (.npz)")
+                        help="The path of the model weights (.npz/.pth)")
     parser.add_argument("--img", type=str, default="",
                         help="The path of test image")
     parser.add_argument("--output", type=str, default="test_result.png")

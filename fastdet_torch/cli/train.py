@@ -24,9 +24,11 @@ evaluates it with its detect builder (`models/registry.py`).  `--bf16`
 trains in bfloat16 as the JAX CLI does: the family's model computes in
 bf16 (parameters, gradients and momentum f32; with `--fused-backbone` the
 bf16 forms of the span kernel), while the evaluation at eval epochs and
-the saved weights stay f32.  Not ported, each raises naming its ROADMAP
-item: multi-process jobs through the FASTDET_* environment variables
-(A12), `--backbone *.pth` (A13).
+the saved weights stay f32.  `--backbone` initialises the backbone from
+a reference `.pth` backbone checkpoint or a `.npz` (backbone-only or
+whole), as the JAX CLI does, when no `pre_weights` finetune applies.  Not
+ported, it raises naming its ROADMAP item: multi-process jobs through the
+FASTDET_* environment variables (A12).
 
 The data loader reads images with cv2, which the card's machine lacks;
 `run_training` takes the batches from its caller, so that
@@ -47,8 +49,8 @@ from fastdet_torch import resolve_device
 from fastdet_torch.cli.evaluation import run_evaluation
 from fastdet_torch.config import Config
 from fastdet_torch.io import (latest_step, load_checkpoint, load_state_dict,
-                              merge_variables, save_checkpoint,
-                              save_npz_variables)
+                              load_torch_weights, merge_variables,
+                              save_checkpoint, save_npz_variables)
 from fastdet_torch.models.registry import family_name, get_family
 from fastdet_torch.train.trainer import Trainer
 from fastdet_torch.utils import MetricsLogger, StepTimer, trace
@@ -186,7 +188,7 @@ def main(argv=None) -> int:
     parser.add_argument("--model", type=str, default="yolo-fastestv2",
                         help="model family: yolo-fastestv2 | anchorfree")
     parser.add_argument("--backbone", type=str, default="",
-                        help="pretrained backbone weights (.npz) to "
+                        help="pretrained backbone weights (.pth/.npz) to "
                              "initialize from when not finetuning")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu")
@@ -201,10 +203,6 @@ def main(argv=None) -> int:
                                        "FASTDET_PROCESS_ID")):
         raise NotImplementedError(
             "fastdet_torch: multi-process training is ROADMAP A12, not "
-            "ported yet")
-    if opt.backbone.endswith((".pth", ".pt")):
-        raise NotImplementedError(
-            "fastdet_torch: reference .pth backbones are ROADMAP A13, not "
             "ported yet")
     chain = max(1, opt.chain)          # as the JAX CLI clamps it
 
@@ -232,7 +230,9 @@ def main(argv=None) -> int:
         print("Load finetune model param: %s (%d tensors loaded, %d fresh)"
               % (cfg.pre_weights, n_load, n_keep))
     elif opt.backbone and os.path.exists(opt.backbone):
-        bb = load_state_dict(opt.backbone)
+        bb = (load_torch_weights(opt.backbone, backbone_only=True)
+              if opt.backbone.endswith((".pth", ".pt"))
+              else load_state_dict(opt.backbone))
         if not any(k.startswith("backbone.") for k in bb):
             bb = {"backbone." + k: v for k, v in bb.items()}
         state_dict, n_load, _ = merge_variables(state_dict, bb)

@@ -17,11 +17,14 @@ with dots, with the leaf renamed and conv kernels transposed:
 `to_jax_variables` is its inverse, and `save_npz_variables` writes it
 back in the JAX layout, so that `fastdet` loads what the port trains.
 `merge_variables` grafts a pretrained state dict onto a fresh one
-(finetuning).
+(finetuning).  `load_state_dict` reads a `.npz`, or a reference `.pth` /
+`.pt` through `io/torch_convert.py`, as the JAX package's
+`load_variables` does.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict
 
 import numpy as np
@@ -103,9 +106,23 @@ def to_jax_variables(state_dict: Dict[str, torch.Tensor]) -> dict:
     return out
 
 
-def load_state_dict(npz_path: str) -> Dict[str, torch.Tensor]:
-    """`.npz` variable file → the port's ``state_dict``."""
-    return from_jax_variables(load_npz_variables(npz_path))
+def load_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A weights file → the port's ``state_dict``: the JAX layout's
+    `.npz`, or a reference `.pth` / `.pt` state dict.  The JAX package
+    also reads orbax checkpoint directories; orbax imports JAX, so the
+    port's full-state checkpoints are `io/checkpoint.py`'s files and a
+    directory raises."""
+    if os.path.isdir(path):
+        raise ValueError(
+            f"{path} is a directory: orbax checkpoint directories are the "
+            "JAX package's (orbax imports JAX); pass a .npz or .pth "
+            "weights file, or resume a port run from its ckpt-<step>.pt")
+    if path.endswith(".npz"):
+        return from_jax_variables(load_npz_variables(path))
+    if path.endswith((".pth", ".pt")):
+        from fastdet_torch.io.torch_convert import load_torch_weights
+        return load_torch_weights(path)
+    raise ValueError(f"unsupported weights container: {path}")
 
 
 def merge_variables(init: Dict[str, torch.Tensor],

@@ -147,7 +147,9 @@ def build_detect_fn(model, cfg: Config, *, conf_thres=0.3, iou_thres=0.45,
 
     `images_u8_nhwc` is a (B,H,W,3) uint8 tensor on the model's device
     (BGR, as the reference's cv2 pipeline gives it); /255 happens on the
-    device.  The model is moved to `device` and put in eval mode.
+    device.  The model is moved to `device` and put in eval mode.  Its
+    outputs go to `postprocess` in f32, as the JAX package's detect casts
+    them: a bf16 model's too.
 
     On CUDA this turns TF32 off for the whole process (`disable_tf32`)."""
     dev = resolve_device(device)
@@ -159,7 +161,8 @@ def build_detect_fn(model, cfg: Config, *, conf_thres=0.3, iou_thres=0.45,
 
     @torch.inference_mode()
     def detect(images):
-        outputs = model(images.to(torch.float32) / 255.0)
+        outputs = [o.float() for o in model(images.to(torch.float32)
+                                            / 255.0)]
         return postprocess(outputs, anchors, input_hw,
                            conf_thres=conf_thres, iou_thres=iou_thres,
                            max_det=max_det, max_nms=max_nms)

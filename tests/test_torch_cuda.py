@@ -25,12 +25,13 @@ from fastdet_torch.models.anchorfree import (build_anchorfree_detect_fn,
 from fastdet_torch.ops import nms
 from fastdet_torch.ops.postprocess import postprocess
 from fastdet_torch.serve import DevicePipeline, FusedPipeline
-from torch_cases import (AF_GOLDEN, ANCHORS, BOX_ULPS_CARD, IOU, NC, NV_CLASSES,
-                         OUT_OF_RANGE, S2SPAN_CASES, SPAN_CASES,
-                         SPAN_TRAIN_B1, SPAN_TRAIN_EDGE, SPAN_TRAIN_FULL,
+from torch_cases import (AF_GOLDEN, ANCHORS, BOX_ULPS_CARD, CONV_NC, IOU, NC,
+                         NV_CLASSES, OUT_OF_RANGE, S2SPAN_CASES, SPAN_CASES,
+                         SPAN_TRAIN_B1, SPAN_TRAIN_CONV, SPAN_TRAIN_EDGE,
+                         SPAN_TRAIN_FULL,
                          SPAN_TRAIN_SMALL, STEM8_CASES, STEM_CASES,
                          STEM_TRAIN_CASES,
-                         box_ulps, crowded, golden_image,
+                         box_ulps, conv_window, crowded, golden_image,
                          golden_mismatches, grad_err, head_outputs,
                          make_inputs, nv_window, out_of_range_window,
                          pool_ties, port_geo, s2span_case,
@@ -137,6 +138,49 @@ def test_kernel_matches_plain_on_served_windows(card, conf, k):
     assert box_ulps(boxes.cpu().numpy(), rboxes.cpu().numpy()).max() \
         <= BOX_ULPS_CARD
     assert 0 < int(keep.sum()) < int((neg_k < 0).sum())
+
+
+def test_kernel_matches_plain_on_the_convergence_window(card):
+    """The convergence check's eval window (b32 128², 3 classes, conf
+    0.05, k = 240; `torch_cases.conv_window`): one launch, keep bitwise,
+    boxes within BOX_ULPS_CARD."""
+    args = list(conv_window(7, device=card))
+    before = pp_fused.rank_decode_nms.launches
+    keep, boxes = pp_fused.rank_decode_nms(*args, nc=CONV_NC, iou_thres=IOU)
+    assert pp_fused.rank_decode_nms.launches == before + 1
+    rkeep, rboxes = pp_fused.rank_decode_nms_reference(*args, nc=CONV_NC,
+                                                       iou_thres=IOU)
+    torch.cuda.synchronize()
+    assert keep.shape == (32, 240) and torch.equal(keep, rkeep)
+    assert box_ulps(boxes.cpu().numpy(), rboxes.cpu().numpy()).max() \
+        <= BOX_ULPS_CARD
+    assert 0 < int(keep.sum()) < int((args[0] < 0).sum())
+
+
+def test_bf16_family_detect_on_the_card(card):
+    """The bf16 family's detect at the convergence check's eval (b32
+    128², 3 classes, conf 0.05): the outputs cast to f32 reach
+    rank_decode_nms (one launch), and the detections are the postprocess's
+    on the same f32-cast outputs, bit for bit."""
+    from fastdet_torch.models.registry import get_family
+    from fastdet_torch.tools import convergence_check as cc
+    cfg = cc.make_config(0.002, 32)
+    torch.manual_seed(0)
+    fam = get_family("yolo-fastestv2", cfg, dtype=torch.bfloat16)
+    detect = fam.build_detect_fn(conf_thres=0.05, iou_thres=0.45,
+                                 device=card)
+    images = torch.from_numpy(cc.eval_set()[0][:32]).to(card)
+    before = pp_fused.rank_decode_nms.launches
+    dets, counts = detect(images)
+    assert pp_fused.rank_decode_nms.launches == before + 1
+    with torch.inference_mode():
+        outs = [o.float() for o in fam.model(images.float() / 255.0)]
+        rdets, rcounts = postprocess(
+            outs, np.asarray(cfg.anchors, np.float32).reshape(2, 3, 2),
+            (128, 128), conf_thres=0.05, iou_thres=0.45)
+    torch.cuda.synchronize()
+    assert dets.dtype == torch.float32 and int(counts.sum()) > 0
+    assert torch.equal(counts, rcounts) and torch.equal(dets, rdets)
 
 
 def test_rank_decode_nms_plan_matches_the_kernel(card):
@@ -573,7 +617,8 @@ def test_fused_pipeline_card_matches_device_pipeline(card):
 
 
 @pytest.mark.parametrize("case", SPAN_TRAIN_FULL + SPAN_TRAIN_B1
-                         + SPAN_TRAIN_SMALL + SPAN_TRAIN_EDGE)
+                         + SPAN_TRAIN_SMALL + SPAN_TRAIN_EDGE
+                         + SPAN_TRAIN_CONV)
 def test_span_train_kernels_match_plain(card, case):
     """B8 forward against its plain version (out, saved inputs, stats
     within 2e-4 of each one's scale), then the backward kernel and the
@@ -612,7 +657,8 @@ def test_span_train_plan_matches_the_kernels(card):
     from fastdet_torch.kernels import _build
     lib = _build.load("span_train", fused_train._SIGNATURES)
     for b, c, h, w, nblk, g in (SPAN_TRAIN_FULL + SPAN_TRAIN_B1
-                                + SPAN_TRAIN_SMALL + SPAN_TRAIN_EDGE):
+                                + SPAN_TRAIN_SMALL + SPAN_TRAIN_EDGE
+                                + SPAN_TRAIN_CONV):
         plan = fused_train.span_train_plan(b, c, h, w, nblk, g)
         for bwd, tile in ((0, plan.tile_fwd), (1, plan.tile_bwd)):
             assert lib.fastdet_span_train_smem(c, h, w, *tile, bwd) == \
@@ -642,7 +688,7 @@ def test_span_train_wrappers_check_their_inputs(card):
                          ids=["b128_352_g1", "b8_352_g4", "b2_160x96_g1",
                               "b4_96_ties", "b2_32x48_g1_edge",
                               "b4_36x52_g2_edge_ties", "b4_96_g2_ties_signed",
-                              "b2_160x96_g1_signed"])
+                              "b2_160x96_g1_signed", "b32_128_g1"])
 def test_stem_train_kernels_match_plain(card, case):
     """B7 forward against its plain version (y within 2e-4 of its scale,
     the stats μ, σinv, var each within 2e-4 of its own; y and z bit for bit
@@ -985,10 +1031,11 @@ def _rel16(got, want):
                          [(c, False) for c in SPAN_TRAIN_FULL]
                          + [(SPAN_TRAIN_FULL[1], True)]
                          + [(c, False) for c in SPAN_TRAIN_SMALL[:1]
-                            + SPAN_TRAIN_EDGE[:2]],
+                            + SPAN_TRAIN_EDGE[:2] + SPAN_TRAIN_CONV],
                          ids=["stage2_b128", "stage3_b128", "stage4_b128",
                               "stage3_b128_real", "small_g2", "edge_g3",
-                              "edge_g1"])
+                              "edge_g1", "stage2_b32_128", "stage3_b32_128",
+                              "stage4_b32_128"])
 def test_span_train_bf16_kernels_match_plain(card, case, real):
     """B8's bf16 form against its plain bf16 version (the smoke's phase 10
     bounds): out and the saved inputs within 2⁻⁶ of max |value|, the
@@ -997,7 +1044,8 @@ def test_span_train_bf16_kernels_match_plain(card, case, real):
     2⁻⁶ of its max |value| (β2, zero in exact arithmetic, of the block's
     largest BN-parameter gradient); the seeded stage-3 case, whose plain
     version stands ~5% of dγ1's max |value| from itself summed in another
-    order (the kernel 5.3%), within twice that distance from its f64 sums
+    order (the kernel 5.3%), and the convergence check's three stages
+    (`SPAN_TRAIN_CONV`), within twice that distance from its f64 sums
     where that is larger (`torch_cases.span16_backward_errs`); bf16 in and out,
     f32 stats and gradients; one counted launch each; a second backward
     gives the same bits.  `real`: the stage's real span weights, as the
@@ -1031,8 +1079,9 @@ def test_span_train_bf16_kernels_match_plain(card, case, real):
             fused_train.span_train_backward_bf16.launches) == (
                 before[0] + 1, before[1] + 1)
     errs, _ = span16_backward_errs((dx, drows), dy, xsave, stats, rows, g,
-                                   witness=case == SPAN_TRAIN_FULL[1]
-                                   and not real)
+                                   witness=(case == SPAN_TRAIN_FULL[1]
+                                            and not real)
+                                   or case in SPAN_TRAIN_CONV)
     off = {k: v for k, v in errs.items() if v[0] > v[1]}
     assert not off, off
     dx2, drows2 = fused_train.span_train_backward_bf16(dy, xsave, stats,
@@ -1048,7 +1097,8 @@ def test_span_train_bf16_plan_matches_the_kernels(card):
     recomputed z equals the forward's bit for bit."""
     from fastdet_torch.kernels import _build
     lib = _build.load("span16_train", fused_train._SIGNATURES16)
-    for b, c, h, w, nblk, g in SPAN_TRAIN_FULL + SPAN_TRAIN_EDGE:
+    for b, c, h, w, nblk, g in SPAN_TRAIN_FULL + SPAN_TRAIN_EDGE \
+            + SPAN_TRAIN_CONV:
         plan = fused_train.span16_train_plan(b, c, h, w, nblk, g)
         for bwd, want in ((0, plan.smem_fwd), (1, plan.smem_bwd)):
             assert lib.fastdet_span16_train_smem(
@@ -1090,9 +1140,10 @@ def test_span_train_bf16_wrappers_check_their_inputs(card):
                                              rows, 2)
 
 
-@pytest.mark.parametrize("case", [STEM_TRAIN_CASES[i] for i in (0, 1, 3, 6)],
+@pytest.mark.parametrize("case", [STEM_TRAIN_CASES[i]
+                                  for i in (0, 1, 3, 6, 8)],
                          ids=["b128_352_g1", "b8_352_g4", "b4_96_ties",
-                              "b4_96_g2_ties_signed"])
+                              "b4_96_g2_ties_signed", "b32_128_g1"])
 def test_stem_train_bf16_kernels_match_plain(card, case):
     """B7's bf16 form (`csrc/stem16_train.cu`) against its plain bf16
     version: y bf16 within one bf16 ULP and bit for bit the plain conv,

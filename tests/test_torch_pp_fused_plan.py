@@ -30,10 +30,10 @@ from fastdet.ops.postprocess import _geo_table as jax_geo_table
 from fastdet_torch.kernels import pp_fused
 from fastdet_torch.ops.nms import MAX_WH
 from fastdet_torch.ops.postprocess import rank_scores, rank_topk
-from torch_cases import (ANCHORS, BOX_ULPS_XLA, IOU, META, N, NC,
-                         NV_CLASSES, OUT_OF_RANGE, box_ulps, head_outputs,
-                         make_inputs, nv_window, out_of_range_window,
-                         port_geo)
+from torch_cases import (ANCHORS, BOX_ULPS_XLA, CONV_K, CONV_NC, IOU, META,
+                         N, NC, NV_CLASSES, OUT_OF_RANGE, box_ulps,
+                         conv_window, head_outputs, make_inputs, nv_window,
+                         out_of_range_window, port_geo)
 
 NPAD = 1920   # the TPU kernel's lane padding of N
 PHASE2 = [(b, k) for b in (1, 128) for k in (128, 256, 384)]
@@ -168,9 +168,9 @@ def torch_inputs(neg_k, combo_k, regs):
             for a in (neg_k, combo_k, regs)] + [port_geo()]
 
 
-def steps_and_plain(args):
-    keep, boxes = rank_decode_nms_steps(*args, nc=NC, iou_thres=IOU)
-    rkeep, rboxes = pp_fused.rank_decode_nms_reference(*args, nc=NC,
+def steps_and_plain(args, nc=NC):
+    keep, boxes = rank_decode_nms_steps(*args, nc=nc, iou_thres=IOU)
+    rkeep, rboxes = pp_fused.rank_decode_nms_reference(*args, nc=nc,
                                                        iou_thres=IOU)
     assert keep.dtype == rkeep.dtype == torch.bool
     assert torch.equal(keep, rkeep) and torch.equal(boxes, rboxes)
@@ -230,6 +230,15 @@ def test_steps_bitwise_on_served_windows(conf, k):
     assert 0 < int(keep.sum()) < int(valid.sum())
 
 
+def test_steps_bitwise_on_the_convergence_window():
+    """The convergence check's eval window (b32 128², 3 classes, conf
+    0.05, k = 240; `torch_cases.conv_window`)."""
+    args = list(conv_window(7))
+    valid = args[0] < 0
+    keep = steps_and_plain(args, nc=CONV_NC)
+    assert 0 < int(keep.sum()) < int(valid.sum())
+
+
 @pytest.mark.parametrize("k", [128, 256])
 def test_steps_vs_pallas(k):
     """Against the JAX package's TPU kernel in interpret mode: keep
@@ -257,7 +266,7 @@ def image_bytes_needed(nv):
 
 
 @pytest.mark.parametrize("b,k", PHASE2 + [SERVED, (1, 1), (2, 64), (2, 65),
-                                          (8, 383)])
+                                          (8, 383), (32, CONV_K)])
 def test_plan(b, k):
     plan = pp_fused.rank_decode_nms_plan(b, k)
     assert plan.launches == 1 and plan.kernel == "rank_decode_nms_kernel"

@@ -17,23 +17,26 @@ import pytest
 import torch
 
 from fastdet_torch.kernels import fused_train as ft
-from torch_cases import (BF16_TRAIN_RTOL, SPAN_TRAIN_B1, SPAN_TRAIN_EDGE,
-                         SPAN_TRAIN_FULL, SPAN_TRAIN_SMALL,
-                         span16_backward_errs, span_train_case)
+from torch_cases import (BF16_TRAIN_RTOL, SPAN_TRAIN_B1, SPAN_TRAIN_CONV,
+                         SPAN_TRAIN_EDGE, SPAN_TRAIN_FULL, SPAN_TRAIN_SMALL,
+                         few_torch_threads, span16_backward_errs,
+                         span_train_case)
 
 BF16 = torch.bfloat16
 STATS_RTOL = 5e-5
 PLAN_CASES = SPAN_TRAIN_FULL + SPAN_TRAIN_B1 + SPAN_TRAIN_SMALL + \
-    SPAN_TRAIN_EDGE
+    SPAN_TRAIN_EDGE + SPAN_TRAIN_CONV
 # the small and edge shapes, and some cut into bands by a forced cluster,
 # so that the halo rows cross CTAs (a band of 3 rows, one of 1 row, 2
 # bands an image of 9 rows, one CTA an image at g = 2), and 7 blocks in
 # bands (the slots and the rounded passthrough gradients of a stage-3
-# span)
+# span); last the convergence check's three stages, whose clusters hold
+# whole images, 2 or 4 a CTA
 STEP_CASES = ([(c, None) for c in SPAN_TRAIN_SMALL + SPAN_TRAIN_EDGE]
               + [((4, 48, 6, 7, 2, 2), 4), ((5, 48, 13, 5, 3, 1), 4),
                  ((3, 96, 9, 7, 2, 3), 6), ((4, 192, 3, 3, 3, 2), 2),
-                 ((2, 96, 10, 6, 7, 2), 4)])
+                 ((2, 96, 10, 6, 7, 2), 4)]
+              + [(c, None) for c in SPAN_TRAIN_CONV])
 
 
 def _rel(a, b):
@@ -115,8 +118,10 @@ def test_slots_relabel_the_shuffle(c):
     assert sorted(ft.span16_train_slots(3, c)) == list(range(c))
 
 
-def _check_steps(case, cluster):
-    """The steps against the plain versions → the worst (leaf, err)."""
+def _check_steps(case, cluster, witness=False):
+    """The steps against the plain versions → ({leaf: err}, the first
+    block's worst stats err); `witness`: the backward's leaves over their
+    `span16_backward_errs` witness bounds instead of BF16_TRAIN_RTOL."""
     b, c, h, w, nblk, g = case
     x, rows, dy = span_train_case(sum(case) + 1, b, c, h, w, nblk)
     x, dy = x.to(BF16), dy.to(BF16)
@@ -127,8 +132,10 @@ def _check_steps(case, cluster):
     errs = {"out": _rel(out, ro), "xsave": _rel(xsave, rxsave)}
     errs.update({f"stats{j}": _rel(stats[:, :, :, j], rstats[:, :, :, j])
                  for j in range(3)})
-    held, _ = span16_backward_errs((dx, drows), dy, xsave, stats, rows, g)
-    errs.update({k: e for k, (e, _) in held.items()})
+    held, _ = span16_backward_errs((dx, drows), dy, xsave, stats, rows, g,
+                                   witness=witness)
+    errs.update({k: e * BF16_TRAIN_RTOL / bound
+                 for k, (e, bound) in held.items()})
     s0 = max(_rel(stats[0, :, :, j], rstats[0, :, :, j]) for j in range(3))
     return errs, s0
 
@@ -136,7 +143,9 @@ def _check_steps(case, cluster):
 @pytest.mark.parametrize("case,cluster", STEP_CASES, ids=[
     "x".join(map(str, c)) + (f"-n{n}" if n else "") for c, n in STEP_CASES])
 def test_steps_equal_the_plain_versions(case, cluster):
-    errs, s0 = _check_steps(case, cluster)
+    with few_torch_threads():
+        errs, s0 = _check_steps(case, cluster,
+                                witness=case in SPAN_TRAIN_CONV)
     assert s0 <= STATS_RTOL
     off = {k: e for k, e in errs.items() if e > BF16_TRAIN_RTOL}
     assert not off, off

@@ -8,11 +8,12 @@ CUDA version did (forward 7·nblk + 1, backward 14·nblk + 2)."""
 import pytest
 
 from fastdet_torch.kernels import fused_train as ft
-from torch_cases import (SPAN_TRAIN_B1, SPAN_TRAIN_EDGE, SPAN_TRAIN_FULL,
-                         SPAN_TRAIN_SMALL)
+from torch_cases import (SPAN_TRAIN_B1, SPAN_TRAIN_CONV, SPAN_TRAIN_EDGE,
+                         SPAN_TRAIN_FULL, SPAN_TRAIN_SMALL)
 
 SMS = 132
-CASES = SPAN_TRAIN_FULL + SPAN_TRAIN_B1 + SPAN_TRAIN_SMALL + SPAN_TRAIN_EDGE
+CASES = (SPAN_TRAIN_FULL + SPAN_TRAIN_B1 + SPAN_TRAIN_SMALL + SPAN_TRAIN_EDGE
+         + SPAN_TRAIN_CONV)
 
 
 @pytest.mark.parametrize("case", CASES, ids=[

@@ -171,7 +171,6 @@ def test_train_cli_clamps_chain_as_jax(train_world, port_run, tmp_path,
     (("--fused-backbone", "--model", "anchorfree"), None,
      "--fused-backbone supports the yolo-fastestv2 family only"),
     ((), {"FASTDET_NUM_PROCESSES": "2"}, "A12"),
-    (("--backbone", "weights/backbone.pth"), None, "A13"),
 ])
 def test_train_cli_unported_options_exit_nonzero(train_world, tmp_path,
                                                  extra, env, label):
@@ -179,6 +178,54 @@ def test_train_cli_unported_options_exit_nonzero(train_world, tmp_path,
              str(train_world / "train.data"), *extra], env_extra=env)
     assert r.returncode != 0
     assert label in r.stderr
+
+
+@pytest.fixture(scope="module")
+def backbone_files(tmp_path_factory):
+    """A reference-layout backbone `.pth` of the reference weights, the
+    same as a backbone-only `.npz` (JAX's `convert_torch_checkpoint`), and
+    the count of tensors JAX's CLI loads from it: its `merge_variables`
+    of the wrapped backbone tree onto a fresh 80-class Detector."""
+    import jax
+    import jax.numpy as jnp
+    from fastdet.io import merge_variables
+    from fastdet.io.torch_convert import (convert_torch_checkpoint,
+                                          load_torch_weights)
+    from fastdet.models import Detector as JaxDetector
+    from torch_cases import write_reference_pth
+    root = tmp_path_factory.mktemp("backbone")
+    pth = write_reference_pth(WEIGHTS, root / "backbone.pth",
+                              backbone_only=True)
+    npz = root / "backbone.npz"
+    convert_torch_checkpoint(str(pth), str(npz), backbone_only=True)
+    bb = load_torch_weights(str(pth), backbone_only=True)
+    bb = {"params": {"backbone": bb["params"]},
+          "batch_stats": {"backbone": bb["batch_stats"]}}
+    init = JaxDetector(classes=80, anchor_num=3).init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 96, 96, 3)), train=False)
+    _, n_load, _ = merge_variables(jax.device_get(init), bb)
+    return {"pth": pth, "npz": npz}, n_load
+
+
+@pytest.mark.parametrize("kind", ["pth", "npz"])
+def test_train_cli_initialises_the_backbone(train_world, backbone_files,
+                                            tmp_path, kind):
+    """`--backbone` with a reference `.pth` (backbone-only, as released)
+    or a backbone-only `.npz`, and no `pre_weights`: exit 0 and JAX's
+    `Initialize backbone from … (N tensors loaded)` line with JAX's N."""
+    files, n_jax = backbone_files
+    data = tmp_path / "nopre.data"
+    data.write_text((train_world / "train.data").read_text().replace(
+        f"pre_weights={WEIGHTS}", "pre_weights=None"))
+    r = run(["-m", "fastdet_torch.cli.train", "--device", "cpu", "--data",
+             str(data), "--eval_every", "100", "--backbone",
+             str(files[kind]), "--weights_dir", str(tmp_path / "w"),
+             "--ckpt_dir", str(tmp_path / "ckpt")])
+    assert r.returncode == 0, r.stderr[-3000:]
+    line = "Initialize backbone from %s (%d tensors loaded)" % (
+        files[kind], n_jax)
+    assert line in r.stdout.splitlines(), r.stdout[-2000:]
+    assert n_jax == 275
 
 
 def test_train_cli_keeps_cv2_off_module_level():

@@ -13,6 +13,8 @@ largest |coordinate|:
     are expected bitwise; 2 ULPs leaves room for one expf ULP.
 """
 
+import contextlib
+
 import numpy as np
 
 # Thread pools of a test's subprocess: two threads for torch's OpenMP pool
@@ -25,6 +27,21 @@ FEW_THREADS = {"OMP_NUM_THREADS": "2",
                             "intra_op_parallelism_threads=2"}
 
 from fastdet_torch.ops.postprocess import _geo_table
+
+
+@contextlib.contextmanager
+def few_torch_threads(n=2):
+    """torch's intra-op pool at `n` threads inside the block (as
+    FEW_THREADS sets a subprocess's): in-process tests of many small ops
+    ran 50-100× their time alone among the suite's parallel workers with
+    a pool as wide as the machine."""
+    import torch
+    old = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(old)
 
 NC = 80
 META = ((22 * 22 * 3, 22, 22, 3, 16.0), (11 * 11 * 3, 11, 11, 3, 32.0))
@@ -120,6 +137,36 @@ def out_of_range_window():
     return neg_k, combo_k, regs, clean_neg, clean_combo
 
 
+# the convergence check's eval window (fastdet_torch/tools/
+# convergence_check.py): b32 128², 3 classes, its anchors, conf 0.05 and
+# iou 0.45, k = min(1024, (8·8 + 4·4)·3) = 240, through rank_decode_nms
+CONV_ANCHORS = np.asarray([20.0, 20.0, 36.0, 36.0, 52.0, 28.0,
+                           28.0, 52.0, 56.0, 56.0, 80.0, 80.0],
+                          np.float32).reshape(2, 3, 2)
+CONV_NC = 3
+CONV_K = 240
+
+
+def conv_window(seed, b=32, device="cpu"):
+    """Seeded raw head logits at 128² with 3 classes, ranked at conf 0.05
+    as `postprocess` ranks them → (neg_k (b, 240), combo_k, reg_f, geo) on
+    `device`, validity a prefix of each window."""
+    import torch
+    from fastdet_torch.ops.postprocess import (_geo_table, rank_scores,
+                                               rank_topk)
+    rng = np.random.default_rng(seed)
+    outs = []
+    for h in (8, 4):
+        outs += [rng.normal(0, 1.5, (b, h, h, 12)),
+                 rng.normal(-2.0, 2.0, (b, h, h, 3)),
+                 rng.normal(0, 3.0, (b, h, h, CONV_NC))]
+    outs = [torch.from_numpy(o.astype(np.float32)).to(device) for o in outs]
+    ranked, reg_f, cls_f, meta = rank_scores(outs, (128, 128), 0.05)
+    neg_k, combo_k = rank_topk(ranked, cls_f, nc=CONV_NC, k=CONV_K)
+    geo = _geo_table(meta, tuple(CONV_ANCHORS.ravel().tolist()), str(device))
+    return neg_k, combo_k, reg_f.contiguous(), geo
+
+
 def box_ulps(a, b):
     """|a − b| in ULPs of each box's largest |coordinate|."""
     scale = np.maximum(np.abs(a), np.abs(b)).max(-1, keepdims=True)
@@ -200,6 +247,13 @@ SPAN_TRAIN_SMALL = ((4, 48, 6, 7, 2, 2), (4, 192, 3, 3, 3, 2),
 SPAN_TRAIN_EDGE = ((3, 96, 9, 7, 2, 3), (5, 48, 13, 5, 3, 1),
                    (16, 192, 11, 11, 1, 16), (8, 48, 44, 44, 1, 2),
                    (2, 96, 9, 22, 2, 1), (2, 48, 5, 70, 2, 2))
+
+# the three stages of the convergence check's step (b32 128²,
+# fastdet_torch/tools/convergence_check.py) with the JAX package's ghost
+# groups: 16 images a group at every stage (stage 4's 4×4 maps take 128
+# lanes an image in the JAX kernel's layout, 112 of them pad)
+SPAN_TRAIN_CONV = ((32, 48, 16, 16, 3, 16), (32, 96, 8, 8, 7, 16),
+                   (32, 192, 4, 4, 3, 16))
 
 
 def span_train_case(seed, b, c, h, w, nblk, device="cpu"):
@@ -286,7 +340,11 @@ def span16_backward_errs(got, dy, xsave, stats, rows, g, witness=False):
     (7 blocks) are such a case: on the kernel's saved inputs and stats
     the plain version's f32 sums on the card stood 4.4% of dγ1's max
     |value| from its f64 sums and 4.1% from its own f32 sums on the CPU,
-    the kernel 5.3% from it (smoke phase 10 prints the three)."""
+    the kernel 5.3% from it (smoke phase 10 prints the three).  So are
+    stages 3 and 4 of `SPAN_TRAIN_CONV` (ghost groups of 16 small
+    images): on the CPU the plain version stood 4.8% and 2.0% of dγ1's
+    max |value| from its f64 sums, `span16_train_steps` 7.3% and 1.6%
+    from it."""
     import torch
     from fastdet_torch.kernels.fused_train import \
         span_train_backward_reference as plain
@@ -306,7 +364,7 @@ def span16_backward_errs(got, dy, xsave, stats, rows, g, witness=False):
 # and at sizes whose 8×8-cell tiles are cut off at the image's edge: 32×48
 # (w4 = 12) and 36×52 (h4 = 9, w4 = 13, grouped, with ties); then with γ
 # of both signs and one γ = 0 (`signed`), grouped on the tie images and
-# at 160×96
+# at 160×96; last the convergence check's step, b32 128² at group 1
 STEM_TRAIN_CASES = ((128, 352, 352, 1, False, False),
                     (8, 352, 352, 4, False, False),
                     (2, 160, 96, 1, False, False),
@@ -314,7 +372,8 @@ STEM_TRAIN_CASES = ((128, 352, 352, 1, False, False),
                     (2, 32, 48, 1, False, False),
                     (4, 36, 52, 2, True, False),
                     (4, 96, 96, 2, True, True),
-                    (2, 160, 96, 1, False, True))
+                    (2, 160, 96, 1, False, True),
+                    (32, 128, 128, 1, False, False))
 # the channel whose γ a signed case sets to 0
 STEM_ZERO_GAMMA = 4
 
@@ -554,3 +613,76 @@ val={root / "list.txt"}
 names={root / "synth.names"}
 """)
     return root
+
+
+# ------------------------------------------ reference-layout .pth weights
+
+def reference_state_dict(npz_path, backbone_only=False):
+    """The reference's `.pth` state dict of a JAX-layout `.npz`, by the
+    inverse of fastdet/io/torch_convert.py::convert_state_dict: each
+    [conv, bn] pair back at its `nn.Sequential` indices, kernels HWIO →
+    OIHW, BN scale/bias → weight/bias, mean/var → running_mean/var, and
+    a `num_batches_tracked` beside each BN, as torch writes it.
+    `backbone_only`: the backbone's keys without their "backbone."
+    prefix, as a released backbone checkpoint holds them.  → {name:
+    tensor}, f32 (int64 for the counters)."""
+    import torch
+    from fastdet_torch.io.weights import load_npz_variables
+    tree = load_npz_variables(npz_path)
+    params, stats = tree["params"], tree["batch_stats"]
+    sd = {}
+
+    def put(name, a):
+        sd[name] = torch.from_numpy(np.ascontiguousarray(a, np.float32))
+
+    def convbn(path, conv, bn):
+        p, s = params, stats
+        for k in path:
+            p, s = p[k], s[k]
+        put(f"{conv}.weight", np.transpose(p["conv"]["kernel"], (3, 2, 0, 1)))
+        put(f"{bn}.weight", p["bn"]["scale"])
+        put(f"{bn}.bias", p["bn"]["bias"])
+        put(f"{bn}.running_mean", s["bn"]["mean"])
+        put(f"{bn}.running_var", s["bn"]["var"])
+        sd[f"{bn}.num_batches_tracked"] = torch.tensor(1000, dtype=torch.int64)
+
+    bb = "" if backbone_only else "backbone."
+    convbn(("backbone", "first_conv"), f"{bb}first_conv.0",
+           f"{bb}first_conv.1")
+    for stage, reps in ((2, 4), (3, 8), (4, 4)):
+        for i in range(reps):
+            path = ("backbone", f"stage{stage}_{i}")
+            pre = f"{bb}stage{stage}.{i}"
+            branches = [("main_pw", "branch_main", 0, 1),
+                        ("main_dw", "branch_main", 3, 4),
+                        ("main_pw_linear", "branch_main", 5, 6)]
+            if i == 0:
+                branches += [("proj_dw", "branch_proj", 0, 1),
+                             ("proj_pw", "branch_proj", 2, 3)]
+            for name, branch, ci, bi in branches:
+                convbn(path + (name,), f"{pre}.{branch}.{ci}",
+                       f"{pre}.{branch}.{bi}")
+    if backbone_only:
+        return sd
+    for name in ("conv1x1_2", "conv1x1_3"):
+        convbn(("fpn", name), f"fpn.{name}.0", f"fpn.{name}.1")
+    for head in ("cls_head_2", "reg_head_2", "cls_head_3", "reg_head_3"):
+        for name, ci, bi in (("dw1", 0, 1), ("pw1", 3, 4), ("dw2", 5, 6),
+                             ("pw2", 8, 9)):
+            convbn(("fpn", head, name), f"fpn.{head}.block.{ci}",
+                   f"fpn.{head}.block.{bi}")
+    for name, ref in (("output_reg", "output_reg_layers"),
+                      ("output_obj", "output_obj_layers"),
+                      ("output_cls", "output_cls_layers")):
+        put(f"{ref}.weight",
+            np.transpose(params[name]["kernel"], (3, 2, 0, 1)))
+        put(f"{ref}.bias", params[name]["bias"])
+    return sd
+
+
+def write_reference_pth(npz_path, pth_path, backbone_only=False):
+    """`torch.save` `reference_state_dict(npz_path, backbone_only)` to
+    `pth_path` → pth_path."""
+    import torch
+    torch.save(reference_state_dict(npz_path, backbone_only), str(pth_path))
+    return pth_path
