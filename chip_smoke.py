@@ -225,6 +225,22 @@ Phases:
      trained stem, and B3 on the trained model's eval window (b32, k =
      240) bit for bit, each with its time, bound, plain version's and
      cuDNN's;
+  13. deploy, export and the host pipelines, at full width on the
+     reference weights (352², 80 classes) and `weights/coco-int8.npz`:
+     the deploy maps of `Detector(deploy=True)` at b128 on the card
+     within 2e-4 of the port's CPU deploy maps (8 images); the f32 and
+     int8 exports (`export_detector`, `export_quantized`) at b128 on the
+     card, saved and loaded back, within 1e-6 of the eager deploy forward
+     and of `forward_from` + the bake (export and load seconds, file
+     sizes, CUDA-event medians of the programs and the eager forwards);
+     `HybridPipeline` at b128 on the served batch against
+     `DevicePipeline` (counts and classes, the first five columns ≤ 1e-2;
+     its D2H copy, host postprocess and img/s host to host);
+     `StreamingPipeline` over `FusedPipeline` in bf16 and f32 on 259
+     frames, bit for bit the direct calls, B1, B2 and B3 counted from 0
+     over each stream and held to the three batches' plans; and
+     `DevicePipeline` over a bf16 `Detector` on the photo against f32
+     (classes, boxes ≤ 4 px, scores ≤ 0.05), B3 counted;
   6. the kernel summary (a JSON line: launches of stem_s2d, span and
      rank_decode_nms from the fused serving path (rank_decode_nms's ms
      its device time on the served window, phase 4), of nms_keep from the
@@ -234,7 +250,9 @@ Phases:
      s2span from the flag paths of 4c, phase 9's bf16 entries and phase
      10's bf16 training entries, phase 11's int8 entries of
      rank_decode_nms and nms_keep, phase 12's of the bf16 B8 and B7 and
-     of rank_decode_nms on the convergence path; the phase line adds
+     of rank_decode_nms on the convergence path, phase 13's of B1, B2 and
+     B3 over its two streams and of B3 on the bf16 DevicePipeline (times
+     those of phases 4, 4b and 9 at the same shapes); the phase line adds
      stem_s2d's and
      span's launches on the anchor-free
      path of 8d), the card line, and
@@ -5093,6 +5111,211 @@ def phase_convergence(card):
     return launches, out
 
 
+# ------------------------------------ deploy, export, host pipelines (13)
+
+def phase_deploy(sd, photo, card, big, dev_pipe, fused_pipe):
+    """13. The deploy forward and what hangs off it, at full width on the
+    reference weights (352², 80 classes) and `weights/coco-int8.npz`:
+    `Detector(deploy=True)` on the card against the port's CPU deploy
+    maps; `export_detector` and `export_quantized` at b128 on the card,
+    saved to a temporary directory and loaded back, against the eager
+    deploy forward and `forward_from` + the bake (export and load
+    seconds, file sizes, the programs' CUDA-event medians beside the
+    eager forwards'); `HybridPipeline` at b128 on the served batch
+    against `DevicePipeline` (its D2H copy, host postprocess and img/s
+    host to host); `StreamingPipeline` over `FusedPipeline` in bf16 and
+    f32 on 2·128 + 3 frames, bit for bit the direct calls with B1, B2 and
+    B3 counted from 0 over each stream against the batches' plans; and
+    `DevicePipeline` over a bf16 `Detector` on the photo against f32, B3
+    counted.  → launches {path: {kernel: n}}."""
+    import tempfile
+    import torch
+    from fastdet_torch import disable_tf32
+    from fastdet_torch.config import Config
+    from fastdet_torch.export import (export_detector, export_quantized,
+                                      load_exported)
+    from fastdet_torch.kernels import fused_infer as fi
+    from fastdet_torch.kernels import pp_fused
+    from fastdet_torch.kernels.fold import STAGES
+    from fastdet_torch.models import Detector
+    from fastdet_torch.models.layers import deploy_maps
+    from fastdet_torch.quant import forward_from, load_quantized
+    from fastdet_torch.serve import (DevicePipeline, FusedPipeline,
+                                     HybridPipeline, StreamingPipeline)
+    disable_tf32(torch.device("cuda"))
+    cfg = Config.from_file(DATA)
+    b = big.shape[0]
+    host_big = big.cpu().numpy()
+
+    def model_of(dev, dtype=torch.float32):
+        m = Detector(80, 3, dtype=dtype)
+        m.load_state_dict(sd)
+        return m.to(dev).eval()
+
+    def maxdiff(got, want):
+        return max(float((g.float() - w.float()).abs().max())
+                   for g, w in zip(got, want))
+
+    # ---- 1. the deploy maps on the card against the CPU's (8 images)
+    model = model_of("cuda")
+    with torch.inference_mode():
+        maps = model(big.float() / 255.0, deploy=True)
+        cpu_maps = model_of("cpu")(big[:8].cpu().float() / 255.0,
+                                   deploy=True)
+    torch.cuda.synchronize()
+    check(all(tuple(m.shape) == (b, 352 // s, 352 // s, 95) and bool(
+        torch.isfinite(m).all()) for m, s in zip(maps, (16, 32))),
+        f"deploy maps {[tuple(m.shape) for m in maps]}")
+    d_cpu = maxdiff([m[:8].cpu() for m in maps], cpu_maps)
+    check(d_cpu <= 2e-4, f"deploy maps {d_cpu:.3g} from the CPU's")
+    log(f"phase 13 deploy: Detector(deploy=True) at b{b} 352² on {card}: "
+        f"maps {[tuple(m.shape) for m in maps]} (σ(reg), σ(obj), "
+        f"softmax(cls)), {d_cpu:.3g} from the port's CPU deploy maps on 8 "
+        f"images (≤ 2e-4, TF32 off)")
+
+    # ---- 2. the f32 and int8 exports at b128, round trips
+    qw, scales = load_quantized(INT8)
+    qfwd = forward_from(qw, scales)
+
+    def int8_eager():
+        raw = qfwd(big)
+        return deploy_maps(*raw[:3]), deploy_maps(*raw[3:])
+
+    with torch.inference_mode():
+        qmaps = int8_eager()
+    with tempfile.TemporaryDirectory() as tmp:
+        for what, export, want, eager in (
+                ("f32", lambda p: export_detector(
+                    Detector(80, 3), sd, p, (352, 352), b, device="cuda"),
+                 maps, lambda: model(big.float() / 255.0, deploy=True)),
+                ("int8", lambda p: export_quantized(
+                    qw, scales, p, (352, 352), b, device="cuda"),
+                 qmaps, int8_eager)):
+            path = os.path.join(tmp, f"{what}.pt2")
+            t0 = time.perf_counter()
+            blob = export(path)
+            t1 = time.perf_counter()
+            call = load_exported(path, device="cuda")
+            got = call(big)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            check(os.path.getsize(path) == len(blob), f"{what} export size")
+            d = maxdiff(got, want)
+            check(d <= 1e-6, f"{what} export round trip {d:.3g} from the "
+                             f"eager maps (> 1e-6)")
+            with torch.inference_mode():
+                ms_exp = cuda_median_ms(lambda: call(big), 10)
+                ms_eager = cuda_median_ms(eager, 10)
+            log(f"  {what} export at b{b} 352² ({card}): {len(blob)} bytes, "
+                f"export {t1 - t0:.2f} s, load and first call "
+                f"{t2 - t1:.2f} s; round trip max |Δ| {d:.3g} (≤ 1e-6); "
+                f"median {ms_exp:.3f} ms a call for the program against "
+                f"{ms_eager:.3f} ms for the eager forward"
+                + (" and bake" if what == "int8" else " (uint8 → maps)"))
+    del qmaps
+
+    # ---- 3. HybridPipeline at b128 against DevicePipeline
+    hyb = HybridPipeline(Detector(80, 3), sd, cfg)
+    got = hyb(host_big)
+    want = dev_pipe(host_big)
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(len(g) == len(w) and np.array_equal(g[:, 5], w[:, 5])
+              and np.abs(g[:, :5] - w[:, :5]).max(initial=0) <= 1e-2,
+              f"HybridPipeline image {i}: {len(g)} rows against "
+              f"DevicePipeline's {len(w)}")
+    with torch.inference_mode():
+        dmaps = hyb.deploy(big)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hmaps = [m.float().cpu().numpy() for m in dmaps]
+    copy_ms = 1e3 * (time.perf_counter() - t0)
+    post = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        hyb.host_postprocess(*hmaps)
+        post.append(1e3 * (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    for _ in range(5):
+        hyb(host_big)
+    hyb_ips = 5 * b / (time.perf_counter() - t0)
+    log(f"  HybridPipeline at b{b} 352² ({card}): {sum(map(len, got))} "
+        f"detections, each image's counts and classes DevicePipeline's, "
+        f"boxes and scores ≤ 1e-2; D2H copy of the two maps "
+        f"({sum(m.nbytes for m in hmaps) / 1e6:.1f} MB) {copy_ms:.2f} ms, "
+        f"host postprocess (C++, OpenMP over {os.cpu_count()} cores) median "
+        f"{float(np.median(post)):.2f} ms a batch, {hyb_ips:.1f} img/s host "
+        f"to host")
+
+    # ---- 4. StreamingPipeline over FusedPipeline, bf16 and f32
+    frames = np.concatenate([host_big, host_big, host_big[:3]])
+    tail = np.concatenate([frames[2 * b:], np.zeros_like(frames[:b - 3])])
+    stem = fi.stem_plan(b, 88, 88, 4).launches
+    launches = {}
+    for what, pipe, kernels, span_plan in (
+            ("bf16", FusedPipeline(sd, cfg),
+             (fi.stem_s2d_bf16, fi.span_bf16, pp_fused.rank_decode_nms),
+             fi.span16_plan),
+            ("f32", fused_pipe,
+             (fi.stem_s2d, fi.span, pp_fused.rank_decode_nms),
+             fi.span_stage_plan)):
+        pipe(frames[:b])                                   # warm
+        t0 = time.perf_counter()
+        direct = pipe(frames[:b]) + pipe(frames[b:2 * b]) + pipe(tail)[:3]
+        direct_s = time.perf_counter() - t0
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        got = StreamingPipeline(pipe, batch_size=b).run(iter(frames))
+        stream_s = time.perf_counter() - t0
+        counts = {k.__name__: k.launches for k in kernels}
+        planned = {kernels[0].__name__: 3 * stem,
+                   kernels[1].__name__: 3 * sum(
+                       span_plan(b, c, 88 >> i, 88 >> i, reps - 1).launches
+                       for i, (_, reps, c) in enumerate(STAGES, 1)),
+                   "rank_decode_nms": 3}
+        check(counts == planned, f"{what} stream launches {counts}, the "
+                                 f"plans {planned}")
+        check(len(got) == len(frames) and all(
+            g.shape == d.shape and np.array_equal(g.view(np.uint32),
+                                                  d.view(np.uint32))
+            for g, d in zip(got, direct)),
+            f"{what} stream differs from the direct calls")
+        launches[f"stream_{what}"] = counts
+        log(f"  StreamingPipeline over FusedPipeline({what}) on "
+            f"{len(frames)} frames at batch {b} ({card}): bit for bit the "
+            f"direct calls in order (the tail of 3 padded to {b}), "
+            f"{sum(map(len, got))} detections; launches from 0 over the "
+            f"stream {counts} = the three batches' plans; "
+            f"{len(frames) / stream_s:.1f} img/s streamed against "
+            f"{len(frames) / direct_s:.1f} img/s by direct calls (host to "
+            f"host, s2d packed on the host)")
+
+    # ---- 5. DevicePipeline over a bf16 Detector against f32, the photo
+    img = resize_u8(photo)[None]
+    f32 = DevicePipeline(Detector(80, 3), sd, cfg)(img)[0]
+    pp_fused.rank_decode_nms.launches = 0
+    b16 = DevicePipeline(Detector(80, 3, dtype=torch.bfloat16), sd,
+                         cfg)(img)[0]
+    launches["device_bf16"] = {
+        "rank_decode_nms": pp_fused.rank_decode_nms.launches}
+    check(launches["device_bf16"]["rank_decode_nms"] == 1,
+          f"bf16 DevicePipeline launches {launches['device_bf16']}")
+    order = [int(np.argmin(np.abs(f32[:, :5] - r[:5]).max(1))) for r in b16]
+    check(len(b16) == len(f32) > 0 and sorted(order) == list(range(len(f32)))
+          and all(r[5] == f32[j, 5]
+                  and np.abs(r[:4] - f32[j, :4]).max() <= BF16_BOX_PX
+                  and abs(r[4] - f32[j, 4]) <= BF16_SCORE
+                  for r, j in zip(b16, order)),
+          f"bf16 DevicePipeline on the photo: {b16} against f32 {f32}")
+    worst = max(float(np.abs(r[:4] - f32[j, :4]).max())
+                for r, j in zip(b16, order))
+    log(f"  DevicePipeline(Detector(dtype=bf16)) on the photo ({card}): "
+        f"{len(b16)} detections, classes f32's, boxes ≤ {worst:.2f} px "
+        f"(≤ {BF16_BOX_PX:g}), scores ≤ {BF16_SCORE:g}; rank_decode_nms "
+        f"launched {launches['device_bf16']['rank_decode_nms']} time")
+    return launches
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import torch
@@ -5167,6 +5390,9 @@ def main() -> int:
     lap("11")
     conv_launches, conv_main = phase_convergence(card)
     lap("12")
+    deploy_launches = phase_deploy(sd, photo, card, big, dev_pipe,
+                                   fused_pipe)
+    lap("13")
     log('phase 6 kernels: ["stem_s2d", "span", "rank_decode_nms", '
         '"nms_keep", "span_train", "stem_train", "stem_s2d8", "s2span"] '
         f'(rank_decode_nms launches on the device path: {launches}; '
@@ -5180,7 +5406,8 @@ def main() -> int:
         f'training paths: {train16_launches}; rank_decode_nms and '
         f'nms_keep on the int8 path: {int8_launches["rank_decode_nms"]}, '
         f'{int8_launches["nms_keep"]}; the convergence runs: '
-        f'{conv_launches}')
+        f'{conv_launches}; the streams and the bf16 DevicePipeline of '
+        f'phase 13: {deploy_launches}')
     log("phase times (host clock, s): " + ", ".join(
         f"{name} {t - laps[i][1]:.1f}"
         for i, (name, t) in enumerate(laps[1:]))
@@ -5358,6 +5585,39 @@ def main() -> int:
         "launches": conv_launches["rank_decode_nms"], "max_abs_err": k_err,
         "ms": k_ms, "plain_ms": k_plain, "bound_ms": k_bound,
         "bound_by": k_by, "library_ms": None})
+    # phase 13: the streams over FusedPipeline (bf16 and f32) and the bf16
+    # DevicePipeline, launches counted from 0 over each; the times are the
+    # same kernels' at the same b128 352² shapes, measured in phases 4, 4b
+    # and 9 of this run
+    b3 = (ms, plain_ms, bound_ms, bound_by, max(err_classes, err_main))
+    stream_entries = (
+        ("stream_bf16", "stem_s2d_bf16", "stem_s2d",
+         "fastdet/kernels/fused_infer.py:422", bf16_main["stem_s2d_bf16"]),
+        ("stream_bf16", "span_bf16", "span",
+         "fastdet/kernels/fused_infer.py:223", bf16_main["span_bf16"]),
+        ("stream_f32", "stem_s2d", "stem_s2d",
+         "fastdet/kernels/fused_infer.py:418",
+         fused_main["stem_s2d"] + (None,)),
+        ("stream_f32", "span", "span", "fastdet/kernels/fused_infer.py:219",
+         fused_main["span"] + (None,)))
+    for path, name, source, replaces, nums in stream_entries:
+        k_ms, k_plain, k_bound, k_by, k_err, k_lib = nums
+        if name in fused_err:
+            k_err = max(fused_err[name], k_err)
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"fastdet_torch/csrc/{source}.cu",
+            "replaces": replaces, "launches": deploy_launches[path][name],
+            "max_abs_err": k_err, "ms": k_ms, "plain_ms": k_plain,
+            "bound_ms": k_bound, "bound_by": k_by, "library_ms": k_lib})
+    for path in ("stream_bf16", "stream_f32", "device_bf16"):
+        kernels.append({
+            "name": "rank_decode_nms", "route": "cuda",
+            "source": "fastdet_torch/csrc/pp_fused.cu",
+            "replaces": "fastdet/kernels/pp_fused.py:156",
+            "launches": deploy_launches[path]["rank_decode_nms"],
+            "max_abs_err": b3[4], "ms": b3[0], "plain_ms": b3[1],
+            "bound_ms": b3[2], "bound_by": b3[3], "library_ms": None})
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

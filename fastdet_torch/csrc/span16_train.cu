@@ -1160,6 +1160,40 @@ __device__ __forceinline__ void put_split(const Acc<MID>& du, Smem<MID>& S,
     }
 }
 
+// The witness build (fastdet_torch.kernels.fused_train.span16_witness_lib,
+// for span16_witness.py) sets this to 1; the main build compiles the
+// records below out, and its rec_du argument is unused.
+#define SPAN16_RECORD_DU 0
+
+// Where `out` is not null, a BN backward's f32 du of the live pixels into
+// out (B, MID, h, w), logical channels: the values the kernel rounds to
+// bf16 next (du3, du2) or splits (du1), for the numerical witness.
+template <int MID>
+__device__ void record_du(float* out, const Acc<MID>& du, const Geo& G,
+                          const Band& B) {
+  if (!SPAN16_RECORD_DU || !out) return;
+  using K = Cfg<MID>;
+  int wm, wn, g8, t4;
+  frag_coords<MID>(wm, wn, g8, t4);
+  const size_t plane = (size_t)G.h * G.w;
+#pragma unroll
+  for (int mt = 0; mt < K::MTW; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int p = 16 * (wm + K::WM * mt) + g8 + 8 * r;
+      if (p >= B.live) continue;
+      const size_t at =
+          (size_t)img_of(G, B, p) * MID * plane + off_of(G, B, p);
+#pragma unroll
+      for (int n = 0; n < K::NTW; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int o = (wn * K::NTW + n) * 8 + 2 * t4 + e;
+          out[at + o * plane] = du[mt][n][2 * r + e];
+        }
+    }
+}
+
 // A BN backward's cluster means from g (the masked gradient) and its
 // input's fragments u: s = sum g, sum g*xhat over the live pixels, the
 // CTA's sums to part (dgamma at part[0 .. MID), dbeta at part[MID ..)),
@@ -1220,7 +1254,9 @@ __device__ void bn_backward(Acc<MID>& gr, const Acc<MID>& u, Smem<MID>& S,
 // one partial row a CTA and block (part: nblk x ctas x LEN), added by
 // reduce_rows_kernel.  gbuf: the f32 gradient, (B, C, h*w) by slot (a
 // warp's lanes read and write consecutive pixels of a few slots).  rec:
-// where not null, each block's recomputed z (nblk, B, MID, h, w).
+// where not null, each block's recomputed z (nblk, B, MID, h, w).  rec_du:
+// in the witness build, where not null, each block's du3, du2, du1 (nblk,
+// 3, B, MID, h, w) f32.
 template <int MID>
 __global__ void __launch_bounds__(kThreads, 1)
 span16_train_bwd_kernel(const bf16* __restrict__ dy,
@@ -1229,7 +1265,7 @@ span16_train_bwd_kernel(const bf16* __restrict__ dy,
                         const float* __restrict__ blocks,
                         bf16* __restrict__ dx, float* __restrict__ gbuf,
                         float* __restrict__ part, bf16* __restrict__ rec,
-                        Geo G) {
+                        float* __restrict__ rec_du, Geo G) {
   using K = Cfg<MID>;
   constexpr int C = K::C;
   Smem<MID> S(G.rows, G.w, G.ipc, G.n, 1);
@@ -1303,6 +1339,9 @@ span16_train_bwd_kernel(const bf16* __restrict__ dy,
     });
     __syncthreads();
     float* prow = part + ((size_t)k * nctas + cta) * K::LEN;
+    float* rdu = SPAN16_RECORD_DU && rec_du
+                     ? rec_du + (size_t)k * 3 * G.b * MID * plane
+                     : nullptr;
 
     // ---- the recompute: y, v, u3 as the forward computes them
     pw_seq<MID>(acc, S.xo, S.w1, B.p16);
@@ -1348,6 +1387,7 @@ span16_train_bwd_kernel(const bf16* __restrict__ dy,
         }
       }
     bn_backward<MID>(acc2, acc, S, 2, G, B, prow + K::GB + 4 * MID);
+    record_du<MID>(rdu, acc2, G, B);
     put_split<MID>(acc2, S, B);
     __syncthreads();
     dw_gemm<MID>(smem_u32(S.v), smem_u32(S.dh), smem_u32(S.dl), S.zero,
@@ -1358,6 +1398,8 @@ span16_train_bwd_kernel(const bf16* __restrict__ dy,
     gemm_t<MID>(acc2, smem_u32(S.dh), smem_u32(S.w2), S.zero, B.p16);
     dw_px<MID, false>(acc, S.y, S.wd, G, B);
     bn_backward<MID>(acc2, acc, S, 1, G, B, prow + K::GB + 2 * MID);
+    record_du<MID>(rdu ? rdu + (size_t)G.b * MID * plane : nullptr, acc2, G,
+                   B);
     // V's bytes are free (dW2 read them before the reduction): du2's
     // frame of zeros, but for the halo rows the neighbours push
     for (int q = tid; q < halo_px; q += kThreads) {
@@ -1439,6 +1481,8 @@ span16_train_bwd_kernel(const bf16* __restrict__ dy,
             acc2[mt][n][q] = 0.f;
         }
     bn_backward<MID>(acc2, acc, S, 0, G, B, prow + K::GB);
+    record_du<MID>(rdu ? rdu + (size_t)2 * G.b * MID * plane : nullptr, acc2,
+                   G, B);
     put_split<MID>(acc2, S, B);
     __syncthreads();
     dw_gemm<MID>(smem_u32(S.xo), smem_u32(S.dh), smem_u32(S.dl), S.zero,
@@ -1552,7 +1596,8 @@ int launch_fwd(const bf16* x, const float* blocks, bf16* out, bf16* xsave,
 template <int MID>
 int launch_bwd(const bf16* dy, const bf16* xsave, const float* stats,
                const float* blocks, bf16* dx, float* dblocks, float* scratch,
-               bf16* rec, const Geo& G, cudaStream_t stream) {
+               bf16* rec, float* rec_du, const Geo& G,
+               cudaStream_t stream) {
   const size_t smem =
       (size_t)span16_train_layout(MID, G.rows, G.w, G.ipc, G.n, 1).bytes;
   cudaError_t err = prepare(span16_train_bwd_kernel<MID>, smem, G.n);
@@ -1563,7 +1608,7 @@ int launch_bwd(const bf16* dy, const bf16* xsave, const float* stats,
   float* gbuf = scratch;
   float* part = scratch + (size_t)G.b * 2 * MID * G.h * G.w;
   err = cudaLaunchKernelEx(&cfg, span16_train_bwd_kernel<MID>, dy, xsave,
-                           stats, blocks, dx, gbuf, part, rec, G);
+                           stats, blocks, dx, gbuf, part, rec, rec_du, G);
   if (err != cudaSuccess) return (int)err;
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -1664,25 +1709,27 @@ int fastdet_span16_train_fwd(const bf16* x, const float* blocks, bf16* out,
 // dy (B, C, h, w) bf16, xsave, stats and blocks as the forward's -> dx (B,
 // C, h, w) bf16, dblocks (nblk, row) f32; scratch as
 // fastdet_span16_train_scratch; rec null, or (nblk, B, C/2, h, w) bf16 for
-// each block's recomputed z.
+// each block's recomputed z; rec_du null, or in the witness build (nblk,
+// 3, B, C/2, h, w) f32 for each block's du3, du2 and du1.
 int fastdet_span16_train_bwd(const bf16* dy, const bf16* xsave,
                              const float* stats, const float* blocks, bf16* dx,
-                             float* dblocks, float* scratch, bf16* rec, int b,
-                             int c, int h, int w, int nblk, int g, int n,
-                             int bpi, int ipc, int rows, void* stream) {
+                             float* dblocks, float* scratch, bf16* rec,
+                             float* rec_du, int b, int c, int h, int w,
+                             int nblk, int g, int n, int bpi, int ipc,
+                             int rows, void* stream) {
   const Geo G = make_geo(b, h, w, nblk, g, n, bpi, ipc, rows);
   if (!geo_valid(G, c)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (c) {
     case 48:
       return launch_bwd<24>(dy, xsave, stats, blocks, dx, dblocks, scratch,
-                            rec, G, s);
+                            rec, rec_du, G, s);
     case 96:
       return launch_bwd<48>(dy, xsave, stats, blocks, dx, dblocks, scratch,
-                            rec, G, s);
+                            rec, rec_du, G, s);
     default:
       return launch_bwd<96>(dy, xsave, stats, blocks, dx, dblocks, scratch,
-                            rec, G, s);
+                            rec, rec_du, G, s);
   }
 }
 

@@ -611,7 +611,8 @@ def _taps(buf, bd, wd, rows, w, flip=False):
 
 def _haloed(vals, bd, plan, w):
     """A band's per-pixel rows (P, mid) in a zeroed haloed buffer."""
-    buf = torch.zeros(plan.ipc, plan.rows + 2, w + 2, vals.shape[1])
+    buf = torch.zeros(plan.ipc, plan.rows + 2, w + 2, vals.shape[1],
+                      dtype=vals.dtype)
     buf[bd["yj"], bd["yi"], bd["yc"]] = vals
     return buf
 
@@ -628,7 +629,9 @@ def span16_halo(bufs, bands, rows):
 
 
 def span16_train_steps(x: torch.Tensor, blocks: torch.Tensor, g: int,
-                       dy: torch.Tensor, plan: Span16TrainPlan):
+                       dy: torch.Tensor, plan: Span16TrainPlan,
+                       acc: torch.dtype = torch.float32, saved=None,
+                       rec_du=None):
     """csrc/span16_train.cu's steps on the CPU in f32, a cluster at a time,
     each CTA's band as the kernel holds it: the forward's slots (block
     input in `span16_train_slots`, x's odd channels gathered in logical
@@ -641,7 +644,13 @@ def span16_train_steps(x: torch.Tensor, blocks: torch.Tensor, g: int,
     order.  pw1 and pw2 sum in the plain version's order, as the kernel's
     `pw_seq` does; the backward's products and every other sum are f32 in
     torch's order, not the tensor cores'.  bf16 x, dy (B, C, h, w) → (out,
-    xsave, stats, dx, dblocks) as the plain versions give them."""
+    xsave, stats, dx, dblocks) as the plain versions give them.  `acc`
+    float64 takes the backward's sums and products in f64 at the same
+    rounding points (the recompute and its ReLU masks stay f32, as the
+    kernel's); `saved` = (xsave, stats) of another forward, the kernel's,
+    replaces the steps' own in the backward; `rec_du`, an (nblk, 3, B,
+    C/2, h, w) tensor, receives each block's du3, du2 and du1 before
+    their rounding, as the kernel's `rec_du`."""
     b, c, h, w = x.shape
     mid, nblk, plane = c // 2, blocks.shape[0], h * w
     ngroups, m = b // g, float(g * h * w)
@@ -652,8 +661,14 @@ def span16_train_steps(x: torch.Tensor, blocks: torch.Tensor, g: int,
     out = torch.zeros(b, c, plane)
     xsave = torch.zeros(nblk, b, c, plane)
     stats = torch.zeros(nblk, 3, ngroups, 3, mid)
-    dx = torch.zeros(b, c, plane)
-    part = torch.zeros(nblk, ngroups * plan.cluster, row_len(mid))
+    dx = torch.zeros(b, c, plane, dtype=acc)
+    part = torch.zeros(nblk, ngroups * plan.cluster, row_len(mid),
+                       dtype=acc)
+    w1a, w2a = [w.to(acc) for w in w1s], [w.to(acc) for w in w2s]
+    bxsave, bstats = xsave, stats
+    if saved is not None:
+        bxsave = saved[0].float().reshape(nblk, b, c, plane)
+        bstats = saved[1].float()
 
     def bn(u, st, gb, k):
         return (u - st[0]) * (st[1] * gb[2 * k]) + gb[2 * k + 1]
@@ -664,6 +679,14 @@ def span16_train_steps(x: torch.Tensor, blocks: torch.Tensor, g: int,
                          for u, bd in zip(us, bands)]) / m
         return torch.stack([mu, torch.rsqrt(var + EPS), var])
 
+    def record(k, j, ds, bands):
+        if rec_du is not None:
+            for d, bd in zip(ds, bands):
+                lv = bd["live"]
+                rec_du.view(nblk, 3, b, mid, plane)[
+                    k, j, bd["img"][lv], :, bd["off"][lv]] = d[lv].to(
+                        rec_du.dtype)
+
     def zero_dead(ts, bands):
         return [torch.where(bd["live"][:, None], t, torch.zeros_like(t))
                 for t, bd in zip(ts, bands)]
@@ -671,7 +694,7 @@ def span16_train_steps(x: torch.Tensor, blocks: torch.Tensor, g: int,
     def bn_back(gs, us, st, gb, k, bands, col, kk):
         """→ du of each band; the CTAs' (Σg·x̂, Σg) into their partial
         rows at the BN's (dγ, dβ) columns."""
-        xh = [(u - st[0]) * st[1] for u in us]
+        xh = [((u - st[0]) * st[1]).to(acc) for u in us]
         sums = [torch.stack([(gr * x_)[bd["live"]].sum(0),
                              gr[bd["live"]].sum(0)])
                 for gr, x_, bd in zip(gs, xh, bands)]
@@ -721,17 +744,17 @@ def span16_train_steps(x: torch.Tensor, blocks: torch.Tensor, g: int,
             out[bd["img"][lv], :, bd["off"][lv]] = xs[lv][:, cur]
         # ---- backward
         slots = span16_train_slots(nblk, c)
-        gbuf = [torch.zeros(len(bd["live"]), c) for bd in bands]
+        gbuf = [torch.zeros(len(bd["live"]), c, dtype=acc) for bd in bands]
         for gq, bd in zip(gbuf, bands):
             lv = bd["live"]
             gq[lv.nonzero()[:, 0][:, None], torch.tensor(slots)[None]] = \
-                dyf[bd["img"][lv], :, bd["off"][lv]]
+                dyf[bd["img"][lv], :, bd["off"][lv]].to(acc)
         for k in range(nblk - 1, -1, -1):
             cur = span16_train_slots(k, c)
             gb = rows[k][3]
-            st1, st2, st3 = stats[k, :, gi]
+            st1, st2, st3 = bstats[k, :, gi]
             xo = [torch.where(bd["live"][:, None],
-                              xsave[k][bd["img"], 1::2, bd["off"]],
+                              bxsave[k][bd["img"], 1::2, bd["off"]],
                               torch.zeros(1)) for bd in bands]
             u1 = [_pw_rows(a, w1s[k]) for a in xo]
             ys = [_haloed(y, bd, plan, w) for y, bd in zip(zero_dead(
@@ -750,13 +773,17 @@ def span16_train_steps(x: torch.Tensor, blocks: torch.Tensor, g: int,
                                         torch.zeros(1))
                             for u, d in zip(u3, dz)], bands)
             du3 = bn_back(gz, u3, st3, gb, 2, bands, col, k)
+            record(k, 0, du3, bands)
             dv = []
             for r, (v, d) in enumerate(zip(vs, du3)):
                 hi, lo = _split16(d)
+                v = v.to(acc)
                 part[k, col + r, mid * mid + 9 * mid:GB] = \
                     (v.t() @ hi + v.t() @ lo).reshape(-1)
-                dv.append(hi @ w2s[k].t())
-            du2 = [rnd(d) for d in bn_back(dv, u2, st2, gb, 1, bands, col, k)]
+                dv.append(hi @ w2a[k].t())
+            du2 = bn_back(dv, u2, st2, gb, 1, bands, col, k)
+            record(k, 1, du2, bands)
+            du2 = [rnd(d) for d in du2]
             d2 = [_haloed(d, bd, plan, w) for d, bd in zip(du2, bands)]
             span16_halo(d2, bands, plan.rows)
             for r, (d, y, bd) in enumerate(zip(du2, ys, bands)):
@@ -770,13 +797,15 @@ def span16_train_steps(x: torch.Tensor, blocks: torch.Tensor, g: int,
                                               True), torch.zeros(1))
                             for u, d, bd in zip(u1, d2, bands)], bands)
             du1 = bn_back(gy, u1, st1, gb, 0, bands, col, k)
+            record(k, 2, du1, bands)
             for r, (a, d, gq, bd) in enumerate(zip(xo, du1, gbuf, bands)):
                 hi, lo = _split16(d)
+                a = a.to(acc)
                 part[k, col + r, :mid * mid] = (a.t() @ hi
                                                 + a.t() @ lo).reshape(-1)
                 lv = bd["live"]
                 gq[lv.nonzero()[:, 0][:, None], torch.tensor(odd)[None]] = \
-                    (hi @ w1s[k].t())[lv]
+                    (hi @ w1a[k].t())[lv]
         for gq, bd in zip(gbuf, bands):
             lv = bd["live"]
             dx[bd["img"][lv], :, bd["off"][lv]] = rnd(gq[lv])
@@ -799,7 +828,7 @@ _SIGNATURES = {
 }
 _SIGNATURES16 = {
     "fastdet_span16_train_fwd": ([_P] * 5 + [_I] * 10 + [_P], _I),
-    "fastdet_span16_train_bwd": ([_P] * 8 + [_I] * 10 + [_P], _I),
+    "fastdet_span16_train_bwd": ([_P] * 9 + [_I] * 10 + [_P], _I),
     "fastdet_span16_train_scratch": ([_I] * 10, ctypes.c_size_t),
     "fastdet_span16_train_smem": ([_I] * 6, ctypes.c_size_t),
     "fastdet_span16_train_clusters": ([_I] * 11, _I),
@@ -934,13 +963,36 @@ def _backward(counter, bf16: bool, dy, xsave, stats, blocks, g):
     return dx, dblocks
 
 
+_WITNESS_LIB = []
+
+
+def span16_witness_lib() -> ctypes.CDLL:
+    """`csrc/span16_train.cu` built with SPAN16_RECORD_DU 1, whose backward
+    records du (`span16_backward_launch(rec_du=)`), under
+    build/span16_witness; built once a process."""
+    if not _WITNESS_LIB:
+        import os
+        from fastdet_torch.kernels.phase_cuts import build_variant
+        root = os.path.join(os.path.dirname(_build.BUILD_DIR),
+                            "span16_witness")
+        _WITNESS_LIB.append(build_variant(
+            "record_du", [("#define SPAN16_RECORD_DU 0",
+                           "#define SPAN16_RECORD_DU 1")], root,
+            "span16_train.cu", {"span16_train": _SIGNATURES16})[
+                "span16_train"])
+    return _WITNESS_LIB[0]
+
+
 def span16_backward_launch(dy, xsave, stats, blocks, g, rec=None,
-                           what="span16_backward_launch"):
+                           what="span16_backward_launch", rec_du=None):
     """The two launches of the bf16 backward (`csrc/span16_train.cu`) on
     CUDA tensors, uncounted → (dx, dblocks).  `rec`: None, or a contiguous
     bf16 (nblk, B, C/2, h, w) tensor into which the kernel writes each
     block's recomputed z (the block output's second half), for holding the
-    recompute to the forward's outputs bit for bit."""
+    recompute to the forward's outputs bit for bit.  `rec_du`: None, or a
+    contiguous f32 (nblk, 3, B, C/2, h, w) tensor into which the witness
+    build (`span16_witness_lib`) writes each block's du3, du2 and du1
+    before their rounding to bf16 (`span16_witness.py`)."""
     _backward_inputs(what, True, dy, xsave, stats, blocks, g)
     dev = dy.device
     b, c, h, w = dy.shape
@@ -950,8 +1002,15 @@ def span16_backward_launch(dy, xsave, stats, blocks, g, rec=None,
             or tuple(rec.shape) != (nblk, b, c // 2, h, w)):
         raise ValueError(f"{what}: rec must be a contiguous bfloat16 "
                          f"{(nblk, b, c // 2, h, w)} tensor on {dev}")
+    if rec_du is not None and (
+            rec_du.device != dev or rec_du.dtype != torch.float32
+            or not rec_du.is_contiguous()
+            or tuple(rec_du.shape) != (nblk, 3, b, c // 2, h, w)):
+        raise ValueError(f"{what}: rec_du must be a contiguous float32 "
+                         f"{(nblk, 3, b, c // 2, h, w)} tensor on {dev}")
     plan = span16_train_plan(b, c, h, w, nblk, g)
-    lib = _build.load("span16_train", _SIGNATURES16)
+    lib = (_build.load("span16_train", _SIGNATURES16) if rec_du is None
+           else span16_witness_lib())
     n = lib.fastdet_span16_train_scratch(b, c, h, w, nblk, g, *plan.args)
     if not n:
         raise ValueError(f"{what}: the kernel refuses the plan {plan.args} "
@@ -963,8 +1022,9 @@ def span16_backward_launch(dy, xsave, stats, blocks, g, rec=None,
         rc = lib.fastdet_span16_train_bwd(
             dy.data_ptr(), xsave.data_ptr(), stats.data_ptr(),
             blocks.data_ptr(), dx.data_ptr(), dblocks.data_ptr(),
-            scratch.data_ptr(), None if rec is None else rec.data_ptr(), b,
-            c, h, w, nblk, g, *plan.args,
+            scratch.data_ptr(), None if rec is None else rec.data_ptr(),
+            None if rec_du is None else rec_du.data_ptr(), b, c, h, w, nblk,
+            g, *plan.args,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, what)
     return dx, dblocks

@@ -81,8 +81,8 @@ def _calls(lib, case, stream):
         assert lib.fastdet_span16_train_bwd(
             dy.data_ptr(), xsave.data_ptr(), stats.data_ptr(),
             rows.data_ptr(), dx.data_ptr(), db.data_ptr(),
-            scratch.data_ptr(), None, b, c, h, w, nblk, g, *plan.args,
-            stream) == 0
+            scratch.data_ptr(), None, None, b, c, h, w, nblk, g,
+            *plan.args, stream) == 0
     return fwd, bwd
 
 

@@ -34,7 +34,7 @@ from torch import nn
 
 from fastdet_torch import disable_tf32, resolve_device
 from fastdet_torch.models.layers import (BF16, BatchNorm, ConvBN,
-                                         DWConvBlock, head_conv,
+                                         DWConvBlock, deploy_maps, head_conv,
                                          upsample_nearest_2x)
 from fastdet_torch.models.shufflenet import ShuffleNetV2
 from fastdet_torch.ops.decode import make_grid
@@ -80,8 +80,7 @@ class AnchorFreeDetector(nn.Module):
             head_conv(self.out_cls, feat_cls, d),
             head_conv(self.out_reg, feat_reg, d)))
         if deploy:
-            return torch.cat([torch.sigmoid(reg), torch.sigmoid(obj),
-                              torch.softmax(cls, dim=-1)], dim=-1)
+            return deploy_maps(reg, obj, cls)
         return obj, cls, reg
 
 

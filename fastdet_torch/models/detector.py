@@ -10,6 +10,12 @@ modules compute in NCHW with plain `torch.nn.functional` convs (cuDNN on
 the card); the JAX package leaves these convs to XLA, outside any Pallas
 kernel.  One set of head convs serves both scales.
 
+`deploy=True` (the JAX `deploy=True`, the reference's export graph)
+returns the two per-scale NHWC maps cat[σ(reg), σ(obj), softmax(cls)] of
+shape (B, h, w, 4A + A + classes) instead (`layers.deploy_maps`): what
+`fastdet_torch.export` serializes and `HybridPipeline`'s host
+postprocess reads.
+
 `dtype` is the compute dtype, as the JAX `Detector(dtype=)`: with
 `torch.bfloat16` the input is cast to bf16 and every layer computes at
 flax's rounding points (models/layers.py), so the outputs are bf16 while
@@ -24,7 +30,7 @@ import torch
 from torch import nn
 
 from fastdet_torch.models.fpn import LightFPN
-from fastdet_torch.models.layers import BF16, head_conv
+from fastdet_torch.models.layers import BF16, deploy_maps, head_conv
 from fastdet_torch.models.shufflenet import ShuffleNetV2
 
 
@@ -44,11 +50,15 @@ class Detector(nn.Module):
         self.output_obj = nn.Conv2d(out_depth, anchor_num, 1)
         self.output_cls = nn.Conv2d(out_depth, classes, 1)
 
-    def forward(self, x):
-        """x: (B, H, W, 3) float NHWC → 6 raw NHWC head outputs."""
+    def forward(self, x, deploy: bool = False):
+        """x: (B, H, W, 3) float NHWC → 6 raw NHWC head outputs, or with
+        `deploy` the two baked maps (stride 16, stride 32)."""
         if self.dtype == BF16:
             x = x.to(BF16)
-        return self.head(*self.backbone(x.permute(0, 3, 1, 2)))
+        outs = self.head(*self.backbone(x.permute(0, 3, 1, 2)))
+        if deploy:
+            return deploy_maps(*outs[:3]), deploy_maps(*outs[3:])
+        return outs
 
     def head(self, C2, C3):
         """FPN and the shared head convs on the NCHW backbone features →

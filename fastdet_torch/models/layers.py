@@ -55,6 +55,16 @@ def head_conv(conv: nn.Conv2d, x, dtype):
     return conv16(x, conv.weight.to(BF16)) + conv.bias.to(BF16)[:, None, None]
 
 
+def deploy_maps(reg, obj, cls):
+    """The deploy bake of one scale's NHWC head outputs: cat[σ(reg),
+    σ(obj), softmax(cls)] on the last axis, in their dtype.  The softmax
+    is `jax.nn.softmax`'s: exp(x − max) over its sum, the sum in f32 (jnp
+    upcasts a bf16 sum), so a bf16 map rounds where flax's does."""
+    e = torch.exp(cls - cls.amax(-1, keepdim=True))
+    s = e.sum(-1, keepdim=True, dtype=torch.float32).to(e.dtype)
+    return torch.cat([torch.sigmoid(reg), torch.sigmoid(obj), e / s], -1)
+
+
 class BatchNorm(nn.Module):
     """BatchNorm over dim 1 with eps 1e-5.  State dict keys are
     ``weight``, ``bias``, ``running_mean`` and ``running_var`` (no

@@ -1,10 +1,12 @@
 """Serving pipelines (counterpart of fastdet/serve.py).
 
 `DevicePipeline` runs the whole detect chain on the device: uint8 NHWC →
-/255 → Detector (f32) → postprocess with the fused rank→decode→NMS
-kernel.  Defaults are the JAX package's serving operating point:
-conf_thres 0.3, iou_thres 0.45, max_det 300 and a pre-NMS window of
-`max_nms=128`, sized for conf ≥ 0.3 (fastdet/serve.py:20-26).
+/255 → Detector (f32, or bf16 for a `Detector(dtype=torch.bfloat16)`,
+whose outputs reach the postprocess as f32) → postprocess with the fused
+rank→decode→NMS kernel.  Defaults are the JAX package's serving
+operating point: conf_thres 0.3, iou_thres 0.45, max_det 300 and a
+pre-NMS window of `max_nms=128`, sized for conf ≥ 0.3
+(fastdet/serve.py:20-26).
 
 `FusedPipeline` runs the same chain on the fused forward
 (fastdet_torch/kernels/fused_infer.py): the host packs uint8 NHWC into the
@@ -15,25 +17,41 @@ With `family="anchorfree"` it runs the anchor-free family
 (`models/anchorfree.py`) on the same backbone kernels, then its decode and
 `batched_nms`.
 
-`ShardedPipeline`, `StreamingPipeline` and `HybridPipeline` are not ported
-yet.
+`HybridPipeline` runs the deploy forward (`Detector(deploy=True)`, the
+graph `fastdet_torch.export` serializes) on the device, copies its two
+maps to the host as f32 and decodes and suppresses them there in C++
+(`fastdet_torch.native.postprocess`, OpenMP over images): the split of
+the reference's ncnn deployment, for a host-side postprocess.
+
+`StreamingPipeline` wraps any of them: a producer thread stacks batch N+1
+while the device runs batch N, and the ragged tail is padded to the
+static batch.
+
+`ShardedPipeline` is not ported yet (ROADMAP A12).
 """
 
 from __future__ import annotations
 
 import functools
+import queue
+import threading
 from typing import List, Sequence
 
 import numpy as np
 import torch
 
-from fastdet_torch import disable_tf32, resolve_device
+from fastdet_torch import disable_tf32, native, resolve_device
 from fastdet_torch.config import Config
 from fastdet_torch.kernels.fused_infer import (build_fused_forward,
                                                pack_images_s2d)
 from fastdet_torch.models.anchorfree import build_anchorfree_fused_detect
 from fastdet_torch.models.registry import family_name
 from fastdet_torch.ops.postprocess import build_detect_fn, postprocess
+
+
+NO_DECODER = ("fastdet_torch: {} needs a host image decoder (the JAX "
+              "package decodes with native.py's libjpeg/libpng or cv2, "
+              "neither of which may sit on the card's path)")
 
 
 class DevicePipeline:
@@ -80,9 +98,9 @@ class FusedPipeline:
     `NotImplementedError`.  The logits reach the postprocess as f32 in
     both.
 
-    Not ported yet, each raising `NotImplementedError`: `mesh` (ROADMAP
-    A12), and `from_files`/`preprocess_files`, which need a host image
-    decoder."""
+    Not ported, each raising `NotImplementedError`: `mesh` (ROADMAP A12),
+    and `from_files`/`preprocess_files`, which need a host image decoder
+    that the card's machine lacks."""
 
     def __init__(self, state_dict, cfg: Config, conf_thres=0.3,
                  iou_thres=0.45, max_det=300, max_nms=128,
@@ -136,10 +154,142 @@ class FusedPipeline:
         return [dets[i, :counts[i]] for i in range(len(counts))]
 
     def preprocess_files(self, paths: Sequence[str]) -> np.ndarray:
-        raise NotImplementedError(
-            "fastdet_torch: FusedPipeline.preprocess_files needs a host "
-            "image decoder (the JAX package uses native.py or cv2, neither "
-            "of which may sit on the card's path); not ported yet")
+        raise NotImplementedError(NO_DECODER.format(
+            "FusedPipeline.preprocess_files"))
 
     def from_files(self, paths: Sequence[str]) -> List[np.ndarray]:
         return self(self.preprocess_files(paths))
+
+
+class HybridPipeline:
+    """`pipe(images_u8)` with an (N,H,W,3) uint8 numpy batch → a list of
+    (n_i, 6) float32 arrays [x1,y1,x2,y2,score,cls] in model input
+    coordinates: the deploy forward on the device (/255 in the model's
+    dtype, as JAX's `deploy_fwd`), its two maps copied to the host as f32,
+    then decode and class-aware NMS in C++ (`native.postprocess`).
+
+    model: a `fastdet_torch.models.Detector` (f32 or bf16); variables: its
+    state dict, loaded into it."""
+
+    def __init__(self, model, variables, cfg: Config, conf_thres=0.3,
+                 iou_thres=0.45, max_det=300, device=None):
+        self.device = resolve_device(device)
+        disable_tf32(self.device)
+        model.load_state_dict(variables)
+        self._model = model.to(self.device).eval()
+        self._hw = (cfg.height, cfg.width)
+        self._anchors = np.asarray(cfg.anchors, np.float32)
+        self._nms = dict(conf_thres=conf_thres, iou_thres=iou_thres,
+                         max_det=max_det)
+
+    @torch.inference_mode()
+    def deploy(self, images: torch.Tensor):
+        """(B,H,W,3) uint8 tensor on the device → the two deploy maps
+        there, in the model's dtype."""
+        return self._model(images.to(self._model.dtype) / 255.0,
+                           deploy=True)
+
+    def host_postprocess(self, s16: np.ndarray, s32: np.ndarray):
+        """The two f32 host maps → the per-image detections."""
+        return native.postprocess(s16, s32, self._anchors, self._hw,
+                                  **self._nms)
+
+    def __call__(self, images_u8: np.ndarray) -> List[np.ndarray]:
+        images = torch.from_numpy(np.ascontiguousarray(images_u8))
+        s16, s32 = (m.float().cpu().numpy()
+                    for m in self.deploy(images.to(self.device)))
+        return self.host_postprocess(s16, s32)
+
+
+class _Stopped(Exception):
+    """The stream's consumer has stopped."""
+
+
+class StreamingPipeline:
+    """Double-buffered stream detection over any batch pipeline
+    (`DevicePipeline`, `FusedPipeline`, `HybridPipeline`): a producer
+    thread stacks batch N+1 (a queue of two) while the caller's thread
+    runs batch N.
+
+      * `run(frames)`: an iterable of model-sized HWC uint8 frames → the
+        per-frame detections in order.  Every batch has `batch_size`
+        frames: the ragged tail is padded with zero frames and its
+        outputs trimmed by the valid count;
+      * `run_files(paths)`: JAX's streams files through the pipeline's
+        `preprocess_files`; the port has no host image decoder, so this
+        raises `NotImplementedError`.
+
+    An exception in the producer is raised in the caller's thread."""
+
+    def __init__(self, pipeline, batch_size: int = 8):
+        self._pipe = pipeline
+        self._bs = batch_size
+
+    def _stream(self, producer) -> List[np.ndarray]:
+        q: "queue.Queue" = queue.Queue(maxsize=2)
+        done = object()
+        stop = threading.Event()
+        failed: List[BaseException] = []
+
+        def put(item):
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return
+                except queue.Full:
+                    pass
+            raise _Stopped
+
+        def run_producer():
+            try:
+                producer(put)
+                put(done)
+            except _Stopped:                      # the caller has failed
+                pass
+            except BaseException as e:            # raised in the caller
+                failed.append(e)
+                try:
+                    put(done)
+                except _Stopped:
+                    pass
+
+        t = threading.Thread(target=run_producer, daemon=True)
+        t.start()
+        out: List[np.ndarray] = []
+        try:
+            while True:
+                item = q.get()
+                if item is done:
+                    break
+                batch, valid = item
+                out.extend(self._pipe(batch)[:valid])
+        finally:
+            stop.set()
+            t.join()
+        if failed:
+            raise failed[0]
+        return out
+
+    def run(self, frames) -> List[np.ndarray]:
+        """frames: iterable of HWC uint8 images (already model-sized) →
+        per-frame detection arrays, in order."""
+
+        def producer(put):
+            buf = []
+            for f in frames:
+                buf.append(f)
+                if len(buf) == self._bs:
+                    put((np.stack(buf), self._bs))
+                    buf = []
+            if buf:
+                n = len(buf)
+                pad = [np.zeros_like(buf[0])] * (self._bs - n)
+                put((np.stack(buf + pad), n))
+
+        return self._stream(producer)
+
+    def run_files(self, paths: Sequence[str]) -> List[np.ndarray]:
+        """Image files → per-file detection arrays: raises
+        `NotImplementedError`, as the port has no host image decoder."""
+        raise NotImplementedError(NO_DECODER.format(
+            "StreamingPipeline.run_files"))

@@ -9,7 +9,7 @@ to a few fixed sizes.
 fixed-maximum batch, dispatched when the batch fills or the oldest
 request has waited `max_wait_ms`.  While the device runs batch N, new
 requests queue up and form batch N+1 — the same overlap discipline as
-JAX package's `StreamingPipeline`, but request-driven instead of
+`serve.py::StreamingPipeline`, but request-driven instead of
 list-driven.
 
 `InferenceServer` puts an HTTP interface in front of a batch pipeline

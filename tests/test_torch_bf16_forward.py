@@ -40,7 +40,7 @@ from fastdet_torch.config import Config
 from fastdet_torch.io import from_jax_variables
 from fastdet_torch.kernels import fused_infer
 from fastdet_torch.serve import FusedPipeline
-from torch_cases import make_sample
+from torch_cases import assert_bf16_serving_contract, make_sample
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = os.path.join(REPO, "data", "coco.data")
@@ -48,8 +48,6 @@ WEIGHTS = {"yolo": os.path.join(REPO, "weights", "coco2017-ref.npz"),
            "anchorfree": os.path.join(REPO, "weights",
                                       "anchorfree-synth.npz")}
 MAP_RTOL = 2.0 ** -5
-BOX_ATOL = 4.0
-SCORE_ATOL = 0.05
 HW = (128, 128)
 BF16_KERNELS = (fused_infer.stem_s2d_bf16, fused_infer.stem_s2d8_bf16,
                 fused_infer.span_bf16, fused_infer.s2span_bf16)
@@ -148,22 +146,6 @@ def _af_cfg():
     return {"classes": 3, "width": HW[1], "height": HW[0], "anchor_num": 3,
             "anchors": [10.0, 10.0, 20.0, 20.0, 40.0, 40.0,
                         80.0, 80.0, 120.0, 120.0, 160.0, 160.0]}
-
-
-def assert_bf16_serving_contract(got, want):
-    """Per image the same count, and each detection of `got` paired with
-    one of `want` of the same class, box within 4 px and score within 0.05
-    (scores that close may rank in either order)."""
-    assert len(got) == len(want)
-    for d, j in zip(got, want):
-        assert d.shape == j.shape and len(d) > 0
-        free = list(range(len(j)))
-        for row in d:
-            hit = [i for i in free if j[i, 5] == row[5]
-                   and np.abs(j[i, :4] - row[:4]).max() <= BOX_ATOL
-                   and abs(j[i, 4] - row[4]) <= SCORE_ATOL]
-            assert hit, f"no partner for {row} in {j}"
-            free.remove(hit[0])
 
 
 @pytest.mark.parametrize("family", ["yolo-fastestv2", "anchorfree"])

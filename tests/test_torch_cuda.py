@@ -1284,3 +1284,113 @@ def test_int8_forward_macs_match_the_cpu(card, b, hw):
                 assert torch.equal(xq.cpu(), wxq.cpu()), name
                 assert torch.equal(acc.cpu().double(), wacc.cpu().double()), \
                     name
+
+
+def _photo_pair():
+    """The repository's photo at 352² and its mirror image, read without
+    cv2 (the card's machine has none), as chip_smoke.py reads it."""
+    import chip_smoke
+    img = chip_smoke.resize_u8(chip_smoke.read_png_bgr(chip_smoke.PHOTO))
+    return np.stack([img, img[:, ::-1]])
+
+
+def test_export_on_the_card_loads_with_tf32_off(card, tmp_path):
+    """`export_detector` on the card, loaded back after the caller has
+    turned TF32 on: `load_exported` turns it off, and the program's maps
+    equal the eager deploy forward's within 1e-6 (JAX's round-trip
+    tolerance)."""
+    from fastdet_torch.export import export_detector, load_exported
+    sd = load_state_dict(REF_NPZ)
+    out = str(tmp_path / "model.pt2")
+    export_detector(Detector(), sd, out, input_hw=(96, 96), batch=2,
+                    device=card)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    call = load_exported(out, device=card)
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32
+    img = np.random.default_rng(3).integers(0, 256, (2, 96, 96, 3),
+                                            dtype=np.uint8)
+    got = call(img)
+    model = Detector()
+    model.load_state_dict(sd)
+    with torch.no_grad():
+        want = model.to(card).eval()(
+            torch.from_numpy(img).to(card).float() / 255.0, deploy=True)
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda"
+        assert float((g - w).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("mac", ["bf16", "int32"])
+def test_export_quantized_on_the_card(card, tmp_path, mac):
+    """The int8 export on the card with either MAC at b1 96² (the stride-32
+    heads' 9 rows padded past 16 for `torch._int_mm`): the loaded program
+    gives `forward_from`'s maps baked, bit for bit."""
+    from fastdet_torch.export import export_quantized, load_exported
+    from fastdet_torch.models.layers import deploy_maps
+    from fastdet_torch.quant import forward_from, load_quantized
+    qw, scales = load_quantized("weights/coco-int8.npz")
+    out = str(tmp_path / "q.pt2")
+    export_quantized(qw, scales, out, input_hw=(96, 96), batch=1,
+                     device=card, mac=mac)
+    img = np.random.default_rng(4).integers(0, 256, (1, 96, 96, 3),
+                                            dtype=np.uint8)
+    got = load_exported(out, device=card)(img)
+    raw = forward_from(qw, scales, mac=mac, device=card)(img)
+    for g, w in zip(got, (deploy_maps(*raw[:3]), deploy_maps(*raw[3:]))):
+        assert torch.equal(g, w)
+
+
+def test_hybrid_and_bf16_device_pipelines_on_the_card_match_the_cpu(card):
+    """`HybridPipeline` on the card against itself on the CPU (the same
+    counts and classes, the first five columns within 1e-2, the contract
+    of tests/test_native.py::test_hybrid_pipeline), and `DevicePipeline`
+    over a bf16 `Detector` on the card against the CPU under the JAX
+    package's bf16 serving contract, on the photo and its mirror."""
+    from fastdet_torch.serve import HybridPipeline
+    from torch_cases import assert_bf16_serving_contract
+    cfg = Config.from_file("data/coco.data")
+    sd = load_state_dict(REF_NPZ)
+    imgs = _photo_pair()
+    got = HybridPipeline(Detector(), sd, cfg, device=card)(imgs)
+    want = HybridPipeline(Detector(), sd, cfg, device="cpu")(imgs)
+    for g, w in zip(got, want):
+        assert len(g) == len(w) > 0
+        np.testing.assert_array_equal(g[:, 5], w[:, 5])
+        np.testing.assert_allclose(g[:, :5], w[:, :5], atol=1e-2)
+    b16 = Detector(dtype=torch.bfloat16)
+    got = DevicePipeline(b16, sd, cfg, device=card)(imgs)
+    want = DevicePipeline(Detector(dtype=torch.bfloat16), sd, cfg,
+                          device="cpu")(imgs)
+    assert_bf16_serving_contract(got, want)
+
+
+@pytest.mark.parametrize("trained", [False, True])
+def test_span16_backward_records_its_du(card, trained):
+    """B8 bf16's backward in the witness build (`rec_du`): the same outputs
+    bit for bit as the counted call of the main build; each block's du3,
+    du2 and du1 within `span16_witness.LINK_TOL` units of the same step
+    recomputed in f64 from the kernel's own recorded inputs to it, and
+    each leaf within `REPRO_TOL` of the same leaf recomputed from the
+    recorded du, at stage 4 of the convergence check (seeded weights,
+    and the bf16 fused s2d run's trained ones of
+    tests/data/span16_stage4_trained.npz: ROADMAP C3)."""
+    import span16_witness as sw
+    b, c, h, w, nblk, g = sw.CASE
+    x32, rows, dy32 = span_train_case(sum(sw.CASE) + 1, b, c, h, w, nblk,
+                                      card)
+    if trained:
+        rows = torch.from_numpy(np.load(
+            "tests/data/span16_stage4_trained.npz")["rows"]).to(card)
+    x, dy = x32.to(torch.bfloat16), dy32.to(torch.bfloat16)
+    _, xsave, stats = fused_train.span_train_forward_bf16(x, rows, g)
+    want = fused_train.span_train_backward_bf16(dy, xsave, stats, rows, g)
+    dx, drows, du = sw.kernel_with_du(dy, xsave, stats, rows, g)
+    assert torch.equal(dx, want[0]) and torch.equal(drows, want[1])
+    cpu = [t.cpu() for t in (dy, xsave, stats, rows)]
+    D, E, mine, _ = sw.replay(*cpu, g, rec=du, take=sw.every(nblk))
+    units = sw.link_units(du, D, E)
+    assert float(units.max()) <= sw.LINK_TOL, units
+    errs = sw.leaf_shares(sw.leaves_of(drows, c // 2), mine)
+    assert max(errs.values()) <= sw.REPRO_TOL, errs

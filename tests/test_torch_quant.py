@@ -12,7 +12,6 @@ numpy in both packages and held bitwise; the calibration runs f32 convs
 in XLA and in PyTorch and is held within one histogram bin.
 """
 
-import cv2
 import numpy as np
 import pytest
 import torch
@@ -30,6 +29,7 @@ from fastdet_torch.io import load_state_dict
 from fastdet_torch.models import Detector
 from fastdet_torch.models.anchorfree import AnchorFreeDetector
 from fastdet_torch.quant import ptq
+from torch_cases import photo_crops
 from fastdet_torch.quant import (build_int8_forward, calibrate, fold_model,
                                  forward_from, infer_family, load_quantized,
                                  quantize_weights, save_quantized)
@@ -292,24 +292,6 @@ def check_forward(monkeypatch, port_qw, jax_qw, scales, images):
         acc = next(calls[head])[1]
         worst = max(worst, ulps(g, w, scaled_acc(ops, head, acc)))
     assert worst <= ULPS, worst
-
-
-def photo_crops(n, hw, seed):
-    """Seeded crops (60-100% of each side, every other one mirrored) of
-    the repository's photo at `hw`: real scenes, whose activations meet
-    the rounding ties of round(x/s_x) that noise images rarely do."""
-    rng = np.random.default_rng(seed)
-    photo = cv2.imread("test_result.png")
-    h, w = photo.shape[:2]
-    out = []
-    for i in range(n):
-        ch, cw = int(rng.integers(int(0.6 * h), h)), int(
-            rng.integers(int(0.6 * w), w))
-        y0, x0 = int(rng.integers(0, h - ch)), int(rng.integers(0, w - cw))
-        crop = photo[y0:y0 + ch, x0:x0 + cw]
-        out.append(cv2.resize(crop if i % 2 else crop[:, ::-1],
-                              (hw[1], hw[0]), interpolation=cv2.INTER_LINEAR))
-    return np.stack(out)
 
 
 @pytest.mark.parametrize("n,hw", [(8, (96, 96)), (4, (64, 96)),

@@ -13,8 +13,6 @@ photo itself, and an image of `torch_cases.synth_world` (anchor-free,
 """
 
 import os
-import subprocess
-import sys
 
 import cv2
 import numpy as np
@@ -26,7 +24,7 @@ from fastdet_torch.io import load_state_dict
 from fastdet_torch.quant import (calibrate, fold_model, load_quantized,
                                  quantize_weights, save_quantized)
 from fastdet_torch.quant.ptq import FloatOps, folded_forward_for
-from torch_cases import synth_world
+from torch_cases import run_beside, synth_world
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = os.path.join(REPO, "data", "coco.data")
@@ -34,32 +32,6 @@ WEIGHTS = os.path.join(REPO, "weights", "coco2017-ref.npz")
 INT8 = os.path.join(REPO, "weights", "coco-int8.npz")
 AF_WEIGHTS = os.path.join(REPO, "weights", "anchorfree-synth.npz")
 PHOTO = os.path.join(REPO, "test_result.png")
-
-
-def run_beside(jax_script, jax_args, *port_runs, timeout=600):
-    """`cli/<jax_script> jax_args` and each (module, args) of the port
-    (`python -m fastdet_torch.cli.<module> --device cpu args`) at once →
-    their stdouts, JAX's first; each must exit 0."""
-    env = dict(os.environ)
-    env["JAX_PLATFORMS"] = "cpu"
-    env.pop("PYTHONPATH", None)
-    cmds = [[os.path.join(REPO, "cli", jax_script), *jax_args]]
-    cmds += [["-m", f"fastdet_torch.cli.{m}", "--device", "cpu", *a]
-             for m, a in port_runs]
-    procs = [subprocess.Popen([sys.executable, *c], stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True, env=env,
-                              cwd=REPO) for c in cmds]
-    outs = []
-    try:
-        for c, p in zip(cmds, procs):
-            out, err = p.communicate(timeout=timeout)
-            assert p.returncode == 0, (c, (out + err)[-3000:])
-            outs.append(out)
-    finally:
-        for p in procs:
-            p.kill()
-            p.wait()
-    return outs
 
 
 @pytest.fixture(scope="module")

@@ -179,3 +179,96 @@ def test_steps_see_a_wrong_band_halo_or_slot(monkeypatch):
             m.setattr(ft, name, fault)
             errs, _ = _check_steps(case, n)
         assert max(errs.values()) > 4 * BF16_TRAIN_RTOL, (name, errs)
+
+
+@pytest.mark.parametrize("acc", [torch.float32, torch.float64])
+def test_steps_record_the_du_their_leaves_come_from(acc):
+    """`rec_du` (as the kernel's witness build, for `span16_witness.py`):
+    each block's du3, du2, du1 recomputed in f64 from the steps' own
+    inputs to it (`span16_witness.replay`) within a few units of 2⁻²⁴ of
+    its error scale, far inside `LINK_TOL`, and each leaf recomputed from
+    the recorded du within `REPRO_TOL` of the steps' own, on the kernel's
+    saved inputs given as `saved`; in f64 the leaves that take du whole
+    agree to 1e-12, and w1, w2, which take du's two bf16 terms, to 2⁻¹⁶."""
+    import span16_witness as sw
+    case = (4, 96, 5, 6, 2, 2)
+    b, c, h, w, nblk, g = case
+    x, rows, dy = span_train_case(sum(case), b, c, h, w, nblk)
+    x, dy = x.to(BF16), dy.to(BF16)
+    _, xsave, stats = ft.span_train_forward_reference(x, rows, g)
+    du = torch.zeros((nblk, 3, b, c // 2, h, w), dtype=acc)
+    with few_torch_threads():
+        out = ft.span16_train_steps(x, rows, g, dy,
+                                    ft.span16_train_plan(*case), acc,
+                                    saved=(xsave, stats), rec_du=du)
+        D, E, mine, _ = sw.replay(dy, xsave, stats, rows, g, rec=du,
+                                  take=sw.every(nblk))
+    assert bool((du != 0).any((2, 3, 4, 5)).all())      # all recorded
+    assert float(sw.link_units(du, D, E).max()) <= 4.0
+    errs = sw.leaf_shares(sw.leaves_of(out[4], c // 2), mine)
+    for k, err in errs.items():
+        whole = acc == torch.float64 and k.split(".")[1] not in ("w1", "w2")
+        assert err <= (1e-12 if whole else 2.0 ** -16), (k, err)
+        assert err <= sw.REPRO_TOL
+
+
+@pytest.mark.parametrize("fault", ["span16_halo", "_rank_sum"])
+def test_witness_steps_see_a_fault_in_du(monkeypatch, fault):
+    """`span16_witness.py`'s step check sees a fault in the code that
+    computes du: the steps with their halo rows left at zero, or with
+    each cluster sum short of its last CTA's part (the BN backward's Σg,
+    Σg·x̂ among them), stand more than `LINK_TOL` units from the same
+    steps recomputed from their own recorded inputs; the faultless steps
+    within 4 units."""
+    import span16_witness as sw
+    case, n = (5, 48, 13, 5, 3, 1), 4
+    b, c, h, w, nblk, g = case
+    x, rows, dy = span_train_case(sum(case), b, c, h, w, nblk)
+    x, dy = x.to(BF16), dy.to(BF16)
+    _, xsave, stats = ft.span_train_forward_reference(x, rows, g)
+    plan = ft.span16_train_plan(b, c, h, w, nblk, g, n)
+    rank_sum = ft._rank_sum
+    faults = {"span16_halo": lambda *a: None,
+              "_rank_sum": lambda parts: rank_sum(parts[:-1])}
+
+    def worst():
+        du = torch.zeros((nblk, 3, b, c // 2, h, w))
+        ft.span16_train_steps(x, rows, g, dy, plan, saved=(xsave, stats),
+                              rec_du=du)
+        D, E, _, _ = sw.replay(dy, xsave, stats, rows, g, rec=du,
+                               take=sw.every(nblk))
+        return float(sw.link_units(du, D, E).max())
+
+    with few_torch_threads():
+        assert worst() <= 4.0
+        monkeypatch.setattr(ft, fault, faults[fault])
+        assert worst() > sw.LINK_TOL
+
+
+def test_witness_reads_a_faultless_stand_in(monkeypatch, capsys):
+    """`span16_witness.witness` end to end on the CPU, the f32 steps with
+    their du recorded standing in for the kernel at a small case: every
+    reading printed, and the step check reads "f32"."""
+    import span16_witness as sw
+    case = (8, 96, 4, 4, 3, 4)
+    b, c, h, w, nblk, g = case
+    monkeypatch.setattr(sw, "CASE", case)
+    monkeypatch.setattr(sw, "ORDERS", 2)
+
+    def steps(dy, xsave, stats, rows, g_):
+        du = torch.zeros((nblk, 3, b, c // 2, h, w))
+        out = ft.span16_train_steps(torch.zeros_like(dy), rows, g_, dy,
+                                    ft.span16_train_plan(*case),
+                                    saved=(xsave, stats), rec_du=du)
+        return out[3], out[4], du
+
+    x, rows, dy = span_train_case(sum(case), b, c, h, w, nblk)
+    with few_torch_threads():
+        verdict = sw.witness("stand-in", x.to(BF16), dy.to(BF16), rows, g,
+                             kernel=steps)
+    shown = capsys.readouterr().out
+    for part in ("envelope:", "bf16 flips", "steps from own inputs",
+                 "leaves from own du", "ladder"):
+        assert part in shown, part
+    assert verdict["steps"] == "f32"
+

@@ -14,6 +14,7 @@ largest |coordinate|:
 """
 
 import contextlib
+import os
 
 import numpy as np
 
@@ -686,3 +687,84 @@ def write_reference_pth(npz_path, pth_path, backbone_only=False):
     import torch
     torch.save(reference_state_dict(npz_path, backbone_only), str(pth_path))
     return pth_path
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PHOTO = os.path.join(REPO, "test_result.png")
+
+
+def photo_crops(n, hw, seed):
+    """Seeded crops (60-100% of each side, every other one mirrored) of
+    the repository's photo at `hw`: real scenes, whose activations meet
+    the rounding ties of round(x/s_x) that noise images rarely do."""
+    import cv2
+    rng = np.random.default_rng(seed)
+    photo = cv2.imread(PHOTO)
+    h, w = photo.shape[:2]
+    out = []
+    for i in range(n):
+        ch, cw = int(rng.integers(int(0.6 * h), h)), int(
+            rng.integers(int(0.6 * w), w))
+        y0, x0 = int(rng.integers(0, h - ch)), int(rng.integers(0, w - cw))
+        crop = photo[y0:y0 + ch, x0:x0 + cw]
+        out.append(cv2.resize(crop if i % 2 else crop[:, ::-1],
+                              (hw[1], hw[0]), interpolation=cv2.INTER_LINEAR))
+    return np.stack(out)
+
+
+def photo_pair(hw=(352, 352)):
+    """The repository's photo (BGR) at `hw` and its mirror image."""
+    import cv2
+    img = cv2.resize(cv2.imread(PHOTO), (hw[1], hw[0]),
+                     interpolation=cv2.INTER_LINEAR)
+    return np.stack([img, img[:, ::-1]])
+
+
+def run_beside(jax_script, jax_args, *port_runs, timeout=600):
+    """`cli/<jax_script> jax_args` and each (module, args) of the port
+    (`python -m fastdet_torch.cli.<module> --device cpu args`) at once →
+    their stdouts, JAX's first; each must exit 0."""
+    import subprocess
+    import sys
+    env = dict(os.environ)
+    env["JAX_PLATFORMS"] = "cpu"
+    env.pop("PYTHONPATH", None)
+    cmds = [[os.path.join(REPO, "cli", jax_script), *jax_args]]
+    cmds += [["-m", f"fastdet_torch.cli.{m}", "--device", "cpu", *a]
+             for m, a in port_runs]
+    procs = [subprocess.Popen([sys.executable, *c], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, env=env,
+                              cwd=REPO) for c in cmds]
+    outs = []
+    try:
+        for c, p in zip(cmds, procs):
+            out, err = p.communicate(timeout=timeout)
+            assert p.returncode == 0, (c, (out + err)[-3000:])
+            outs.append(out)
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    return outs
+
+
+# the JAX package's bf16 serving contract (tests/test_postprocess.py::
+# test_golden_image_bf16_serving): boxes within 4 px, scores within 0.05
+BF16_BOX_ATOL = 4.0
+BF16_SCORE_ATOL = 0.05
+
+
+def assert_bf16_serving_contract(got, want):
+    """Per image the same count, and each detection of `got` paired with
+    one of `want` of the same class, box within 4 px and score within 0.05
+    (scores that close may rank in either order)."""
+    assert len(got) == len(want)
+    for d, j in zip(got, want):
+        assert d.shape == j.shape and len(d) > 0
+        free = list(range(len(j)))
+        for row in d:
+            hit = [i for i in free if j[i, 5] == row[5]
+                   and np.abs(j[i, :4] - row[:4]).max() <= BF16_BOX_ATOL
+                   and abs(j[i, 4] - row[4]) <= BF16_SCORE_ATOL]
+            assert hit, f"no partner for {row} in {j}"
+            free.remove(hit[0])
