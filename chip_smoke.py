@@ -14,8 +14,9 @@ drives the fused forward's five other combinations of `input_format` and
 eval entry point in both of its modes, serves 640² through
 `FusedPipeline`, trains at full width on the default, fused and fused
 s2d paths, serves, evaluates and trains the anchor-free family, serves
-and trains in bf16, runs and evaluates the int8 PTQ chain, and trains
-the convergence check's bf16 fused s2d configuration to its bar.
+and trains in bf16, runs and evaluates the int8 PTQ chain, trains
+the convergence check's bf16 fused s2d configuration to its bar, and
+trains, evaluates and serves data parallel.
 One line per phase; any failed check ends the run with a non-zero exit.
 Without a card, or outside the repository, it exits non-zero and prints
 no result.
@@ -241,6 +242,23 @@ Phases:
      over each stream and held to the three batches' plans; and
      `DevicePipeline` over a bf16 `Detector` on the photo against f32
      (classes, boxes ≤ 4 px, scores ≤ 0.05), B3 counted;
+  14. data parallel (ROADMAP A12; `dp_phase.py` runs it alone): the
+     global b128 352² batch of 8b from the reference weights, 4 steps of
+     `Trainer(mesh=make_mesh(...))` in the default, fused s2d f32 and
+     fused s2d bf16 modes over (a) two gloo ranks on cuda:0 (this script
+     started twice with `--dp-rank`; NCCL refuses two ranks on one
+     device), 64 rows each, and (b) one nccl rank through
+     `initialize_distributed`'s default backend, each against one
+     process on the same batch (f32: step-0 losses at rtol 2e-4, JAX's
+     structural check after 4 steps; bf16: phase 10's 2⁻⁵ rules; ranks
+     bit for bit equal; B7 and B8 counted from 0 in the ranks), then
+     `run_evaluation(distributed=True)` on phase 7's images split over
+     the ranks, its metrics within 1e-6 of one process's; (c)
+     `ShardedPipeline` and `FusedPipeline(mesh=)` in f32 and bf16 over
+     a local mesh of cuda:0 twice on 5 copies of the photo and on b127,
+     counts equal to the single-device pipelines' and every column
+     within 1e-4, B1-B3 counted; ms/step of 2 ranks against 1 as
+     readings;
   6. the kernel summary (a JSON line: launches of stem_s2d, span and
      rank_decode_nms from the fused serving path (rank_decode_nms's ms
      its device time on the served window, phase 4), of nms_keep from the
@@ -252,7 +270,11 @@ Phases:
      rank_decode_nms and nms_keep, phase 12's of the bf16 B8 and B7 and
      of rank_decode_nms on the convergence path, phase 13's of B1, B2 and
      B3 over its two streams and of B3 on the bf16 DevicePipeline (times
-     those of phases 4, 4b and 9 at the same shapes); the phase line adds
+     those of phases 4, 4b and 9 at the same shapes), phase 14's of B7
+     and B8 in both dtypes over the gloo ranks, of nms_keep over the
+     distributed eval and of B1-B3 over the sharded pipelines, each with
+     its "path" (times those of the same kernels at b128 352² in phases
+     4, 4b, 7, 8a, 8c, 9 and 10); the phase line adds
      stem_s2d's and
      span's launches on the anchor-free
      path of 8d), the card line, and
@@ -5316,6 +5338,452 @@ def phase_deploy(sd, photo, card, big, dev_pipe, fused_pipe):
     return launches
 
 
+# ---------------------------------------------------------------- phase 14
+
+DP_STEPS = 4
+DP_MODES = ("default", "fused_s2d", "fused_s2d_bf16")
+DP_LOSS_RTOL, DP_LOSS_ATOL = 2e-4, 1e-6   # JAX's tests/test_multihost.py
+DP_TIMEOUT_S = 240
+DP_EVAL_ATOL = 1e-6                      # the eval CLI prints %f
+DP_EVAL_BATCH = 128                      # phase 7's eval batch
+DP_BATCH, DP_EVAL_IMAGES = 128, 256      # phase 8b's batch, phase 7's set
+
+
+def dp_trainer(sd, cfg, mode, mesh):
+    """A Trainer from the reference weights for phase 14's `mode`: the
+    default path (f32), or the fused s2d path (B7 and B8) in f32 or, for
+    "fused_s2d_bf16", in bf16 (`Detector(dtype=bf16)`); over `mesh` (a
+    job's `make_mesh`) or in one process (`mesh=None`)."""
+    import torch
+    from fastdet_torch.models import Detector
+    from fastdet_torch.train.trainer import Trainer
+    model = Detector(80, 3, dtype=torch.bfloat16 if mode.endswith("bf16")
+                     else torch.float32)
+    model.load_state_dict(sd)
+    return Trainer(model, cfg, 1, fused_backbone=mode != "default",
+                   fused_input_format="nhwc" if mode == "default"
+                   else "s2d_u8", device="cuda", mesh=mesh)
+
+
+def dp_counters():
+    """The wrappers whose launches phase 14 counts, by name."""
+    from fastdet_torch.kernels import fused_train as ft
+    from fastdet_torch.kernels import nms_kernel as nk
+    from fastdet_torch.kernels import stem_train as stt
+    return {"span_train_fwd": ft.span_train_forward,
+            "span_train_bwd": ft.span_train_backward,
+            "stem_train_fwd": stt.stem_train_forward,
+            "stem_train_bwd": stt.stem_train_backward,
+            "span_train_fwd_bf16": ft.span_train_forward_bf16,
+            "span_train_bwd_bf16": ft.span_train_backward_bf16,
+            "stem_train_fwd_bf16": stt.stem_train_forward_bf16,
+            "stem_train_bwd_bf16": stt.stem_train_backward_bf16,
+            "nms_keep": nk.keep_mask_batch}
+
+
+def dp_steps(tr, x, labels, mask):
+    """DP_STEPS steps → (each step's loss components [box, obj, cls,
+    total], the median host ms of steps 1..3 with a sync after each)."""
+    import torch
+    losses, ms = [], []
+    for _ in range(DP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = tr.step(x, labels, mask)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append([float(m[k]) for k in ("box", "obj", "cls", "total")])
+    return losses, float(np.median(ms[1:]))
+
+
+def dp_metrics(results):
+    """`run_evaluation`'s (mAP pass, P/R pass) as JSON-safe lists."""
+    return [None if r is None else [float(v) for v in r] for r in results]
+
+
+def dp_case_batches(case, rows):
+    """`run_evaluation`'s batches(bs) over the eval images' `rows`."""
+    parts = [case[k][rows] for k in ("eval_images", "eval_labels",
+                                     "eval_mask")]
+
+    def batches(bs):
+        for s in range(0, len(parts[0]), bs):
+            yield tuple(p[s:s + bs] for p in parts)
+    return batches
+
+
+def dp_rank_main(argv) -> int:
+    """One rank of phase 14's job (`chip_smoke.py --dp-rank RANK WORLD
+    PORT DIR BACKEND [own]`): `initialize_distributed` (BACKEND "default"
+    takes its default, nccl on the card), on cuda:0 (with "own": on the
+    rank's own card), `Trainer(mesh=make_mesh(...))` on the
+    rank's contiguous rows of the global batch in each of DP_MODES, then
+    `run_evaluation(distributed=True)` on its rows of the eval images.
+    Saves each mode's state dict to DIR/<BACKEND><WORLD>_rank<R>_<mode>.pt
+    and prints one line `DP14 {json}`: losses, ms/step, launches,
+    metrics."""
+    faulthandler.dump_traceback_later(DP_TIMEOUT_S, exit=True)
+    import torch
+    for path in (REPO, os.path.join(REPO, "tests")):
+        if path not in sys.path:
+            sys.path.insert(0, path)
+    from fastdet_torch.cli.evaluation import run_evaluation
+    from fastdet_torch.config import Config
+    from fastdet_torch.io import load_state_dict
+    from fastdet_torch.parallel import initialize_distributed, make_mesh
+    rank, world, port = (int(a) for a in argv[:3])
+    out, backend = argv[3], argv[4]
+    shared = argv[5:6] != ["own"]
+    initialize_distributed(f"localhost:{port}", world, rank,
+                           backend=None if backend == "default" else backend)
+    # every rank on the one card, or ("own") each on its own card
+    mesh = make_mesh(devices=["cuda:0"] if shared else None)
+    cfg = Config.from_file(DATA)
+    sd = load_state_dict(WEIGHTS)
+    with np.load(os.path.join(out, "case.npz")) as z:
+        case = {k: z[k] for k in z.files}
+    b = len(case["images"]) // world
+    rows = slice(rank * b, (rank + 1) * b)
+    counters = dp_counters()
+    res = {"rank": rank, "backend": torch.distributed.get_backend(),
+           "out": out, "modes": {}}
+    for mode in DP_MODES:
+        for c in counters.values():
+            c.launches = 0
+        tr = dp_trainer(sd, cfg, mode, mesh)
+        x = case["images" if mode == "default" else "images_s2d"][rows]
+        losses, ms = dp_steps(tr, x, case["labels"][rows],
+                              case["mask"][rows])
+        torch.save({k: v.detach().cpu() for k, v in
+                    tr.model.state_dict().items()},
+                   os.path.join(out, f"{backend}{world}_rank{rank}_"
+                                     f"{mode}.pt"))
+        res["modes"][mode] = {"losses": losses, "ms": ms, "launches": {
+            k: c.launches for k, c in counters.items() if c.launches}}
+        del tr
+    for c in counters.values():
+        c.launches = 0
+    eb = len(case["eval_images"]) // world
+    res["eval"] = dp_metrics(run_evaluation(
+        cfg, sd, dp_case_batches(case, slice(rank * eb, (rank + 1) * eb)),
+        fused=False, device=mesh.device, batch=min(DP_EVAL_BATCH, eb),
+        distributed=True))
+    res["eval_launches"] = {k: c.launches for k, c in counters.items()
+                            if c.launches}
+    print("DP14 " + json.dumps(res), flush=True)
+    torch.distributed.destroy_process_group()
+    faulthandler.cancel_dump_traceback_later()
+    return 0
+
+
+def dp_start(world, backend, out, own=False):
+    """Start phase 14's job: `world` ranks of this script on the card
+    (with `own`, each on its own card), each writing its output to DIR
+    `out` → (processes, their logs)."""
+    s = __import__("socket").socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    logs = [os.path.join(out, f"{backend}{world}_rank{r}.log")
+            for r in range(world)]
+    procs = []
+    for r, path in enumerate(logs):
+        with open(path, "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--dp-rank",
+                 str(r), str(world), str(port), out, backend]
+                + (["own"] if own else []), cwd=REPO,
+                stdout=f, stderr=subprocess.STDOUT))
+    return procs, logs
+
+
+def dp_results(procs, logs):
+    """Wait for every rank of a job → each rank's DP14 result, in rank
+    order.  A rank that fails or stays past DP_TIMEOUT_S fails the
+    phase; every rank is waited for (and killed past the limit)."""
+    t_end = time.perf_counter() + DP_TIMEOUT_S + 30
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, t_end - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for r, (p, path) in enumerate(zip(procs, logs)):
+        with open(path) as f:
+            text = f.read()
+        check(p.returncode == 0, f"phase 14 rank {r}/{len(procs)} exited "
+              f"{p.returncode}:\n{text[-4000:]}")
+        lines = [ln for ln in text.splitlines() if ln.startswith("DP14 ")]
+        check(len(lines) == 1, f"phase 14 rank {r}: no result:\n"
+              f"{text[-2000:]}")
+        results.append(json.loads(lines[0][5:]))
+    return results
+
+
+def dp_structural(a, b):
+    """JAX's check of two runs' final tensors (tests/test_multihost.py):
+    → the worst share of elements off by > 1e-3 and the largest |Δ|."""
+    frac, worst = 0.0, 0.0
+    for k, v in b.items():
+        d = (a[k].double() - v.double()).abs().flatten()
+        frac = max(frac, float((d > 1e-3).double().mean()))
+        worst = max(worst, float(d.max()))
+    return frac, worst
+
+
+def dp_bf16_rel(a, b):
+    """Phase 10's rule for bf16 steps: each tensor's max |Δ| over
+    max(max |ref|, 1e-2); the worst."""
+    return max(float((a[k].float() - v.float()).abs().max())
+               / max(float(v.float().abs().max()), 1e-2)
+               for k, v in b.items())
+
+
+def dp_check(tag, world, backend, results, ref, ref_eval, ref_keep,
+             card, secs, note="", where="cuda:0"):
+    """Hold one job's results (phase 14 (a) or (b)) against the
+    one-process reference and log them → its launches {path: {kernel:
+    n}}, the ranks' counts summed."""
+    import torch
+    launches = {}
+    out = results[0]["out"]
+    for res in results:
+        check(res["backend"] == ("gloo" if backend == "gloo" else "nccl"),
+              f"phase 14 ({tag}): backend {res['backend']}")
+    for mode in DP_MODES:
+        r0 = results[0]["modes"][mode]
+        states = [torch.load(os.path.join(out, f"{backend}{world}_rank{r}_"
+                                          f"{mode}.pt"))
+                  for r in range(world)]
+        for r in range(1, world):
+            check(all(torch.equal(states[r][k], v)
+                      for k, v in states[0].items()),
+                  f"phase 14 ({tag}) {mode}: rank {r}'s state differs from "
+                  "rank 0's")
+            check(results[r]["modes"][mode]["losses"] == r0["losses"],
+                  f"phase 14 ({tag}) {mode}: ranks logged different losses")
+        got0 = np.asarray(r0["losses"][0])
+        want0 = np.asarray(ref[mode]["losses"][0])
+        loss_rel = float((np.abs(got0 - want0) / np.abs(want0)).max())
+        if mode.endswith("bf16"):
+            rel = dp_bf16_rel(states[0], ref[mode]["state"])
+            ok = loss_rel <= BF16_STEP_RTOL and rel <= BF16_STEP_RTOL
+            held = (f"step-0 loss rel {loss_rel:.3g}, the state after "
+                    f"{DP_STEPS} steps {rel:.3g} of max |value| (each ≤ "
+                    f"2^-5)")
+        else:
+            frac, worst = dp_structural(states[0], ref[mode]["state"])
+            ok = (np.allclose(got0, want0, rtol=DP_LOSS_RTOL,
+                              atol=DP_LOSS_ATOL)
+                  and frac < 0.05 and worst < 5e-2)
+            held = (f"step-0 loss rel {loss_rel:.3g} (rtol 2e-4), after "
+                    f"{DP_STEPS} steps {frac:.2%} of a tensor's elements "
+                    f"off by > 1e-3 at worst (< 5%), max |Δ| {worst:.3g} "
+                    f"(< 5e-2)")
+        check(ok, f"phase 14 ({tag}) {mode}: {held}; losses "
+              f"{r0['losses']} against {ref[mode]['losses']}")
+        got_l = {}
+        for res in results:
+            for k, n in res["modes"][mode]["launches"].items():
+                got_l[k] = got_l.get(k, 0) + n
+        dt = "_bf16" if mode.endswith("bf16") else ""
+        want_l = {} if mode == "default" else {
+            f"span_train_fwd{dt}": 3 * DP_STEPS * world,
+            f"span_train_bwd{dt}": 3 * DP_STEPS * world,
+            f"stem_train_fwd{dt}": DP_STEPS * world,
+            f"stem_train_bwd{dt}": DP_STEPS * world}
+        check(got_l == want_l, f"phase 14 ({tag}) {mode}: launches "
+              f"{got_l}, want {want_l}")
+        if mode != "default":
+            launches[f"dp_train_{mode}"] = got_l
+        log(f"phase 14 ({tag}) {mode}: {world} {results[0]['backend']} "
+            f"rank(s) on {where} at b{DP_BATCH // world} each: {held}; "
+            f"ms/step {r0['ms']:.1f}{note} against one process's "
+            f"{ref[mode]['ms']:.1f} at b{DP_BATCH} (readings, {card}); "
+            f"launches over the ranks {got_l}")
+    check(all(res["eval"] == results[0]["eval"] for res in results),
+          f"phase 14 ({tag}): the ranks' metrics differ: "
+          f"{[res['eval'] for res in results]}")
+    # the gather packs the stats as f32, as the JAX package's does (one
+    # process keeps tp in f64): the metrics agree to ~1e-8, and the CLI
+    # prints 6 decimals
+    ev_diff = max(abs(a - b) for ga, gb in zip(results[0]["eval"], ref_eval)
+                  for a, b in zip(ga, gb))
+    check(ev_diff <= DP_EVAL_ATOL, f"phase 14 ({tag}): eval "
+          f"{results[0]['eval']} against one process's {ref_eval}")
+    keep = sum(res["eval_launches"].get("nms_keep", 0) for res in results)
+    check(keep == ref_keep and set().union(*(
+        res["eval_launches"] for res in results)) == {"nms_keep"},
+        f"phase 14 ({tag}): eval launches "
+        f"{[res['eval_launches'] for res in results]}, the one process's "
+        f"nms_keep {ref_keep}")
+    launches["dp_eval"] = {"nms_keep": keep}
+    log(f"phase 14 ({tag}) eval: run_evaluation(distributed=True) on "
+        f"{DP_EVAL_IMAGES} images, {DP_EVAL_IMAGES // world} a rank: both "
+        f"passes' P/R/AP/F1 equal on every rank, {ev_diff:.3g} from one "
+        f"process's (≤ {DP_EVAL_ATOL:g}; {ref_eval}); nms_keep launched "
+        f"{keep} times over the ranks; the job took {secs:.1f} s (host "
+        f"clock, process starts included)")
+    return launches
+
+
+def dp_pipelines(sd, photo, dev_pipe, big):
+    """Phase 14 (c): `ShardedPipeline` and `FusedPipeline(mesh=)` in f32
+    and bf16 over a local mesh of cuda:0 twice, on 5 copies of the photo
+    and on b127, against the single-device pipelines → launches {path:
+    {kernel: n}} over both batches."""
+    import torch
+    from fastdet_torch.config import Config
+    from fastdet_torch.kernels import fused_infer as fi
+    from fastdet_torch.kernels import pp_fused
+    from fastdet_torch.models import Detector
+    from fastdet_torch.parallel import make_mesh
+    from fastdet_torch.serve import FusedPipeline, ShardedPipeline
+    cfg = Config.from_file(DATA)
+    mesh = make_mesh(devices=["cuda:0", "cuda:0"])
+    batches = {"b5": np.stack([resize_u8(photo)] * 5),
+               "b127": big[:127].cpu().numpy()}
+    pipes = {
+        "sharded_f32": (ShardedPipeline(Detector(80, 3), sd, cfg,
+                                        mesh=mesh), dev_pipe),
+        "fused_f32": (FusedPipeline(sd, cfg, dtype=torch.float32,
+                                    mesh=mesh),
+                      FusedPipeline(sd, cfg, dtype=torch.float32)),
+        "fused_bf16": (FusedPipeline(sd, cfg, mesh=mesh),
+                       FusedPipeline(sd, cfg))}
+    wrappers = {"fused_f32": ("stem_s2d", "span"),
+                "fused_bf16": ("stem_s2d_bf16", "span_bf16")}
+    launches = {}
+    for name, (pipe, single) in pipes.items():
+        kernels = [getattr(fi, k) for k in wrappers.get(name, ())] + [
+            pp_fused.rank_decode_nms]
+        got = {}
+        for tag, x in batches.items():
+            want = single(x)
+            for k in kernels:
+                k.launches = 0
+            rows = pipe(x)
+            torch.cuda.synchronize()
+            n = {k.__name__: k.launches for k in kernels}
+            for k, v in n.items():
+                got[k] = got.get(k, 0) + v
+            worst = max((float(np.abs(a - b).max()) for a, b in
+                         zip(rows, want) if len(a) and len(a) == len(b)),
+                        default=0.0)
+            check(len(rows) == len(want) == len(x)
+                  and all(len(a) == len(b) for a, b in zip(rows, want))
+                  and sum(len(a) for a in rows) > 0 and worst <= 1e-4,
+                  f"phase 14 (c) {name} {tag}: counts "
+                  f"{[len(a) for a in rows]} against "
+                  f"{[len(b) for b in want]}, max |Δ| {worst:.3g}")
+            check(n["rank_decode_nms"] == mesh.size
+                  and all(v > 0 for v in n.values()),
+                  f"phase 14 (c) {name} {tag}: launches {n}")
+            log(f"phase 14 (c) {name} {tag} over {mesh}: "
+                f"{sum(len(a) for a in rows)} detections, counts equal to "
+                f"the single-device pipeline's, max |Δ| {worst:.3g} "
+                f"(≤ 1e-4); launches {n}")
+        launches[name] = got
+    return launches
+
+
+def dp_reference(sd, photo, dev_pipe, eval_images, out, eval_batch):
+    """Phase 14's case and its one-process reference: 8b's seeded b128
+    batch (labels from `dev_pipe`'s detections), s2d-packed, and phase
+    7's eval images with their labels, written to DIR `out` for the
+    ranks; DP_STEPS steps in each of DP_MODES and both eval passes in
+    b`eval_batch` batches, in this process → ({mode: losses, ms, final
+    state}, the eval's metrics, its nms_keep launches)."""
+    from fastdet_torch.cli.evaluation import run_evaluation
+    from fastdet_torch.config import Config
+    from fastdet_torch.kernels.fused_infer import pack_images_s2d
+    cfg = Config.from_file(DATA)
+    check(cfg.batch_size == DP_BATCH and len(eval_images) == DP_EVAL_IMAGES,
+          "phase 14's batch sizes")
+    images = photo_variants(photo, DP_BATCH, seed=21)
+    labels, mask = eval_labels(dev_pipe(images), seed=21)
+    e_labels, e_mask = eval_labels(dev_pipe(eval_images), seed=7)
+    case = {"images": images, "images_s2d": pack_images_s2d(images),
+            "labels": labels, "mask": mask, "eval_images": eval_images,
+            "eval_labels": e_labels, "eval_mask": e_mask}
+    np.savez(os.path.join(out, "case.npz"), **case)
+    ref = {}
+    for mode in DP_MODES:
+        tr = dp_trainer(sd, cfg, mode, None)
+        x = case["images" if mode == "default" else "images_s2d"]
+        losses, ms = dp_steps(tr, x, labels, mask)
+        ref[mode] = {"losses": losses, "ms": ms, "state": {
+            k: v.detach().cpu() for k, v in tr.model.state_dict().items()}}
+        del tr
+    counters = dp_counters()
+    for c in counters.values():
+        c.launches = 0
+    ref_eval = dp_metrics(run_evaluation(cfg, sd, dp_case_batches(
+        case, slice(0, DP_EVAL_IMAGES)), fused=False, device="cuda",
+        batch=eval_batch))
+    return ref, ref_eval, counters["nms_keep"].launches
+
+
+def phase_parallel(sd, photo, card, dev_pipe, eval_images, big):
+    """14. Data parallel (A12) on the card at full width: Yolo-FastestV2,
+    80 classes, 352², the reference weights, global b128 (phase 8b's
+    seeded batch), 4 steps in each of DP_MODES.
+      (a) two gloo ranks, both on cuda:0 (NCCL refuses two ranks on one
+          device), started as subprocesses of this script, each on its
+          64 rows through `Trainer(mesh=make_mesh(...))`, against one
+          process on the same global batch: the step-0 loss components
+          at rtol 2e-4 atol 1e-6 in f32 (JAX's check), within
+          BF16_STEP_RTOL in bf16 (phase 10's step gate); after 4 steps
+          JAX's structural check on every tensor in f32 (≥ 95% of the
+          elements within 1e-3, none beyond 5e-2), phase 10's rule in
+          bf16; the ranks' states bit for bit equal; then
+          `run_evaluation(distributed=True)` on phase 7's 256 images,
+          128 a rank: both passes' (P, R, AP, F1) equal on both ranks and
+          within DP_EVAL_ATOL of the one-process run's (the gathered
+          stats are f32, as the JAX package's);
+      (b) a 1-rank job through `initialize_distributed`'s default backend
+          (nccl) running the same, held the same way; it runs beside (c),
+          so its ms/step is read with (c) on the card;
+      (c) `dp_pipelines`: counts equal to the single-device pipeline's
+          and every column within 1e-4 (JAX's tests/test_native.py).
+    Each mode's ms/step, 2 ranks against 1, as readings.  → launches
+    {path: {kernel: n}} ((a)'s and (c)'s; the ranks' counts summed)."""
+    import tempfile
+    t_phase = time.perf_counter()
+    out = tempfile.mkdtemp(prefix="fastdet_dp_")
+    procs = []
+    try:
+        ref, ref_eval, ref_keep = dp_reference(sd, photo, dev_pipe,
+                                               eval_images, out,
+                                               DP_EVAL_BATCH)
+        # ---- (a) two gloo ranks
+        t0 = time.perf_counter()
+        procs, logs = dp_start(2, "gloo", out)
+        results = dp_results(procs, logs)
+        launches = dp_check("a", 2, "gloo", results, ref, ref_eval,
+                            ref_keep, card, time.perf_counter() - t0)
+        # ---- (b) one nccl rank, beside (c)
+        t0 = time.perf_counter()
+        procs, logs = dp_start(1, "default", out)
+        launches.update(dp_pipelines(sd, photo, dev_pipe, big))
+        results = dp_results(procs, logs)
+        dp_check("b", 1, "default", results, ref, ref_eval, ref_keep, card,
+                 time.perf_counter() - t0, note=" (beside (c))")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(out, ignore_errors=True)
+    log(f"phase 14 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import torch
@@ -5393,6 +5861,9 @@ def main() -> int:
     deploy_launches = phase_deploy(sd, photo, card, big, dev_pipe,
                                    fused_pipe)
     lap("13")
+    dp_launches = phase_parallel(sd, photo, card, dev_pipe, eval_images,
+                                 big)
+    lap("14")
     log('phase 6 kernels: ["stem_s2d", "span", "rank_decode_nms", '
         '"nms_keep", "span_train", "stem_train", "stem_s2d8", "s2span"] '
         f'(rank_decode_nms launches on the device path: {launches}; '
@@ -5407,7 +5878,8 @@ def main() -> int:
         f'nms_keep on the int8 path: {int8_launches["rank_decode_nms"]}, '
         f'{int8_launches["nms_keep"]}; the convergence runs: '
         f'{conv_launches}; the streams and the bf16 DevicePipeline of '
-        f'phase 13: {deploy_launches}')
+        f'phase 13: {deploy_launches}; the data-parallel paths of phase '
+        f'14: {dp_launches}')
     log("phase times (host clock, s): " + ", ".join(
         f"{name} {t - laps[i][1]:.1f}"
         for i, (name, t) in enumerate(laps[1:]))
@@ -5618,6 +6090,55 @@ def main() -> int:
             "launches": deploy_launches[path]["rank_decode_nms"],
             "max_abs_err": b3[4], "ms": b3[0], "plain_ms": b3[1],
             "bound_ms": b3[2], "bound_by": b3[3], "library_ms": None})
+    # phase 14: the data-parallel paths, launches counted over both gloo
+    # ranks (B7 and B8 in the fused s2d modes, nms_keep in the distributed
+    # eval) and over the sharded pipelines (B1, B2, B3); the times are
+    # the same kernels' at b128 352² in phases 4, 4b, 7, 8a, 8c, 9 and 10
+    f32_train = {"span_train_fwd": ("span_train", ":329", b8["fwd"]),
+                 "span_train_bwd": ("span_train", ":362", b8["bwd"]),
+                 "stem_train_fwd": ("stem_train", ":462", b7["g1"]["fwd"]),
+                 "stem_train_bwd": ("stem_train", ":490", b7["g1"]["bwd"])}
+    dp_entries = [
+        ("dp_train_fused_s2d", name, src, "fastdet/kernels/"
+         + ("fused_train.py" if "span" in name else "stem_train.py") + at,
+         nums) for name, (src, at, nums) in f32_train.items()]
+    for name, key, src, at in (
+            ("span_train_fwd_bf16", "span_train_fwd_bf16", "span16_train",
+             "fused_train.py:329"),
+            ("span_train_bwd_bf16", "span_train_bwd_bf16", "span16_train",
+             "fused_train.py:362"),
+            ("stem_train_fwd_bf16", "stem_train_fwd_bf16_g1",
+             "stem16_train", "stem_train.py:462"),
+            ("stem_train_bwd_bf16", "stem_train_bwd_bf16_g1",
+             "stem16_train", "stem_train.py:490")):
+        dp_entries.append(("dp_train_fused_s2d_bf16", name, src,
+                           "fastdet/kernels/" + at, train16[key]))
+    dp_entries.append(("dp_eval", "nms_keep", "nms_keep",
+                       "fastdet/kernels/nms_kernel.py:201",
+                       eval_nms[1815] + (None,)))
+    for path, name, src, at, nums in (
+            ("fused_f32", "stem_s2d", "stem_s2d", ":418",
+             fused_main["stem_s2d"] + (None,)),
+            ("fused_f32", "span", "span", ":219",
+             fused_main["span"] + (None,)),
+            ("fused_bf16", "stem_s2d_bf16", "stem_s2d", ":422",
+             bf16_main["stem_s2d_bf16"]),
+            ("fused_bf16", "span_bf16", "span", ":223",
+             bf16_main["span_bf16"])):
+        dp_entries.append((path, name, src, "fastdet/kernels/fused_infer.py"
+                           + at, nums))
+    for path in ("sharded_f32", "fused_f32", "fused_bf16"):
+        dp_entries.append((path, "rank_decode_nms", "pp_fused",
+                           "fastdet/kernels/pp_fused.py:156", b3 + (None,)))
+    for path, name, src, replaces, nums in dp_entries:
+        k_ms, k_plain, k_bound, k_by, k_err, k_lib = nums
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"fastdet_torch/csrc/{src}.cu", "replaces": replaces,
+            "path": f"phase 14 {path}",
+            "launches": dp_launches[path][name],
+            "max_abs_err": k_err, "ms": k_ms, "plain_ms": k_plain,
+            "bound_ms": k_bound, "bound_by": k_by, "library_ms": k_lib})
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {
@@ -5628,4 +6149,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-rank"]:        # one rank of phase 14's job
+        sys.exit(dp_rank_main(sys.argv[2:]))
     sys.exit(main())

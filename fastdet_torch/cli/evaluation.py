@@ -18,6 +18,11 @@ through the `nms_keep` kernel.  `--model anchorfree` decodes the
 single-scale maps and suppresses with `batched_nms` in every mode, as the
 JAX CLI does.
 
+Multi-process, as the JAX CLI: the FASTDET_* variables (see
+`fastdet_torch.cli.train`) start a job; each process evaluates its shard
+of the val set (`DataLoader(shard=(rank, n))`) and the statistics are
+all-gathered, so that every process prints the global metrics.
+
 The data loader reads images with cv2, which the card's machine lacks;
 `run_evaluation` takes the batches from its caller, so that
 `chip_smoke.py` drives the same chain with in-memory batches.
@@ -43,6 +48,7 @@ from fastdet_torch.models.anchorfree import decode_anchorfree
 from fastdet_torch.models.registry import family_name, get_family
 from fastdet_torch.ops.nms import batched_nms
 from fastdet_torch.ops.postprocess import postprocess
+from fastdet_torch.parallel import initialize_distributed, make_mesh
 from fastdet_torch.quant import forward_from, infer_family, load_quantized
 
 MAP_PASS = dict(conf_thres=0.01, iou_thres=0.4, max_nms=2048)
@@ -52,15 +58,18 @@ PR_PASS = dict(conf_thres=0.3, iou_thres=0.4, max_nms=1024)
 def run_evaluation(cfg: Config, state_dict, batches: Callable[[int],
                                                               Iterable], *,
                    fused: bool, device=None, batch: int,
-                   family: str = "yolo-fastestv2", int8=None):
+                   family: str = "yolo-fastestv2", int8=None,
+                   distributed: bool = False):
     """The eval CLI after data loading: both passes over `batches(batch)`,
     which yields (images_u8 (B,H,W,3) with B ≤ batch, labels (B,M,5)
     normalized [cls,cx,cy,w,h], label_mask (B,M)) and is called once per
     pass, for the model family `family` (`models/registry.py`) whose
     weights `state_dict` holds.  `int8=(qw, scales)` (`load_quantized`)
     evaluates the int8 forward instead, of the artifact's own family;
-    `state_dict` and `fused` are then unused.  → (mAP pass, P/R pass),
-    each `evaluate`'s (P, R, mAP, F1) or None."""
+    `state_dict` and `fused` are then unused.  `distributed`: the batches
+    are this process's shard of a job's val set, and the statistics are
+    gathered over the job (`evaluate(distributed=True)`).  → (mAP pass,
+    P/R pass), each `evaluate`'s (P, R, mAP, F1) or None."""
     dev = resolve_device(device)
     hw = (cfg.height, cfg.width)
     anchors = np.asarray(cfg.anchors, np.float32).reshape(
@@ -110,10 +119,10 @@ def run_evaluation(cfg: Config, state_dict, batches: Callable[[int],
 
     print("computer mAP...")
     res_map = evaluate(make_detect(**MAP_PASS), on_device(), hw,
-                       progress=True)
+                       progress=True, distributed=distributed)
     print("computer PR...")
     res_pr = evaluate(make_detect(**PR_PASS), on_device(), hw,
-                      progress=True)
+                      progress=True, distributed=distributed)
     return res_map, res_pr
 
 
@@ -146,6 +155,15 @@ def main(argv=None) -> int:
     print("val:%s" % cfg.val)
     print("model_path:%s" % opt.weights)
 
+    # multi-process entry: the FASTDET_* variables start a job
+    device, shard = opt.device, None
+    if initialize_distributed(backend="gloo" if opt.device == "cpu"
+                              else None):
+        mesh = make_mesh(devices=None if opt.device == "cuda"
+                         else [opt.device])
+        print(f"distributed: process {mesh.rank + 1}/{mesh.size}")
+        device, shard = mesh.device, (mesh.rank, mesh.size)
+
     from fastdet_torch.data import DarknetDataset, DataLoader
     if opt.int8:               # the artifact names its family
         int8, state_dict = load_quantized(opt.int8), None
@@ -155,20 +173,23 @@ def main(argv=None) -> int:
     val_ds = DarknetDataset(cfg.val, cfg.width, cfg.height, augment=None)
 
     def batches(bs):
-        loader = DataLoader(val_ds, bs, shuffle=False, drop_last=False)
+        loader = DataLoader(val_ds, bs, shuffle=False, drop_last=False,
+                            shard=shard)
         try:
             yield from loader
         finally:
             loader.close()
 
     res_map, res_pr = run_evaluation(cfg, state_dict, batches,
-                                     fused=opt.fused, device=opt.device,
+                                     fused=opt.fused, device=device,
                                      batch=batch_size, family=family,
-                                     int8=int8)
+                                     int8=int8, distributed=shard is not None)
     ap = res_map[2] if res_map else 0.0
     precision, recall, f1 = (res_pr[0], res_pr[1], res_pr[3]) if res_pr \
         else (0.0, 0.0, 0.0)
     print("Precision:%f Recall:%f AP:%f F1:%f" % (precision, recall, ap, f1))
+    if shard is not None:
+        torch.distributed.destroy_process_group()
     return 0
 
 

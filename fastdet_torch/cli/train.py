@@ -26,9 +26,21 @@ bf16 (parameters, gradients and momentum f32; with `--fused-backbone` the
 bf16 forms of the span kernel), while the evaluation at eval epochs and
 the saved weights stay f32.  `--backbone` initialises the backbone from
 a reference `.pth` backbone checkpoint or a `.npz` (backbone-only or
-whole), as the JAX CLI does, when no `pre_weights` finetune applies.  Not
-ported, it raises naming its ROADMAP item: multi-process jobs through the
-FASTDET_* environment variables (A12).
+whole), as the JAX CLI does, when no `pre_weights` finetune applies.
+
+Multi-process data parallel, as the JAX CLI: FASTDET_COORDINATOR
+(host:port of rank 0), FASTDET_NUM_PROCESSES and FASTDET_PROCESS_ID
+start a `torch.distributed` job (nccl on the card, gloo with `--device
+cpu`), one process per device; `batch_size/subdivisions` is the global
+batch, which must divide over the processes, and each loads its
+`global/n` rows through `DataLoader(shard=(rank, n))`.  The Trainer takes
+the job's mesh (`Trainer(mesh=)`), the evaluation gathers every rank's
+statistics, and only rank 0 saves weights and checkpoints and writes
+logs.  A CPU job on one machine:
+
+  for i in 0 1; do FASTDET_COORDINATOR=localhost:29512 \
+      FASTDET_NUM_PROCESSES=2 FASTDET_PROCESS_ID=$i python -m \
+      fastdet_torch.cli.train --data X.data --device cpu & done; wait
 
 The data loader reads images with cv2, which the card's machine lacks;
 `run_training` takes the batches from its caller, so that
@@ -52,6 +64,7 @@ from fastdet_torch.io import (latest_step, load_checkpoint, load_state_dict,
                               load_torch_weights, merge_variables,
                               save_checkpoint, save_npz_variables)
 from fastdet_torch.models.registry import family_name, get_family
+from fastdet_torch.parallel import initialize_distributed, make_mesh
 from fastdet_torch.train.trainer import Trainer
 from fastdet_torch.utils import MetricsLogger, StepTimer, trace
 
@@ -65,7 +78,8 @@ def run_training(cfg: Config, state_dict, batches: Callable[[int], Iterable],
                  ckpt_dir: Optional[str] = None, resume: bool = False,
                  profile: str = "", mlog: Optional[MetricsLogger] = None,
                  family: str = "yolo-fastestv2",
-                 dtype: torch.dtype = torch.float32) -> Trainer:
+                 dtype: torch.dtype = torch.float32,
+                 mesh=None) -> Trainer:
     """The train CLI after data loading.  `batches(epoch)` yields
     (images_u8 (B,H,W,3), labels (B,M,5) normalized [cls,cx,cy,w,h],
     label_mask (B,M)) for one epoch; `steps_per_epoch` (the schedule's)
@@ -74,16 +88,20 @@ def run_training(cfg: Config, state_dict, batches: Callable[[int], Iterable],
     periodic evaluation.  `family` names the model family
     (`models/registry.py`) whose weights `state_dict` holds; `dtype`
     its compute dtype (bfloat16 for `--bf16`; the evaluation stays f32).
-    → the Trainer."""
-    dev = resolve_device(device)
+    `mesh`: a job's `make_mesh()`; the batches are then this rank's rows,
+    the evaluation gathers every rank's statistics, and only rank 0
+    saves.  → the Trainer."""
+    dev = resolve_device(device if mesh is None else mesh.device)
     fam = get_family(family, cfg, dtype=dtype)
     fam.model.load_state_dict(state_dict)
     spe = steps_per_epoch or len(batches(0))
     trainer = Trainer(fam.model, cfg, spe, fused_backbone=fused_backbone,
-                      device=dev, loss_fn=fam.loss_fn)
+                      device=dev, loss_fn=fam.loss_fn, mesh=mesh)
     mlog = mlog or MetricsLogger(None)
     timer = StepTimer()
-    bsz = int(cfg.batch_size / (cfg.subdivisions or 1))
+    ranks = 1 if mesh is None else mesh.size
+    primary = mesh is None or mesh.rank == 0
+    bsz = int(cfg.batch_size / (cfg.subdivisions or 1)) // ranks
 
     start_epoch = 0
     if resume and ckpt_dir:
@@ -129,26 +147,27 @@ def run_training(cfg: Config, state_dict, batches: Callable[[int], Iterable],
                        for k, v in trainer.model.state_dict().items()}
             res_map, res_pr = run_evaluation(cfg, eval_sd, val_batches,
                                              fused=False, device=dev,
-                                             batch=bsz, family=fam.name)
+                                             batch=bsz, family=fam.name,
+                                             distributed=mesh is not None)
             ap = res_map[2] if res_map else 0.0
             precision, recall, f1 = (res_pr[0], res_pr[1], res_pr[3]) \
                 if res_pr else (0.0, 0.0, 0.0)
             print("Precision:%f Recall:%f AP:%f F1:%f"
                   % (precision, recall, ap, f1))
-            if weights_dir:
+            if weights_dir and primary:
                 out = os.path.join(weights_dir, "%s-%d-epoch-%fap-model.npz"
                                    % (cfg.model_name, epoch, ap))
                 save_npz_variables(eval_sd, out)
                 print("saved", out)
-            if ckpt_dir:
+            if ckpt_dir and primary:
                 # step = completed epochs: --resume continues at epoch+1
                 save_checkpoint(ckpt_dir, epoch + 1, trainer.state_dict())
         if steps is not None and done >= steps:
             break
 
-    if ckpt_dir and steps is None:
+    if ckpt_dir and steps is None and primary:
         save_checkpoint(ckpt_dir, cfg.epochs, trainer.state_dict())
-    if weights_dir and steps is None:
+    if weights_dir and steps is None and primary:
         save_npz_variables(trainer.model.state_dict(), os.path.join(
             weights_dir, "%s-final-model.npz" % cfg.model_name))
     return trainer
@@ -198,26 +217,39 @@ def main(argv=None) -> int:
     if opt.fused_backbone and family != "yolo-fastestv2":
         raise SystemExit("--fused-backbone supports the yolo-fastestv2 "
                          "family only")
-    if any(os.environ.get(v) for v in ("FASTDET_COORDINATOR",
-                                       "FASTDET_NUM_PROCESSES",
-                                       "FASTDET_PROCESS_ID")):
-        raise NotImplementedError(
-            "fastdet_torch: multi-process training is ROADMAP A12, not "
-            "ported yet")
     chain = max(1, opt.chain)          # as the JAX CLI clamps it
 
     cfg = Config.from_file(opt.data)
     print("train config:")
     print(cfg.to_dict())
 
+    # multi-process entry: the FASTDET_* variables start a job
+    mesh = None
+    if initialize_distributed(backend="gloo" if opt.device == "cpu"
+                              else None):
+        mesh = make_mesh(devices=None if opt.device == "cuda"
+                         else [opt.device])
+        print(f"distributed: process {mesh.rank + 1}/{mesh.size}")
+    nproc = 1 if mesh is None else mesh.size
+
     from fastdet_torch.data import DarknetDataset, DataLoader, default_augment
     train_ds = DarknetDataset(cfg.train, cfg.width, cfg.height,
                               augment=default_augment)
     val_ds = DarknetDataset(cfg.val, cfg.width, cfg.height, augment=None)
-    batch_size = int(cfg.batch_size / (cfg.subdivisions or 1))
+    # batch_size/subdivisions is the GLOBAL batch of a micro-step; each
+    # process loads and feeds 1/nproc of it
+    global_bs = int(cfg.batch_size / (cfg.subdivisions or 1))
+    if global_bs % nproc:
+        raise SystemExit(f"batch_size/subdivisions ({global_bs}) must "
+                         f"divide evenly over {nproc} processes")
+    batch_size = global_bs // nproc
     nw = min(os.cpu_count() or 1, batch_size if batch_size > 1 else 1, 8)
+    shard = None if mesh is None else (mesh.rank, nproc)
+    if shard is not None:
+        print(f"input shard {shard[0] + 1}/{shard[1]}")
+        print(f"data-parallel mesh over {nproc} devices")
     train_loader = DataLoader(train_ds, batch_size, shuffle=True,
-                              drop_last=True, num_workers=nw)
+                              drop_last=True, num_workers=nw, shard=shard)
 
     # seeded init; pre_weights merge with strict=False semantics
     # (matching tensors load, the rest keep the fresh init)
@@ -253,13 +285,16 @@ def main(argv=None) -> int:
 
     def val_batches(bs):
         loader = DataLoader(val_ds, bs, shuffle=False, drop_last=False,
-                            num_workers=nw)
+                            num_workers=nw, shard=shard)
         try:
             yield from loader
         finally:
             loader.close()
 
-    mlog = MetricsLogger(opt.logdir or None, "train", tensorboard=opt.tb)
+    # host files (metrics, weights, checkpoints): rank 0 only
+    primary = mesh is None or mesh.rank == 0
+    mlog = MetricsLogger((opt.logdir or None) if primary else None, "train",
+                         tensorboard=opt.tb)
     try:
         run_training(cfg, state_dict, batches, family=family,
                      fused_backbone=opt.fused_backbone, device=opt.device,
@@ -267,10 +302,13 @@ def main(argv=None) -> int:
                      val_batches=val_batches, eval_every=opt.eval_every,
                      weights_dir=opt.weights_dir, ckpt_dir=opt.ckpt_dir,
                      resume=opt.resume, profile=opt.profile, mlog=mlog,
-                     dtype=torch.bfloat16 if opt.bf16 else torch.float32)
+                     dtype=torch.bfloat16 if opt.bf16 else torch.float32,
+                     mesh=mesh)
     finally:
         mlog.close()
         train_loader.close()
+        if mesh is not None:
+            torch.distributed.destroy_process_group()
     return 0
 
 

@@ -27,11 +27,12 @@ def evaluate(detect_fn: Callable, batches: Iterable,
 
     batches yields (images_u8 (B,H,W,3), labels (B,M,5) [cls,cx,cy,w,h]
     normalized, label_mask (B,M)).  Returns (P, R, mAP, F1) or None if
-    there were no detections at all."""
-    if distributed:
-        raise NotImplementedError(
-            "fastdet_torch: distributed evaluation (stats gathered across "
-            "processes) is ROADMAP A12, not ported yet")
+    there were no detections at all.
+
+    distributed=True: each process of a job evaluated its own shard; the
+    stats and labels are all-gathered in rank order
+    (`parallel.gather_eval_stats`), so that every process returns the
+    global metrics.  On one process it changes nothing."""
     h, w = input_hw
     all_stats = []
     all_labels = []
@@ -63,6 +64,10 @@ def evaluate(detect_fn: Callable, batches: Iterable,
 
         all_stats.extend(batch_statistics(det_list, gt_boxes, gt_labels,
                                           iou_thres))
+
+    if distributed:
+        from fastdet_torch.parallel.multihost import gather_eval_stats
+        all_stats, all_labels = gather_eval_stats(all_stats, all_labels)
 
     if not all_stats:
         print("---- No detections over whole validation set ----")

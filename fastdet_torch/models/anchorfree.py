@@ -41,7 +41,8 @@ from fastdet_torch.ops.decode import make_grid
 from fastdet_torch.ops.iou import bbox_ciou
 from fastdet_torch.ops.nms import batched_nms
 from fastdet_torch.train.loss import (BOX_GAIN, CLS_GAIN, OBJ_GAIN,
-                                      _bce_logits, _masked_mean)
+                                      _bce_logits, _grid_mean,
+                                      _masked_mean)
 from fastdet_torch.train.targets import _OFFSETS
 
 
@@ -172,7 +173,7 @@ def build_anchorfree_fused_detect(state_dict, input_hw=(352, 352),
     return detect, packed
 
 
-def anchorfree_loss(outputs, labels, label_mask, input_hw):
+def anchorfree_loss(outputs, labels, label_mask, input_hw, group=None):
     """Dense anchor-free loss: centre + neighbour cell assignment, CIoU box,
     BCE obj over the grid, softmax CE cls at the assigned cells.
 
@@ -185,7 +186,8 @@ def anchorfree_loss(outputs, labels, label_mask, input_hw):
     assigned cells accumulate their gradients where cells repeat.
     Invalid candidates get the unit box [0, 0, 1, 1] as their target.
     `input_hw` is unused, as in the JAX function: the loss works in grid
-    units."""
+    units.  `group`: global normalizers over a data-parallel group, as
+    `compute_loss` takes them."""
     obj, cls, reg = (o.float() for o in outputs)
     b, h, w, _ = obj.shape
     nc = cls.shape[-1]
@@ -224,13 +226,13 @@ def anchorfree_loss(outputs, labels, label_mask, input_hw):
     tbox = torch.where(mask[..., None], tbox,
                        torch.tensor([0.0, 0.0, 1.0, 1.0], device=dev))
     pbox = torch.cat([pxy, pwh], -1)
-    lbox = _masked_mean(1.0 - bbox_ciou(pbox, tbox), maskf)
+    lbox = _masked_mean(1.0 - bbox_ciou(pbox, tbox), maskf, group)
 
     # obj: BCE over the grid, target 1 at assigned cells (a scatter-max)
     cell = (b_idx * h + gj) * w + gi
     tobj = torch.zeros(b * h * w, device=dev).scatter_reduce_(
         0, cell.reshape(-1), maskf.reshape(-1), reduce="amax")
-    lobj = _bce_logits(obj[..., 0], tobj.reshape(b, h, w)).mean()
+    lobj = _grid_mean(_bce_logits(obj[..., 0], tobj.reshape(b, h, w)), group)
 
     # cls at assigned cells
     if nc > 1:
@@ -238,7 +240,7 @@ def anchorfree_loss(outputs, labels, label_mask, input_hw):
         tcls = cls_t.clamp(0, nc - 1)[:, :, None, None].expand(
             -1, -1, logp.shape[2], 1)
         ce = -logp.gather(-1, tcls)[..., 0]
-        lcls = _masked_mean(ce, maskf) / nc
+        lcls = _masked_mean(ce, maskf, group) / nc
     else:
         lcls = torch.zeros((), device=dev)
 

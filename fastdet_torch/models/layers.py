@@ -10,6 +10,18 @@ mean((x-μ)²), eps 1e-5) and updates the running statistics as flax does
 with momentum 0.9: running = 0.9·running + (1 - 0.9)·batch, from the
 biased variance.  `F.batch_norm(training=True)` is not used for that
 update: it would store the unbiased variance.
+
+Data parallel: with a process group set on the module
+(`fastdet_torch.parallel.sync_batchnorm`, as
+`nn.SyncBatchNorm.convert_sync_batchnorm` converts a model), training
+mode takes the global batch's two-pass statistics over the group's
+ranks, which hold equal batches: μ = all_reduce(Σx)/N, then var =
+all_reduce(Σ(x−μ)²)/N, through the differentiable
+`torch.distributed.nn.functional.all_reduce`, whose backward sums the
+statistics' cotangents across the ranks as the global program does.  The
+running statistics update from the global ones.  Two-pass statistics do
+not depend on how the batch is partitioned, which is why the JAX package
+chose `use_fast_variance=False`.  Without a group no collective runs.
 """
 
 from __future__ import annotations
@@ -68,7 +80,9 @@ def deploy_maps(reg, obj, cls):
 class BatchNorm(nn.Module):
     """BatchNorm over dim 1 with eps 1e-5.  State dict keys are
     ``weight``, ``bias``, ``running_mean`` and ``running_var`` (no
-    ``num_batches_tracked``: the JAX variables have none)."""
+    ``num_batches_tracked``: the JAX variables have none).
+    `process_group` (None: this process's batch alone) makes training
+    mode's statistics the group's global batch's."""
 
     def __init__(self, features: int):
         super().__init__()
@@ -76,6 +90,7 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
+        self.process_group = None
 
     def forward(self, x):
         if x.dtype == BF16:
@@ -83,14 +98,29 @@ class BatchNorm(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, BN_EPS)
-        dims = [d for d in range(x.dim()) if d != 1]
         shape = [1, -1] + [1] * (x.dim() - 2)
-        mean = x.mean(dims)
-        d = x - mean.view(shape)
-        var = (d * d).mean(dims)
+        mean, d, var = self._stats(x)
         update_running_stats(self, mean, var)
         mul = torch.rsqrt(var + BN_EPS) * self.weight
         return d * mul.view(shape) + self.bias.view(shape)
+
+    def _stats(self, x):
+        """(μ, x − μ, var) over every dim but 1: the batch's, or the
+        group's global batch's."""
+        dims = [d for d in range(x.dim()) if d != 1]
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        group = self.process_group
+        if group is None:
+            mean = x.mean(dims)
+            d = x - mean.view(shape)
+            return mean, d, (d * d).mean(dims)
+        from torch.distributed import get_world_size
+        from torch.distributed.nn.functional import all_reduce
+        n = x.numel() // x.shape[1] * get_world_size(group)
+        mean = all_reduce(x.sum(dims), group=group) / n
+        d = x - mean.view(shape)
+        var = all_reduce((d * d).sum(dims), group=group) / n
+        return mean, d, var
 
     def _forward16(self, x):
         """flax's BatchNorm(dtype=bf16): f32 statistics of the upcast
@@ -99,9 +129,7 @@ class BatchNorm(nn.Module):
         xf = x.float()
         shape = [1, -1] + [1] * (x.dim() - 2)
         if self.training:
-            dims = [d for d in range(x.dim()) if d != 1]
-            mean = xf.mean(dims)
-            var = ((xf - mean.view(shape)) ** 2).mean(dims)
+            mean, _, var = self._stats(xf)
             update_running_stats(self, mean, var)
         else:
             mean, var = self.running_mean, self.running_var

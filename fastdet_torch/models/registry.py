@@ -9,8 +9,9 @@ Families:
 
 `build_detect_fn(**kw)` takes the detect builder's keywords (conf_thres,
 iou_thres, max_det, max_nms, device) and returns `detect(images_u8)`;
-`loss_fn(outputs, labels, mask, anchors, input_hw)` is the signature the
-Trainer calls, whichever family (the anchor-free loss ignores anchors).
+`loss_fn(outputs, labels, mask, anchors, input_hw[, group])` is the
+signature the Trainer calls, whichever family (the anchor-free loss
+ignores anchors; `group` gives a data-parallel job's global normalizers).
 """
 
 from __future__ import annotations
@@ -79,7 +80,7 @@ def get_family(name, cfg, dtype=torch.float32) -> ModelFamily:
         return build_anchorfree_detect_fn(model, (cfg.height, cfg.width),
                                           **kw)
 
-    def loss_fn(outputs, labels, mask, anchors, input_hw):
-        return anchorfree_loss(outputs, labels, mask, input_hw)
+    def loss_fn(outputs, labels, mask, anchors, input_hw, group=None):
+        return anchorfree_loss(outputs, labels, mask, input_hw, group)
 
     return ModelFamily("anchorfree", model, detect_builder, loss_fn)

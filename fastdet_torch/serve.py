@@ -23,15 +23,23 @@ maps to the host as f32 and decodes and suppresses them there in C++
 (`fastdet_torch.native.postprocess`, OpenMP over images): the split of
 the reference's ncnn deployment, for a host-side postprocess.
 
+`ShardedPipeline` is `DevicePipeline` over a local mesh
+(`fastdet_torch.parallel.make_mesh`), the serving counterpart of the
+data-parallel train step, and `FusedPipeline(mesh=)` the same for the
+fused path: the model (or the packed weights) and the anchors are
+replicated to each mesh device, the batch is padded with zero images to a
+multiple of the mesh size, each device runs its contiguous shard, and the
+result is trimmed to the batch.  One process drives every device of the
+mesh; a device may appear more than once.
+
 `StreamingPipeline` wraps any of them: a producer thread stacks batch N+1
 while the device runs batch N, and the ragged tail is padded to the
 static batch.
-
-`ShardedPipeline` is not ported yet (ROADMAP A12).
 """
 
 from __future__ import annotations
 
+import copy
 import functools
 import queue
 import threading
@@ -47,6 +55,7 @@ from fastdet_torch.kernels.fused_infer import (build_fused_forward,
 from fastdet_torch.models.anchorfree import build_anchorfree_fused_detect
 from fastdet_torch.models.registry import family_name
 from fastdet_torch.ops.postprocess import build_detect_fn, postprocess
+from fastdet_torch.parallel.mesh import batch_slices, make_mesh, replicate
 
 
 NO_DECODER = ("fastdet_torch: {} needs a host image decoder (the JAX "
@@ -82,6 +91,54 @@ class DevicePipeline:
         return [dets[i, :counts[i]] for i in range(len(counts))]
 
 
+def sharded_detect(mesh, detects):
+    """One detect per mesh entry (`detect(images) → (dets, counts)` on
+    that entry's device) → a detect over the mesh: the batch padded with
+    zero images to a multiple of the mesh size, each device's contiguous
+    shard through its detect, the results on the mesh's first device and
+    trimmed to the batch."""
+    if mesh.group is not None:
+        raise ValueError("fastdet_torch: serving splits a batch over a "
+                         "local mesh in one process, not over a job's ranks")
+
+    def detect(images: torch.Tensor):
+        n = len(images)
+        pad = (-n) % mesh.size
+        if pad:
+            images = torch.cat([images, images.new_zeros(
+                (pad,) + tuple(images.shape[1:]))])
+        outs = [fn(images[a:b].to(d)) for fn, (d, a, b)
+                in zip(detects, batch_slices(mesh, n + pad))]
+        return tuple(torch.cat([o[i].to(mesh.device) for o in outs])[:n]
+                     for i in range(2))
+
+    return detect
+
+
+class ShardedPipeline(DevicePipeline):
+    """`DevicePipeline` over a local mesh (`parallel.make_mesh()`: the
+    local cards by default; `make_mesh(devices=[...])` for others, repeats
+    allowed): the model with `variables` replicated to each device, the
+    batch padded to a multiple of the mesh size and trimmed, as
+    `StreamingPipeline` pads its tail.  `__call__` and `detect` take the
+    batch as `DevicePipeline`'s do, on the mesh's first device."""
+
+    def __init__(self, model, variables, cfg: Config, mesh=None,
+                 conf_thres=0.3, iou_thres=0.45, max_det=300, max_nms=128):
+        mesh = mesh if mesh is not None else make_mesh()
+        self.mesh = mesh
+        self.device = resolve_device(mesh.device)
+        model.load_state_dict(variables)
+
+        def build(dev):
+            return build_detect_fn(copy.deepcopy(model), cfg,
+                                   conf_thres=conf_thres,
+                                   iou_thres=iou_thres, max_det=max_det,
+                                   max_nms=max_nms, device=dev)
+
+        self._detect = sharded_detect(mesh, replicate(mesh, build))
+
+
 class FusedPipeline:
     """`pipe(images_u8)` with an (N,H,W,3) uint8 numpy batch (packed on the
     host by `pack_images_s2d`) or a pre-packed (N, 48, pad128(H/4·W/4))
@@ -98,9 +155,14 @@ class FusedPipeline:
     `NotImplementedError`.  The logits reach the postprocess as f32 in
     both.
 
-    Not ported, each raising `NotImplementedError`: `mesh` (ROADMAP A12),
-    and `from_files`/`preprocess_files`, which need a host image decoder
-    that the card's machine lacks."""
+    mesh: a local `parallel.make_mesh(...)` for data-parallel serving:
+    the packed weights and anchors replicated to each device, ragged
+    batches padded to the mesh size and trimmed (`ShardedPipeline`'s
+    contract); `device` is then the mesh's first.
+
+    Not ported, raising `NotImplementedError`: `from_files` and
+    `preprocess_files`, which need a host image decoder that the card's
+    machine lacks."""
 
     def __init__(self, state_dict, cfg: Config, conf_thres=0.3,
                  iou_thres=0.45, max_det=300, max_nms=128,
@@ -112,31 +174,37 @@ class FusedPipeline:
             raise NotImplementedError(
                 f"fastdet_torch: FusedPipeline(dtype={dtype}) is not ported; "
                 "it serves torch.bfloat16 (the default) or torch.float32")
-        if mesh is not None:
-            raise NotImplementedError(
-                "fastdet_torch: data-parallel serving (mesh) is ROADMAP A12, "
-                "not ported yet")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(device if mesh is None
+                                     else mesh.device)
         self.dtype = dtype
-        disable_tf32(self.device)
         hw = (cfg.height, cfg.width)
         nms = dict(conf_thres=conf_thres, iou_thres=iou_thres,
                    max_det=max_det, max_nms=max_nms)
-        if family_name(family) == "anchorfree":
-            fused, packed = build_anchorfree_fused_detect(
-                state_dict, hw, dtype=dtype, device=self.device, **nms)
-            self._detect = functools.partial(fused, packed)
-        else:
+        anchorfree = family_name(family) == "anchorfree"
+        anchors = None if anchorfree else np.asarray(
+            cfg.anchors, np.float32).reshape(cfg.num_scales,
+                                             cfg.anchor_num, 2)
+
+        def build(dev):
+            """The detect of one device, its weights packed there."""
+            dev = resolve_device(dev)
+            disable_tf32(dev)
+            if anchorfree:
+                fused, packed = build_anchorfree_fused_detect(
+                    state_dict, hw, dtype=dtype, device=dev, **nms)
+                return functools.partial(fused, packed)
             fwd, packed = build_fused_forward(state_dict, input_hw=hw,
-                                              dtype=dtype, device=self.device)
-            anchors = np.asarray(cfg.anchors, np.float32).reshape(
-                cfg.num_scales, cfg.anchor_num, 2)
+                                              dtype=dtype, device=dev)
 
             @torch.inference_mode()
             def detect(images):
                 return postprocess(fwd(images, packed), anchors, hw, **nms)
 
-            self._detect = detect
+            return detect
+
+        self._detect = (build(self.device) if mesh is None else
+                        sharded_detect(mesh, replicate(mesh, build)))
 
     def detect(self, images: torch.Tensor):
         """(B, 48, npad) uint8 s2d tensor on the device → (dets
@@ -207,7 +275,8 @@ class _Stopped(Exception):
 
 class StreamingPipeline:
     """Double-buffered stream detection over any batch pipeline
-    (`DevicePipeline`, `FusedPipeline`, `HybridPipeline`): a producer
+    (`DevicePipeline`, `ShardedPipeline`, `FusedPipeline`,
+    `HybridPipeline`): a producer
     thread stacks batch N+1 (a queue of two) while the caller's thread
     runs batch N.
 

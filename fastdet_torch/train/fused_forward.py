@@ -30,7 +30,18 @@ at flax's points, as the JAX package's XLA parts do.
 
 Running statistics: exact full-batch, pooled from the groups
 (`combine_ghost_stats`, `combine_stem_stats`) and updated with flax's
-momentum 0.9, as training-mode BN updates every other layer's.  With
+momentum 0.9, as training-mode BN updates every other layer's.
+
+Data parallel (`group`, a process group whose ranks hold equal shares of
+the global batch): the spans' ghost group is picked from the global
+batch, as the JAX package's global program picks it, and each group must
+lie inside one rank's rows (B8 takes no group's statistics across ranks):
+a local batch that the group does not divide raises
+`NotImplementedError`, as does a stem group that does not divide it.
+The per-group statistics (a few KB) are all-gathered in rank order and
+combined as one process combines them, so the running statistics are
+one process's.  The stride-2 blocks, the FPN and the heads take the
+global statistics through their BatchNorms' group (models/layers.py).  With
 every ghost group equal to the batch, the forward, its gradients and the
 new running statistics are those of `model(images / 255)` in training
 mode (for s2d input, wherever no positive tie in a pool window crosses
@@ -51,6 +62,7 @@ from fastdet_torch.kernels.fused_train import (SpanTrain,
                                                pick_train_group)
 from fastdet_torch.kernels.stem_train import StemTrain, combine_stem_stats
 from fastdet_torch.models.layers import update_running_stats
+from fastdet_torch.parallel.multihost import all_gather_stacked, world
 
 _STAGES = ((2, 4, 48), (3, 8, 96), (4, 4, 192))
 _SPAN_BNS = ("main_pw", "main_dw", "main_pw_linear")
@@ -60,7 +72,7 @@ def build_fused_train_apply(input_hw: Tuple[int, int], *,
                             input_format: str = "nhwc",
                             stem_group: Optional[int] = None,
                             span_stages: Tuple[int, ...] = (2, 3, 4),
-                            device=None) -> Callable:
+                            device=None, group=None) -> Callable:
     """→ `apply_fn(model, images) -> 6 NHWC outputs`; the model is in
     training mode and its BN running statistics update.  images: (B, H, W,
     3) uint8 for "nhwc", (B, 48, pad128(H/4·W/4)) uint8 for "s2d_u8".
@@ -73,6 +85,21 @@ def build_fused_train_apply(input_hw: Tuple[int, int], *,
     h4, w4 = ih // 4, iw // 4
     npad4 = (h4 * w4 + 127) // 128 * 128
     g_stem = 1 if stem_group is None else stem_group
+    n_ranks = 1 if group is None else world(group)[1]
+
+    def inside_ranks(what, g, b):
+        if group is not None and b % g:
+            raise NotImplementedError(
+                f"fastdet_torch: the {what} ghost group of {g} images would "
+                f"straddle ranks: the local batch {b} is not a multiple of it "
+                f"(B8 and B7 take no group's statistics across ranks)")
+
+    def pooled(stats, axis):
+        """Every rank's per-group stats, in rank order along `axis`."""
+        if group is None:
+            return stats
+        return torch.cat(list(all_gather_stacked(stats.detach(), group)),
+                         axis)
 
     def stem_nhwc(bb, images, dtype):
         if images.dim() != 4 or tuple(images.shape[1:]) != (ih, iw, 3):
@@ -88,11 +115,12 @@ def build_fused_train_apply(input_hw: Tuple[int, int], *,
                 f"expected (B, 48, {npad4}) uint8 s2d images for "
                 f"{input_hw}, got {images.dtype} {tuple(images.shape)}")
         fc = bb.first_conv
+        inside_ranks("stem's", g_stem, images.shape[0])
         y, stats = StemTrain.apply(images.contiguous(),
                                    fc.conv.weight * (1.0 / 255.0),
                                    fc.bn.weight, fc.bn.bias, h4, w4, g_stem,
                                    dtype == torch.bfloat16)
-        update_running_stats(fc.bn, *combine_stem_stats(stats))
+        update_running_stats(fc.bn, *combine_stem_stats(pooled(stats, 0)))
         return y
 
     stem = stem_s2d if input_format == "s2d_u8" else stem_nhwc
@@ -113,10 +141,11 @@ def build_fused_train_apply(input_hw: Tuple[int, int], *,
                 feats.append(x)
                 continue
             b, _, h, w = x.shape
-            g = pick_train_group(b, (h * w + 127) // 128 * 128, c)
+            g = pick_train_group(n_ranks * b, (h * w + 127) // 128 * 128, c)
+            inside_ranks(f"stage-{stage} span's", g, b)
             x, stats = SpanTrain.apply(x.contiguous(),
                                        pack_span_train_weights(blocks), g)
-            mean, var = combine_ghost_stats(stats)
+            mean, var = combine_ghost_stats(pooled(stats, 2))
             for i, blk in enumerate(blocks):
                 for j, name in enumerate(_SPAN_BNS):
                     update_running_stats(getattr(blk, name).bn, mean[i, j],

@@ -22,6 +22,7 @@ from __future__ import annotations
 from typing import Dict, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from fastdet_torch.ops.iou import bbox_ciou
@@ -31,8 +32,26 @@ _BALANCE = (1.0, 0.4)
 BOX_GAIN, OBJ_GAIN, CLS_GAIN = 3.2, 64.0, 32.0
 
 
-def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    denom = mask.sum()
+def _global_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """A count summed over the group's ranks (itself without a group)."""
+    if group is None:
+        return t
+    t = t.detach().clone()
+    dist.all_reduce(t, group=group)
+    return t
+
+
+def _grid_mean(x: torch.Tensor, group) -> torch.Tensor:
+    """x.mean(), or with a group this rank's share of the global batch's
+    mean (the ranks hold equal batches)."""
+    if group is None:
+        return x.mean()
+    return x.sum() / (x.numel() * dist.get_world_size(group))
+
+
+def _masked_mean(x: torch.Tensor, mask: torch.Tensor,
+                 group=None) -> torch.Tensor:
+    denom = _global_sum(mask.sum(), group)
     return torch.where(denom > 0, (x * mask).sum() / denom.clamp(min=1),
                        torch.zeros_like(denom))
 
@@ -44,11 +63,17 @@ def _bce_logits(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
 
 def compute_loss(outputs: Sequence[torch.Tensor], labels: torch.Tensor,
                  label_mask: torch.Tensor, anchors: torch.Tensor,
-                 input_hw: Tuple[int, int]
+                 input_hw: Tuple[int, int], group=None
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """outputs: 6-tuple (reg2,obj2,cls2,reg3,obj3,cls3), NHWC raw logits.
     labels (B,M,5) [cls,cx,cy,w,h] normalized; label_mask (B,M) bool;
-    anchors (S,A,2) f32 in input pixels.  → (total, components)."""
+    anchors (S,A,2) f32 in input pixels.  → (total, components).
+
+    `group`: a data-parallel process group whose ranks hold equal shares
+    of the global batch.  The normalizers are then global (the positive
+    counts all-reduced, the obj mean over the global B·H·W·A), so the
+    loss is this rank's share of the global loss: the shares sum to it,
+    and so do their gradients."""
     dev = outputs[0].device
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     lbox, lobj, lcls = zero, zero, zero
@@ -83,7 +108,8 @@ def compute_loss(outputs: Sequence[torch.Tensor], labels: torch.Tensor,
         # masked-out candidates have zero-size targets (CIoU 0/0): unit
         # boxes stand in for them
         tbox = torch.where(t.mask[..., None], t.tbox, safe)
-        lbox = lbox + _masked_mean(1.0 - bbox_ciou(pbox, tbox), maskf)
+        lbox = lbox + _masked_mean(1.0 - bbox_ciou(pbox, tbox), maskf,
+                                   group)
 
         # ---- obj: BCE over the full grid against the 0/1 target grid
         a_iota = torch.arange(a, device=dev)[None, None, :, None]
@@ -92,8 +118,8 @@ def compute_loss(outputs: Sequence[torch.Tensor], labels: torch.Tensor,
         tobj = torch.zeros((b, hw * a), device=dev)
         tobj.index_put_((bidx[t.mask], key[t.mask]),
                         torch.ones((), device=dev))
-        lobj = lobj + (_bce_logits(obj, tobj.reshape(b, h, w, a)).mean()
-                       * _BALANCE[s])
+        lobj = lobj + (_grid_mean(_bce_logits(obj, tobj.reshape(b, h, w, a)),
+                                  group) * _BALANCE[s])
 
         # ---- cls: softmax CE at the candidate cells; the CE value is
         # anchor-independent, the anchor axis only weights the mean
@@ -104,7 +130,7 @@ def compute_loss(outputs: Sequence[torch.Tensor], labels: torch.Tensor,
             ce = -(logp.gather(-1, tcls.clamp(0, nc - 1))[..., 0]
                    * ((tcls[..., 0] >= 0) & (tcls[..., 0] < nc)))
             w_mo = maskf.sum(2)                              # (B,M,O)
-            denom = maskf.sum()
+            denom = _global_sum(maskf.sum(), group)
             lcls = lcls + torch.where(
                 denom > 0, (ce * w_mo).sum() / denom.clamp(min=1),
                 zero) / nc

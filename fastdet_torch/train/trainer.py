@@ -30,7 +30,19 @@ such a model makes it the default; its parameters, their gradients and
 the momentum buffers stay f32, the images are scaled as
 `images.astype(bf16) / bf16(255)`, the fused modes run B7 and B8 in
 bf16, and the loss casts the bf16 outputs to f32.
-float16 raises.  Not ported: data-parallel meshes (ROADMAP A12).
+float16 raises.
+
+Data parallel (`mesh=`, a job's `fastdet_torch.parallel.make_mesh()`):
+one process per device, each stepping on its rank's rows of the global
+batch.  The Trainer broadcasts rank 0's parameters and buffers, gives
+every BatchNorm the job's group (global two-pass statistics) and passes
+the group to the loss (global normalizers), so each rank's loss is its
+share of the global loss.  `subdivisions` still sums `.grad` locally; at
+each apply the gradients are all-reduced with SUM (one flat buffer), then
+every rank takes the same SGD step.  The logged components are summed
+over the ranks: the global loss.  A local mesh of several devices in one
+process raises `NotImplementedError`: training is one process per
+device (the JAX CLI spreads one process over its local devices).
 """
 
 from __future__ import annotations
@@ -44,6 +56,7 @@ from fastdet_torch import disable_tf32, resolve_device
 from fastdet_torch.config import Config
 from fastdet_torch.models.detector import Detector
 from fastdet_torch.models.layers import BF16
+from fastdet_torch.parallel import multihost, sync_batchnorm
 from fastdet_torch.train.loss import compute_loss
 from fastdet_torch.train.schedule import make_lr_schedule
 
@@ -67,7 +80,7 @@ class Trainer:
                  fused_backbone: bool = False, device=None,
                  compute_dtype: Optional[torch.dtype] = None,
                  fused_input_format: str = "nhwc",
-                 loss_fn: Callable = compute_loss):
+                 loss_fn: Callable = compute_loss, mesh=None):
         if compute_dtype == torch.float16:
             raise NotImplementedError(
                 "fastdet_torch: float16 training is not ported (the JAX "
@@ -82,6 +95,14 @@ class Trainer:
             raise ValueError(
                 "compute_dtype=torch.bfloat16 takes a model built to compute "
                 "in bf16 (dtype=torch.bfloat16), and only it")
+        if mesh is not None and mesh.group is None and mesh.size > 1:
+            raise NotImplementedError(
+                "fastdet_torch: training over several devices of one "
+                "process is not ported: start one process per device "
+                "(initialize_distributed) and pass its make_mesh()")
+        self.group = None if mesh is None else mesh.group
+        if device is None and mesh is not None:
+            device = mesh.device
         self.device = resolve_device(device)
         disable_tf32(self.device)
         self.cfg = cfg
@@ -94,6 +115,9 @@ class Trainer:
         self.schedule = make_lr_schedule(
             cfg.learning_rate, steps_per_epoch, cfg.steps or (), gamma=0.1,
             warmup_epochs=5)
+        if self.group is not None:
+            multihost.broadcast_module(self.model, self.group)
+            sync_batchnorm(self.model, self.group)
         self.optimizer = make_optimizer(self.model.parameters())
         self.anchors = torch.from_numpy(
             np.asarray(cfg.anchors, np.float32).reshape(
@@ -107,7 +131,7 @@ class Trainer:
                 build_fused_train_apply
             self._fused = build_fused_train_apply(
                 self.input_hw, input_format=fused_input_format,
-                device=self.device)
+                device=self.device, group=self.group)
 
     def _forward(self, images_u8: torch.Tensor):
         """The training forward's 6 NHWC outputs: images (B, H, W, 3)
@@ -128,14 +152,18 @@ class Trainer:
         `lr` (a float)."""
         self.model.train()
         outputs = self._forward(images_u8)
+        extra = {} if self.group is None else {"group": self.group}
         total, comps = self.loss_fn(
             outputs, torch.as_tensor(labels).to(self.device),
             torch.as_tensor(label_mask).to(self.device), self.anchors,
-            self.input_hw)
+            self.input_hw, **extra)
         total.backward()
         lr = self.schedule(self.step_count)
         self.accum_count += 1
         if self.accum_count >= self.subdivisions:
+            if self.group is not None:
+                multihost.all_reduce_grads(self.model.parameters(),
+                                           self.group)
             for group in self.optimizer.param_groups:
                 group["lr"] = lr
             self.optimizer.step()
@@ -143,6 +171,11 @@ class Trainer:
             self.accum_count = 0
         self.step_count += 1
         metrics = {k: v.detach() for k, v in comps.items()}
+        if self.group is not None:        # the global loss's components
+            keys = sorted(metrics)
+            summed = torch.stack([metrics[k].float() for k in keys])
+            torch.distributed.all_reduce(summed, group=self.group)
+            metrics = dict(zip(keys, summed.unbind()))
         metrics["lr"] = lr
         return metrics
 

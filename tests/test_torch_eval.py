@@ -133,8 +133,18 @@ def test_evaluate_no_detections_and_distributed():
              for b, outs in batches}
     assert evaluate(lambda images: table[id(images)],
                     [b for b, _ in batches], HW) is None
-    with pytest.raises(NotImplementedError, match="A12"):
-        evaluate(lambda images: None, [], HW, distributed=True)
+    # distributed=True in one process: the gather is the identity
+    assert evaluate(lambda images: table[id(images)],
+                    [b for b, _ in batches], HW, distributed=True) is None
+    labels, dets = seeded_eval_set(4, n_img=2)
+    batches = _batches(labels, dets)
+    table = {id(b[0]): tuple(map(torch.from_numpy, outs))
+             for b, outs in batches}
+    want = evaluate(lambda images: table[id(images)],
+                    [b for b, _ in batches], HW)
+    assert want is not None
+    assert evaluate(lambda images: table[id(images)],
+                    [b for b, _ in batches], HW, distributed=True) == want
 
 
 def _jax_pp(outs, **kw):

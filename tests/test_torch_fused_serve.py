@@ -92,7 +92,7 @@ def test_fused_pipeline_input_forms(images, sd):
 
 @pytest.mark.parametrize("kwargs,match", [
     ({"dtype": torch.float16}, "float16"),
-    ({"mesh": object()}, "A12"),
+    ({"dtype": torch.float64}, "float64"),
 ])
 def test_fused_pipeline_unported_options_raise(sd, kwargs, match):
     with pytest.raises(NotImplementedError, match=match):

@@ -170,7 +170,10 @@ def test_train_cli_clamps_chain_as_jax(train_world, port_run, tmp_path,
 @pytest.mark.parametrize("extra,env,label", [
     (("--fused-backbone", "--model", "anchorfree"), None,
      "--fused-backbone supports the yolo-fastestv2 family only"),
-    ((), {"FASTDET_NUM_PROCESSES": "2"}, "A12"),
+    # a job's count without its coordinator never trains single-process
+    ((), {"FASTDET_NUM_PROCESSES": "2"}, "FASTDET_COORDINATOR"),
+    # a coordinator without the count: JAX's KeyError
+    ((), {"FASTDET_COORDINATOR": "localhost:1"}, "FASTDET_NUM_PROCESSES"),
 ])
 def test_train_cli_unported_options_exit_nonzero(train_world, tmp_path,
                                                  extra, env, label):
