@@ -15,8 +15,8 @@ eval entry point in both of its modes, serves 640² through
 `FusedPipeline`, trains at full width on the default, fused and fused
 s2d paths, serves, evaluates and trains the anchor-free family, serves
 and trains in bf16, runs and evaluates the int8 PTQ chain, trains
-the convergence check's bf16 fused s2d configuration to its bar, and
-trains, evaluates and serves data parallel.
+the convergence check's bf16 fused s2d configuration to its bar,
+trains, evaluates and serves data parallel, and trains tensor parallel.
 One line per phase; any failed check ends the run with a non-zero exit.
 Without a card, or outside the repository, it exits non-zero and prints
 no result.
@@ -259,6 +259,21 @@ Phases:
      counts equal to the single-device pipelines' and every column
      within 1e-4, B1-B3 counted; ms/step of 2 ranks against 1 as
      readings;
+  15. tensor parallel (ROADMAP A20; `tp_phase.py` runs it alone): a
+     global b32 352² batch of seeded photo variants (labels from phase
+     4's `DevicePipeline`), the reference weights, 4 steps of
+     `Trainer(mesh=make_mesh_2d(2, 2))` in the default f32, default bf16,
+     fused s2d f32 and fused s2d bf16 modes over four gloo ranks on
+     cuda:0 (this script started four times with `--tp-rank`), 16 rows a
+     data shard, against one process on the same batch (f32: step-0
+     losses at rtol 2e-4, the step-0 gradient within 1e-2 (relative
+     norm), JAX's structural check after 4 steps; bf16: phase 10's 2⁻⁵
+     rules, the step-0 gradient at most 1.5× as far from one process's
+     f32 gradient as one process's bf16 one; the gathered states and
+     step-0 momenta bit for bit on every rank;
+     `first_conv` held as 12 of 24 rows; B7 and B8 counted from 0 in the
+     ranks); ms/step against one process and a rank's collectives a step
+     by kind as readings;
   6. the kernel summary (a JSON line: launches of stem_s2d, span and
      rank_decode_nms from the fused serving path (rank_decode_nms's ms
      its device time on the served window, phase 4), of nms_keep from the
@@ -272,9 +287,10 @@ Phases:
      B3 over its two streams and of B3 on the bf16 DevicePipeline (times
      those of phases 4, 4b and 9 at the same shapes), phase 14's of B7
      and B8 in both dtypes over the gloo ranks, of nms_keep over the
-     distributed eval and of B1-B3 over the sharded pipelines, each with
-     its "path" (times those of the same kernels at b128 352² in phases
-     4, 4b, 7, 8a, 8c, 9 and 10); the phase line adds
+     distributed eval and of B1-B3 over the sharded pipelines, phase
+     15's of B7 and B8 in both dtypes over the four tensor-parallel
+     ranks, each with its "path" (times those of the same kernels at b128
+     352² in phases 4, 4b, 7, 8a, 8c, 9 and 10); the phase line adds
      stem_s2d's and
      span's launches on the anchor-free
      path of 8d), the card line, and
@@ -5476,10 +5492,10 @@ def dp_rank_main(argv) -> int:
     return 0
 
 
-def dp_start(world, backend, out, own=False):
-    """Start phase 14's job: `world` ranks of this script on the card
-    (with `own`, each on its own card), each writing its output to DIR
-    `out` → (processes, their logs)."""
+def dp_start(world, backend, out, own=False, flag="--dp-rank"):
+    """Start phase 14's job (phase 15's with `flag` "--tp-rank"): `world`
+    ranks of this script on the card (with `own`, each on its own card),
+    each writing its output to DIR `out` → (processes, their logs)."""
     s = __import__("socket").socket()
     s.bind(("localhost", 0))
     port = s.getsockname()[1]
@@ -5490,18 +5506,20 @@ def dp_start(world, backend, out, own=False):
     for r, path in enumerate(logs):
         with open(path, "w") as f:
             procs.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), "--dp-rank",
+                [sys.executable, os.path.abspath(__file__), flag,
                  str(r), str(world), str(port), out, backend]
                 + (["own"] if own else []), cwd=REPO,
                 stdout=f, stderr=subprocess.STDOUT))
     return procs, logs
 
 
-def dp_results(procs, logs):
-    """Wait for every rank of a job → each rank's DP14 result, in rank
-    order.  A rank that fails or stays past DP_TIMEOUT_S fails the
-    phase; every rank is waited for (and killed past the limit)."""
-    t_end = time.perf_counter() + DP_TIMEOUT_S + 30
+def dp_results(procs, logs, phase="phase 14", prefix="DP14 ",
+               timeout=DP_TIMEOUT_S):
+    """Wait for every rank of a job → each rank's result (its line after
+    `prefix`), in rank order.  A rank that fails or stays past `timeout`
+    fails the phase; every rank is waited for (and killed past the
+    limit)."""
+    t_end = time.perf_counter() + timeout + 30
     try:
         for p in procs:
             p.wait(timeout=max(1.0, t_end - time.perf_counter()))
@@ -5516,12 +5534,12 @@ def dp_results(procs, logs):
     for r, (p, path) in enumerate(zip(procs, logs)):
         with open(path) as f:
             text = f.read()
-        check(p.returncode == 0, f"phase 14 rank {r}/{len(procs)} exited "
+        check(p.returncode == 0, f"{phase} rank {r}/{len(procs)} exited "
               f"{p.returncode}:\n{text[-4000:]}")
-        lines = [ln for ln in text.splitlines() if ln.startswith("DP14 ")]
-        check(len(lines) == 1, f"phase 14 rank {r}: no result:\n"
+        lines = [ln for ln in text.splitlines() if ln.startswith(prefix)]
+        check(len(lines) == 1, f"{phase} rank {r}: no result:\n"
               f"{text[-2000:]}")
-        results.append(json.loads(lines[0][5:]))
+        results.append(json.loads(lines[0][len(prefix):]))
     return results
 
 
@@ -5784,6 +5802,351 @@ def phase_parallel(sd, photo, card, dev_pipe, eval_images, big):
     return launches
 
 
+# ---------------------------------------------------------------- phase 15
+
+TP_STEPS = 4
+TP_MODES = ("default", "default_bf16", "fused_s2d", "fused_s2d_bf16")
+TP_MESH = (2, 2)                          # (n_data, n_model)
+# global batch: the fused modes' stage-4 ghost group of 16 images
+# (`pick_train_group` at 11²·192) must lie inside a data shard's rows
+TP_BATCH = 32
+TP_TIMEOUT_S = 300
+# the step-0 gradient (the SGD momentum after step 0, both runs at the
+# same weights) against one process's, as ||Δ|| / ||ref|| over every
+# parameter: the steps run at warm-up LRs of at most 1.3e-4, so a wrong
+# backward shows in the gradient long before it shows in the parameters.
+# f32: within TP_GRAD_REL.  bf16 rounds the gradient far more than a
+# mesh reorders it, so there the mesh's bf16 gradient may stand at most
+# TP_BF16_GRAD_RATIO times as far from one process's f32 gradient as
+# one process's bf16 gradient does.  A dropped copy all-reduce, a
+# summed gather backward or a swapped slice moves the gradient by about
+# its own size.
+TP_GRAD_REL = 1e-2
+TP_BF16_GRAD_RATIO = 1.5
+# the collectives of a step by kind, named by the innermost frame that
+# issues one: BN's statistics go through torch.distributed.nn's
+# differentiable all_reduce, forward and backward
+TP_KINDS = {("tp.py", "forward"): "gather", ("tp.py", "backward"): "copy",
+            ("loss.py", "_global_sum"): "loss",
+            ("multihost.py", "all_reduce_grads"): "gradient",
+            ("multihost.py", "broadcast_grads"): "replicated",
+            ("trainer.py", "step"): "logged",
+            ("fused_forward.py", "pooled"): "ghost_stats"}
+
+
+def tp_trainer(sd, cfg, mode, mesh):
+    """A Trainer from the reference weights for phase 15's `mode`: the
+    default path or the fused s2d path (B7 and B8), in f32 or ("_bf16")
+    bf16; over `mesh` (a job's `make_mesh_2d`) or in one process."""
+    import torch
+    from fastdet_torch.models import Detector
+    from fastdet_torch.train.trainer import Trainer
+    model = Detector(80, 3, dtype=torch.bfloat16 if mode.endswith("bf16")
+                     else torch.float32)
+    model.load_state_dict(sd)
+    fused = mode.startswith("fused")
+    return Trainer(model, cfg, 1, fused_backbone=fused,
+                   fused_input_format="s2d_u8" if fused else "nhwc",
+                   device="cuda", mesh=mesh)
+
+
+class tp_collectives:
+    """Counts `all_reduce` and `broadcast` calls by kind (TP_KINDS) while
+    it is entered."""
+
+    def __enter__(self):
+        import torch.distributed as dist
+        self.counts, self.saved = {}, (dist.all_reduce, dist.broadcast)
+
+        def counted(fn):
+            def call(*args, **kwargs):
+                f, kind = sys._getframe(1), None
+                while f is not None and kind is None:
+                    where = f.f_code.co_filename
+                    kind = ("bn" if "distributed/nn/functional" in where
+                            else TP_KINDS.get((os.path.basename(where),
+                                               f.f_code.co_name)))
+                    f = f.f_back
+                kind = kind or "other"
+                self.counts[kind] = self.counts.get(kind, 0) + 1
+                return fn(*args, **kwargs)
+            return call
+        dist.all_reduce, dist.broadcast = (counted(fn) for fn in self.saved)
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        dist.all_reduce, dist.broadcast = self.saved
+
+
+def tp_momentum(tr):
+    """A copy of the Trainer's SGD momentum buffers by parameter name,
+    gathered to full tensors on a tensor-parallel Trainer."""
+    from fastdet_torch.parallel import gather_state
+    mom = {k: tr.optimizer.state[p]["momentum_buffer"]
+           for k, p in tr.model.named_parameters()}
+    if tr.tp_specs is not None:
+        mom = gather_state(mom, tr.mesh, tr.tp_specs)
+    return {k: v.detach().to("cpu", copy=True) for k, v in mom.items()}
+
+
+def tp_l2_rel(got, want):
+    """||got − want|| / ||want||, each norm over every tensor of `want`
+    together (a BN bias that feeds another BN has a gradient of rounding
+    noise alone, so no tensor is held to its own scale)."""
+    num = sum(float(((got[k].double() - v.double()) ** 2).sum())
+              for k, v in want.items())
+    return (num / sum(float((v.double() ** 2).sum())
+                      for v in want.values())) ** 0.5
+
+
+def tp_steps(tr, x, labels, mask, count=False):
+    """TP_STEPS steps → (each step's loss components, the median host ms
+    of steps 1..3 with a sync after each, step 0's collectives by kind
+    when `count`, the momentum after step 0: step 0's gradient)."""
+    import contextlib
+    import torch
+    losses, ms, kinds = [], [], {}
+    for i in range(TP_STEPS):
+        counter = (tp_collectives() if count and i == 0
+                   else contextlib.nullcontext())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with counter as c:
+            m = tr.step(x, labels, mask)
+            torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if c is not None:
+            kinds = c.counts
+        if i == 0:
+            mom0 = tp_momentum(tr)
+        losses.append([float(m[k]) for k in ("box", "obj", "cls", "total")])
+    return losses, float(np.median(ms[1:])), kinds, mom0
+
+
+def tp_rank_main(argv) -> int:
+    """One rank of phase 15's job (`chip_smoke.py --tp-rank RANK WORLD
+    PORT DIR BACKEND [own]`): `initialize_distributed`, a (WORLD/2, 2)
+    `make_mesh_2d` on cuda:0 (with "own": on the rank's own card),
+    `Trainer(mesh=)` on its data index's rows of the global batch in each
+    of TP_MODES.  Saves each mode's gathered state dict and step-0
+    momentum to DIR/<BACKEND><WORLD>_rank<R>_<mode>.pt and prints one line `TP15
+    {json}`: losses, ms/step, launches, step 0's collectives by kind, the
+    local rows of `first_conv`'s weight."""
+    faulthandler.dump_traceback_later(TP_TIMEOUT_S, exit=True)
+    import torch
+    for path in (REPO, os.path.join(REPO, "tests")):
+        if path not in sys.path:
+            sys.path.insert(0, path)
+    from fastdet_torch.config import Config
+    from fastdet_torch.io import load_state_dict
+    from fastdet_torch.parallel import initialize_distributed, make_mesh_2d
+    rank, world, port = (int(a) for a in argv[:3])
+    out, backend = argv[3], argv[4]
+    shared = argv[5:6] != ["own"]
+    initialize_distributed(f"localhost:{port}", world, rank,
+                           backend=None if backend == "default" else backend)
+    n_model = TP_MESH[1]
+    mesh = make_mesh_2d(world // n_model, n_model,
+                        devices=["cuda:0"] if shared else None)
+    cfg = Config.from_file(DATA)
+    sd = load_state_dict(WEIGHTS)
+    with np.load(os.path.join(out, "case.npz")) as z:
+        case = {k: z[k] for k in z.files}
+    d, _ = mesh.coords
+    b = len(case["images"]) // mesh.n_data
+    rows = slice(d * b, (d + 1) * b)
+    counters = dp_counters()
+    res = {"rank": rank, "coords": list(mesh.coords),
+           "backend": torch.distributed.get_backend(), "out": out,
+           "modes": {}}
+    for mode in TP_MODES:
+        for c in counters.values():
+            c.launches = 0
+        tr = tp_trainer(sd, cfg, mode, mesh)
+        x = case["images_s2d" if mode.startswith("fused") else
+                 "images"][rows]
+        losses, ms, kinds, mom0 = tp_steps(tr, x, case["labels"][rows],
+                                           case["mask"][rows], count=True)
+        torch.save({"state": {k: v.detach().cpu() for k, v in
+                              tr.full_state_dict().items()},
+                    "mom0": mom0},
+                   os.path.join(out, f"{backend}{world}_rank{rank}_"
+                                     f"{mode}.pt"))
+        res["modes"][mode] = {
+            "losses": losses, "ms": ms, "collectives": kinds,
+            "first_conv": tr.model.backbone.first_conv.conv.weight.shape[0],
+            "launches": {k: c.launches for k, c in counters.items()
+                         if c.launches}}
+        del tr
+    print("TP15 " + json.dumps(res), flush=True)
+    torch.distributed.destroy_process_group()
+    faulthandler.cancel_dump_traceback_later()
+    return 0
+
+
+def tp_reference(sd, photo, dev_pipe, out):
+    """Phase 15's case and its one-process reference: TP_BATCH seeded photo
+    variants (labels from `dev_pipe`'s detections), s2d-packed, written to
+    DIR `out` for the ranks; TP_STEPS steps in each of TP_MODES in this
+    process → {mode: losses, ms, final state, step-0 momentum}."""
+    from fastdet_torch.config import Config
+    from fastdet_torch.kernels.fused_infer import pack_images_s2d
+    cfg = Config.from_file(DATA)
+    images = photo_variants(photo, TP_BATCH, seed=23)
+    labels, mask = eval_labels(dev_pipe(images), seed=23)
+    case = {"images": images, "images_s2d": pack_images_s2d(images),
+            "labels": labels, "mask": mask}
+    np.savez(os.path.join(out, "case.npz"), **case)
+    ref = {}
+    for mode in TP_MODES:
+        tr = tp_trainer(sd, cfg, mode, None)
+        x = case["images_s2d" if mode.startswith("fused") else "images"]
+        losses, ms, _, mom0 = tp_steps(tr, x, labels, mask)
+        ref[mode] = {"losses": losses, "ms": ms, "state": {
+            k: v.detach().cpu() for k, v in tr.model.state_dict().items()},
+            "mom0": mom0}
+        del tr
+    return ref
+
+
+def tp_check(tag, world, backend, results, ref, card, secs, where):
+    """Hold one tensor-parallel job's results against the one-process
+    reference and log them → its launches {path: {kernel: n}}, the ranks'
+    counts summed."""
+    import torch
+    out = results[0]["out"]
+    n_model = TP_MESH[1]
+    launches = {}
+    for r, res in enumerate(results):
+        check(res["backend"] == ("gloo" if backend == "gloo" else "nccl")
+              and res["coords"] == list(divmod(r, n_model)),
+              f"phase 15 ({tag}): rank {r} {res['backend']} at "
+              f"{res['coords']}")
+    for mode in TP_MODES:
+        r0 = results[0]["modes"][mode]
+        states = [torch.load(os.path.join(out, f"{backend}{world}_rank{r}_"
+                                          f"{mode}.pt"))
+                  for r in range(world)]
+        # the gathered states and step-0 momenta: the sharded blocks from
+        # each model rank, the replicated leaves from each rank's own copy
+        for r in range(1, world):
+            check(all(torch.equal(states[r][part][k], v)
+                      for part in ("state", "mom0")
+                      for k, v in states[0][part].items()),
+                  f"phase 15 ({tag}) {mode}: rank {r}'s gathered state or "
+                  "momentum differs from rank 0's")
+            check(results[r]["modes"][mode]["losses"] == r0["losses"],
+                  f"phase 15 ({tag}) {mode}: ranks logged different losses")
+        check(all(res["modes"][mode]["first_conv"] == 24 // n_model
+                  for res in results),
+              f"phase 15 ({tag}) {mode}: first_conv rows "
+              f"{[res['modes'][mode]['first_conv'] for res in results]}")
+        got0 = np.asarray(r0["losses"][0])
+        want0 = np.asarray(ref[mode]["losses"][0])
+        loss_rel = float((np.abs(got0 - want0) / np.abs(want0)).max())
+        if mode.endswith("bf16"):
+            f32 = ref[mode[:-len("_bf16")]]["mom0"]
+            grad = tp_l2_rel(states[0]["mom0"], f32)
+            noise = tp_l2_rel(ref[mode]["mom0"], f32)
+            rel = dp_bf16_rel(states[0]["state"], ref[mode]["state"])
+            ok = (loss_rel <= BF16_STEP_RTOL and rel <= BF16_STEP_RTOL
+                  and grad <= TP_BF16_GRAD_RATIO * noise)
+            held = (f"step-0 loss rel {loss_rel:.3g}, the state after "
+                    f"{TP_STEPS} steps {rel:.3g} of max |value| (each ≤ "
+                    f"2^-5), the step-0 gradient {grad:.3g} from one "
+                    f"process's f32 gradient, one process's bf16 "
+                    f"{noise:.3g} (ratio {grad / noise:.3g} ≤ "
+                    f"{TP_BF16_GRAD_RATIO:g})")
+        else:
+            grad = tp_l2_rel(states[0]["mom0"], ref[mode]["mom0"])
+            frac, worst = dp_structural(states[0]["state"],
+                                        ref[mode]["state"])
+            ok = (np.allclose(got0, want0, rtol=DP_LOSS_RTOL,
+                              atol=DP_LOSS_ATOL)
+                  and frac < 0.05 and worst < 5e-2 and grad <= TP_GRAD_REL)
+            held = (f"step-0 loss rel {loss_rel:.3g} (rtol 2e-4), the "
+                    f"step-0 gradient {grad:.3g} (≤ {TP_GRAD_REL:g}), "
+                    f"after {TP_STEPS} steps {frac:.2%} of a tensor's "
+                    f"elements off by > 1e-3 at worst (< 5%), max |Δ| "
+                    f"{worst:.3g} (< 5e-2)")
+        check(ok, f"phase 15 ({tag}) {mode}: {held}; losses "
+              f"{r0['losses']} against {ref[mode]['losses']}")
+        got_l = {}
+        for res in results:
+            for k, n in res["modes"][mode]["launches"].items():
+                got_l[k] = got_l.get(k, 0) + n
+        dt = "_bf16" if mode.endswith("bf16") else ""
+        want_l = {} if not mode.startswith("fused") else {
+            f"span_train_fwd{dt}": 3 * TP_STEPS * world,
+            f"span_train_bwd{dt}": 3 * TP_STEPS * world,
+            f"stem_train_fwd{dt}": TP_STEPS * world,
+            f"stem_train_bwd{dt}": TP_STEPS * world}
+        check(got_l == want_l, f"phase 15 ({tag}) {mode}: launches "
+              f"{got_l}, want {want_l}")
+        if mode.startswith("fused"):
+            launches[f"tp_train_{mode}"] = got_l
+        kinds = r0["collectives"]
+        check(all(res["modes"][mode]["collectives"] == kinds
+                  for res in results) and kinds.get("gather", 0) > 0
+              and kinds.get("copy", 0) > 0,
+              f"phase 15 ({tag}) {mode}: collectives "
+              f"{[res['modes'][mode]['collectives'] for res in results]}")
+        log(f"phase 15 ({tag}) {mode}: a {TP_MESH[0]}x{n_model} "
+            f"(data, model) mesh of {world} {results[0]['backend']} ranks on "
+            f"{where} at b{TP_BATCH // TP_MESH[0]} a data shard, first_conv "
+            f"{24 // n_model} of 24 rows a rank: {held}; gathered states "
+            f"and step-0 momenta bit for bit on every rank; ms/step {r0['ms']:.1f} against "
+            f"one process's {ref[mode]['ms']:.1f} at b{TP_BATCH} "
+            f"(readings, {card}); a rank's collectives a step {kinds} "
+            f"({sum(kinds.values())}); launches over the ranks {got_l}")
+    log(f"phase 15 ({tag}): the job took {secs:.1f} s (host clock, "
+        "process starts included)")
+    return launches
+
+
+def phase_tensor_parallel(sd, photo, card, dev_pipe):
+    """15. Tensor parallel (A20) on the card at full width: Yolo-FastestV2,
+    80 classes, 352², the reference weights, global b32 (seeded photo
+    variants), 4 steps in each of TP_MODES (default f32 and bf16, fused
+    s2d f32 and bf16), four gloo ranks sharing cuda:0 as a (2, 2) (data,
+    model) mesh (NCCL refuses two ranks on one device), started as
+    subprocesses of this script, each through `Trainer(mesh=make_mesh_2d(
+    2, 2))` on its data index's 16 rows, against one process on the same
+    global batch: the step-0 loss components at rtol 2e-4 atol 1e-6 in
+    f32 (JAX's check), within BF16_STEP_RTOL in bf16; after 4 steps
+    JAX's structural check on every tensor in f32, phase 10's rule in
+    bf16; the step-0 gradient (the momentum after step 0) within
+    TP_GRAD_REL of one process's in f32, in bf16 at most
+    TP_BF16_GRAD_RATIO times as far from one process's f32 gradient as
+    one process's bf16 gradient; the gathered states and step-0 momenta
+    bit for bit on every rank (the replicated leaves with them); `first_conv` held as 12 of 24 rows; B7 and B8
+    counted from 0 in the ranks.  ms/step against one process and a
+    rank's collectives a step by kind, as readings.  → launches {path:
+    {kernel: n}}."""
+    import tempfile
+    t_phase = time.perf_counter()
+    out = tempfile.mkdtemp(prefix="fastdet_tp_")
+    procs = []
+    try:
+        ref = tp_reference(sd, photo, dev_pipe, out)
+        t0 = time.perf_counter()
+        world = TP_MESH[0] * TP_MESH[1]
+        procs, logs = dp_start(world, "gloo", out, flag="--tp-rank")
+        results = dp_results(procs, logs, "phase 15", "TP15 ",
+                             TP_TIMEOUT_S)
+        launches = tp_check("a", world, "gloo", results, ref, card,
+                            time.perf_counter() - t0, "cuda:0")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(out, ignore_errors=True)
+    log(f"phase 15 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import torch
@@ -5864,6 +6227,8 @@ def main() -> int:
     dp_launches = phase_parallel(sd, photo, card, dev_pipe, eval_images,
                                  big)
     lap("14")
+    tp_launches = phase_tensor_parallel(sd, photo, card, dev_pipe)
+    lap("15")
     log('phase 6 kernels: ["stem_s2d", "span", "rank_decode_nms", '
         '"nms_keep", "span_train", "stem_train", "stem_s2d8", "s2span"] '
         f'(rank_decode_nms launches on the device path: {launches}; '
@@ -5879,7 +6244,8 @@ def main() -> int:
         f'{int8_launches["nms_keep"]}; the convergence runs: '
         f'{conv_launches}; the streams and the bf16 DevicePipeline of '
         f'phase 13: {deploy_launches}; the data-parallel paths of phase '
-        f'14: {dp_launches}')
+        f'14: {dp_launches}; the tensor-parallel paths of phase 15: '
+        f'{tp_launches}')
     log("phase times (host clock, s): " + ", ".join(
         f"{name} {t - laps[i][1]:.1f}"
         for i, (name, t) in enumerate(laps[1:]))
@@ -6139,6 +6505,19 @@ def main() -> int:
             "launches": dp_launches[path][name],
             "max_abs_err": k_err, "ms": k_ms, "plain_ms": k_plain,
             "bound_ms": k_bound, "bound_by": k_by, "library_ms": k_lib})
+    # phase 15: the tensor-parallel fused s2d paths, launches counted over
+    # the four gloo ranks; the times are the same kernels' at b128 352² in
+    # phases 8a, 8c and 10
+    for path, name, src, replaces, nums in dp_entries[:8]:
+        k_ms, k_plain, k_bound, k_by, k_err, k_lib = nums
+        tp_path = path.replace("dp_", "tp_")
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"fastdet_torch/csrc/{src}.cu", "replaces": replaces,
+            "path": f"phase 15 {tp_path}",
+            "launches": tp_launches[tp_path][name],
+            "max_abs_err": k_err, "ms": k_ms, "plain_ms": k_plain,
+            "bound_ms": k_bound, "bound_by": k_by, "library_ms": k_lib})
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {
@@ -6151,4 +6530,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-rank"]:        # one rank of phase 14's job
         sys.exit(dp_rank_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--tp-rank"]:        # one rank of phase 15's job
+        sys.exit(tp_rank_main(sys.argv[2:]))
     sys.exit(main())

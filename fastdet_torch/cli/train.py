@@ -90,7 +90,15 @@ def run_training(cfg: Config, state_dict, batches: Callable[[int], Iterable],
     its compute dtype (bfloat16 for `--bf16`; the evaluation stays f32).
     `mesh`: a job's `make_mesh()`; the batches are then this rank's rows,
     the evaluation gathers every rank's statistics, and only rank 0
-    saves.  → the Trainer."""
+    saves.  A 2-D (data, model) mesh raises: the CLI's batches, eval
+    gather and saves are a 1-D job's, and the JAX CLI builds no 2-D
+    mesh (train on one with `Trainer(mesh=make_mesh_2d(...))`).  → the
+    Trainer."""
+    if mesh is not None and len(mesh.axis_names) > 1:
+        raise NotImplementedError(
+            "fastdet_torch: run_training takes a 1-D data mesh "
+            "(make_mesh()); train a (data, model) mesh with "
+            "Trainer(mesh=make_mesh_2d(...))")
     dev = resolve_device(device if mesh is None else mesh.device)
     fam = get_family(family, cfg, dtype=dtype)
     fam.model.load_state_dict(state_dict)

@@ -118,14 +118,16 @@ def row_sections(mid: int):
 def pack_span_train_weights(blocks: Sequence[torch.nn.Module]
                             ) -> torch.Tensor:
     """Stride-1 `ShuffleV2Block`s → (nblk, 2·mid² + 15·mid) packed rows,
-    differentiable with respect to the blocks' parameters."""
+    differentiable with respect to the blocks' parameters (taken whole
+    through `ConvBN.whole` in a tensor-parallel model)."""
     rows = []
     for blk in blocks:
-        mid = blk.main_pw.conv.weight.shape[0]
-        w1 = blk.main_pw.conv.weight[:, :, 0, 0].t()          # (in, out)
-        wd = blk.main_dw.conv.weight[:, 0].reshape(mid, 9).t()
-        w2 = blk.main_pw_linear.conv.weight[:, :, 0, 0].t()
-        gb = [p for m in (blk.main_pw, blk.main_dw, blk.main_pw_linear)
+        pw, dw, pl = blk.main_pw, blk.main_dw, blk.main_pw_linear
+        w1 = pw.whole(pw.conv.weight)[:, :, 0, 0].t()          # (in, out)
+        mid = w1.shape[1]
+        wd = dw.whole(dw.conv.weight)[:, 0].reshape(mid, 9).t()
+        w2 = pl.whole(pl.conv.weight)[:, :, 0, 0].t()
+        gb = [m.whole(p) for m in (pw, dw, pl)
               for p in (m.bn.weight, m.bn.bias)]
         rows.append(torch.cat([w1.reshape(-1), wd.reshape(-1),
                                w2.reshape(-1)] + gb))

@@ -22,6 +22,12 @@ statistics' cotangents across the ranks as the global program does.  The
 running statistics update from the global ones.  Two-pass statistics do
 not depend on how the batch is partitioned, which is why the JAX package
 chose `use_fast_variance=False`.  Without a group no collective runs.
+
+Tensor parallel (`fastdet_torch.parallel.tp.tensor_parallel`): a sharded
+`ConvBN` or head conv computes its block of the output channels between
+the model group's collectives, which its `shard` carries, and its
+BatchNorm takes its statistics over the data group (the `process_group`
+above).  The models import nothing of `fastdet_torch.parallel`.
 """
 
 from __future__ import annotations
@@ -61,10 +67,17 @@ def add_bias(x, b):
 def head_conv(conv: nn.Conv2d, x, dtype):
     """A 1×1 head conv with bias: in bf16 as flax's `nn.Conv(dtype=bf16)`
     computes it (bf16 product, the bias cast to bf16 and added in bf16),
-    else the module itself."""
+    else the module itself.  A sharded conv (`conv.shard`, tensor
+    parallel) computes its output channels and gathers them."""
+    shard = getattr(conv, "shard", None)
+    if shard is not None:
+        x = shard.copy(x)
     if dtype != BF16:
-        return conv(x)
-    return conv16(x, conv.weight.to(BF16)) + conv.bias.to(BF16)[:, None, None]
+        y = conv(x)
+    else:
+        y = (conv16(x, conv.weight.to(BF16))
+             + conv.bias.to(BF16)[:, None, None])
+    return y if shard is None else shard.gather(y)
 
 
 def deploy_maps(reg, obj, cls):
@@ -148,7 +161,13 @@ def update_running_stats(bn: BatchNorm, mean, var) -> None:
 class ConvBN(nn.Module):
     """Conv2d (no bias, 'same' padding k//2) + BatchNorm + optional ReLU.
 
-    ``groups=features_in`` gives a depthwise conv."""
+    ``groups=features_in`` gives a depthwise conv.
+
+    Tensor parallel (`shard`, set by `parallel.tp.tensor_parallel`): the
+    conv and BN hold this rank's block of the output channels; the full
+    input comes in through the shard's `copy` (a depthwise conv takes its
+    block of the input's channels), and the full output leaves through its
+    `gather` after BN and ReLU."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 1, stride: int = 1,
                  groups: int = 1, relu: bool = True,
@@ -159,16 +178,31 @@ class ConvBN(nn.Module):
         self.bn = BatchNorm(cout)
         self.relu = relu
         self.dtype = dtype
+        self.shard = None
+
+    def whole(self, p: torch.Tensor) -> torch.Tensor:
+        """Parameter `p` of this module whole: its shards gathered when
+        the module is sharded (the gradient keeps this rank's slice)."""
+        return p if self.shard is None else self.shard.gather(p, 0)
 
     def forward(self, x):
+        c, shard = self.conv, self.shard
+        groups = c.groups
+        if shard is not None:
+            x = shard.copy(x)
+            if groups > 1:                   # depthwise: its own channels
+                groups = c.weight.shape[0]
+                x = shard.own(x, 1)
         if self.dtype == BF16:
-            c = self.conv
             x = conv16(x.to(BF16), c.weight.to(BF16), c.stride[0],
-                       c.padding[0], c.groups)
+                       c.padding[0], groups)
+        elif shard is not None:
+            x = F.conv2d(x, c.weight, None, c.stride, c.padding, 1, groups)
         else:
-            x = self.conv(x)
+            x = c(x)
         x = self.bn(x)
-        return F.relu(x) if self.relu else x
+        x = F.relu(x) if self.relu else x
+        return x if shard is None else shard.gather(x)
 
 
 class DWConvBlock(nn.Module):

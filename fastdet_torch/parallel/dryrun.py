@@ -2,14 +2,17 @@
 full training step over n gloo ranks on the CPU at the JAX package's tiny
 shapes, two steps, and its line
 
-    dryrun_multichip(n): ok, mesh=<n>d, loss=…, lr=…
+    dryrun_multichip(n): ok, mesh=<mesh>, loss=…, lr=…
 
     python -m fastdet_torch.parallel.dryrun [n]
 
 `run_dryrun(n)` starts the n ranks itself (processes on localhost, a free
-port) and returns once all have exited 0; rank 0 prints the line.  From
-4 devices the JAX package takes a 2-D (data, model) mesh, tensor parallel
-over the conv channels: not ported (ROADMAP A20), so n ≥ 4 raises.
+port) and returns once all have exited 0; rank 0 prints the line.  Below
+4 devices the mesh is 1-D data parallel (`mesh=<n>d`).  From 4 it is the
+JAX package's 2-D (data, model) mesh with n_model = 2 (`mesh=<n/2>dx2m`):
+the batch splits over the data axis, the conv channels over the model
+axis (tensor parallel, `parallel/tp.py`); the ranks of one data index
+step on the same rows.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ def _rank_main(rank: int, n: int, port: int) -> None:
     from fastdet_torch.config import Config
     from fastdet_torch.models import Detector
     from fastdet_torch.parallel import (initialize_distributed, make_mesh,
-                                        shard_batch)
+                                        make_mesh_2d, shard_batch)
     from fastdet_torch.train.trainer import Trainer
 
     torch.set_num_threads(1)
@@ -39,7 +42,13 @@ def _rank_main(rank: int, n: int, port: int) -> None:
         "learning_rate": 1e-3, "steps": [10, 20], "subdivisions": 1,
         "batch_size": 2 * n, "epochs": 1,
     })
-    mesh = make_mesh(devices=["cpu"])
+    if n >= 4:
+        n_model = 2
+        mesh = make_mesh_2d(n // n_model, n_model, devices=["cpu"])
+        d, per = mesh.coords[0], 2 * n_model      # its data shard's rows
+    else:
+        mesh = make_mesh(devices=["cpu"])
+        d, per = rank, 2
     torch.manual_seed(0)
     model = Detector(classes=cfg.classes, anchor_num=cfg.anchor_num)
     trainer = Trainer(model, cfg, steps_per_epoch=4, mesh=mesh)
@@ -53,7 +62,7 @@ def _rank_main(rank: int, n: int, port: int) -> None:
     mask = np.zeros((b, m), bool)
     mask[:, :2] = True
 
-    rows = slice(2 * rank, 2 * rank + 2)       # this rank's rows
+    rows = slice(d * per, (d + 1) * per)       # this rank's rows
     batch = shard_batch(mesh, (images[rows], labels[rows], mask[rows]))
     trainer.step(*batch)
     metrics = trainer.step(*batch)
@@ -69,13 +78,9 @@ def _rank_main(rank: int, n: int, port: int) -> None:
 
 def run_dryrun(n_devices: int, timeout: float = 300) -> None:
     """n gloo ranks on the CPU, each stepping the full training step on
-    its 2 rows of the global batch; raises if any rank fails."""
+    its data shard of the global batch (2·n rows); raises if any rank
+    fails."""
     import subprocess
-    if n_devices >= 4:
-        raise NotImplementedError(
-            "fastdet_torch: from 4 devices the JAX package's dry run takes "
-            "a 2-D (data, model) mesh, tensor parallel over the conv "
-            "channels; not ported (ROADMAP A20)")
     s = socket.socket()
     s.bind(("localhost", 0))
     port = s.getsockname()[1]

@@ -115,11 +115,24 @@ def all_reduce_grads(params: Sequence[torch.nn.Parameter], group=None):
     takes: each rank's loss already carries the global normalizers, so
     the sum is the gradient of the global loss.  The ranks run the same
     graph, so the same parameters hold a gradient on each."""
+    _flat_grads(params, lambda flat: dist.all_reduce(flat, group=group))
+
+
+def broadcast_grads(params: Sequence[torch.nn.Parameter], src: int,
+                    group=None):
+    """Rank `src`'s `.grad` (a global rank) to every rank of `group`, in
+    place: one flat buffer, one broadcast."""
+    _flat_grads(params, lambda flat: dist.broadcast(flat, src, group=group))
+
+
+def _flat_grads(params, collective):
+    """`collective` on the `.grad`s of `params`, packed in one flat
+    buffer and copied back."""
     grads = [p.grad for p in params if p.grad is not None]
     if not grads:
         return
     flat = torch.cat([g.reshape(-1) for g in grads])
-    dist.all_reduce(flat, group=group)
+    collective(flat)
     at = 0
     for g in grads:
         g.copy_(flat[at:at + g.numel()].view_as(g))

@@ -46,6 +46,14 @@ every ghost group equal to the batch, the forward, its gradients and the
 new running statistics are those of `model(images / 255)` in training
 mode (for s2d input, wherever no positive tie in a pool window crosses
 the pool's tie order: see kernels/stem_train.py).
+
+Tensor parallel (a model sharded by `parallel.tp.tensor_parallel`, with
+`group` its data group): B8's spans and B7's stem take their weights
+whole through `ConvBN.whole` and compute replicated over the model ranks,
+whose weight gradients then keep each rank's slice; the running
+statistics keep each rank's channels.  The ghost-group rules above hold
+over the data group.  The stride-2 blocks, the FPN and the heads are the
+model's sharded modules.
 """
 
 from __future__ import annotations
@@ -117,13 +125,21 @@ def build_fused_train_apply(input_hw: Tuple[int, int], *,
         fc = bb.first_conv
         inside_ranks("stem's", g_stem, images.shape[0])
         y, stats = StemTrain.apply(images.contiguous(),
-                                   fc.conv.weight * (1.0 / 255.0),
-                                   fc.bn.weight, fc.bn.bias, h4, w4, g_stem,
+                                   fc.whole(fc.conv.weight) * (1.0 / 255.0),
+                                   fc.whole(fc.bn.weight),
+                                   fc.whole(fc.bn.bias), h4, w4, g_stem,
                                    dtype == torch.bfloat16)
-        update_running_stats(fc.bn, *combine_stem_stats(pooled(stats, 0)))
+        update(fc, *combine_stem_stats(pooled(stats, 0)))
         return y
 
     stem = stem_s2d if input_format == "s2d_u8" else stem_nhwc
+
+    def update(convbn, mean, var):
+        """`convbn`'s running update from the whole layer's statistics: a
+        sharded one keeps its own channels'."""
+        if convbn.shard is not None:
+            mean, var = convbn.shard.own(mean), convbn.shard.own(var)
+        update_running_stats(convbn.bn, mean, var)
 
     def apply_fn(model, images):
         bb = model.backbone
@@ -143,13 +159,12 @@ def build_fused_train_apply(input_hw: Tuple[int, int], *,
             b, _, h, w = x.shape
             g = pick_train_group(n_ranks * b, (h * w + 127) // 128 * 128, c)
             inside_ranks(f"stage-{stage} span's", g, b)
-            x, stats = SpanTrain.apply(x.contiguous(),
-                                       pack_span_train_weights(blocks), g)
+            x, stats = SpanTrain.apply(
+                x.contiguous(), pack_span_train_weights(blocks), g)
             mean, var = combine_ghost_stats(pooled(stats, 2))
             for i, blk in enumerate(blocks):
                 for j, name in enumerate(_SPAN_BNS):
-                    update_running_stats(getattr(blk, name).bn, mean[i, j],
-                                         var[i, j])
+                    update(getattr(blk, name), mean[i, j], var[i, j])
             feats.append(x)
         return model.head(feats[1], feats[2])
 

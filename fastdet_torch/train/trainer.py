@@ -43,6 +43,22 @@ every rank takes the same SGD step.  The logged components are summed
 over the ranks: the global loss.  A local mesh of several devices in one
 process raises `NotImplementedError`: training is one process per
 device (the JAX CLI spreads one process over its local devices).
+
+Tensor parallel (`mesh=`, a job's `fastdet_torch.parallel.make_mesh_2d(
+n_data, n_model)`): the Trainer broadcasts rank 0's full state over the
+world, then shards it over the model axis (`parallel.tp.tensor_parallel`:
+each sharded conv, BN and head conv keeps its block of the output
+channels) and builds SGD on the local shards, so the momentum buffers
+shard alike.  Each rank steps on its data shard's rows (its data index d
+of the mesh's coordinates; the model ranks of one d take the same rows).
+BatchNorm statistics, the loss's normalizers, the gradient all-reduce
+and the logged components all run over the data group: over the world
+they would count the model ranks' equal losses n_model times.  The
+replicated parameters' gradients are then broadcast from model rank 0,
+so that their replicas cannot drift.  `state_dict()` holds the rank's
+shards; `full_state_dict()` gathers the model's full tensors on every
+rank.  In the fused modes B7 and B8 take their weights whole
+(`train/fused_forward.py`).
 """
 
 from __future__ import annotations
@@ -56,7 +72,7 @@ from fastdet_torch import disable_tf32, resolve_device
 from fastdet_torch.config import Config
 from fastdet_torch.models.detector import Detector
 from fastdet_torch.models.layers import BF16
-from fastdet_torch.parallel import multihost, sync_batchnorm
+from fastdet_torch.parallel import multihost, sync_batchnorm, tp
 from fastdet_torch.train.loss import compute_loss
 from fastdet_torch.train.schedule import make_lr_schedule
 
@@ -100,7 +116,10 @@ class Trainer:
                 "fastdet_torch: training over several devices of one "
                 "process is not ported: start one process per device "
                 "(initialize_distributed) and pass its make_mesh()")
-        self.group = None if mesh is None else mesh.group
+        # the batch's group: BN, the loss and the gradients reduce over it
+        self.group = None if mesh is None else getattr(
+            mesh, "data_group", mesh.group)
+        self.mesh = mesh
         if device is None and mesh is not None:
             device = mesh.device
         self.device = resolve_device(device)
@@ -115,8 +134,13 @@ class Trainer:
         self.schedule = make_lr_schedule(
             cfg.learning_rate, steps_per_epoch, cfg.steps or (), gamma=0.1,
             warmup_epochs=5)
+        self.tp_specs = None              # the full state's shardings
         if self.group is not None:
-            multihost.broadcast_module(self.model, self.group)
+            multihost.broadcast_module(self.model, mesh.group)
+            if tp.MODEL_AXIS in mesh.axis_names:
+                self.tp_specs = tp.tensor_parallel(self.model, mesh)
+                self._replicated = tp.replicated_params(self.model,
+                                                        self.tp_specs)
             sync_batchnorm(self.model, self.group)
         self.optimizer = make_optimizer(self.model.parameters())
         self.anchors = torch.from_numpy(
@@ -164,6 +188,11 @@ class Trainer:
             if self.group is not None:
                 multihost.all_reduce_grads(self.model.parameters(),
                                            self.group)
+            if self.tp_specs is not None:     # model rank 0's, to its group
+                mesh = self.mesh
+                multihost.broadcast_grads(self._replicated,
+                                          mesh.coords[0] * mesh.n_model,
+                                          mesh.model_group)
             for group in self.optimizer.param_groups:
                 group["lr"] = lr
             self.optimizer.step()
@@ -178,6 +207,14 @@ class Trainer:
             metrics = dict(zip(keys, summed.unbind()))
         metrics["lr"] = lr
         return metrics
+
+    def full_state_dict(self) -> dict:
+        """The model's state dict with full tensors, on every rank (tensor
+        parallel gathers the shards; otherwise `model.state_dict()`)."""
+        sd = self.model.state_dict()
+        if self.tp_specs is None:
+            return sd
+        return tp.gather_state(sd, self.mesh, self.tp_specs)
 
     def current_lr(self, step: int) -> float:
         return self.schedule(step)

@@ -20,7 +20,8 @@
     single-device pipeline and JAX's; `StreamingPipeline` over a
     `ShardedPipeline`;
   * a local mesh of several devices refuses to train; `run_dryrun(2)`
-    prints JAX's line, and `run_dryrun(4)` raises naming A20.
+    prints JAX's line, and `run_dryrun(4)` JAX's 2-D mesh line
+    (`mesh=2dx2m`).
 """
 
 import os
@@ -263,6 +264,12 @@ def test_dryrun_two_ranks(capfd):
     assert np.isfinite(float(line[0].split("loss=")[1].split(",")[0]))
 
 
-def test_dryrun_four_ranks_raises_naming_tensor_parallel():
-    with pytest.raises(NotImplementedError, match="A20"):
-        run_dryrun(4)
+def test_dryrun_four_ranks_runs_the_2d_mesh(capfd):
+    """From 4 devices the dry run is JAX's 2-D (data, model) mesh:
+    n_model 2, tensor parallel over the conv channels."""
+    run_dryrun(4)
+    out = capfd.readouterr().out
+    line = [ln for ln in out.splitlines() if ln.startswith("dryrun")]
+    assert len(line) == 1 and line[0].startswith(
+        "dryrun_multichip(4): ok, mesh=2dx2m, loss="), out
+    assert np.isfinite(float(line[0].split("loss=")[1].split(",")[0]))
